@@ -1,0 +1,67 @@
+"""BDWP pruning policy: which weights are N:M-pruned and packed.
+
+Counterpart of the policy half of ``src/repro/core/bdwp.py``
+(``serve_packable``, ``ff_group_axis``, ``bp_group_axis``,
+``should_prune``, ``pick_cfg``), with the same rules.  The training
+half (pre-generation sites, decay, the deprecated ``nm_linear`` shims)
+is not ported in this slice.
+"""
+
+from __future__ import annotations
+
+import re
+
+from repro_torch.core.sparsity import DENSE, SparsityConfig
+
+
+def serve_packable(name: str, lshape, cfg: SparsityConfig) -> bool:
+    """FF-direction packing eligibility (serving reads only w_FF); the
+    logits head stays dense, as in training."""
+    if cfg.is_dense or len(lshape) != 2:
+        return False
+    for frag in (*cfg.excluded, "lm_head", "k_up", "v_up"):
+        if re.search(frag, name):
+            return False
+    k = lshape[0]
+    return k % cfg.m == 0 and k >= 2 * cfg.m
+
+
+def ff_group_axis(shape) -> int:
+    """FF-pass N:M group axis (the contraction axis) for a weight of this
+    rank: (K, F) -> 0; (L, K, F) -> 1; higher ranks -> rank-2."""
+    if len(shape) == 2:
+        return 0
+    if len(shape) == 3:
+        return 1
+    return len(shape) - 2
+
+
+def bp_group_axis(shape) -> int:
+    """BP-pass group axis (output features): always the last axis."""
+    return len(shape) - 1
+
+
+def should_prune(name: str, shape, cfg: SparsityConfig) -> bool:
+    """Prune every linear weight except excluded names, provided every
+    axis the method groups along tiles into M-groups."""
+    if cfg.is_dense:
+        return False
+    if len(shape) < 2:
+        return False
+    for frag in cfg.excluded:
+        if re.search(frag, name):
+            return False
+    axes = []
+    if cfg.prunes_ff_weights():
+        axes.append(ff_group_axis(shape))
+    if cfg.prunes_bp_weights() or cfg.prunes_bp_grads():
+        axes.append(bp_group_axis(shape))
+    if not axes:
+        axes.append(ff_group_axis(shape))
+    return all(shape[a] % cfg.m == 0 and shape[a] >= 2 * cfg.m
+               for a in axes)
+
+
+def pick_cfg(name: str, shape, cfg: SparsityConfig) -> SparsityConfig:
+    """Per-parameter effective config (dense when excluded)."""
+    return cfg if should_prune(name, shape, cfg) else DENSE

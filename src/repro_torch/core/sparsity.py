@@ -1,0 +1,172 @@
+"""N:M fine-grained structured sparsity primitives (PyTorch).
+
+Counterpart of ``src/repro/core/sparsity.py``: ``SparsityConfig``,
+``DENSE``, ``nm_mask``, ``sparsify``, ``nm_pack``, ``nm_unpack_n`` and
+the 4-bit index plane ``pack_idx_u4``/``unpack_idx_u4``.  Masks,
+indices and packed values are bitwise equal to the reference's.
+
+What differs:
+  * selection is n rounds of masked ``argmax`` instead of
+    ``lax.top_k``: ``torch.topk`` documents no tie order, while
+    ``torch.argmax`` returns the first maximum, which is the reference's
+    earliest-index tie-break;
+  * only ``element`` granularity is ported (the ``shared`` pattern,
+    transposable masks, ``nm_mask_pair`` and SR-STE's decay belong to
+    training, a later slice).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class SparsityConfig:
+    """Static description of an N:M sparsity scheme (field-for-field the
+    reference's ``repro.core.sparsity.SparsityConfig``)."""
+
+    n: int = 2
+    m: int = 8
+    method: str = "bdwp"
+    granularity: str = "element"
+    tile: int = 128
+    lam: float = 2e-4
+    excluded: tuple = ("embed", "router", "norm", "frontend", "bias", "head0")
+    transposable: bool = False
+
+    def __post_init__(self):
+        if not (0 < self.n <= self.m):
+            raise ValueError(f"need 0 < n <= m, got {self.n}:{self.m}")
+        if self.method not in ("dense", "srste", "sdgp", "sdwp", "bdwp"):
+            raise ValueError(f"unknown method {self.method!r}")
+        if self.granularity not in ("element", "shared"):
+            raise ValueError(f"unknown granularity {self.granularity!r}")
+        if self.transposable and (self.method != "bdwp"
+                                  or self.granularity != "element"):
+            raise ValueError(
+                "transposable masks need method='bdwp' and element "
+                f"granularity, got {self.method!r}/{self.granularity!r}")
+
+    @property
+    def is_dense(self) -> bool:
+        return self.method == "dense" or self.n == self.m
+
+    def prunes_ff_weights(self) -> bool:
+        return self.method in ("srste", "bdwp") and not self.is_dense
+
+    def prunes_bp_weights(self) -> bool:
+        return self.method in ("sdwp", "bdwp") and not self.is_dense
+
+    def prunes_bp_grads(self) -> bool:
+        return self.method == "sdgp" and not self.is_dense
+
+
+DENSE = SparsityConfig(method="dense")
+
+
+def _groups(x: torch.Tensor, m: int, axis: int):
+    """x with ``axis`` moved last and split into (..., K/m, m) groups."""
+    xt = torch.movedim(x, axis, -1)
+    k = xt.shape[-1]
+    if k % m != 0:
+        raise ValueError(f"axis length {k} not divisible by {m}")
+    return xt.reshape(*xt.shape[:-1], k // m, m)
+
+
+def _topn_offsets(g: torch.Tensor, n: int) -> torch.Tensor:
+    """In-group offsets (..., n) of the n largest |g|, ascending.
+
+    n rounds of masked argmax: each round takes the first maximum, so
+    among equal scores the earliest offset wins — the reference's
+    ``_topn_group_mask``/``lax.top_k`` rule.
+    """
+    score = g.abs().to(torch.float32)
+    picks = []
+    for _ in range(n):
+        i = torch.argmax(score, dim=-1, keepdim=True)
+        picks.append(i)
+        score = score.scatter(-1, i, float("-inf"))
+    return torch.sort(torch.cat(picks, dim=-1), dim=-1).values
+
+
+def nm_mask(x: torch.Tensor, n: int, m: int, axis: int = -1) -> torch.Tensor:
+    """Boolean mask keeping the N largest-|x| of each consecutive M along
+    ``axis``; the earlier index wins a tie."""
+    if n == m:
+        return torch.ones_like(x, dtype=torch.bool)
+    g = _groups(x, m, axis)
+    mask = torch.zeros(g.shape, dtype=torch.bool, device=x.device)
+    mask.scatter_(-1, _topn_offsets(g, n), True)
+    return torch.movedim(mask.reshape(*g.shape[:-2], -1), -1, axis)
+
+
+def sparsify(x: torch.Tensor, cfg: SparsityConfig,
+             axis: int = -1) -> torch.Tensor:
+    """x * mask with cfg's element-granularity N:M pattern along ``axis``."""
+    if cfg.is_dense:
+        return x
+    if cfg.granularity != "element":
+        raise NotImplementedError("shared-granularity masks are not ported")
+    return torch.where(nm_mask(x, cfg.n, cfg.m, axis), x, torch.zeros_like(x))
+
+
+def nm_pack(x: torch.Tensor, n: int, m: int, axis: int = -1):
+    """Pack x into N:M compact (values, uint8 in-group offsets) along
+    ``axis``; survivors keep ascending offset order."""
+    g = _groups(x, m, axis)
+    idx = _topn_offsets(g, n)
+    vals = torch.gather(g, -1, idx)
+    lead = g.shape[:-2]
+    kc = g.shape[-2] * n
+    vals = torch.movedim(vals.reshape(*lead, kc), -1, axis)
+    idx = torch.movedim(idx.reshape(*lead, kc).to(torch.uint8), -1, axis)
+    return vals.contiguous(), idx.contiguous()
+
+
+def nm_unpack_n(values: torch.Tensor, indices: torch.Tensor, n: int, m: int,
+                axis: int = -1) -> torch.Tensor:
+    """Scatter compact (values, indices) back to dense; axis length *m/n."""
+    vt = torch.movedim(values, axis, -1)
+    it = torch.movedim(indices, axis, -1)
+    kn = vt.shape[-1]
+    if kn % n != 0:
+        raise ValueError(f"packed axis {kn} not divisible by n={n}")
+    groups = kn // n
+    gv = vt.reshape(*vt.shape[:-1], groups, n)
+    gi = it.reshape(*it.shape[:-1], groups, n).to(torch.int64)
+    dense = torch.zeros((*vt.shape[:-1], groups, m), dtype=vt.dtype,
+                        device=vt.device)
+    dense.scatter_(-1, gi, gv)
+    return torch.movedim(dense.reshape(*vt.shape[:-1], groups * m), -1, axis)
+
+
+# 4-bit index plane: two in-group offsets (< 16) per byte along the
+# compact axis, entry 2i in the low nibble and 2i+1 in the high nibble;
+# an odd compact length zero-pads the final high nibble.
+
+
+def pack_idx_u4(idx: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Pack uint8 in-group offsets (< 16) two-per-byte along ``axis``;
+    the packed axis has length ``ceil(len/2)``."""
+    it = torch.movedim(idx, axis, -1).to(torch.uint8)
+    kc = it.shape[-1]
+    if kc % 2:
+        it = torch.nn.functional.pad(it, (0, 1))
+    pairs = it.reshape(*it.shape[:-1], (kc + 1) // 2, 2)
+    packed = pairs[..., 0] | (pairs[..., 1] << 4)
+    return torch.movedim(packed, -1, axis).contiguous()
+
+
+def unpack_idx_u4(packed: torch.Tensor, kc: int, axis: int = -1) -> torch.Tensor:
+    """Unpack two-per-byte nibbles back to ``kc`` uint8 offsets along
+    ``axis``."""
+    pt = torch.movedim(packed, axis, -1)
+    if pt.shape[-1] != (kc + 1) // 2:
+        raise ValueError(
+            f"packed axis {pt.shape[-1]} does not hold kc={kc} nibbles")
+    lo = pt & 0x0F
+    hi = pt >> 4
+    idx = torch.stack([lo, hi], dim=-1).reshape(*pt.shape[:-1], -1)[..., :kc]
+    return torch.movedim(idx, -1, axis).contiguous()

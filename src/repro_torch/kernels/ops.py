@@ -1,0 +1,24 @@
+"""Kernel dispatch by device.
+
+Counterpart of ``src/repro/kernels/ops.py:nm_spmm``.  The reference
+picks Pallas or its jnp oracle with a ``use_pallas`` flag and routes
+shapes its tiles cannot split (an odd u4 compact tile) to the oracle.
+Here the tensor's device decides: a CUDA tensor goes to the Hopper
+kernel (which takes every shape, so there is no shape fallback), a CPU
+tensor to the plain version in ``kernels.ref``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import nm_spmm as _nm_spmm
+from repro_torch.kernels import ref
+
+
+def nm_spmm(act: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
+            n: int, m: int, idx_bits: int = 8) -> torch.Tensor:
+    """Element-mode sparse matmul: (B, K) @ packed (Kc, F) -> (B, F) fp32."""
+    if act.is_cuda:
+        return _nm_spmm.nm_spmm(act, vals, idx, n, m, idx_bits)
+    return ref.ref_nm_spmm(act, vals, idx, n, m, idx_bits)

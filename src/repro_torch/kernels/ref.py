@@ -1,0 +1,68 @@
+"""Plain PyTorch versions of the port's kernels.
+
+Counterpart of ``src/repro/kernels/ref.py`` (``ref_nm_spmm``) and of the
+select-based decompress in ``src/repro/kernels/nm_spmm_shared.py``
+(``unpack_idx_nibbles``, ``decompress_nm``).  These define what the
+CUDA kernel must compute: the CPU path runs them, and ``chip_smoke.py``
+holds the kernel against them on the card.  ``decompress_nm`` is bitwise
+equal to the reference's; ``ref_nm_spmm`` is an fp32 matmul of the same
+exact bf16 products, so it differs from the reference only in
+summation order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def unpack_idx_nibbles(idx: torch.Tensor, kc: int, axis: int) -> torch.Tensor:
+    """Two-per-byte nibble expansion along ``axis`` (low nibble first),
+    trimmed to ``kc`` entries."""
+    axis = axis % idx.ndim
+    pair = torch.stack([idx & 0x0F, idx >> 4], dim=axis + 1)
+    shape = idx.shape[:axis] + (2 * idx.shape[axis],) + idx.shape[axis + 1:]
+    return pair.reshape(shape).narrow(axis, 0, kc)
+
+
+def decompress_nm(vals: torch.Tensor, idx: torch.Tensor, n: int, m: int,
+                  axis: int = -1, idx_bits: int = 8) -> torch.Tensor:
+    """(…, Kc, …) packed -> (…, K, …) dense along ``axis``, K = Kc*m/n.
+
+    dense[g*m + s] = sum_j vals[g*n + j] * (idx[g*n + j] == s): an m-way
+    select, no scatter.  With ``idx_bits=4`` ``idx`` is the u4 plane
+    (ceil(Kc/2) bytes along ``axis``).
+    """
+    axis = axis % vals.ndim
+    kc = vals.shape[axis]
+    if kc % n:
+        raise ValueError(f"packed axis {kc} not divisible by n={n}")
+    if idx_bits == 4:
+        idx = unpack_idx_nibbles(idx, kc, axis)
+    elif idx_bits != 8:
+        raise ValueError(f"idx_bits must be 4 or 8, got {idx_bits}")
+    shape = vals.shape
+    g = kc // n
+    gshape = shape[:axis] + (g, n) + shape[axis + 1:]
+    v = vals.reshape(gshape)
+    i = idx.reshape(gshape)
+    zero = torch.zeros((), dtype=vals.dtype, device=vals.device)
+    slots = []
+    for s in range(m):
+        hit = torch.where(i == s, v, zero)
+        # summed from a zero start, one term at a time, as XLA's reduce
+        # does (keeps the sign of a zero survivor identical)
+        acc = torch.zeros_like(hit.select(axis + 1, 0))
+        for j in range(n):
+            acc = acc + hit.select(axis + 1, j)
+        slots.append(acc)
+    dense = torch.stack(slots, dim=axis + 1)
+    return dense.reshape(shape[:axis] + (g * m,) + shape[axis + 1:])
+
+
+def ref_nm_spmm(act: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
+                n: int, m: int, idx_bits: int = 8) -> torch.Tensor:
+    """Element-mode N:M sparse matmul: act (B, K) @ unpack(vals (Kc, F),
+    idx) -> (B, F) fp32, idx u8 (Kc, F) or the u4 plane (ceil(Kc/2), F)."""
+    w = decompress_nm(vals, idx, n, m, axis=0, idx_bits=idx_bits)
+    return torch.matmul(act.to(torch.float32),
+                        w.to(act.dtype).to(torch.float32))

@@ -1,0 +1,176 @@
+"""Decoder LM (dense GQA family): config, init, forward, logits, cache.
+
+Counterpart of ``src/repro/models/transformer_lm.py``: ``LMConfig``,
+``ffn_init``/``ffn_apply``, the block, ``init``, ``forward``,
+``logits_from_hidden`` and ``init_lm_cache``, with the reference's
+arithmetic (bf16 residual stream, fp32-accumulated logits with the
+padded vocab columns set to ``-1e30``).
+
+What differs:
+  * ``LMConfig`` is the port's own copy, cut to the fields of the dense
+    GQA family with an untied lm_head (qwen3): no MoE, MLA, SWA, SSM or
+    encoder prefix, and so no aux loss — ``forward`` returns
+    ``(hidden, cache)``;
+  * parameters are a Python list of per-layer dicts under ``"blocks"``
+    and ``forward`` loops over it, where the reference stacks leaves
+    along a layer axis and scans; caches likewise are a list of
+    per-layer ``{"k", "v", "pos"}`` dicts, updated in place;
+  * ``init`` draws from a ``torch.Generator`` seeded with ``seed`` on an
+    explicit device (the card unless ``device`` says otherwise);
+    ``init_shell``/``iter_blocks`` give the same draws one layer at a
+    time, so a full-width model can be packed without holding every
+    dense layer at once.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.sparsity import DENSE, SparsityConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    vocab: int
+    d_model: int
+    n_layers: int
+    n_heads: int = 0
+    n_kv: int = 0
+    head_dim: int = 128
+    d_ff: int = 0
+    rope_theta: float = 1e4
+    qk_norm: bool = False
+    # the embedding and lm_head tables are padded up to a multiple of
+    # this; padded logit columns are masked to -1e30
+    pad_vocab_to: int = 256
+
+    @property
+    def padded_vocab(self) -> int:
+        return -(-self.vocab // self.pad_vocab_to) * self.pad_vocab_to
+
+    def attn_cfg(self) -> A.AttnConfig:
+        return A.AttnConfig(
+            d_model=self.d_model, n_heads=self.n_heads, n_kv=self.n_kv,
+            head_dim=self.head_dim, rope_theta=self.rope_theta,
+            qk_norm=self.qk_norm)
+
+
+def ffn_init(gen, d: int, d_ff: int, *, device, dtype=torch.float32):
+    return {"w_gate": L.dense_init(gen, d, d_ff, device=device, dtype=dtype),
+            "w_up": L.dense_init(gen, d, d_ff, device=device, dtype=dtype),
+            "w_down": L.dense_init(gen, d_ff, d, device=device, dtype=dtype)}
+
+
+def ffn_apply(p, x: torch.Tensor, sp_cfg) -> torch.Tensor:
+    h = L.swiglu(L.dense_apply(p["w_gate"], x, "mlp/w_gate", sp_cfg),
+                 L.dense_apply(p["w_up"], x, "mlp/w_up", sp_cfg))
+    return L.dense_apply(p["w_down"], h.to(x.dtype), "mlp/w_down", sp_cfg)
+
+
+def block_init(gen, cfg: LMConfig, *, device, dtype=torch.float32):
+    return {"ln1": L.rmsnorm_init(cfg.d_model, device=device, dtype=dtype),
+            "ln2": L.rmsnorm_init(cfg.d_model, device=device, dtype=dtype),
+            "attn": A.attn_init(gen, cfg.attn_cfg(), device=device,
+                                dtype=dtype),
+            "ffn": ffn_init(gen, cfg.d_model, cfg.d_ff, device=device,
+                            dtype=dtype)}
+
+
+def block_apply(p, x: torch.Tensor, cfg: LMConfig, sp_cfg, *, positions,
+                cache=None, decode: bool = False):
+    """Returns (x, cache).
+
+    ln2 normalizes the fp32 sum x + mix, not its bf16 rounding: the
+    compiled reference fuses the residual add into the norm and keeps
+    the sum in fp32 there (the residual stream itself is rounded).
+    """
+    h = L.rmsnorm_apply(p["ln1"], x)
+    mix, cache = A.attn_apply(p["attn"], h, cfg.attn_cfg(), sp_cfg,
+                              positions=positions, cache=cache,
+                              decode=decode)
+    h2 = L.rmsnorm_apply(p["ln2"], x.to(torch.float32) + mix,
+                         out_dtype=x.dtype)
+    x = x + mix
+    return x + ffn_apply(p["ffn"], h2, sp_cfg), cache
+
+
+def init_shell(cfg: LMConfig, gen: torch.Generator, *, device,
+               dtype=torch.float32):
+    """Everything but the blocks: embed, final norm, lm_head."""
+    return {"embed": L.embed_init(gen, cfg.padded_vocab, cfg.d_model,
+                                  device=device, dtype=dtype),
+            "final_norm": L.rmsnorm_init(cfg.d_model, device=device,
+                                         dtype=dtype),
+            "lm_head": L.dense_init(gen, cfg.d_model, cfg.padded_vocab,
+                                    device=device, dtype=dtype)}
+
+
+def iter_blocks(cfg: LMConfig, gen: torch.Generator, *, device,
+                dtype=torch.float32):
+    """The per-layer block params, drawn one layer at a time."""
+    for _ in range(cfg.n_layers):
+        yield block_init(gen, cfg, device=device, dtype=dtype)
+
+
+def generator(seed: int, device) -> torch.Generator:
+    """A generator on ``device`` seeded with ``seed``."""
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def init(cfg: LMConfig, *, seed: int = 0, device=None, dtype=torch.float32):
+    """Random params: ``init_shell`` then ``iter_blocks`` from one
+    generator seeded with ``seed``."""
+    device = resolve_device(device)
+    gen = generator(seed, device)
+    params = init_shell(cfg, gen, device=device, dtype=dtype)
+    params["blocks"] = list(iter_blocks(cfg, gen, device=device, dtype=dtype))
+    return params
+
+
+def forward(params, tokens: torch.Tensor, cfg: LMConfig,
+            sp_cfg: SparsityConfig = DENSE, *, cache=None,
+            decode: bool = False, positions=None):
+    """Returns (hidden (B, S, d), cache); decode is per-slot (positions
+    (B, 1) gives each row its own position)."""
+    x = L.embed_apply(params["embed"], tokens)
+    b, s = x.shape[0], x.shape[1]
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+    layer_caches = cache["layers"] if cache is not None else None
+    for i, bp in enumerate(params["blocks"]):
+        lc = layer_caches[i] if layer_caches is not None else None
+        x, _ = block_apply(bp, x, cfg, sp_cfg, positions=positions,
+                           cache=lc, decode=decode)
+    x = L.rmsnorm_apply(params["final_norm"], x)
+    return x, cache
+
+
+def logits_from_hidden(params, hidden: torch.Tensor,
+                       cfg: LMConfig) -> torch.Tensor:
+    """hidden @ lm_head with fp32 accumulation; padded columns -1e30."""
+    w = params["lm_head"]["w"]
+    if hidden.is_cuda:
+        # fp32 accumulation without an fp32 copy of the 1.25 GB table
+        logits = torch.mm(hidden.reshape(-1, hidden.shape[-1]),
+                          w.to(hidden.dtype), out_dtype=torch.float32)
+        logits = logits.reshape(*hidden.shape[:-1], w.shape[-1])
+    else:
+        logits = torch.matmul(hidden.to(torch.float32),
+                              w.to(hidden.dtype).to(torch.float32))
+    if cfg.padded_vocab != cfg.vocab:
+        valid = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab
+        logits = torch.where(valid, logits, -1e30)
+    return logits
+
+
+def init_lm_cache(cfg: LMConfig, batch: int, max_len: int, *, device,
+                  dtype=torch.bfloat16):
+    return {"layers": [A.init_cache(cfg.attn_cfg(), batch, max_len,
+                                    device=device, dtype=dtype)
+                       for _ in range(cfg.n_layers)]}

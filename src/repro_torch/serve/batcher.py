@@ -1,0 +1,161 @@
+"""Continuous batching over a fixed-capacity slot-paged KV cache.
+
+Counterpart of ``src/repro/serve/batcher.py``: ``SlotKVCache``,
+``seat_cache``, ``extract_lane_cache`` and ``ContinuousBatcher``.  The
+cache has a leading slot axis (``n_slots`` lanes, ``max_len`` deep);
+requests join mid-flight into free slots, and eviction is a host-side
+bitmap flip.  Every decode step runs all ``n_slots`` rows at their own
+positions, free ones included (their writes are clipped in bounds and
+their outputs ignored); prompts are right-padded to ``prompt_bucket``.
+
+What differs: PyTorch runs eagerly, so there is nothing to compile;
+the cache is a list of per-layer ``{"k", "v", "pos"}`` dicts of
+(n_slots, max_len, Hkv, D) tensors, and seating, decode writes and
+lane export work on it in place (the reference donates its cache to
+the jitted steps); no mesh or shardings.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.sparsity import DENSE, SparsityConfig
+from repro_torch.models import transformer_lm as T
+from repro_torch.serve.cache_store import Lane
+from repro_torch.train import step as ST
+
+
+def seat_cache(cache, pre_cache, slot: int):
+    """Write a batch-1 prefill cache into lane ``slot`` of the slot-paged
+    cache, in place (the lane's first ``S_pre`` positions); returns it."""
+    for dst, src in zip(cache["layers"], pre_cache["layers"]):
+        for key in ("k", "v"):
+            dst[key][slot:slot + 1, :src[key].shape[1]] = src[key]
+    return cache
+
+
+def extract_lane_cache(cache, slot: int, n_slots: int):
+    """Copy lane ``slot`` of a slot-paged cache out as a batch-1 cache;
+    ``seat_cache(cache, extract_lane_cache(cache, s), s)`` is exact."""
+    if not 0 <= slot < n_slots:
+        raise ValueError(f"slot {slot} out of range")
+    return {"layers": [{"k": lc["k"][slot:slot + 1].clone(),
+                        "v": lc["v"][slot:slot + 1].clone(),
+                        "pos": lc["pos"]} for lc in cache["layers"]]}
+
+
+class SlotKVCache:
+    """Device cache with a host-side free-slot bitmap."""
+
+    def __init__(self, cfg, n_slots: int, max_len: int, *, device,
+                 dtype=torch.bfloat16):
+        self.cfg = cfg
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.cache = T.init_lm_cache(cfg, n_slots, max_len, device=device,
+                                     dtype=dtype)
+        self._free = list(range(n_slots))
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    def alloc(self) -> Optional[int]:
+        """Claim the lowest free slot (deterministic reuse order)."""
+        if not self._free:
+            return None
+        self._free.sort()
+        return self._free.pop(0)
+
+    def free(self, slot: int) -> None:
+        if slot in self._free:
+            raise ValueError(f"slot {slot} already free")
+        if not 0 <= slot < self.n_slots:
+            raise ValueError(f"slot {slot} out of range")
+        self._free.append(slot)
+
+
+class ContinuousBatcher:
+    """Prefill/seat/decode over a SlotKVCache.
+
+    Host state: per-slot next input token (n_slots, 1) and per-slot
+    absolute write position (n_slots,), both on the device.
+    """
+
+    def __init__(self, params, cfg, sp_cfg: SparsityConfig = DENSE, *,
+                 n_slots: int, max_len: int, prompt_bucket: int, device,
+                 cache_dtype=torch.bfloat16):
+        if prompt_bucket > max_len:
+            raise ValueError("prompt_bucket must be <= max_len")
+        self.params = params
+        self.cfg = cfg
+        self.sp_cfg = sp_cfg
+        self.prompt_bucket = prompt_bucket
+        self.device = device
+        self.cache_dtype = cache_dtype
+        self.kv = SlotKVCache(cfg, n_slots, max_len, device=device,
+                              dtype=cache_dtype)
+        self.tokens = torch.zeros((n_slots, 1), dtype=torch.int64,
+                                  device=device)
+        self.positions = torch.zeros((n_slots,), dtype=torch.int64,
+                                     device=device)
+        self.prefill_calls = 0   # prefill runs (a reuse hit skips one)
+
+    # -- admission ----------------------------------------------------------
+
+    def prefill(self, prompt, key=()) -> Lane:
+        """Prefill ``prompt`` (len <= prompt_bucket) WITHOUT touching a
+        slot; returns the batch-1 Lane that ``seat_lane`` seats."""
+        prompt = np.asarray(prompt, np.int64).reshape(-1)
+        plen = prompt.shape[0]
+        if not 0 < plen <= self.prompt_bucket:
+            raise ValueError(
+                f"prompt length {plen} not in (0, {self.prompt_bucket}]")
+        padded = np.zeros((1, self.prompt_bucket), np.int64)
+        padded[0, :plen] = prompt
+        logits, pre_cache = ST.lm_prefill_step(
+            self.params, {"tokens": torch.from_numpy(padded).to(self.device)},
+            cfg=self.cfg, sp_cfg=self.sp_cfg, last_index=[plen - 1],
+            cache_dtype=self.cache_dtype)
+        first = torch.argmax(logits[:, -1, :self.cfg.vocab], dim=-1)
+        self.prefill_calls += 1
+        return Lane(key=tuple(key), cache=pre_cache,
+                    next_token=int(first[0]), pos=int(plen))
+
+    def seat_lane(self, lane: Lane) -> int:
+        """Seat a batch-1 lane into a free slot; raises if none is free."""
+        slot = self.kv.alloc()
+        if slot is None:
+            raise RuntimeError("no free slot")
+        seat_cache(self.kv.cache, lane.cache, slot)
+        self.tokens[slot, 0] = lane.next_token
+        self.positions[slot] = lane.pos
+        return slot
+
+    def export_lane(self, slot: int, key=()) -> Lane:
+        """Copy the live state of lane ``slot`` (cache + next token +
+        position) into a batch-1 Lane another engine can seat."""
+        cache1 = extract_lane_cache(self.kv.cache, slot, self.kv.n_slots)
+        return Lane(key=tuple(key), cache=cache1,
+                    next_token=int(self.tokens[slot, 0]),
+                    pos=int(self.positions[slot]))
+
+    def evict(self, slot: int) -> None:
+        """Release a slot — host-side only."""
+        self.kv.free(slot)
+
+    # -- decode -------------------------------------------------------------
+
+    def step(self) -> np.ndarray:
+        """One decode step for all n_slots lanes; returns (n_slots,)
+        next-token ids (garbage on free lanes)."""
+        logits, _ = ST.lm_decode_step(self.params, self.kv.cache,
+                                      self.tokens, self.positions,
+                                      cfg=self.cfg, sp_cfg=self.sp_cfg)
+        nxt = torch.argmax(logits[:, -1, :self.cfg.vocab], dim=-1)
+        self.tokens = nxt[:, None]
+        self.positions = self.positions + 1
+        return nxt.cpu().numpy()

@@ -1,0 +1,185 @@
+"""Element-mode packed parameter store — serve from compact (vals, idx).
+
+Counterpart of ``src/repro/serve/packed_params.py``: ``default_idx_bits``,
+``pack_tree_element`` and ``PackedParamStore`` with ``report()``.  Each
+weight that training FF-prunes and serving may pack becomes
+``{"w": PackedOp(vals, idx)}``, SORE-packed along its contraction axis:
+vals (K·N/M, F) and idx uint8 (K·N/M, F), or the u4 plane
+(ceil(K·N/M / 2), F) — the default whenever M <= 16.  Byte counts equal
+the reference's for the same tree.
+
+What differs: the tree is the port's (per-layer block list, walked
+without list indices in the names, so names match the reference's);
+``pack_tree_element`` moves every leaf to ``device`` (the card unless
+the caller says otherwise) before packing; ``PackedParamStore.
+pack_layerwise`` packs blocks as an iterator yields them, so a
+full-width model never holds all of its dense layers at once; no
+sharding specs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core import bdwp
+from repro_torch.core import operand as O
+from repro_torch.core.sparsity import SparsityConfig, nm_pack, pack_idx_u4
+from repro_torch.device import resolve_device
+
+_COUNTS = ("n_packed", "n_dense", "packed_bytes", "packed_bytes_4bit",
+           "dense_bytes", "other_bytes")
+
+
+def _leaf_bytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def default_idx_bits(cfg: SparsityConfig) -> int:
+    """4 whenever the in-group offset fits a nibble (M <= 16), else 8."""
+    return 4 if cfg.m <= 16 else 8
+
+
+def pack_tree_element(params, cfg: SparsityConfig,
+                      idx_bits: Optional[int] = None, *, device=None):
+    """Returns ``(packed_tree, stats)``: every eligible ``{"w": (K, F)}``
+    leaf-dict becomes ``{"w": PackedOp(vals, idx, cfg, idx_bits)}``, every
+    leaf lies on ``device``, and stats counts the actual bytes."""
+    device = resolve_device(device)
+    if idx_bits is None:
+        idx_bits = default_idx_bits(cfg)
+    if idx_bits not in (4, 8):
+        raise ValueError(f"idx_bits must be 4 or 8, got {idx_bits}")
+    stats = dict.fromkeys(_COUNTS, 0)
+    stats["idx_bits"] = idx_bits
+    acct_bits = 4 if cfg.m <= 16 else 8
+
+    def pack_ok(name, w) -> bool:
+        # a weight that trains dense serves dense: pack only what the
+        # masked forward FF-sparsifies and serving may read packed
+        lshape = tuple(w.shape[-2:])
+        return (cfg.prunes_ff_weights()
+                and bdwp.should_prune(name, lshape, cfg)
+                and bdwp.serve_packable(name, lshape, cfg))
+
+    def walk(node, path):
+        if isinstance(node, dict) and "w" in node:
+            w = node["w"].to(device)
+            if not pack_ok("/".join(path), w):
+                out = {k: v.to(device) for k, v in node.items()}
+                stats["n_dense"] += 1
+                stats["other_bytes"] += sum(map(_leaf_bytes, out.values()))
+                return out
+            vals, idx = nm_pack(w, cfg.n, cfg.m, axis=w.ndim - 2)
+            if idx_bits == 4:
+                idx = pack_idx_u4(idx, axis=w.ndim - 2)
+            stats["n_packed"] += 1
+            stats["dense_bytes"] += _leaf_bytes(w)
+            stats["packed_bytes"] += _leaf_bytes(vals) + _leaf_bytes(idx)
+            stats["packed_bytes_4bit"] += (
+                _leaf_bytes(vals) + vals.numel() * acct_bits // 8)
+            return {"w": O.PackedOp(vals, idx, cfg, idx_bits)}
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, path) for v in node]
+        node = node.to(device)
+        stats["other_bytes"] += _leaf_bytes(node)
+        return node
+
+    return walk(params, ()), stats
+
+
+@dataclasses.dataclass
+class PackedParamStore:
+    """Packed weights + byte accounting; ``.params`` plugs into forward()."""
+
+    params: dict
+    sp_cfg: SparsityConfig
+    n_packed: int
+    n_dense: int
+    idx_bits: int            # stored index width (4 = two offsets/byte)
+    packed_bytes: int        # stored bytes of packed leaves (vals + idx)
+    packed_bytes_4bit: int   # with ceil(log2 M)-bit indices (SORE format)
+    dense_bytes: int         # dense-equivalent bytes of the packed leaves
+    other_bytes: int         # leaves served dense (embeds, norms, head)
+
+    @classmethod
+    def _from_stats(cls, params, sp_cfg, st) -> "PackedParamStore":
+        return cls(params=params, sp_cfg=sp_cfg, idx_bits=st["idx_bits"],
+                   **{k: st[k] for k in _COUNTS})
+
+    @classmethod
+    def pack(cls, params, sp_cfg: SparsityConfig,
+             idx_bits: Optional[int] = None, *,
+             device=None) -> "PackedParamStore":
+        packed, st = pack_tree_element(params, sp_cfg, idx_bits,
+                                       device=device)
+        return cls._from_stats(packed, sp_cfg, st)
+
+    @classmethod
+    def pack_layerwise(cls, shell, blocks, sp_cfg: SparsityConfig,
+                       idx_bits: Optional[int] = None, *,
+                       device=None) -> "PackedParamStore":
+        """Same store as ``pack({**shell, "blocks": list(blocks)})``, but
+        ``blocks`` is consumed one layer at a time: each dense block is
+        packed and dropped before the next is drawn."""
+        params, st = pack_tree_element(shell, sp_cfg, idx_bits,
+                                       device=device)
+        params["blocks"] = []
+        for block in blocks:
+            packed, bst = pack_tree_element({"blocks": block}, sp_cfg,
+                                            idx_bits, device=device)
+            params["blocks"].append(packed["blocks"])
+            for k in _COUNTS:
+                st[k] += bst[k]
+            del block, packed
+        return cls._from_stats(params, sp_cfg, st)
+
+    @property
+    def hbm_saving(self) -> float:
+        """Dense/packed byte ratio over the packable weights."""
+        return self.dense_bytes / max(self.packed_bytes, 1)
+
+    @property
+    def total_bytes(self) -> int:
+        return self.packed_bytes + self.other_bytes
+
+    def measured_packed_bytes(self) -> int:
+        """Sum of the live buffer sizes of every PackedOp leaf."""
+        total = 0
+
+        def walk(node):
+            nonlocal total
+            if isinstance(node, O.PackedOp):
+                total += _leaf_bytes(node.vals) + _leaf_bytes(node.idx)
+            elif isinstance(node, dict):
+                for v in node.values():
+                    walk(v)
+            elif isinstance(node, list):
+                for v in node:
+                    walk(v)
+
+        walk(self.params)
+        return total
+
+    def report(self) -> dict:
+        measured = self.measured_packed_bytes()
+        return {
+            "n_packed": self.n_packed,
+            "n_dense": self.n_dense,
+            "n": self.sp_cfg.n, "m": self.sp_cfg.m,
+            "idx_bits": self.idx_bits,
+            "packed_weight_bytes": self.packed_bytes,
+            "packed_weight_bytes_4bit_idx": self.packed_bytes_4bit,
+            "measured_packed_weight_bytes": measured,
+            "measured_over_accounted_4bit": (
+                measured / max(self.packed_bytes_4bit, 1)),
+            "dense_weight_bytes": self.dense_bytes,
+            "other_param_bytes": self.other_bytes,
+            "hbm_saving": self.hbm_saving,
+            "total_hbm_bytes": self.total_bytes,
+            "total_hbm_bytes_dense": self.dense_bytes + self.other_bytes,
+        }

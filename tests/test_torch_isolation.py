@@ -1,0 +1,67 @@
+"""The port stands alone: no JAX, nothing of ``repro``, no silent CPU.
+
+* An AST scan of every module of ``src/repro_torch/`` and of
+  ``chip_smoke.py`` finds no import of ``jax``, ``jaxlib`` or the
+  reference package ``repro``.
+* The entry points (``ServeEngine``, ``init``, ``pack_tree_element``,
+  ``params_from_jax``) run on the card unless the caller names a
+  device; with no card they raise instead of falling back to the CPU.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import convert
+from repro_torch.configs import qwen3_8b as TC
+from repro_torch.core.sparsity import SparsityConfig
+from repro_torch.models import transformer_lm as T
+from repro_torch.serve.engine import ServeConfig, ServeEngine
+from repro_torch.serve.packed_params import pack_tree_element
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _sources():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
+def test_no_jax_or_reference_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [m for m in _imported(tree) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_scan_sees_the_package():
+    names = {p.name for p in _sources()}
+    assert {"nm_spmm.py", "engine.py", "chip_smoke.py"} <= names
+
+
+def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = T.init(TC.SMOKE, seed=0, device="cpu", dtype=torch.bfloat16)
+    sp = SparsityConfig(n=2, m=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(params, TC.SMOKE, sp, ServeConfig(packed=True))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.init(TC.SMOKE, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pack_tree_element(params, sp)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.params_from_jax({"blocks": {}})
+    eng = ServeEngine(params, TC.SMOKE, sp, ServeConfig(packed=True),
+                      device="cpu")
+    assert eng.device.type == "cpu"
