@@ -31,7 +31,32 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 stream and the nm_spmm launch count must be
                 7 x 36 x (prefills + decode steps); then five decode
                 steps under torch.profiler give the device's busy time
-                and idle share per step and the top kernels and host ops.
+                and idle share per step and the top kernels and host ops;
+  7. update     the fused_update kernel against its plain version at the
+                qwen3-8b projection shapes as the optimizer feeds them
+                ((K, F) fp32 master, gradient and momentum), at ragged
+                shapes and on heavy ties: w', v', vals and idx bitwise
+                equal; then device times (CUDA graph replay, cold L2)
+                against the byte bound (20.75 B per element at 2:8 over
+                3.35 TB/s) and the plain version;
+  8. train rows nm_spmm at B = 2048 rows (4 x 512 tokens), u8 indices,
+                the seven shapes: within the phase-3 tolerance of the
+                plain version; device times against its bound
+                (max(bytes / 3.35 TB/s, 2*B*Kc*F / 989 TFLOP/s)), the
+                plain version and torch.matmul on the dense weight;
+  9. small train qwen3-8b SMOKE, 2:8 bdwp, packed pre-generation: three
+                steps on the card and on the CPU from the same params
+                and batches; the step-0 compute trees bitwise equal,
+                losses within SMALL_LOSS_ATOL, mask match rates printed;
+ 10. train      qwen3-8b TRAIN (every FULL width, 8 of 36 layers), 2:8
+                bdwp, packed pre-generation, 4 x 512 tokens a step: five
+                timed steps with finite losses and exactly 2 x 7 x 8
+                nm_spmm launches (forward and the blocks' recompute) and
+                7 x 8 fused_update launches per step; after a sixth step
+                under torch.profiler (forward / backward / update, device
+                busy and idle, top kernels), layer 0's packed operands
+                equal nm_pack of its new fp32 master and its stored mask
+                nm_mask of it.
 
 It prints a JSON line with every kernel's numbers, the card line, and as
 its last line {"ok": true, "device": {...}}.  With no card, or outside a
@@ -42,6 +67,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -54,6 +80,13 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor-core peak
 TOL = 1e-5                      # kernel vs plain, relative to |act| @ |W|
 SMALL_ATOL = 2e-2               # card vs CPU logits at SMOKE size
+# card vs CPU SMOKE training losses per step: step 0 differs only by
+# bf16 activations that round the other way (as SMALL_ATOL); later steps
+# also carry the gradients' bf16 roundings, which differ on the card
+# (cuBLAS sums, the lm_head backward in bf16), through lr 0.05 and 0.1
+SMALL_LOSS_ATOL = (1e-2, 2e-2, 5e-2)
+TRAIN_ROWS = (4, 512)           # sequences x tokens of a training step
+UPDATE_SCALARS = dict(lr=0.0123, mu=0.9, wd=5e-4, lam=2e-4)
 L2_BYTES = 50 * 2**20
 SEED = 0                        # weights, activations and prompts
 
@@ -191,6 +224,324 @@ def phase_timing(dev, gen):
                   f"torch.matmul(dense bf16)={t_l:.4f} ms")
             del sets, dense
     return rows
+
+
+# fused_update ragged cases: (name, K, F, n, m)
+FU_RAGGED = [("K=48 F=1000", 48, 1000, 2, 8), ("K=8 F=1", 8, 1, 2, 8),
+             ("2:4 K=64 F=130", 64, 130, 2, 4),
+             ("1:8 K=4096 F=77", 4096, 77, 1, 8),
+             ("4:16 K=128 F=33", 128, 33, 4, 16)]
+
+
+def update_case(gen, k, f, dev, ties=False):
+    """(w, g, v) as the optimizer feeds the kernel: fp32 master, the bf16
+    WU gradient cast to fp32, fp32 momentum; ``ties`` draws small
+    integers (many equal |w| and |w'|, negative zeros included)."""
+    if ties:
+        w, g, v = (torch.randint(-2, 3, (k, f), generator=gen, device=dev)
+                   .float() for _ in range(3))
+        return torch.where(w == 0, -0.0, w), g, v
+    w = torch.randn((k, f), generator=gen, device=dev) * k ** -0.5
+    g = (torch.randn((k, f), generator=gen, device=dev) * 1e-3).to(
+        torch.bfloat16).float()
+    v = torch.randn((k, f), generator=gen, device=dev) * 1e-3
+    return w, g, v
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Same shape, dtype and bits (+0 != -0, NaN payloads compared)."""
+    return (a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def update_bound_ms(k, f, n, m):
+    return (k * f * (20 + 3 * n / m)) / HBM_BYTES_PER_S * 1e3
+
+
+def phase_update(dev, gen):
+    """fused_update vs plain (bitwise), then its times at the 7 shapes."""
+    from repro_torch.kernels import fused_update as K
+    from repro_torch.kernels import ref
+
+    cases = [(name, k, f, 2, 8, False) for name, k, f in PROJ]
+    cases += [(f"ragged {name}", k, f, n, m, False)
+              for name, k, f, n, m in FU_RAGGED]
+    cases += [("ties 2:8 K=512 F=300", 512, 300, 2, 8, True),
+              ("ties 1:4 K=64 F=64", 64, 64, 1, 4, True)]
+    worst = 0.0
+    for label, k, f, n, m, ties in cases:
+        w, g, v = update_case(gen, k, f, dev, ties)
+        s = dict(lr=0.25, mu=0.5, wd=0.25, lam=0.5) if ties \
+            else UPDATE_SCALARS
+        got = K.fused_update(w, g, v, s["lr"], s["mu"], s["wd"], s["lam"],
+                             n, m)
+        want = ref.ref_fused_update(w, g, v, n=n, m=m, axis=0, **s)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("w'", "v'", "vals", "idx"), got, want):
+            check(bits_equal(a, b),
+                  f"fused_update {label}: {name} not bitwise equal")
+            worst = max(worst, float((a.float() - b.float()).abs().max()))
+        print(f"  {label:24s} w', v', vals, idx bitwise equal")
+    rows = []
+    for name, k, f in PROJ:
+        sets = [update_case(gen, k, f, dev) for _ in range(2)]
+        s = UPDATE_SCALARS
+        t_k = time_ms(lambda i: K.fused_update(
+            *sets[i], s["lr"], s["mu"], s["wd"], s["lam"], 2, 8), 2)
+        t_p = time_ms(lambda i: ref.ref_fused_update(
+            *sets[i], n=2, m=8, axis=0, **s), 2, iters=5)
+        t_b = update_bound_ms(k, f, 2, 8)
+        rows.append({"proj": name, "K": k, "F": f, "ms": t_k,
+                     "plain_ms": t_p, "bound_ms": t_b, "bound_by": "bytes",
+                     "library_ms": None})
+        print(f"  {name:7s} {k:5d}x{f:<5d} kernel={t_k:.4f} ms "
+              f"bound={t_b:.4f} ms (bytes) plain={t_p:.4f} ms "
+              f"kernel/bound={t_k / t_b:.2f}")
+        del sets
+    return worst, rows
+
+
+def spmm_train_bound_ms(b, k, f, kc):
+    moved = b * k * 2 + kc * f * 3 + b * f * 4
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, 2 * b * kc * f / BF16_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_spmm_train(dev, gen):
+    """nm_spmm at training rows (B = 2048, u8): error and times."""
+    from repro_torch.kernels import nm_spmm as K
+    from repro_torch.kernels import ref
+
+    b = TRAIN_ROWS[0] * TRAIN_ROWS[1]
+    rows, worst = [], 0.0
+    for name, k, f in PROJ:
+        act, vals, idx = packed_case(gen, b, k, f, 2, 8, 8, dev)
+        out = K.nm_spmm(act, vals, idx, 2, 8, idx_bits=8)
+        plain = ref.ref_nm_spmm(act, vals, idx, 2, 8, idx_bits=8)
+        w = ref.decompress_nm(vals, idx, 2, 8, axis=0, idx_bits=8)
+        scale = act.float().abs() @ w.float().abs()
+        torch.cuda.synchronize()
+        err = (out - plain).abs()
+        check(float((err - TOL * scale).max()) <= 0,
+              f"nm_spmm B={b} {name}: error above tolerance")
+        worst = max(worst, float(err.max()))
+        del out, plain, scale, err
+        _, _, splits = K.split_plan(k, f, 8)
+        t_k = time_ms(lambda i: K.nm_spmm(act, vals, idx, 2, 8, 8), 1,
+                      iters=3)
+        t_p = time_ms(lambda i: ref.ref_nm_spmm(act, vals, idx, 2, 8, 8), 1,
+                      iters=3)
+        t_l = time_ms(lambda i: torch.matmul(act, w), 1, iters=10)
+        t_b, by = spmm_train_bound_ms(b, k, f, vals.shape[0])
+        scratch = splits * b * f * 4 if splits > 1 else 0
+        rows.append({"proj": name, "B": b, "K": k, "F": f, "ms": t_k,
+                     "plain_ms": t_p, "library_ms": t_l, "bound_ms": t_b,
+                     "bound_by": by, "splits": splits,
+                     "scratch_bytes": scratch, "max_abs_err": float(worst)})
+        print(f"  B={b} {name:7s} {k:5d}x{f:<5d} kernel={t_k:.3f} ms "
+              f"bound={t_b:.4f} ms ({by}) plain={t_p:.3f} ms "
+              f"torch.matmul(dense bf16)={t_l:.4f} ms; split-K {splits}, "
+              f"scratch {scratch / 2**30:.2f} GiB")
+        del act, vals, idx, w
+    print(f"  max abs err {worst:.3e} (tol {TOL:g} x |act|@|W|)")
+    return worst, rows
+
+
+def _compute_bitwise(a, b) -> bool:
+    """Two compute trees (PregenOp or tensor leaves) equal bit for bit."""
+    from repro_torch.core.operand import PregenOp
+    from repro_torch.optim import sgd
+
+    pairs = zip(sgd.tree_leaves(a), sgd.tree_leaves(b))
+    for x, y in pairs:
+        fields = (("bp", "ff", "vals", "idx", "mask")
+                  if isinstance(x, PregenOp) else (None,))
+        for fld in fields:
+            u = x if fld is None else getattr(x, fld)
+            t = y if fld is None else getattr(y, fld)
+            if (u is None) != (t is None):
+                return False
+            if u is not None and not bits_equal(u.cpu(), t.cpu()):
+                return False
+    return True
+
+
+def _masks(compute):
+    from repro_torch.optim import sgd
+
+    return [leaf.mask for leaf in sgd.tree_leaves(compute)
+            if getattr(leaf, "mask", None) is not None]
+
+
+def phase_train_small(dev, seed):
+    """SMOKE-size training: three steps on the card and on the CPU."""
+    from repro_torch.configs import qwen3_8b as C
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.data.synthetic import lm_stream
+    from repro_torch.models import transformer_lm as T
+    from repro_torch.optim import sgd
+    from repro_torch.train import step as ST
+
+    cfg, sp = C.SMOKE, SparsityConfig(n=2, m=8, method="bdwp")
+    opt = sgd.SGDConfig(lr=0.1, warmup_steps=2, total_steps=50)
+    params = T.init(cfg, seed=seed, device="cpu")
+    states = {d: ST.train_state_from_params(
+        sgd.tree_map(lambda _, t: t.to(d, copy=True), params), sp)
+        for d in ("cpu", dev)}
+    check(_compute_bitwise(states["cpu"]["compute"], states[dev]["compute"]),
+          "small train: step-0 compute trees differ between card and CPU")
+    print("  step-0 pre-generated compute trees bitwise equal")
+    streams = {d: lm_stream(cfg.vocab, 2, 16, device=d, seed=seed)
+               for d in states}
+    worst = 0.0
+    for step in range(3):
+        loss = {}
+        for d in states:
+            _, batch = next(streams[d])
+            states[d], met = ST.lm_train_step(states[d], batch, cfg=cfg,
+                                              sp_cfg=sp, opt_cfg=opt)
+            loss[d] = float(met["loss"])
+        match = [float((a == b.cpu()).float().mean()) for a, b in zip(
+            _masks(states["cpu"]["compute"]), _masks(states[dev]["compute"]))]
+        diff = abs(loss["cpu"] - loss[dev])
+        worst = max(worst, diff)
+        print(f"  step {step}: loss card {loss[dev]:.6f} cpu "
+              f"{loss['cpu']:.6f} |d| {diff:.3e} (tol "
+              f"{SMALL_LOSS_ATOL[step]}); next masks equal: min "
+              f"{min(match):.6f}, mean {sum(match) / len(match):.6f}")
+        check(math.isfinite(loss[dev]), "small train: non-finite loss")
+        check(diff <= SMALL_LOSS_ATOL[step],
+              f"small train: step {step} losses disagree")
+    return worst
+
+
+def profile_train_step(step_fn, state, batch):
+    """One training step under torch.profiler: wall, device busy and
+    idle share, device and host time of forward / backward / update,
+    and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, met = step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    parts, kernels = {}, []
+    # the backward runs on autograd's device thread, so its kernels do
+    # not land under the train/backward range: its device time is the
+    # busy time less forward and update
+    for e in prof.key_averages():
+        if e.key.startswith("train/"):
+            if not str(e.device_type).endswith("CUDA"):
+                parts[e.key] = {
+                    "host_ms": e.cpu_time_total / 1e3,
+                    "device_ms": getattr(e, "device_time_total", 0) / 1e3}
+            continue
+        us = getattr(e, "self_device_time_total", 0)
+        if us > 0 and str(e.device_type).endswith("CUDA"):
+            kernels.append((us / 1e3, e.count, e.key))
+    kernels.sort(reverse=True)
+    busy = sum(k[0] for k in kernels)
+    if "train/backward" in parts:
+        parts["train/backward"]["device_ms"] = busy - sum(
+            parts[k]["device_ms"] for k in ("train/forward", "train/update")
+            if k in parts)
+    share = {name: sum(k[0] for k in kernels if name in k[2])
+             for name in ("nm_spmm", "fused_update")}
+    print(f"  profiled step: wall {wall_ms:.1f} ms (profiler on), device "
+          f"busy {busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}; "
+          f"nm_spmm {share['nm_spmm']:.1f} ms, fused_update "
+          f"{share['fused_update']:.2f} ms")
+    for key, t in sorted(parts.items()):
+        print(f"    {key:16s} host {t['host_ms']:9.1f} ms  device "
+              f"{t['device_ms']:9.1f} ms")
+    for ms, count, key in kernels[:10]:
+        print(f"    {ms:9.3f} ms  x{count:<5d} {key[:90]}")
+    return state, met, {"wall_ms": wall_ms, "device_busy_ms": busy,
+                        "parts": parts, "kernel_ms": share,
+                        "top_kernels": [list(k) for k in kernels[:15]]}
+
+
+def phase_train(dev, seed):
+    """qwen3-8b TRAIN: BDWP 2:8 packed pre-generation, 4 x 512 tokens."""
+    import functools
+
+    from repro_torch.configs import qwen3_8b as C
+    from repro_torch.core import sparsity as S
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.data.synthetic import lm_stream
+    from repro_torch.kernels import fused_update as KF
+    from repro_torch.kernels import nm_spmm as KS
+    from repro_torch.optim import sgd
+    from repro_torch.train import step as ST
+
+    cfg, sp = C.TRAIN, SparsityConfig(n=2, m=8, method="bdwp")
+    opt = sgd.SGDConfig(lr=0.004, warmup_steps=2, total_steps=100)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = ST.init_train_state(cfg, sp, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    print(f"  init {cfg.n_layers} layers + pre-generation: "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    step_fn = functools.partial(ST.lm_train_step, cfg=cfg, sp_cfg=sp,
+                                opt_cfg=opt)
+    data = lm_stream(cfg.vocab, *TRAIN_ROWS, device=dev, seed=seed)
+    want_spmm, want_upd = 2 * 7 * cfg.n_layers, 7 * cfg.n_layers
+    tokens = TRAIN_ROWS[0] * TRAIN_ROWS[1]
+    KS.launches = KF.launches = 0
+    losses, times, per_step = [], [], []
+    for _ in range(5):
+        _, batch = next(data)
+        s0, f0 = KS.launches, KF.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step_fn(state, batch)
+        loss = float(met["loss"])
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss)
+        per_step.append((KS.launches - s0, KF.launches - f0))
+        print(f"  step {len(losses) - 1}: loss {loss:.6f} lr "
+              f"{float(met['lr']):.4g} {times[-1]:.1f} ms "
+              f"({tokens / times[-1] * 1e3:.0f} tok/s); launches nm_spmm "
+              f"{per_step[-1][0]} (want {want_spmm}), fused_update "
+              f"{per_step[-1][1]} (want {want_upd})")
+        check(math.isfinite(loss), "train: non-finite loss")
+        check(per_step[-1] == (want_spmm, want_upd), "train: launch counts")
+    launches = {"nm_spmm": KS.launches, "fused_update": KF.launches}
+    _, batch = next(data)
+    state, met, prof = profile_train_step(step_fn, state, batch)
+    check(math.isfinite(float(met["loss"])), "train: non-finite loss")
+    peak = torch.cuda.max_memory_allocated()
+    layer = state["compute"]["blocks"][0]
+    master = state["master"]["blocks"][0]
+    for part, name in (("attn", "q_proj"), ("attn", "k_proj"),
+                       ("attn", "v_proj"), ("attn", "o_proj"),
+                       ("ffn", "w_gate"), ("ffn", "w_up"), ("ffn", "w_down")):
+        op, w = layer[part][name]["w"], master[part][name]["w"]
+        vals, idx = S.nm_pack(w, 2, 8, axis=0)
+        check(torch.equal(op.vals.view(torch.int16),
+                          vals.to(torch.bfloat16).view(torch.int16))
+              and torch.equal(op.idx, idx),
+              f"train: layer 0 {name} packed operand != nm_pack(master)")
+        check(torch.equal(op.mask, S.nm_mask(w, 2, 8, axis=0)),
+              f"train: layer 0 {name} stored mask != nm_mask(master)")
+    print("  layer 0: packed vals/idx == nm_pack(new master), stored mask "
+          "== nm_mask(new master), all 7 projections")
+    steady = sorted(times[1:])
+    ms = steady[len(steady) // 2]
+    print(f"  {cfg.name} x{cfg.n_layers} layers: median of steps 1-4 "
+          f"{ms:.1f} ms/step, {tokens / ms * 1e3:.0f} tokens/s; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    return {"losses": losses, "step_ms": times, "ms_per_step": ms,
+            "tokens_per_s": tokens / ms * 1e3, "launches": launches,
+            "launches_per_step": per_step, "max_memory_allocated": peak,
+            "profile": prof}
 
 
 def phase_small(dev, seed):
@@ -393,25 +744,56 @@ def main(argv=None) -> int:
     phase_small(dev, SEED)
     print("[6] serve qwen3-8b FULL, packed 2:8 u4")
     serve = phase_serve(dev, SEED)
+    torch.cuda.empty_cache()
+    print("[7] fused_update vs plain, and timing (cold L2)")
+    upd_err, upd_rows = phase_update(dev, gen)
+    print(f"[8] nm_spmm at training rows (B = {TRAIN_ROWS[0]} x "
+          f"{TRAIN_ROWS[1]}, u8)")
+    spmm_err, spmm_rows = phase_spmm_train(dev, gen)
+    print("[9] SMOKE-size training: card vs CPU")
+    phase_train_small(dev, SEED)
+    print("[10] train qwen3-8b TRAIN (full width, 8 layers), 2:8 bdwp, "
+          "packed")
+    train = phase_train(dev, SEED)
+
+    def summed(rs, at, launches, by_path, err):
+        return {"launches": launches, "launches_by_path": by_path,
+                "max_abs_err": err, "ms": sum(r["ms"] for r in rs),
+                "plain_ms": sum(r["plain_ms"] for r in rs),
+                "bound_ms": sum(r["bound_ms"] for r in rs),
+                "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                           for r in rs) else "operations",
+                "library_ms": None if any(r["library_ms"] is None
+                                          for r in rs)
+                else sum(r["library_ms"] for r in rs), "at": at}
 
     decode = [r for r in rows if r["B"] == 4]
-    kernels = [{
-        "name": "nm_spmm", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/nm_spmm.cu",
-        "replaces": "src/repro/kernels/nm_spmm.py:71",
-        "launches": serve["launches"], "max_abs_err": max_err,
-        "ms": sum(r["ms"] for r in decode),
-        "plain_ms": sum(r["plain_ms"] for r in decode),
-        "bound_ms": sum(r["bound_ms"] for r in decode),
-        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in decode)
-        else "operations",
-        "library_ms": sum(r["library_ms"] for r in decode),
-        "at": "one decode layer: the 7 projections at B=4, 2:8 u4, summed",
-    }]
+    spmm_paths = {"serve": serve["launches"],
+                  "train": train["launches"]["nm_spmm"]}
+    kernels = [dict(
+        name="nm_spmm", route="cuda",
+        source="src/repro_torch/kernels/csrc/nm_spmm.cu",
+        replaces="src/repro/kernels/nm_spmm.py:71",
+        **summed(decode, "one decode layer: the 7 projections at B=4, 2:8 "
+                 "u4, summed", sum(spmm_paths.values()), spmm_paths,
+                 max(max_err, spmm_err)),
+        train_rows=summed(spmm_rows, "one training layer's forward: the 7 "
+                          "projections at B=2048, 2:8 u8, summed",
+                          spmm_paths["train"], {"train": spmm_paths["train"]},
+                          spmm_err)),
+        dict(name="fused_update", route="cuda",
+             source="src/repro_torch/kernels/csrc/fused_update.cu",
+             replaces="src/repro/kernels/fused_update.py:73",
+             **summed(upd_rows, "one layer's update: the 7 projections, "
+                      "2:8, summed", train["launches"]["fused_update"],
+                      {"train": train["launches"]["fused_update"]},
+                      upd_err))]
     if args.out:
         with open(args.out, "w") as fh:
             json.dump({"card": card, "kernels": kernels, "timing": rows,
-                       "serve": serve,
+                       "update_timing": upd_rows,
+                       "spmm_train_timing": spmm_rows, "serve": serve,
+                       "train": train,
                        "seconds": time.perf_counter() - t_start}, fh,
                       indent=1, default=str)
     print(f"done in {time.perf_counter() - t_start:.1f} s")

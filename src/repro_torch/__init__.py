@@ -2,7 +2,8 @@
 
 The JAX package ``repro`` is the reference; this package mirrors its
 module names (``core/sparsity``, ``core/operand``, ``kernels/ops``,
-``models/*``, ``serve/*``, ``train/step``) with PyTorch idiom inside:
+``models/*``, ``optim/sgd``, ``serve/*``, ``train/*``, ``data/synthetic``)
+with PyTorch idiom inside:
 plain functions on tensors, per-layer parameter lists where the
 reference scans stacked leaves, an explicit ``device`` argument and
 explicit ``torch.Generator``s.  It imports ``torch`` and never ``jax``,
@@ -11,5 +12,9 @@ JAX (``serve/cache_store``, ``configs``) are copied, not imported.
 
 Slice 1 covers packed N:M serving of the dense GQA transformer LM
 (qwen3-8b): ``serve.engine.ServeEngine`` down to the hand-written
-Hopper kernel ``kernels/csrc/nm_spmm.cu``.  Training is not ported yet.
+Hopper kernel ``kernels/csrc/nm_spmm.cu``.  Slice 2 covers its BDWP
+training with pre-generated, SORE-packed FF operands:
+``train.trainer.train_steps`` over ``train.step.lm_train_step``, whose
+forward runs ``nm_spmm`` and whose update (``optim.sgd.update``) runs
+the hand-written ``kernels/csrc/fused_update.cu``.
 """

@@ -2,8 +2,10 @@
 
 The port's own copy of ``src/repro/configs/qwen3_8b.py`` (``FULL`` and
 ``SMOKE``, same values; qk_norm, untied lm_head), built on the port's
-``LMConfig``.  [hf:Qwen/Qwen3-8B]
+``LMConfig``, plus ``TRAIN``.  [hf:Qwen/Qwen3-8B]
 """
+
+import dataclasses
 
 from repro_torch.models.transformer_lm import LMConfig
 
@@ -18,3 +20,13 @@ SMOKE = LMConfig(
     n_heads=4, n_kv=2, head_dim=16, d_ff=128,
     rope_theta=1e6, qk_norm=True,
 )
+
+# FULL at every published width with the depth cut to 8 of 36 layers,
+# so that BDWP training fits one 80 GB card.  Training state is about
+# 13.75 B per prunable parameter (fp32 master 4 + fp32 momentum 4; the
+# pre-generated bf16 ``bp`` 2, packed bf16 vals 0.5 and u8 idx 0.25, bool
+# decay mask 1; the bf16 WU gradient 2) and 12 B per parameter of the
+# untied 152064 x 4096 embed and lm_head tables.  At 36 layers that is
+# 36 x 192.9 M x 13.75 B + 1.246 G x 12 B = 95.5 + 15.0 = 110 GB; at 8
+# layers 21.2 + 15.0 = 36 GB plus activations.  Depth is the only cut.
+TRAIN = dataclasses.replace(FULL, n_layers=8)

@@ -1,10 +1,11 @@
 """BDWP pruning policy: which weights are N:M-pruned and packed.
 
-Counterpart of the policy half of ``src/repro/core/bdwp.py``
-(``serve_packable``, ``ff_group_axis``, ``bp_group_axis``,
-``should_prune``, ``pick_cfg``), with the same rules.  The training
-half (pre-generation sites, decay, the deprecated ``nm_linear`` shims)
-is not ported in this slice.
+Counterpart of ``src/repro/core/bdwp.py``: the policy (``serve_packable``,
+``ff_group_axis``, ``bp_group_axis``, ``should_prune``, ``pick_cfg``) and
+the pre-generation sites (``decays``, ``pregen_site``, ``is_pregen``),
+with the same rules.  Not ported: the bare-array MoE expert sites
+(``bare_nm_leaf``; MoE is not ported, so every site is a ``.../w``
+leaf) and the deprecated ``nm_linear`` shims.
 """
 
 from __future__ import annotations
@@ -65,3 +66,34 @@ def should_prune(name: str, shape, cfg: SparsityConfig) -> bool:
 def pick_cfg(name: str, shape, cfg: SparsityConfig) -> SparsityConfig:
     """Per-parameter effective config (dense when excluded)."""
     return cfg if should_prune(name, shape, cfg) else DENSE
+
+
+# Weights that pass ``should_prune`` but are consumed directly, not
+# through ``nm_apply``: the logits head.  They are never pre-generated
+# and SR-STE never decays them.
+_DIRECT_CONSUMED = ("lm_head",)
+
+
+def decays(name: str, lshape, cfg: SparsityConfig) -> bool:
+    """Does SR-STE's sparse-refined decay apply to this parameter?"""
+    if any(re.search(frag, name) for frag in _DIRECT_CONSUMED):
+        return False
+    return should_prune(name, lshape, cfg)
+
+
+def pregen_site(name: str, lshape, cfg: SparsityConfig) -> bool:
+    """Is this master leaf (tree name ending in ``/w``) replaced by a
+    pre-generated operand (``core.operand.PregenOp``)?"""
+    if not name.endswith("/w"):
+        return False
+    if cfg.is_dense or not (cfg.prunes_ff_weights()
+                            or cfg.prunes_bp_weights()):
+        return False
+    return decays(name, lshape, cfg)
+
+
+def is_pregen(node) -> bool:
+    """Is ``node`` a pre-generated operand leaf of a compute tree?"""
+    from repro_torch.core.operand import PregenOp   # operand imports bdwp
+
+    return isinstance(node, PregenOp)

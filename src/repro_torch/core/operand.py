@@ -1,18 +1,27 @@
-"""SparseOperand — the N:M weight-consumption seam, forward only.
+"""SparseOperand — the N:M weight-consumption seam.
 
 Counterpart of ``src/repro/core/operand.py``: ``DenseOp``, ``MaskedOp``,
-``PackedOp``, ``as_operand``, ``nm_apply`` and ``_packed_serve``.  Every
-weight matmul of the model calls ``nm_apply(op, x)``.
+``PregenOp``, ``PackedOp``, ``as_operand``, ``nm_apply``,
+``_packed_serve`` and the custom-gradient cores ``masked_linear``,
+``pregen_linear`` and ``packed_pregen_linear``.  Every weight matmul of
+the model calls ``nm_apply(op, x)``.  The cores carry the paper's
+training rules (Alg. 1 / Fig. 11c) as ``torch.autograd.Function``s:
+
+  FF : y  = x @ w_FF          (the sparse operand)
+  BP : dx = g @ w_BP^T        (``bp``, or the re-derived BP mask)
+  WU : dW = x^T @ g           (dense, straight-through, fp32-accumulated,
+                               cast to the weight's dtype; for a
+                               PregenOp it is ``bp``'s gradient)
 
 What differs:
   * operands are plain classes, not registered pytrees;
-  * serving is forward only, so there are no custom backward rules
-    (``masked_linear`` is a plain matmul of the FF-masked weight) and no
-    ``PregenOp``/``SharedOp`` (training and shared-pattern serving are
-    later slices);
-  * there is no ``backend``/``backend_scope``: the device of the packed
-    pair picks the kernel (``kernels.ops.nm_spmm``), and the port's
-    parameters are per layer, so a packed pair is always 2-D (K·N/M, F).
+  * there is no ``backend``/``backend_scope``: a packed pair always goes
+    through ``kernels.ops.nm_spmm``, whose input's device picks the
+    kernel or the plain version; the port's parameters are per layer,
+    so a packed pair is always 2-D (K·N/M, F);
+  * ``SharedOp``, conv operands and transposable packed operands are
+    not ported.
+Every product here is fp32-accumulated and rounded once (``matmul_once``).
 """
 
 from __future__ import annotations
@@ -45,6 +54,36 @@ class MaskedOp(SparseOperand):
         self.cfg = cfg
 
 
+class PregenOp(SparseOperand):
+    """Pre-generated WU-time operands (``optim.sgd``, paper Fig. 11c).
+
+    ``bp`` (K, F) is the BP operand; its gradient carries the dense
+    straight-through WU gradient.  Exactly one FF operand: ``ff`` (K, F)
+    in the dense layout, or the SORE-packed pair ``vals`` (K·N/M, F) and
+    ``idx`` (uint8 offsets of the same shape, ``idx_bits=8``).  ``mask``
+    is the stored SR-STE decay mask."""
+
+    def __init__(self, *, bp, ff=None, vals=None, idx=None, mask=None,
+                 cfg: SparsityConfig | None = None, idx_bits: int = 8):
+        if (ff is None) == (vals is None):
+            raise ValueError("PregenOp needs exactly one of ff | (vals, idx)")
+        if (vals is None) != (idx is None):
+            raise ValueError("PregenOp packed form needs both vals and idx")
+        if idx_bits not in (4, 8):
+            raise ValueError(f"idx_bits must be 4 or 8, got {idx_bits}")
+        self.bp = bp
+        self.ff = ff
+        self.vals = vals
+        self.idx = idx
+        self.mask = mask
+        self.cfg = cfg
+        self.idx_bits = idx_bits
+
+    @property
+    def is_packed(self) -> bool:
+        return self.vals is not None
+
+
 class PackedOp(SparseOperand):
     """Element-packed serving weight: vals (K·N/M, F) surviving values and
     idx the uint8 in-group offsets — same shape as vals with
@@ -71,18 +110,113 @@ def as_operand(leaf, name: str, cfg: SparsityConfig) -> SparseOperand:
     raise TypeError(f"unrecognized operand for {name}: {type(leaf).__name__}")
 
 
+def matmul_once(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
+    """a @ b of 2-D operands: products and sums in fp32, rounded once to
+    ``out_dtype``, as the reference's dot with fp32 accumulation
+    computes.  On the card one cuBLAS product of the 16-bit operands with
+    fp32 output; on the CPU an fp32 matmul (PyTorch's own CPU bf16
+    matmul rounds differently now and then)."""
+    if a.is_cuda and a.dtype != torch.float32:
+        y = torch.mm(a, b, out_dtype=torch.float32)
+    else:
+        y = torch.mm(a.to(torch.float32), b.to(torch.float32))
+    return y.to(out_dtype)
+
+
+def _linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ w (K, F) -> (..., F) in x's dtype."""
+    y = matmul_once(x.reshape(-1, x.shape[-1]), w.to(x.dtype), x.dtype)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def _weight_grad(x: torch.Tensor, gc: torch.Tensor, dtype) -> torch.Tensor:
+    """WU: dW = x^T @ g over all tokens, fp32-accumulated, cast to dtype."""
+    return matmul_once(x.reshape(-1, x.shape[-1]).t(),
+               gc.reshape(-1, gc.shape[-1]), dtype)
+
+
+def _ff_weights(w: torch.Tensor, cfg: SparsityConfig) -> torch.Tensor:
+    """FF-pruned weights: N:M groups along the contraction axis."""
+    return sparsify(w, cfg, axis=0) if cfg.prunes_ff_weights() else w
+
+
+def _bp_weights(w: torch.Tensor, cfg: SparsityConfig) -> torch.Tensor:
+    """BP-pruned weights: N:M groups along the output axis."""
+    return sparsify(w, cfg, axis=1) if cfg.prunes_bp_weights() else w
+
+
+class _MaskedLinear(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, cfg):
+        ctx.cfg = cfg
+        ctx.save_for_backward(x, w)
+        return _linear(x, _ff_weights(w, cfg))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        cfg = ctx.cfg
+        # BP/WU run in the compute dtype: the cotangent is cast down
+        gc = g.to(x.dtype)
+        if cfg.prunes_bp_grads():   # SDGP prunes the output gradients
+            dx = _linear(sparsify(gc, cfg, axis=-1), w.t())
+        else:
+            dx = _linear(gc, _bp_weights(w, cfg).t())
+        return dx, _weight_grad(x, gc, w.dtype), None
+
+
+class _PregenLinear(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ff, bp):
+        ctx.save_for_backward(x, bp)
+        return _linear(x, ff)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, bp = ctx.saved_tensors
+        gc = g.to(x.dtype)
+        return _linear(gc, bp.t()), None, _weight_grad(x, gc, bp.dtype)
+
+
+class _PackedPregenLinear(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, vals, idx, bp, n, m, idx_bits):
+        ctx.save_for_backward(x, bp)
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        y = ops.nm_spmm(x2, vals, idx, n, m, idx_bits)
+        return y.reshape(*x.shape[:-1], vals.shape[-1]).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, bp = ctx.saved_tensors
+        gc = g.to(x.dtype)
+        return (_linear(gc, bp.t()), None, None,
+                _weight_grad(x, gc, bp.dtype), None, None, None)
+
+
 def masked_linear(x: torch.Tensor, w: torch.Tensor,
                   cfg: SparsityConfig) -> torch.Tensor:
-    """y = x @ w_FF, the FF weight N:M-masked along K when cfg prunes FF
-    weights (the reference's forward; its backward is not ported).
+    """y = x @ w with cfg.method's N:M training semantics: FF on the
+    K-masked weight, BP on the output-masked weight (or, for SDGP, on
+    the N:M-pruned output gradient), dense WU."""
+    return _MaskedLinear.apply(x, w, cfg)
 
-    Products and sums in fp32, rounded once to x's dtype, as the
-    reference's bf16 dot computes; PyTorch's own CPU bf16 matmul rounds
-    differently now and then."""
-    if cfg.prunes_ff_weights():
-        w = sparsify(w, cfg, axis=0)
-    y = torch.matmul(x.to(torch.float32), w.to(x.dtype).to(torch.float32))
-    return y.to(x.dtype)
+
+def pregen_linear(x: torch.Tensor, ff: torch.Tensor,
+                  bp: torch.Tensor) -> torch.Tensor:
+    """y = x @ ff with BP on ``bp`` and the dense WU gradient on ``bp``'s
+    gradient; ``ff`` gets none."""
+    return _PregenLinear.apply(x, ff, bp)
+
+
+def packed_pregen_linear(x: torch.Tensor, vals: torch.Tensor,
+                         idx: torch.Tensor, bp: torch.Tensor, n: int, m: int,
+                         idx_bits: int = 8) -> torch.Tensor:
+    """``pregen_linear`` with the FF operand SORE-packed: the forward
+    reads (vals, idx) through ``kernels.ops.nm_spmm`` and never builds the
+    dense FF weight; BP and WU as ``pregen_linear``; ``vals`` and
+    ``idx`` get no gradient."""
+    return _PackedPregenLinear.apply(x, vals, idx, bp, n, m, idx_bits)
 
 
 def _packed_serve(x: torch.Tensor, op: PackedOp) -> torch.Tensor:
@@ -99,6 +233,11 @@ def nm_apply(op: SparseOperand, x: torch.Tensor) -> torch.Tensor:
         op = MaskedOp(op.w, DENSE)
     if isinstance(op, MaskedOp):
         return masked_linear(x, op.w, op.cfg)
+    if isinstance(op, PregenOp):
+        if op.is_packed:
+            return packed_pregen_linear(x, op.vals, op.idx, op.bp, op.cfg.n,
+                                        op.cfg.m, op.idx_bits)
+        return pregen_linear(x, op.ff, op.bp)
     if isinstance(op, PackedOp):
         return _packed_serve(x, op)
     raise TypeError(f"nm_apply: not a SparseOperand: {type(op).__name__}")

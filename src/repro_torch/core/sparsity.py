@@ -1,18 +1,18 @@
 """N:M fine-grained structured sparsity primitives (PyTorch).
 
 Counterpart of ``src/repro/core/sparsity.py``: ``SparsityConfig``,
-``DENSE``, ``nm_mask``, ``sparsify``, ``nm_pack``, ``nm_unpack_n`` and
-the 4-bit index plane ``pack_idx_u4``/``unpack_idx_u4``.  Masks,
-indices and packed values are bitwise equal to the reference's.
+``DENSE``, ``nm_mask``, ``nm_mask_pair``, ``sparsify``, ``nm_pack``,
+``nm_pack_from_mask``, ``nm_unpack_n``, ``srste_decay`` and the 4-bit
+index plane ``pack_idx_u4``/``unpack_idx_u4``.  Masks, indices and
+packed values are bitwise equal to the reference's.
 
 What differs:
   * selection is n rounds of masked ``argmax`` instead of
     ``lax.top_k``: ``torch.topk`` documents no tie order, while
     ``torch.argmax`` returns the first maximum, which is the reference's
     earliest-index tie-break;
-  * only ``element`` granularity is ported (the ``shared`` pattern,
-    transposable masks, ``nm_mask_pair`` and SR-STE's decay belong to
-    training, a later slice).
+  * only ``element`` granularity is ported (the ``shared`` pattern and
+    transposable masks are not).
 """
 
 from __future__ import annotations
@@ -66,6 +66,14 @@ class SparsityConfig:
 DENSE = SparsityConfig(method="dense")
 
 
+def _move_axis_last(x: torch.Tensor, axis: int):
+    """(x with ``axis`` moved last, the permutation that moves it back)."""
+    axis = axis % x.ndim
+    perm = [i for i in range(x.ndim) if i != axis] + [axis]
+    inv = [perm.index(i) for i in range(x.ndim)]
+    return x.permute(perm), inv
+
+
 def _groups(x: torch.Tensor, m: int, axis: int):
     """x with ``axis`` moved last and split into (..., K/m, m) groups."""
     xt = torch.movedim(x, axis, -1)
@@ -75,12 +83,13 @@ def _groups(x: torch.Tensor, m: int, axis: int):
     return xt.reshape(*xt.shape[:-1], k // m, m)
 
 
-def _topn_offsets(g: torch.Tensor, n: int) -> torch.Tensor:
-    """In-group offsets (..., n) of the n largest |g|, ascending.
+def _topn_picks(g: torch.Tensor, n: int) -> torch.Tensor:
+    """In-group offsets (..., n) of the n largest |g|, in pick order.
 
     n rounds of masked argmax: each round takes the first maximum, so
     among equal scores the earliest offset wins — the reference's
-    ``_topn_group_mask``/``lax.top_k`` rule.
+    ``_topn_group_mask``/``lax.top_k`` rule.  A mask needs no order, so
+    only packing sorts (``_topn_offsets``).
     """
     score = g.abs().to(torch.float32)
     picks = []
@@ -88,7 +97,12 @@ def _topn_offsets(g: torch.Tensor, n: int) -> torch.Tensor:
         i = torch.argmax(score, dim=-1, keepdim=True)
         picks.append(i)
         score = score.scatter(-1, i, float("-inf"))
-    return torch.sort(torch.cat(picks, dim=-1), dim=-1).values
+    return torch.cat(picks, dim=-1)
+
+
+def _topn_offsets(g: torch.Tensor, n: int) -> torch.Tensor:
+    """``_topn_picks`` in ascending offset order."""
+    return torch.sort(_topn_picks(g, n), dim=-1).values
 
 
 def nm_mask(x: torch.Tensor, n: int, m: int, axis: int = -1) -> torch.Tensor:
@@ -98,8 +112,33 @@ def nm_mask(x: torch.Tensor, n: int, m: int, axis: int = -1) -> torch.Tensor:
         return torch.ones_like(x, dtype=torch.bool)
     g = _groups(x, m, axis)
     mask = torch.zeros(g.shape, dtype=torch.bool, device=x.device)
-    mask.scatter_(-1, _topn_offsets(g, n), True)
+    mask.scatter_(-1, _topn_picks(g, n), True)
     return torch.movedim(mask.reshape(*g.shape[:-2], -1), -1, axis)
+
+
+def nm_mask_pair(x: torch.Tensor, n: int, m: int, ff_axis: int,
+                 bp_axis: int):
+    """(FF mask, BP mask) of one tensor from a single selection: the
+    groups along ``ff_axis`` and along ``bp_axis`` are scored as one
+    (G_ff + G_bp, m) batch.  Equal to two ``nm_mask`` calls."""
+    if n == m:
+        ones = torch.ones_like(x, dtype=torch.bool)
+        return ones, ones
+    views = []
+    for axis in (ff_axis, bp_axis):
+        xt, inv = _move_axis_last(x, axis)
+        if xt.shape[-1] % m:
+            raise ValueError(f"axis length {xt.shape[-1]} not divisible by {m}")
+        views.append((xt.shape, inv, xt.reshape(-1, m)))
+    groups = torch.cat([v[2] for v in views], dim=0)
+    mask = torch.zeros(groups.shape, dtype=torch.bool, device=x.device)
+    mask.scatter_(-1, _topn_picks(groups, n), True)
+    out, offset = [], 0
+    for shape, inv, g in views:
+        rows = g.shape[0]
+        out.append(mask[offset:offset + rows].reshape(shape).permute(inv))
+        offset += rows
+    return tuple(out)
 
 
 def sparsify(x: torch.Tensor, cfg: SparsityConfig,
@@ -125,6 +164,31 @@ def nm_pack(x: torch.Tensor, n: int, m: int, axis: int = -1):
     return vals.contiguous(), idx.contiguous()
 
 
+def nm_pack_from_mask(x: torch.Tensor, mask: torch.Tensor, n: int, m: int,
+                      axis: int = -1):
+    """Pack x into N:M compact (values, uint8 offsets) given its survivor
+    mask, without a selection: survivors keep ascending offset order.
+    Equal to ``nm_pack(x, n, m, axis)`` whenever ``mask == nm_mask(x, n,
+    m, axis)``.  A group with fewer than n survivors pads with value 0 at
+    offset 0, as the reference's scatter into a zero row does."""
+    g = _groups(x, m, axis)
+    gm = _groups(mask, m, axis)
+    rank = torch.cumsum(gm.to(torch.int64), dim=-1) - 1
+    slot = torch.where(gm, rank, n)     # pruned entries land in slot n
+    pos = torch.arange(m, device=x.device).expand(g.shape)
+    vals = torch.zeros((*g.shape[:-1], n + 1), dtype=x.dtype, device=x.device)
+    idx = torch.zeros((*g.shape[:-1], n + 1), dtype=torch.int64,
+                      device=x.device)
+    vals.scatter_(-1, slot, g)
+    idx.scatter_(-1, slot, pos)
+    lead = g.shape[:-2]
+    kc = g.shape[-2] * n
+    vals = torch.movedim(vals[..., :n].reshape(*lead, kc), -1, axis)
+    idx = torch.movedim(idx[..., :n].reshape(*lead, kc).to(torch.uint8), -1,
+                        axis)
+    return vals.contiguous(), idx.contiguous()
+
+
 def nm_unpack_n(values: torch.Tensor, indices: torch.Tensor, n: int, m: int,
                 axis: int = -1) -> torch.Tensor:
     """Scatter compact (values, indices) back to dense; axis length *m/n."""
@@ -140,6 +204,12 @@ def nm_unpack_n(values: torch.Tensor, indices: torch.Tensor, n: int, m: int,
                         device=vt.device)
     dense.scatter_(-1, gi, gv)
     return torch.movedim(dense.reshape(*vt.shape[:-1], groups * m), -1, axis)
+
+
+def srste_decay(w: torch.Tensor, mask: torch.Tensor, lam: float) -> torch.Tensor:
+    """SR-STE's sparse-refined term ``lam * (1 - mask) * w``: pruned
+    weights decay toward zero (+0 where the mask keeps a weight)."""
+    return torch.where(mask, torch.zeros_like(w), w) * lam
 
 
 # 4-bit index plane: two in-group offsets (< 16) per byte along the

@@ -5,8 +5,9 @@ inside ``jax.jit``.  Each ``csrc/*.cu`` source has a plain C interface
 and is compiled on first use, with ``nvcc -gencode
 arch=compute_90a,code=sm_90a`` (Hopper; ``sm_90a`` for ``wgmma`` and
 ``setmaxnreg``), into ``build/kernels/`` at the root of the checkout,
-named by a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.  ``build_all`` starts
+named by a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source is rebuilt and an unchanged one is loaded
+as it is.  ``build_all`` starts
 one ``nvcc`` per missing library, all at once.  Nothing here runs at
 import: this module is imported on machines without a CUDA toolkit.
 """
@@ -23,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = {"nm_spmm": "nm_spmm.cu"}
+SOURCES = {"nm_spmm": "nm_spmm.cu", "fused_update": "fused_update.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,8 +47,8 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
+    parts = [CSRC / SOURCES[name], *sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in parts)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

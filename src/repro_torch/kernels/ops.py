@@ -1,17 +1,19 @@
 """Kernel dispatch by device.
 
-Counterpart of ``src/repro/kernels/ops.py:nm_spmm``.  The reference
-picks Pallas or its jnp oracle with a ``use_pallas`` flag and routes
-shapes its tiles cannot split (an odd u4 compact tile) to the oracle.
-Here the tensor's device decides: a CUDA tensor goes to the Hopper
-kernel (which takes every shape, so there is no shape fallback), a CPU
-tensor to the plain version in ``kernels.ref``.
+Counterpart of ``src/repro/kernels/ops.py:nm_spmm`` and
+``:fused_update``.  The reference picks Pallas or its jnp oracle with a
+``use_pallas`` flag and routes shapes its tiles cannot split (an odd u4
+compact tile) to the oracle.  Here the tensor's device decides: a CUDA
+tensor goes to the Hopper kernel (which takes every shape, so there is
+no shape fallback), a CPU tensor to the plain version in
+``kernels.ref``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import fused_update as _fused_update
 from repro_torch.kernels import nm_spmm as _nm_spmm
 from repro_torch.kernels import ref
 
@@ -22,3 +24,13 @@ def nm_spmm(act: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
     if act.is_cuda:
         return _nm_spmm.nm_spmm(act, vals, idx, n, m, idx_bits)
     return ref.ref_nm_spmm(act, vals, idx, n, m, idx_bits)
+
+
+def fused_update(w: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
+                 lr: float, mu: float, wd: float, lam: float, n: int, m: int):
+    """Momentum SGD + SR-STE decay + N:M pre-generation of a (K, F) fp32
+    master, groups along K: (w', v', vals (K*n/m, F) bf16, idx uint8)."""
+    if w.is_cuda:
+        return _fused_update.fused_update(w, g, v, lr, mu, wd, lam, n, m)
+    return ref.ref_fused_update(w, g, v, lr=lr, mu=mu, wd=wd, lam=lam, n=n,
+                                m=m, axis=0)

@@ -1,10 +1,11 @@
 """Plain PyTorch versions of the port's kernels.
 
-Counterpart of ``src/repro/kernels/ref.py`` (``ref_nm_spmm``) and of the
-select-based decompress in ``src/repro/kernels/nm_spmm_shared.py``
-(``unpack_idx_nibbles``, ``decompress_nm``).  These define what the
-CUDA kernel must compute: the CPU path runs them, and ``chip_smoke.py``
-holds the kernel against them on the card.  ``decompress_nm`` is bitwise
+Counterpart of ``src/repro/kernels/ref.py`` (``ref_nm_spmm``,
+``ref_fused_update``) and of the select-based decompress in
+``src/repro/kernels/nm_spmm_shared.py`` (``unpack_idx_nibbles``,
+``decompress_nm``).  These define what the CUDA kernels must compute:
+the CPU path runs them, and ``chip_smoke.py`` holds the kernels against
+them on the card.  ``decompress_nm`` and ``ref_fused_update`` are bitwise
 equal to the reference's; ``ref_nm_spmm`` is an fp32 matmul of the same
 exact bf16 products, so it differs from the reference only in
 summation order.
@@ -13,6 +14,8 @@ summation order.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core import sparsity as S
 
 
 def unpack_idx_nibbles(idx: torch.Tensor, kc: int, axis: int) -> torch.Tensor:
@@ -66,3 +69,23 @@ def ref_nm_spmm(act: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
     w = decompress_nm(vals, idx, n, m, axis=0, idx_bits=idx_bits)
     return torch.matmul(act.to(torch.float32),
                         w.to(act.dtype).to(torch.float32))
+
+
+def ref_fused_update(w: torch.Tensor, g: torch.Tensor, v: torch.Tensor, *,
+                     lr: float, mu: float, wd: float, lam: float, n: int,
+                     m: int, axis: int = -1):
+    """WUVE + SORE pre-generation (momentum SGD on the fp32 master).
+
+    mask = N:M survivors of the pre-update ``w`` along ``axis``;
+    g_eff = (g + wd*w) + lam*where(mask, 0, w); v' = mu*v + g_eff;
+    w' = w - lr*v'; then w' packed along ``axis``.  Returns (w' fp32,
+    v' fp32, vals bf16, idx uint8), the packed pair with ``axis``
+    shortened to K*n/m.  Every op rounds to fp32 on its own, in this
+    order: the CUDA kernel is held to these bits.
+    """
+    mask = S.nm_mask(w, n, m, axis=axis)
+    g_eff = g + wd * w + lam * torch.where(mask, 0.0, w)
+    new_v = mu * v + g_eff
+    new_w = w - lr * new_v
+    vals, idx = S.nm_pack(new_w, n, m, axis=axis)
+    return new_w, new_v, vals.to(torch.bfloat16), idx

@@ -1,10 +1,11 @@
 """Decoder LM (dense GQA family): config, init, forward, logits, cache.
 
 Counterpart of ``src/repro/models/transformer_lm.py``: ``LMConfig``,
-``ffn_init``/``ffn_apply``, the block, ``init``, ``forward``,
-``logits_from_hidden`` and ``init_lm_cache``, with the reference's
-arithmetic (bf16 residual stream, fp32-accumulated logits with the
-padded vocab columns set to ``-1e30``).
+``ffn_init``/``ffn_apply``, the block, ``init``, ``forward`` (with
+per-block rematerialization when training), ``logits_from_hidden``,
+``lm_loss`` and ``init_lm_cache``, with the reference's arithmetic (bf16
+residual stream, fp32-accumulated logits with the padded vocab columns
+set to ``-1e30``).
 
 What differs:
   * ``LMConfig`` is the port's own copy, cut to the fields of the dense
@@ -27,7 +28,9 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.operand import matmul_once
 from repro_torch.core.sparsity import DENSE, SparsityConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
@@ -49,6 +52,9 @@ class LMConfig:
     # the embedding and lm_head tables are padded up to a multiple of
     # this; padded logit columns are masked to -1e30
     pad_vocab_to: int = 256
+    # training recomputes each block in the backward pass instead of
+    # keeping its activations
+    remat: bool = True
 
     @property
     def padded_vocab(self) -> int:
@@ -137,13 +143,25 @@ def forward(params, tokens: torch.Tensor, cfg: LMConfig,
             sp_cfg: SparsityConfig = DENSE, *, cache=None,
             decode: bool = False, positions=None):
     """Returns (hidden (B, S, d), cache); decode is per-slot (positions
-    (B, 1) gives each row its own position)."""
+    (B, 1) gives each row its own position).
+
+    With ``cfg.remat``, a forward without a cache under autograd (a
+    training step) runs each block under ``torch.utils.checkpoint``: only
+    the block's input is kept, and the block runs again in the backward
+    pass, as the reference's ``jax.checkpoint`` with
+    ``nothing_saveable`` does.
+    """
     x = L.embed_apply(params["embed"], tokens)
     b, s = x.shape[0], x.shape[1]
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
     layer_caches = cache["layers"] if cache is not None else None
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
     for i, bp in enumerate(params["blocks"]):
+        if remat:
+            x = checkpoint(_block_out, bp, x, cfg, sp_cfg, positions,
+                           use_reentrant=False)
+            continue
         lc = layer_caches[i] if layer_caches is not None else None
         x, _ = block_apply(bp, x, cfg, sp_cfg, positions=positions,
                            cache=lc, decode=decode)
@@ -151,22 +169,61 @@ def forward(params, tokens: torch.Tensor, cfg: LMConfig,
     return x, cache
 
 
+def _block_out(p, x, cfg, sp_cfg, positions):
+    return block_apply(p, x, cfg, sp_cfg, positions=positions)[0]
+
+
+class _HeadProduct(torch.autograd.Function):
+    """h (T, d) @ w (d, V) -> fp32 logits, w cast to h's dtype, products
+    summed in fp32 (``operand.matmul_once``).  On the card the backward
+    rounds the fp32 logit gradient to h's dtype before its two products,
+    which keeps them on the tensor cores (as a TPU's default-precision
+    fp32 dot rounds to bf16) and makes no fp32 copy of the 1.25 GB
+    table; on the CPU it stays fp32, as the reference's XLA CPU computes
+    it.  Gradients come back in h's and w's dtypes."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        return matmul_once(h, w.to(h.dtype), torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        gc = g.to(h.dtype) if h.is_cuda else g
+        return (matmul_once(gc, w.to(h.dtype).t(), h.dtype),
+                matmul_once(h.t(), gc, w.dtype))
+
+
 def logits_from_hidden(params, hidden: torch.Tensor,
                        cfg: LMConfig) -> torch.Tensor:
     """hidden @ lm_head with fp32 accumulation; padded columns -1e30."""
     w = params["lm_head"]["w"]
-    if hidden.is_cuda:
-        # fp32 accumulation without an fp32 copy of the 1.25 GB table
-        logits = torch.mm(hidden.reshape(-1, hidden.shape[-1]),
-                          w.to(hidden.dtype), out_dtype=torch.float32)
-        logits = logits.reshape(*hidden.shape[:-1], w.shape[-1])
-    else:
-        logits = torch.matmul(hidden.to(torch.float32),
-                              w.to(hidden.dtype).to(torch.float32))
+    logits = _HeadProduct.apply(hidden.reshape(-1, hidden.shape[-1]), w)
+    logits = logits.reshape(*hidden.shape[:-1], w.shape[-1])
     if cfg.padded_vocab != cfg.vocab:
         valid = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab
         logits = torch.where(valid, logits, -1e30)
     return logits
+
+
+def lm_loss(params, hidden: torch.Tensor, labels: torch.Tensor,
+            cfg: LMConfig, *, chunk: int = 1024) -> torch.Tensor:
+    """Mean next-token cross-entropy, from fp32 logits taken ``chunk``
+    positions at a time, so that (B, S, V) never exists at once; padded
+    vocab columns are -1e30 and drop out.  (The reference's per-token
+    ``mask`` has no caller here and is not ported.)"""
+    b, s, _ = hidden.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence {s} not divisible by chunk {chunk}")
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(0, s, chunk):
+        logits = logits_from_hidden(params, hidden[:, c:c + chunk], cfg)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, c:c + chunk, None].long())
+        tot = tot + (logz - gold[..., 0]).sum()
+    return tot / (b * s)
 
 
 def init_lm_cache(cfg: LMConfig, batch: int, max_len: int, *, device,

@@ -1,0 +1,1 @@
+"""Optimizer of the port (counterpart of ``src/repro/optim/``)."""

@@ -1,0 +1,254 @@
+"""WUVE analogue: momentum SGD with SR-STE decay and N:M pre-generation.
+
+Counterpart of ``src/repro/optim/sgd.py`` (``SGDConfig``,
+``lr_schedule``, ``init_state``, ``_pregen_masks``/``_pregen_leaf``,
+``pregen_tree``, ``pregen_grads``, ``update``).
+State per parameter: fp32 ``master`` and ``momentum``.  Each update
+also writes the next step's compute tree (paper Fig. 11c): every
+prunable weight (``bdwp.pregen_site``) becomes a ``PregenOp`` holding
+its bf16 BP operand, its FF operand (SORE-packed ``vals``/``idx`` with
+``pack``) and its SR-STE decay mask, all from ONE selection on the fp32
+master; every other leaf becomes its bf16 copy.
+
+The fused path: an srste/bdwp site is updated by
+``kernels.ops.fused_update`` (the ``fused_update`` kernel on the card,
+its plain version on the CPU), which applies the decay from the mask of
+the pre-update master (bitwise the stored mask: both select on the same
+fp32 master) and emits the packed FF operand; the BP operand is the
+output-axis ``nm_mask`` of the new master, as the reference's
+``pallas_upd`` derives it.  Other leaves take the elementwise path.
+
+What differs:
+  * trees are the port's per-layer trees (``"blocks"`` is a list), and
+    leaf names skip the list index, so a name is the reference's
+    (``blocks/attn/q_proj/w``); shapes are per layer, so a leaf's shape
+    is its logical shape;
+  * there is no ``use_pallas`` flag: the tensors' device picks kernel
+    or plain version, and every eligible site takes the fused path;
+  * ``update`` consumes its state: master and momentum of non-site
+    leaves are updated in place (the reference donates them), which
+    saves several 2.5 GB temporaries on the embed and lm_head tables;
+  * ``step`` is a Python int;
+  * ``update`` reads each leaf's stored decay mask from the same
+    position of ``prev_compute`` (the trees are per layer, so the
+    reference's name -> mask dict, ``stored_decay_masks``, would need a
+    layer index);
+  * only the pre-generating dataflow (the reference's ``pregen=True``)
+    with element granularity is ported; no transposable or shared
+    masks, no bare-array MoE sites.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.core import bdwp
+from repro_torch.core.operand import PregenOp
+from repro_torch.core.sparsity import (SparsityConfig, nm_mask,
+                                       nm_mask_pair, nm_pack_from_mask,
+                                       nm_unpack_n)
+from repro_torch.kernels import ops
+
+
+@dataclasses.dataclass(frozen=True)
+class SGDConfig:
+    lr: float = 0.1
+    momentum: float = 0.9
+    weight_decay: float = 5e-4
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    min_lr_frac: float = 0.01
+
+
+def lr_schedule(cfg: SGDConfig, step: int) -> torch.Tensor:
+    """Linear warmup, then cosine decay to ``min_lr_frac``: a 0-d fp32
+    CPU tensor, computed with the reference's fp32 ops in its order."""
+    step = torch.tensor(float(step), dtype=torch.float32)
+    warm = cfg.lr * step / max(cfg.warmup_steps, 1)
+    prog = torch.clamp((step - cfg.warmup_steps)
+                       / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    cos = cfg.min_lr_frac * cfg.lr + (1 - cfg.min_lr_frac) * cfg.lr \
+        * 0.5 * (1 + torch.cos(math.pi * prog))
+    return torch.where(step < cfg.warmup_steps, warm, cos)
+
+
+def tree_map(fn, *trees, path=()):
+    """fn(name, *leaves) over same-shaped trees of dicts and lists; the
+    name joins dict keys with "/" and skips list indices, so a per-layer
+    leaf carries the reference's stacked name."""
+    node = trees[0]
+    if isinstance(node, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees), path=path + (k,))
+                for k in node}
+    if isinstance(node, list):
+        return [tree_map(fn, *(t[i] for t in trees), path=path)
+                for i in range(len(node))]
+    return fn("/".join(path), *trees)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts and lists, in ``tree_map`` order."""
+    out = []
+    tree_map(lambda _, leaf: out.append(leaf), tree)
+    return out
+
+
+def init_state(params):
+    """fp32 master (the params themselves where they are fp32 already:
+    the state takes them over), zero momentum, step 0."""
+    return {
+        "master": tree_map(lambda _, p: p.to(torch.float32), params),
+        "momentum": tree_map(
+            lambda _, p: torch.zeros_like(p, dtype=torch.float32), params),
+        "step": 0,
+    }
+
+
+# ---------------------------------------------------------------------------
+# Pre-generation: fp32 master -> the bf16 compute tree FF/BP consume
+# ---------------------------------------------------------------------------
+
+
+def _pregen_masks(w: torch.Tensor, sp_cfg: SparsityConfig):
+    """(ff_mask, bp_mask, decay_mask) of one fp32 weight; the FF and BP
+    masks of a bdwp weight come from one selection (``nm_mask_pair``);
+    unused directions are None."""
+    if sp_cfg.transposable or sp_cfg.granularity != "element":
+        raise NotImplementedError(
+            "only element-granularity, non-transposable masks are ported")
+    n, m = sp_cfg.n, sp_cfg.m
+    ff_ax, bp_ax = w.ndim - 2, w.ndim - 1
+    ff_mask = bp_mask = None
+    if sp_cfg.prunes_ff_weights() and sp_cfg.prunes_bp_weights():
+        ff_mask, bp_mask = nm_mask_pair(w, n, m, ff_ax, bp_ax)
+    elif sp_cfg.prunes_ff_weights():
+        ff_mask = nm_mask(w, n, m, axis=ff_ax)
+    elif sp_cfg.prunes_bp_weights():
+        bp_mask = nm_mask(w, n, m, axis=bp_ax)
+    decay_mask = bp_mask if sp_cfg.method == "sdwp" else ff_mask
+    return ff_mask, bp_mask, decay_mask
+
+
+def _pregen_leaf(w: torch.Tensor, sp_cfg: SparsityConfig,
+                 pack: bool) -> PregenOp:
+    """fp32 weight -> PregenOp{ff | (vals, idx), bp, mask}.  Masking
+    commutes with the bf16 cast, and the selection scores fp32 master."""
+    ff_mask, bp_mask, decay_mask = _pregen_masks(w, sp_cfg)
+    bp = torch.where(bp_mask, w, 0.0) if bp_mask is not None else w
+    ff = torch.where(ff_mask, w, 0.0) if ff_mask is not None else w
+    ff16 = ff.to(torch.bfloat16)
+    if pack and ff_mask is not None:
+        vals, idx = nm_pack_from_mask(ff16, ff_mask, sp_cfg.n, sp_cfg.m,
+                                      axis=w.ndim - 2)
+        return PregenOp(bp=bp.to(torch.bfloat16), vals=vals, idx=idx,
+                        mask=decay_mask, cfg=sp_cfg, idx_bits=8)
+    return PregenOp(bp=bp.to(torch.bfloat16), ff=ff16, mask=decay_mask,
+                    cfg=sp_cfg)
+
+
+def pregen_tree(master, sp_cfg: SparsityConfig, *, pack: bool = False):
+    """The pre-generated compute tree of an fp32 master tree: sites
+    become PregenOp leaves, other float leaves their bf16 copies."""
+    def leaf(name, w):
+        if bdwp.pregen_site(name, tuple(w.shape), sp_cfg):
+            return _pregen_leaf(w.to(torch.float32), sp_cfg, pack)
+        if w.is_floating_point():
+            return w.to(torch.bfloat16)
+        return w
+
+    return tree_map(leaf, master)
+
+
+def diff_leaves(compute) -> list:
+    """The float leaves of a compute tree that the step differentiates,
+    in ``tree_map`` order: each PregenOp's ``bp`` and every other float
+    leaf (``vals``/``ff`` get no gradient)."""
+    out = []
+    for leaf in tree_leaves(compute):
+        if bdwp.is_pregen(leaf):
+            out.append(leaf.bp)
+        elif leaf.is_floating_point():
+            out.append(leaf)
+    return out
+
+
+def pregen_grads(compute, grads):
+    """The master-shaped gradient tree from the gradients of
+    ``diff_leaves(compute)``, in that order: a site's gradient is its
+    ``bp``'s, the dense straight-through WU gradient."""
+    it = iter(grads)
+    return tree_map(lambda _, leaf: next(it), compute)
+
+
+# ---------------------------------------------------------------------------
+# The update
+# ---------------------------------------------------------------------------
+
+
+def update(state, grads, opt_cfg: SGDConfig, sp_cfg: SparsityConfig, *,
+           prev_compute=None, pack: bool = False):
+    """One optimizer step: (new_state, next step's compute tree).
+
+    ``grads`` is master-shaped (``pregen_grads``).  The SR-STE decay
+    uses the mask stored in ``prev_compute`` (the one FF/BP just
+    consumed; re-derived from master where there is none).  The master
+    and momentum of non-site leaves, and their fp32 gradients, are
+    updated in place.
+    """
+    lr = float(lr_schedule(opt_cfg, state["step"]))
+    n, m = sp_cfg.n, sp_cfg.m
+
+    def fused_upd(w, g, v):
+        nw, nv, vals, idx = ops.fused_update(
+            w, g.to(torch.float32), v, lr, opt_cfg.momentum,
+            opt_cfg.weight_decay, sp_cfg.lam, n, m)
+        ff_mask = nm_unpack_n(torch.ones_like(vals, dtype=torch.bool), idx,
+                              n, m, axis=0)
+        if sp_cfg.prunes_bp_weights():   # bdwp: BP operand from the new master
+            bp = torch.where(nm_mask(nw, n, m, axis=1), nw, 0.0)
+        else:                            # srste: BP runs dense
+            bp = nw
+        if pack:
+            leaf = PregenOp(bp=bp.to(torch.bfloat16), vals=vals, idx=idx,
+                            mask=ff_mask, cfg=sp_cfg, idx_bits=8)
+        else:
+            leaf = PregenOp(bp=bp.to(torch.bfloat16), mask=ff_mask,
+                            cfg=sp_cfg, ff=nm_unpack_n(vals, idx, n, m, axis=0))
+        return nw, nv, leaf
+
+    def elementwise_upd(name, w, g, v, prev, site):
+        # one rounding per op, in the reference's order: g + wd*w, then
+        # + lam*where(mask, 0, w); mu*v + g; w - lr*v
+        g = g.to(torch.float32)
+        g.add_(w * opt_cfg.weight_decay)
+        lshape = tuple(w.shape)
+        if (not sp_cfg.is_dense and sp_cfg.lam > 0.0
+                and bdwp.decays(name, lshape, sp_cfg)
+                and sp_cfg.method in ("srste", "bdwp", "sdwp")):
+            if bdwp.is_pregen(prev) and prev.mask is not None:
+                mask = prev.mask
+            else:   # no stored mask: re-derive it from master
+                axis = (bdwp.bp_group_axis(lshape) if sp_cfg.method == "sdwp"
+                        else bdwp.ff_group_axis(lshape))
+                mask = nm_mask(w, n, m, axis=axis)
+            g.add_(torch.where(mask, 0.0, w) * sp_cfg.lam)
+        v.mul_(opt_cfg.momentum).add_(g)
+        w.sub_(v * lr)
+        comp = _pregen_leaf(w, sp_cfg, pack) if site else w.to(torch.bfloat16)
+        return w, v, comp
+
+    def upd(name, w, g, v, prev):
+        site = bdwp.pregen_site(name, tuple(w.shape), sp_cfg)
+        if site and sp_cfg.method in ("srste", "bdwp"):
+            return fused_upd(w, g, v)
+        return elementwise_upd(name, w, g, v, prev, site)
+
+    prev = prev_compute if prev_compute is not None else state["master"]
+    outs = tree_map(upd, state["master"], grads, state["momentum"], prev)
+    master, momentum, compute = (tree_map(lambda _, o, i=i: o[i], outs)
+                                 for i in range(3))
+    return ({"master": master, "momentum": momentum,
+             "step": state["step"] + 1}, compute)

@@ -1,2 +1,1 @@
-"""Steps of the port (counterpart of ``src/repro/train/``; the serving
-steps so far)."""
+"""Steps and loop of the port (counterpart of ``src/repro/train/``)."""

@@ -4,8 +4,10 @@
   ``chip_smoke.py`` finds no import of ``jax``, ``jaxlib`` or the
   reference package ``repro``.
 * The entry points (``ServeEngine``, ``init``, ``pack_tree_element``,
-  ``params_from_jax``) run on the card unless the caller names a
-  device; with no card they raise instead of falling back to the CPU.
+  ``params_from_jax``, ``init_train_state`` (and so the state that
+  ``lm_train_step`` takes), ``train_state_from_jax``, ``lm_stream``) run
+  on the card unless the caller names a device; with no card they raise
+  instead of falling back to the CPU.
 """
 
 import ast
@@ -17,9 +19,11 @@ import torch
 from repro_torch import convert
 from repro_torch.configs import qwen3_8b as TC
 from repro_torch.core.sparsity import SparsityConfig
+from repro_torch.data.synthetic import lm_stream
 from repro_torch.models import transformer_lm as T
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 from repro_torch.serve.packed_params import pack_tree_element
+from repro_torch.train import step as ST
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -47,7 +51,8 @@ def test_no_jax_or_reference_import(path):
 
 def test_scan_sees_the_package():
     names = {p.name for p in _sources()}
-    assert {"nm_spmm.py", "engine.py", "chip_smoke.py"} <= names
+    assert {"nm_spmm.py", "engine.py", "chip_smoke.py", "fused_update.py",
+            "sgd.py", "trainer.py", "synthetic.py"} <= names
 
 
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
@@ -62,6 +67,14 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
         pack_tree_element(params, sp)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert.params_from_jax({"blocks": {}})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ST.init_train_state(TC.SMOKE, sp)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.train_state_from_jax({})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm_stream(TC.SMOKE.vocab, 2, 8)
+    assert next(lm_stream(TC.SMOKE.vocab, 2, 8, device="cpu"))[1][
+        "tokens"].device.type == "cpu"
     eng = ServeEngine(params, TC.SMOKE, sp, ServeConfig(packed=True),
                       device="cpu")
     assert eng.device.type == "cpu"

@@ -68,6 +68,53 @@ def test_nm_pack_bitwise(n, m, kind, dtype):
 
 
 @pytest.mark.parametrize("n,m", NM)
+@pytest.mark.parametrize("kind", ["normal", "ties"])
+def test_nm_mask_pair_bitwise(n, m, kind):
+    """One selection over the FF (axis 0) and BP (axis 1) groups."""
+    x = _inputs((64, 48), kind, seed=4)
+    want = JS.nm_mask_pair(jnp.asarray(x), n, m, 0, 1)
+    got = TS.nm_mask_pair(torch.from_numpy(x), n, m, 0, 1)
+    for g, w, axis in zip(got, want, (0, 1)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        np.testing.assert_array_equal(
+            g.numpy(), TS.nm_mask(torch.from_numpy(x), n, m, axis).numpy())
+
+
+@pytest.mark.parametrize("n,m", NM)
+@pytest.mark.parametrize("kind", ["normal", "ties"])
+@pytest.mark.parametrize("axis", [0, -1])
+def test_nm_pack_from_mask_bitwise(n, m, kind, axis):
+    """Packing from a given mask equals the reference's, and nm_pack when
+    the mask is x's own; a mask with short groups pads 0 at offset 0."""
+    x = _inputs((64, 48), kind, seed=6)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    mask = TS.nm_mask(torch.from_numpy(x), n, m, axis=axis)
+    vt, it = TS.nm_pack_from_mask(xb, mask, n, m, axis=axis)
+    vj, ij = JS.nm_pack_from_mask(jnp.asarray(x).astype("bfloat16"),
+                                  jnp.asarray(mask.numpy()), n, m, axis=axis)
+    np.testing.assert_array_equal(_bits(vt), _bits(vj))
+    np.testing.assert_array_equal(_bits(it), _bits(ij))
+    vp, ip = TS.nm_pack(torch.from_numpy(x), n, m, axis=axis)
+    np.testing.assert_array_equal(_bits(vt), _bits(vp.to(torch.bfloat16)))
+    np.testing.assert_array_equal(_bits(it), _bits(ip))
+    short = mask & (torch.rand(mask.shape, generator=torch.Generator()
+                               .manual_seed(0)) < 0.5)
+    vt, it = TS.nm_pack_from_mask(xb, short, n, m, axis=axis)
+    vj, ij = JS.nm_pack_from_mask(jnp.asarray(x).astype("bfloat16"),
+                                  jnp.asarray(short.numpy()), n, m, axis=axis)
+    np.testing.assert_array_equal(_bits(vt), _bits(vj))
+    np.testing.assert_array_equal(_bits(it), _bits(ij))
+
+
+def test_srste_decay_bitwise():
+    x = _inputs((32, 64), "ties", seed=7)
+    mask = TS.nm_mask(torch.from_numpy(x), 2, 8, axis=0)
+    got = TS.srste_decay(torch.from_numpy(x), mask, 2e-4)
+    want = JS.srste_decay(jnp.asarray(x), jnp.asarray(mask.numpy()), 2e-4)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("n,m", NM)
 def test_nm_pack_stacked_contraction_axis(n, m):
     """Stacked (L, K, F) leaves pack along axis=-2, the serving layout."""
     x = _inputs((3, 64, 48), "ties", seed=3)
@@ -125,3 +172,8 @@ def test_policy_matches_reference(name, shape):
     assert TB.bp_group_axis(shape) == JB.bp_group_axis(shape)
     assert TB.pick_cfg(name, shape, cfg_t).is_dense == \
         JB.pick_cfg(name, shape, cfg_j).is_dense
+    assert TB.decays(name, shape, cfg_t) == JB.decays(name, shape, cfg_j)
+    # the port has no bare-array (MoE) sites: the reference's bare=False
+    for leaf in (name, name + "/w"):
+        assert TB.pregen_site(leaf, shape, cfg_t) == \
+            JB.pregen_site(leaf, shape, cfg_j, bare=False)
