@@ -39,9 +39,10 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 equal; then device times (CUDA graph replay, cold L2)
                 against the byte bound (20.75 B per element at 2:8 over
                 3.35 TB/s) and the plain version;
-  8. train rows nm_spmm at B = 2048 rows (4 x 512 tokens), u8 indices,
-                the seven shapes: within the phase-3 tolerance of the
-                plain version; device times against its bound
+  8. train rows nm_spmm at B = 2048 rows (4 x 512 tokens) and at the
+                1024 rows of one pod of phase 14, u8 indices, the seven
+                shapes: within the phase-3 tolerance of the plain
+                version; at B = 2048 device times against its bound
                 (max(bytes / 3.35 TB/s, 2*B*Kc*F / 989 TFLOP/s)), the
                 plain version and torch.matmul on the dense weight;
   9. small train qwen3-8b SMOKE, 2:8 bdwp, packed pre-generation: three
@@ -56,7 +57,35 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 under torch.profiler (forward / backward / update, device
                 busy and idle, top kernels), layer 0's packed operands
                 equal nm_pack of its new fp32 master and its stored mask
-                nm_mask of it.
+                nm_mask of it;
+ 11. sync kernels grad_compress and grad_decompress_mean against their
+                plain versions: buckets (2, 65536) and (P, 4096) for P in
+                1..4, ragged K (K = m, 513 groups), 2:4, 1:8, 4:16, heavy
+                ties, bf16 and fp32 gradients, strided rows, the residual
+                written in place: vals, idx, err' and the mean (fp32 and
+                the gradient's dtype) bitwise equal, and decode(vals,
+                idx) + err' == g + err bitwise; device times (CUDA graph
+                replay, cold L2) at the sync's bucket, the mean written
+                in the gradient's dtype as the sync writes it, against
+                the byte bound over 3.35 TB/s and the plain versions;
+ 12. sync alone cross_pod_sync at qwen3-8b TRAIN_SYNC leaf shapes, 2 pods
+                of random bf16 gradients and a random residual, with
+                buckets of 1 << 16 and 1 << 24 elements: mean gradients
+                and residuals bitwise equal, launches equal to the plan's
+                bucket count, ms per sync;
+ 13. small sync qwen3-8b SMOKE compressed training, 2 pods: three steps
+                on the card and on the CPU; the card's sync of each step
+                equals the CPU sync of the same pod-stacked gradients
+                bitwise, losses within SMALL_LOSS_ATOL;
+ 14. train sync qwen3-8b TRAIN_SYNC (every FULL width, 4 of 36 layers),
+                2 pods x (2 x 512) tokens a step, compressed sync with
+                the reference's buckets (1 << 16): five timed steps with
+                finite losses and exactly 2 x 7 x 4 x 2 nm_spmm, 7 x 4
+                fused_update, and one grad_compress and one
+                grad_decompress_mean launch per bucket of the plan per
+                step; on one step the EF identity on layer 0's w_gate;
+                a sixth step under torch.profiler (forward / backward /
+                sync / update), peak memory.
 
 It prints a JSON line with every kernel's numbers, the card line, and as
 its last line {"ok": true, "device": {...}}.  With no card, or outside a
@@ -308,25 +337,42 @@ def spmm_train_bound_ms(b, k, f, kc):
                                        else "operations")
 
 
-def phase_spmm_train(dev, gen):
-    """nm_spmm at training rows (B = 2048, u8): error and times."""
+def spmm_case_err(gen, b, name, k, f, dev):
+    """nm_spmm at B rows, 2:8 u8, against the plain version within the
+    phase-3 tolerance: (act, vals, idx, dense W, max abs error)."""
     from repro_torch.kernels import nm_spmm as K
     from repro_torch.kernels import ref
 
-    b = TRAIN_ROWS[0] * TRAIN_ROWS[1]
-    rows, worst = [], 0.0
+    act, vals, idx = packed_case(gen, b, k, f, 2, 8, 8, dev)
+    out = K.nm_spmm(act, vals, idx, 2, 8, idx_bits=8)
+    plain = ref.ref_nm_spmm(act, vals, idx, 2, 8, idx_bits=8)
+    w = ref.decompress_nm(vals, idx, 2, 8, axis=0, idx_bits=8)
+    scale = act.float().abs() @ w.float().abs()
+    torch.cuda.synchronize()
+    err = (out - plain).abs()
+    check(float((err - TOL * scale).max()) <= 0,
+          f"nm_spmm B={b} {name}: error above tolerance")
+    return act, vals, idx, w, float(err.max())
+
+
+def phase_spmm_train(dev, gen):
+    """nm_spmm at training rows: error and times at B = 2048, error at
+    the B = 1024 rows of one pod of the compressed step (phase 14)."""
+    from repro_torch.kernels import nm_spmm as K
+    from repro_torch.kernels import ref
+
+    b_pod = SYNC_ROWS[0] // SYNC_PODS * SYNC_ROWS[1]
+    worst = 0.0
     for name, k, f in PROJ:
-        act, vals, idx = packed_case(gen, b, k, f, 2, 8, 8, dev)
-        out = K.nm_spmm(act, vals, idx, 2, 8, idx_bits=8)
-        plain = ref.ref_nm_spmm(act, vals, idx, 2, 8, idx_bits=8)
-        w = ref.decompress_nm(vals, idx, 2, 8, axis=0, idx_bits=8)
-        scale = act.float().abs() @ w.float().abs()
-        torch.cuda.synchronize()
-        err = (out - plain).abs()
-        check(float((err - TOL * scale).max()) <= 0,
-              f"nm_spmm B={b} {name}: error above tolerance")
-        worst = max(worst, float(err.max()))
-        del out, plain, scale, err
+        *_, e = spmm_case_err(gen, b_pod, name, k, f, dev)
+        worst = max(worst, e)
+    print(f"  B={b_pod} (one pod of phase 14), the 7 shapes: max abs err "
+          f"{worst:.3e} (tol {TOL:g} x |act|@|W|)")
+    b = TRAIN_ROWS[0] * TRAIN_ROWS[1]
+    rows = []
+    for name, k, f in PROJ:
+        act, vals, idx, w, e = spmm_case_err(gen, b, name, k, f, dev)
+        worst = max(worst, e)
         _, _, splits = K.split_plan(k, f, 8)
         t_k = time_ms(lambda i: K.nm_spmm(act, vals, idx, 2, 8, 8), 1,
                       iters=3)
@@ -418,8 +464,8 @@ def phase_train_small(dev, seed):
 
 def profile_train_step(step_fn, state, batch):
     """One training step under torch.profiler: wall, device busy and
-    idle share, device and host time of forward / backward / update,
-    and the top kernels."""
+    idle share, device and host time of forward / backward / sync /
+    update, and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -445,16 +491,23 @@ def profile_train_step(step_fn, state, batch):
             kernels.append((us / 1e3, e.count, e.key))
     kernels.sort(reverse=True)
     busy = sum(k[0] for k in kernels)
+    share = {name: sum(k[0] for k in kernels if name in k[2])
+             for name in ("nm_spmm", "fused_update", "grad_compress",
+                          "grad_decompress_mean")}
+    if "train/sync" in parts:
+        # the profiler links none of the sync's ctypes launches to its
+        # range; the two sync kernels are the only kernels it runs (its
+        # buffers are allocations, and qwen3-8b has no ragged leaf)
+        parts["train/sync"]["device_ms"] = (share["grad_compress"]
+                                            + share["grad_decompress_mean"])
     if "train/backward" in parts:
         parts["train/backward"]["device_ms"] = busy - sum(
-            parts[k]["device_ms"] for k in ("train/forward", "train/update")
+            parts[k]["device_ms"] for k in ("train/forward", "train/sync",
+                                            "train/update")
             if k in parts)
-    share = {name: sum(k[0] for k in kernels if name in k[2])
-             for name in ("nm_spmm", "fused_update")}
     print(f"  profiled step: wall {wall_ms:.1f} ms (profiler on), device "
           f"busy {busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}; "
-          f"nm_spmm {share['nm_spmm']:.1f} ms, fused_update "
-          f"{share['fused_update']:.2f} ms")
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in share.items() if v))
     for key, t in sorted(parts.items()):
         print(f"    {key:16s} host {t['host_ms']:9.1f} ms  device "
               f"{t['device_ms']:9.1f} ms")
@@ -542,6 +595,408 @@ def phase_train(dev, seed):
             "tokens_per_s": tokens / ms * 1e3, "launches": launches,
             "launches_per_step": per_step, "max_memory_allocated": peak,
             "profile": prof}
+
+
+# phase 11 cases: (label, pods, K, n, m, gradient dtype, ties)
+SYNC_CASES = [(f"P={p} K=4096 2:8 {dt}", p, 4096, 2, 8, dt, False)
+              for p in (1, 2, 3, 4) for dt in ("bf16", "fp32")]
+SYNC_CASES += [("bucket P=2 K=65536 2:8 bf16", 2, 65536, 2, 8, "bf16", False),
+               ("bucket P=2 K=65536 2:8 fp32", 2, 65536, 2, 8, "fp32", False),
+               ("ragged K=m", 2, 8, 2, 8, "bf16", False),
+               ("ragged K=4104 (513 groups)", 3, 4104, 2, 8, "fp32", False),
+               ("2:4 K=4100", 2, 4100, 2, 4, "bf16", False),
+               ("1:8 K=4096", 4, 4096, 1, 8, "fp32", False),
+               ("4:16 K=4112", 2, 4112, 4, 16, "bf16", False),
+               ("ties 2:8 P=2 K=65536", 2, 65536, 2, 8, "bf16", True),
+               ("ties 2:4 P=3 K=4096", 3, 4096, 2, 4, "fp32", True)]
+SYNC_BUCKET = (2, 1 << 16)          # (pods, bucket_elems) of the sync
+SYNC_PODS = 2
+SYNC_ROWS = (4, 512)                # 2 pods x (2 x 512) tokens a step
+DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+
+
+def sync_case(gen, pods, k, m, dtype, ties, dev):
+    """(g, err) as the sync feeds the compress kernel: rows strided (a
+    bucket of a wider pod-stacked leaf, and a column range of the
+    residual), g in its dtype, err fp32; ``ties`` draws half-integers (no
+    negative zeros, which the plain version keeps and the reference's
+    Pallas kernel does not)."""
+    g = torch.randn((pods, k + 2 * m), generator=gen, device=dev)
+    if ties:
+        g = torch.round(g * 2) / 2 + 0.0
+    g = g.to(DTYPES[dtype])[:, m:m + k]
+    err = torch.randn((pods, k + m), generator=gen, device=dev)[:, :k] * 0.1
+    return g, err
+
+
+def compress_bound_ms(pods, k, n, m, gbytes):
+    """Bytes over 3.35 TB/s: g read, err read, err' written, vals and idx
+    written (n/m of an element, 2 + 1 B)."""
+    return pods * k * (gbytes + 8 + 3 * n / m) / HBM_BYTES_PER_S * 1e3
+
+
+def mean_bound_ms(pods, k, n, m, obytes):
+    """Bytes over 3.35 TB/s: P payload rows read (n/m x 3 B per output
+    element each), the mean written (``obytes`` per element)."""
+    return k * (pods * 3 * n / m + obytes) / HBM_BYTES_PER_S * 1e3
+
+
+def phase_sync_kernels(dev, gen):
+    """grad_compress and grad_decompress_mean vs plain (bitwise), the EF
+    identity on the card, then device times at the sync's bucket."""
+    from repro_torch.kernels import grad_compress as K
+    from repro_torch.kernels import ref
+
+    worst = 0.0
+    for label, pods, k, n, m, dt, ties in SYNC_CASES:
+        g, err = sync_case(gen, pods, k, m, dt, ties, dev)
+        want = ref.ref_grad_compress(g, err, n, m)
+        before = err.clone()
+        got = K.grad_compress(g, err, n, m, out_err=err)      # in place
+        decoded = ref.decompress_nm(got[0].float(), got[1], n, m)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("vals", "idx", "err'"), got, want):
+            check(bits_equal(a, b), f"grad_compress {label}: {name} not "
+                  "bitwise equal to the plain version")
+            worst = max(worst, float((a.float() - b.float()).abs().max()))
+        check(bits_equal(decoded + got[2], g.float() + before),
+              f"grad_compress {label}: decode + err' != g + err")
+        for out_dtype in (torch.float32, g.dtype):
+            out = torch.empty(k, dtype=out_dtype, device=dev)
+            mean = K.grad_decompress_mean(got[0], got[1], n, m, out=out)
+            plain = ref.ref_grad_decompress_mean(got[0], got[1], n, m)
+            torch.cuda.synchronize()
+            check(bits_equal(mean, plain.to(out_dtype)),
+                  f"grad_decompress_mean {label} -> {out_dtype}: not "
+                  "bitwise equal to the plain version")
+            worst = max(worst, float((mean.float() - plain.to(
+                out_dtype).float()).abs().max()))
+        print(f"  {label:30s} vals, idx, err', mean bitwise equal; "
+              f"decode + err' == g + err bitwise")
+    rows = []
+    pods, k = SYNC_BUCKET
+    for dt in ("bf16", "fp32"):
+        gbytes = 2 if dt == "bf16" else 4
+        copies = max(2, -(-2 * L2_BYTES // (pods * k * (gbytes + 8))))
+        sets = [sync_case(gen, pods, k, 8, dt, False, dev)
+                for _ in range(copies)]
+        packs = [K.grad_compress(g, e, 2, 8)[:2] for g, e in sets]
+        # the mean in the gradient's dtype, as the sync writes it
+        outs = [torch.empty(k, dtype=DTYPES[dt], device=dev)
+                for _ in range(copies)]
+        t_c = time_ms(lambda i: K.grad_compress(*sets[i], 2, 8), copies,
+                      iters=copies)
+        t_cp = time_ms(lambda i: ref.ref_grad_compress(*sets[i], 2, 8),
+                       copies, iters=copies)
+        t_m = time_ms(lambda i: K.grad_decompress_mean(*packs[i], 2, 8,
+                                                       out=outs[i]),
+                      copies, iters=copies)
+        t_mp = time_ms(lambda i: outs[i].copy_(
+            ref.ref_grad_decompress_mean(*packs[i], 2, 8)), copies,
+            iters=copies)
+        b_c = compress_bound_ms(pods, k, 2, 8, gbytes)
+        b_m = mean_bound_ms(pods, k, 2, 8, gbytes)
+        rows.append({"dtype": dt, "P": pods, "K": k,
+                     "grad_compress": {"ms": t_c, "plain_ms": t_cp,
+                                       "bound_ms": b_c},
+                     "grad_decompress_mean": {"ms": t_m, "plain_ms": t_mp,
+                                              "bound_ms": b_m}})
+        print(f"  ({pods}, {k}) {dt} g: grad_compress {1e3 * t_c:.2f} us "
+              f"(bound {1e3 * b_c:.2f} us, bytes; plain {1e3 * t_cp:.1f} "
+              f"us); grad_decompress_mean {1e3 * t_m:.2f} us (bound "
+              f"{1e3 * b_m:.2f} us; plain {1e3 * t_mp:.1f} us)")
+        del sets, packs, outs
+    # one bucket of 1 << 24 (the sync's other plan), cold by its size
+    big = 1 << 24
+    g, err = sync_case(gen, 2, big, 8, "bf16", False, dev)
+    vals, idx, _ = K.grad_compress(g, err, 2, 8)
+    out = torch.empty(big, dtype=torch.bfloat16, device=dev)
+    t_c = time_ms(lambda i: K.grad_compress(g, err, 2, 8), 1, iters=5)
+    t_m = time_ms(lambda i: K.grad_decompress_mean(vals, idx, 2, 8, out=out),
+                  1, iters=5)
+    b_c = compress_bound_ms(2, big, 2, 8, 2)
+    b_m = mean_bound_ms(2, big, 2, 8, 2)
+    rows.append({"dtype": "bf16", "P": 2, "K": big,
+                 "grad_compress": {"ms": t_c, "bound_ms": b_c},
+                 "grad_decompress_mean": {"ms": t_m, "bound_ms": b_m}})
+    print(f"  (2, {big}) bf16 g: grad_compress {t_c:.4f} ms (bound "
+          f"{b_c:.4f} ms, {b_c / t_c:.0%} of the memory rate); "
+          f"grad_decompress_mean {t_m:.4f} ms (bound {b_m:.4f} ms, "
+          f"{b_m / t_m:.0%})")
+    del g, err, vals, idx, out
+    return worst, rows
+
+
+def _sync_shapes(cfg):
+    """Leaf shapes of ``cfg``'s master tree, from a tree on the meta
+    device (no memory)."""
+    from repro_torch.models import transformer_lm as T
+    from repro_torch.optim import sgd
+
+    tree = T.init_shell(cfg, None, device="meta")
+    tree["blocks"] = list(T.iter_blocks(cfg, None, device="meta"))
+    return tree, [tuple(x.shape) for x in sgd.tree_leaves(tree)]
+
+
+def phase_sync_alone(dev, seed):
+    """cross_pod_sync at qwen3-8b TRAIN_SYNC leaf shapes, P = 2, bf16
+    gradients, buckets of 1 << 16 and 1 << 24: bitwise equal results."""
+    from repro_torch.configs import qwen3_8b as C
+    from repro_torch.kernels import grad_compress as KG
+    from repro_torch.optim import compress as CS
+    from repro_torch.optim import sgd
+
+    tree, shapes = _sync_shapes(C.TRAIN_SYNC)
+    pods = SYNC_PODS
+    gen = torch.Generator(device=dev).manual_seed(seed + 12)
+    grads = sgd.tree_map(lambda _, x: (torch.randn(
+        (pods, *x.shape), generator=gen, device=dev) * 1e-3).to(
+            torch.bfloat16), tree)
+    width = CS.err_state_elems(tree, 8)
+
+    def residual():   # drawn in place: no 16 GB temporary
+        g = torch.Generator(device=dev).manual_seed(seed + 13)
+        return torch.empty((pods, width), device=dev).normal_(
+            0.0, 1e-4, generator=g)
+
+    results, report = {}, {}
+    for bucket in (1 << 16, 1 << 24):
+        cfg = CS.GradCompressConfig(n=2, m=8, bucket_elems=bucket)
+        plan = CS.plan_sync(shapes, bucket, 8)
+        times = []
+        for rep in range(2):   # the second run's results are kept
+            err = residual()
+            torch.cuda.synchronize()
+            c0 = dict(KG.launches)
+            t0 = time.perf_counter()
+            out, err = CS.cross_pod_sync(grads, err, cfg)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            got = {k: KG.launches[k] - c0[k] for k in c0}
+            check(got == {k: plan.n_buckets for k in c0},
+                  f"sync alone: launches {got} != the plan's "
+                  f"{plan.n_buckets} buckets")
+            if rep == 1:
+                results[bucket] = (out, err)
+            del out, err
+        report[bucket] = {"buckets": plan.n_buckets, "ms": times,
+                          "launches_each": plan.n_buckets}
+        print(f"  bucket_elems {bucket}: {plan.n_buckets} buckets, "
+              f"{plan.n_buckets} launches of each kernel; sync "
+              f"{times[0]:.1f} ms, again {times[1]:.1f} ms")
+        torch.cuda.empty_cache()
+        if len(results) == 2:
+            (oa, ea), (ob, eb) = results.values()
+            check(bits_equal(ea, eb), "sync alone: residuals differ between "
+                  "bucket sizes")
+            for a, b in zip(sgd.tree_leaves(oa), sgd.tree_leaves(ob)):
+                check(bits_equal(a, b), "sync alone: mean gradients differ "
+                      "between bucket sizes")
+            print("  mean gradients and residuals bitwise equal across "
+                  "the two bucket sizes")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  residual ({pods}, {width}) fp32; max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB")
+    del results, grads
+    return report
+
+
+class SyncSpy:
+    """Wraps ``optim.compress.cross_pod_sync`` for one call: keeps CPU
+    copies of its pod-stacked gradients and input residual (the residual
+    is updated in place) and of its outputs."""
+
+    def __init__(self, compress_mod):
+        self.mod, self.seen = compress_mod, None
+        self.real = compress_mod.cross_pod_sync
+
+    def __enter__(self):
+        def spy(grads, err, cfg):
+            from repro_torch.optim import sgd
+
+            cpu = sgd.tree_map(lambda _, x: x.to("cpu", copy=True), grads)
+            err_in = err.to("cpu", copy=True)
+            out, new_err = self.real(grads, err, cfg)
+            self.seen = (cpu, err_in, cfg, sgd.tree_map(
+                lambda _, x: x.to("cpu", copy=True), out),
+                new_err.to("cpu", copy=True))
+            return out, new_err
+
+        self.mod.cross_pod_sync = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.cross_pod_sync = self.real
+
+
+def phase_train_sync_small(dev, seed):
+    """SMOKE compressed training, P = 2: three steps on the card and on
+    the CPU; each step's card sync against the CPU sync of the same
+    pod-stacked gradients, bitwise."""
+    from repro_torch.configs import qwen3_8b as C
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.data.synthetic import lm_stream
+    from repro_torch.models import transformer_lm as T
+    from repro_torch.optim import compress as CS
+    from repro_torch.optim import sgd
+    from repro_torch.train import step as ST
+
+    cfg, sp = C.SMOKE, SparsityConfig(n=2, m=8, method="bdwp")
+    opt = sgd.SGDConfig(lr=0.1, warmup_steps=2, total_steps=50)
+    params = T.init(cfg, seed=seed, device="cpu")
+    states = {d: ST.train_state_from_params(
+        sgd.tree_map(lambda _, t: t.to(d, copy=True), params), sp,
+        compress=True, n_pods=SYNC_PODS) for d in ("cpu", dev)}
+    streams = {d: lm_stream(cfg.vocab, 4, 16, device=d, seed=seed)
+               for d in states}
+    worst = 0.0
+    for step in range(3):
+        loss = {}
+        for d in states:
+            _, batch = next(streams[d])
+            with SyncSpy(CS) as spy:
+                states[d], met = ST.lm_train_step(
+                    states[d], batch, cfg=cfg, sp_cfg=sp, opt_cfg=opt,
+                    compress=True, n_pods=SYNC_PODS)
+            loss[d] = float(met["loss"])
+            if d == dev:
+                grads, err_in, gc, out, new_err = spy.seen
+                want, want_err = CS.cross_pod_sync(grads, err_in, gc)
+                check(bits_equal(new_err, want_err),
+                      f"small sync: step {step} card residual != CPU's")
+                for a, b in zip(sgd.tree_leaves(out), sgd.tree_leaves(want)):
+                    check(bits_equal(a, b), f"small sync: step {step} card "
+                          "mean gradient != CPU's")
+        diff = abs(loss["cpu"] - loss[dev])
+        worst = max(worst, diff)
+        print(f"  step {step}: loss card {loss[dev]:.6f} cpu "
+              f"{loss['cpu']:.6f} |d| {diff:.3e} (tol "
+              f"{SMALL_LOSS_ATOL[step]}); card sync == CPU sync of the "
+              "card's gradients, bitwise")
+        check(math.isfinite(loss[dev]), "small sync: non-finite loss")
+        check(diff <= SMALL_LOSS_ATOL[step],
+              f"small sync: step {step} losses disagree")
+    return worst
+
+
+def phase_train_sync(dev, seed):
+    """qwen3-8b TRAIN_SYNC: compressed sync of 2 pods, 2:8 bdwp packed."""
+    import functools
+
+    from repro_torch.configs import qwen3_8b as C
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.data.synthetic import lm_stream
+    from repro_torch.kernels import fused_update as KF
+    from repro_torch.kernels import grad_compress as KG
+    from repro_torch.kernels import nm_spmm as KS
+    from repro_torch.kernels import ref
+    from repro_torch.optim import compress as CS
+    from repro_torch.optim import sgd
+    from repro_torch.train import step as ST
+
+    cfg, sp = C.TRAIN_SYNC, SparsityConfig(n=2, m=8, method="bdwp")
+    opt = sgd.SGDConfig(lr=0.004, warmup_steps=2, total_steps=100)
+    gc = CS.GradCompressConfig.from_sparsity(sp)
+    _, shapes = _sync_shapes(cfg)
+    plan = CS.plan_sync(shapes, gc.bucket_elems, gc.m)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = ST.init_train_state(cfg, sp, seed=seed, device=dev,
+                                compress=True, n_pods=SYNC_PODS)
+    torch.cuda.synchronize()
+    print(f"  init {cfg.n_layers} layers + pre-generation + residual "
+          f"{tuple(state['err'].shape)}: {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    step_fn = functools.partial(ST.lm_train_step, cfg=cfg, sp_cfg=sp,
+                                opt_cfg=opt, compress=True, n_pods=SYNC_PODS)
+    data = lm_stream(cfg.vocab, *SYNC_ROWS, device=dev, seed=seed)
+    want = {"nm_spmm": 2 * 7 * cfg.n_layers * SYNC_PODS,
+            "fused_update": 7 * cfg.n_layers,
+            "grad_compress": plan.n_buckets,
+            "grad_decompress_mean": plan.n_buckets}
+    tokens = SYNC_ROWS[0] * SYNC_ROWS[1]
+
+    def counts():
+        return {"nm_spmm": KS.launches, "fused_update": KF.launches,
+                **KG.launches}
+
+    KS.launches = KF.launches = 0
+    KG.launches.update(dict.fromkeys(KG.launches, 0))
+    losses, times, per_step, spied = [], [], [], None
+    for i in range(5):
+        _, batch = next(data)
+        c0 = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 1:   # keep layer 0's w_gate gradient and residual
+            spied = _spy_leaf(CS, state, plan)
+            state, met = step_fn(state, batch)
+            CS.cross_pod_sync = spied["real"]
+        else:
+            state, met = step_fn(state, batch)
+        loss = float(met["loss"])
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss)
+        got = {k: v - c0[k] for k, v in counts().items()}
+        per_step.append(got)
+        print(f"  step {i}: loss {loss:.6f} lr {float(met['lr']):.4g} "
+              f"{times[-1]:.1f} ms ({tokens / times[-1] * 1e3:.0f} tok/s); "
+              f"launches {got}")
+        check(math.isfinite(loss), "train sync: non-finite loss")
+        check(got == want, f"train sync: launch counts {got} != {want}")
+    launches = counts()
+    # the EF identity on layer 0's w_gate, from step 1's sync
+    g, e_in, e_out = spied["g"], spied["err_in"], spied["err_out"]
+    vals, idx, e_new = KG.grad_compress(g, e_in.clone(), 2, 8)
+    decoded = ref.decompress_nm(vals.float(), idx, 2, 8)
+    torch.cuda.synchronize()
+    check(bits_equal(e_new, e_out), "train sync: w_gate residual != a "
+          "fresh compress of its gradient")
+    check(bits_equal(decoded + e_new, g.float() + e_in),
+          "train sync: decode(payload) + err' != g + err on w_gate")
+    print(f"  layer 0 w_gate {tuple(g.shape)}: the step's residual == a "
+          "fresh grad_compress; decode(payload) + err' == g + err, bitwise")
+    del spied, g, e_in, e_out, vals, idx, e_new, decoded
+    _, batch = next(data)
+    state, met, prof = profile_train_step(step_fn, state, batch)
+    check(math.isfinite(float(met["loss"])), "train sync: non-finite loss")
+    peak = torch.cuda.max_memory_allocated()
+    steady = sorted(times[1:])
+    ms = steady[len(steady) // 2]
+    print(f"  {cfg.name} x{cfg.n_layers} layers, {SYNC_PODS} pods: median "
+          f"of steps 1-4 {ms:.1f} ms/step, {tokens / ms * 1e3:.0f} "
+          f"tokens/s; {plan.n_buckets} buckets a sync; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    del state
+    return {"losses": losses, "step_ms": times, "ms_per_step": ms,
+            "tokens_per_s": tokens / ms * 1e3, "launches": launches,
+            "launches_per_step": per_step, "buckets": plan.n_buckets,
+            "max_memory_allocated": peak, "profile": prof}
+
+
+def _spy_leaf(compress_mod, state, plan):
+    """Wrap cross_pod_sync for one call to keep layer 0's w_gate pod
+    gradients and its residual columns before and after the sync."""
+    from repro_torch.optim import sgd
+
+    real = compress_mod.cross_pod_sync
+    kept = {"real": real}
+
+    def spy(grads, err, cfg):
+        leaves = sgd.tree_leaves(grads)
+        target = grads["blocks"][0]["ffn"]["w_gate"]["w"]
+        i = next(j for j, x in enumerate(leaves) if x is target)
+        col, numel = plan.offsets[i], target[0].numel()
+        kept["g"] = target.reshape(target.shape[0], -1).clone()
+        kept["err_in"] = err[:, col:col + numel].clone()
+        out = real(grads, err, cfg)
+        kept["err_out"] = err[:, col:col + numel].clone()
+        return out
+
+    compress_mod.cross_pod_sync = spy
+    return kept
 
 
 def phase_small(dev, seed):
@@ -748,13 +1203,26 @@ def main(argv=None) -> int:
     print("[7] fused_update vs plain, and timing (cold L2)")
     upd_err, upd_rows = phase_update(dev, gen)
     print(f"[8] nm_spmm at training rows (B = {TRAIN_ROWS[0]} x "
-          f"{TRAIN_ROWS[1]}, u8)")
+          f"{TRAIN_ROWS[1]}, and one pod's rows of [14]), u8")
     spmm_err, spmm_rows = phase_spmm_train(dev, gen)
     print("[9] SMOKE-size training: card vs CPU")
     phase_train_small(dev, SEED)
     print("[10] train qwen3-8b TRAIN (full width, 8 layers), 2:8 bdwp, "
           "packed")
     train = phase_train(dev, SEED)
+    torch.cuda.empty_cache()
+    print("[11] grad_compress and grad_decompress_mean vs plain, and timing")
+    sync_err, sync_rows = phase_sync_kernels(dev, gen)
+    torch.cuda.empty_cache()
+    print("[12] cross_pod_sync alone at qwen3-8b TRAIN_SYNC leaf shapes, "
+          "P = 2")
+    sync_alone = phase_sync_alone(dev, SEED)
+    torch.cuda.empty_cache()
+    print("[13] SMOKE compressed training (P = 2): card vs CPU")
+    phase_train_sync_small(dev, SEED)
+    print("[14] train qwen3-8b TRAIN_SYNC (full width, 4 layers), 2 pods, "
+          "compressed sync, 2:8 bdwp, packed")
+    train_sync = phase_train_sync(dev, SEED)
 
     def summed(rs, at, launches, by_path, err):
         return {"launches": launches, "launches_by_path": by_path,
@@ -769,7 +1237,24 @@ def main(argv=None) -> int:
 
     decode = [r for r in rows if r["B"] == 4]
     spmm_paths = {"serve": serve["launches"],
-                  "train": train["launches"]["nm_spmm"]}
+                  "train": train["launches"]["nm_spmm"],
+                  "train_sync": train_sync["launches"]["nm_spmm"]}
+    upd_paths = {"train": train["launches"]["fused_update"],
+                 "train_sync": train_sync["launches"]["fused_update"]}
+    bucket = next(r for r in sync_rows
+                  if r["dtype"] == "bf16" and r["K"] == SYNC_BUCKET[1])
+
+    def sync_row(name, at):
+        r = bucket[name]
+        return dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/grad_compress.cu",
+            replaces="src/repro/kernels/grad_compress.py:"
+                     + ("61" if name == "grad_compress" else "117"),
+            launches=train_sync["launches"][name],
+            launches_by_path={"train_sync": train_sync["launches"][name]},
+            max_abs_err=sync_err, ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by="bytes", library_ms=None, at=at)
     kernels = [dict(
         name="nm_spmm", route="cuda",
         source="src/repro_torch/kernels/csrc/nm_spmm.cu",
@@ -785,15 +1270,19 @@ def main(argv=None) -> int:
              source="src/repro_torch/kernels/csrc/fused_update.cu",
              replaces="src/repro/kernels/fused_update.py:73",
              **summed(upd_rows, "one layer's update: the 7 projections, "
-                      "2:8, summed", train["launches"]["fused_update"],
-                      {"train": train["launches"]["fused_update"]},
-                      upd_err))]
+                      "2:8, summed", sum(upd_paths.values()), upd_paths,
+                      upd_err)),
+        sync_row("grad_compress", "one sync bucket: (2, 65536) bf16 "
+                 "gradient rows + fp32 residual, 2:8"),
+        sync_row("grad_decompress_mean", "one sync bucket: (2, 16384) "
+                 "packed payload rows -> 65536 bf16 means, 2:8")]
     if args.out:
         with open(args.out, "w") as fh:
             json.dump({"card": card, "kernels": kernels, "timing": rows,
                        "update_timing": upd_rows,
                        "spmm_train_timing": spmm_rows, "serve": serve,
-                       "train": train,
+                       "train": train, "sync_timing": sync_rows,
+                       "sync_alone": sync_alone, "train_sync": train_sync,
                        "seconds": time.perf_counter() - t_start}, fh,
                       indent=1, default=str)
     print(f"done in {time.perf_counter() - t_start:.1f} s")

@@ -16,5 +16,10 @@ Hopper kernel ``kernels/csrc/nm_spmm.cu``.  Slice 2 covers its BDWP
 training with pre-generated, SORE-packed FF operands:
 ``train.trainer.train_steps`` over ``train.step.lm_train_step``, whose
 forward runs ``nm_spmm`` and whose update (``optim.sgd.update``) runs
-the hand-written ``kernels/csrc/fused_update.cu``.
+the hand-written ``kernels/csrc/fused_update.cu``.  Slice 3 adds the
+compressed cross-pod gradient sync (``lm_train_step(compress=True)`` →
+``optim.compress.cross_pod_sync``, all pods on one card) on the
+hand-written ``kernels/csrc/grad_compress.cu``, and ``train.trainer.fit``
+with checkpoints (``train.checkpoint``) and fault tolerance
+(``train.fault``).
 """

@@ -2,7 +2,7 @@
 
 The port's own copy of ``src/repro/configs/qwen3_8b.py`` (``FULL`` and
 ``SMOKE``, same values; qk_norm, untied lm_head), built on the port's
-``LMConfig``, plus ``TRAIN``.  [hf:Qwen/Qwen3-8B]
+``LMConfig``, plus ``TRAIN`` and ``TRAIN_SYNC``.  [hf:Qwen/Qwen3-8B]
 """
 
 import dataclasses
@@ -30,3 +30,17 @@ SMOKE = LMConfig(
 # 36 x 192.9 M x 13.75 B + 1.246 G x 12 B = 95.5 + 15.0 = 110 GB; at 8
 # layers 21.2 + 15.0 = 36 GB plus activations.  Depth is the only cut.
 TRAIN = dataclasses.replace(FULL, n_layers=8)
+
+# FULL at every published width with the depth cut to 4 of 36 layers,
+# for BDWP training with the compressed cross-pod gradient sync of P = 2
+# pods on one card (the reference's production mesh has pod = 2).  The
+# error-feedback residual is one fp32 row per pod over every compressible
+# element, embed and lm_head included: 8 B per parameter at P = 2, and
+# each pod's bf16 gradient another 2 B.  At 8 layers (TRAIN, peak 54.85
+# GiB on an H100 80GB HBM3 at 700 W without the sync) the residual adds
+# 22.3 GB (2 x 2.79 G x 4 B) and the second pod's gradients 5.6 GB,
+# which does not fit 80 GB.  At 4 layers T = 4 x 192.9 M + 1.246 G =
+# 2.017 G compressible elements: master and momentum 16.1 GB, residual
+# 16.1 GB, two pods of gradients 8.1 GB, their mean 4.0 GB, the compute
+# tree about 5.4 GB.  Depth is the only cut.
+TRAIN_SYNC = dataclasses.replace(FULL, n_layers=4)

@@ -14,7 +14,15 @@ nor ``repro``:
     ``vals``, ``idx``, ``idx_bits`` and ``cfg`` attributes) becomes the
     port's ``PackedOp`` with the same (Kc, F) vals and u8 or u4 idx;
   * bfloat16 arrays (numpy's ``ml_dtypes`` bfloat16) are carried bit for
-    bit.
+    bit;
+  * the error-feedback residual ``err`` of a compressed train state,
+    (n_pods, width) in the reference's slab layout, becomes the port's
+    (``err_from_jax``; ``err_to_jax`` is the inverse).  The reference's
+    slab holds the compressible leaves in JAX's flatten order (dict keys
+    sorted at every level), a layer-stacked leaf as its L layers in a
+    row; the port's holds them in ``sgd.tree_leaves`` order of its
+    per-layer tree (``optim.compress``).  Both pad with zeros to whole
+    m-groups.
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ import torch
 from repro_torch.core.operand import PackedOp, PregenOp
 from repro_torch.core.sparsity import SparsityConfig
 from repro_torch.device import resolve_device
+from repro_torch.optim import compress as C
+from repro_torch.optim import sgd
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
@@ -100,11 +110,85 @@ def params_from_jax(tree, *, device=None):
 
 
 def train_state_from_jax(state, *, device=None):
-    """The reference's single-device train state (``master``,
-    ``momentum``, ``step`` and the pre-generated ``compute`` tree) as the
-    port's per-layer state."""
+    """The reference's train state (``master``, ``momentum``, ``step``,
+    the pre-generated ``compute`` tree and, when it has one, the EF
+    residual ``err``, whose m-groups are those of the compute tree's
+    sparsity config) as the port's per-layer state."""
     device = resolve_device(device)
     out = {k: params_from_jax(state[k], device=device)
            for k in ("master", "momentum", "compute")}
     out["step"] = int(np.asarray(state["step"]))
+    if "err" in state:
+        m = next(leaf.cfg.m for leaf in sgd.tree_leaves(out["compute"])
+                 if isinstance(leaf, PregenOp))
+        out["err"] = err_from_jax(state["err"], out["master"], m,
+                                  device=device)
     return out
+
+
+def _err_layout(master, m: int):
+    """[(reference column, port column, numel)] of every compressible
+    leaf (one layer's slice of a stacked leaf), in the reference's order;
+    and the padded width."""
+    port, col = {}, 0
+    layers = {}
+
+    def walk(node, path, layer):
+        nonlocal col
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,), layer)
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, path, i)
+        else:
+            numel = node.numel()
+            layers.setdefault(path, []).append((layer, numel))
+            if C.compressible_shape(tuple(node.shape), m):
+                port[(path, layer)] = col
+                col += numel
+
+    walk(master, (), None)
+    out, ref = [], 0
+    for path in sorted(layers):          # JAX's flatten order
+        entries = layers[path]
+        stacked = sum(numel for _, numel in entries)
+        stacked_ok = stacked > 0 and stacked % m == 0
+        if stacked_ok != all((path, layer) in port for layer, _ in entries):
+            raise ValueError(f"leaf {'/'.join(path)}: a layer-stacked size "
+                             f"{stacked} and its per-layer size disagree on "
+                             f"m={m} compressibility")
+        if not stacked_ok:
+            continue
+        for layer, numel in entries:     # the stacked leaf's layers in a row
+            out.append((ref, port[(path, layer)], numel))
+            ref += numel
+    return out, (col + m - 1) // m * m
+
+
+def _move_columns(src: np.ndarray, master, m: int, to_port: bool):
+    layout, width = _err_layout(master, m)
+    if src.ndim != 2 or src.shape[1] != width:
+        raise ValueError(f"EF residual {src.shape} is not (n_pods, {width})")
+    out, total = np.zeros_like(src), 0
+    for ref, col, numel in layout:
+        dst, at = (col, ref) if to_port else (ref, col)
+        out[:, dst:dst + numel] = src[:, at:at + numel]
+        total += numel
+    out[:, total:] = src[:, total:]      # the zero pad
+    return out
+
+
+def err_from_jax(err, master, m: int, *, device=None) -> torch.Tensor:
+    """The reference's (n_pods, width) residual in the port's column
+    layout for ``master`` (the port's per-layer master tree), bitwise."""
+    return tensor_from_numpy(
+        _move_columns(np.asarray(err), master, m, to_port=True),
+        resolve_device(device))
+
+
+def err_to_jax(err: torch.Tensor, master, m: int) -> np.ndarray:
+    """The inverse of ``err_from_jax``: the reference's slab layout, as a
+    numpy array."""
+    return _move_columns(err.detach().cpu().numpy(), master, m,
+                         to_port=False)

@@ -1,17 +1,22 @@
 """Plain PyTorch versions of the port's kernels.
 
 Counterpart of ``src/repro/kernels/ref.py`` (``ref_nm_spmm``,
-``ref_fused_update``) and of the select-based decompress in
+``ref_fused_update``), of the jnp paths ``_jnp_grad_compress`` and
+``_jnp_grad_decompress_mean`` in ``src/repro/kernels/ops.py``, and of
+the select-based decompress in
 ``src/repro/kernels/nm_spmm_shared.py`` (``unpack_idx_nibbles``,
 ``decompress_nm``).  These define what the CUDA kernels must compute:
 the CPU path runs them, and ``chip_smoke.py`` holds the kernels against
 them on the card.  ``decompress_nm`` and ``ref_fused_update`` are bitwise
-equal to the reference's; ``ref_nm_spmm`` is an fp32 matmul of the same
+equal to the reference's, and so are ``ref_grad_compress`` and
+``ref_grad_decompress_mean``; ``ref_nm_spmm`` is an fp32 matmul of the same
 exact bf16 products, so it differs from the reference only in
 summation order.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -89,3 +94,50 @@ def ref_fused_update(w: torch.Tensor, g: torch.Tensor, v: torch.Tensor, *,
     new_w = w - lr * new_v
     vals, idx = S.nm_pack(new_w, n, m, axis=axis)
     return new_w, new_v, vals.to(torch.bfloat16), idx
+
+
+@functools.lru_cache(maxsize=None)
+def inv_pods(p: int) -> float:
+    """float32(1/P), the factor the pod mean multiplies by (the compiled
+    reference's ``.mean(axis=0)`` rounds this way, not as ``sum / P``)."""
+    return (torch.tensor(1.0, dtype=torch.float32) / p).item()
+
+
+def ref_grad_compress(g: torch.Tensor, err: torch.Tensor, n: int, m: int):
+    """Error-feedback N:M compress along the last axis.
+
+    t = f32(g) + err; the n largest |t| of each m-group survive (n
+    rounds of first-maximum argmax), in ascending offset; vals = bf16(t)
+    there; err' = t - f32(bf16(t)) at a survivor and t elsewhere, so
+    decode(vals, idx) + err' == t.  Returns (vals bf16, idx uint8, each
+    (..., K*n/m); err' fp32 (..., K)).  Bitwise the reference's
+    ``ops.grad_compress`` (``_jnp_grad_compress``).
+    """
+    t = g.to(torch.float32) + err.to(torch.float32)
+    k = t.shape[-1]
+    if k % m:
+        raise ValueError(f"last axis {k} not divisible by m={m}")
+    gg = t.reshape(*t.shape[:-1], k // m, m)
+    idx = S._topn_offsets(gg, n)
+    vals = torch.gather(gg, -1, idx)
+    survivor = torch.zeros(gg.shape, dtype=torch.bool, device=t.device)
+    survivor.scatter_(-1, idx, True)
+    rounded = gg.to(torch.bfloat16).to(torch.float32)
+    new_err = torch.where(survivor, gg - rounded, gg).reshape(t.shape)
+    kc = k // m * n
+    return (vals.to(torch.bfloat16).reshape(*t.shape[:-1], kc),
+            idx.to(torch.uint8).reshape(*t.shape[:-1], kc), new_err)
+
+
+def ref_grad_decompress_mean(vals: torch.Tensor, idx: torch.Tensor, n: int,
+                             m: int) -> torch.Tensor:
+    """Pod mean of P packed payloads: vals bf16 / idx uint8 (P, Kc) ->
+    (Kc*m/n,) fp32.  Each row is decoded (``decompress_nm``), the rows
+    are summed in order p = 0..P-1 from +0, and the sum is multiplied
+    by float32(1/P).  Bitwise the reference's ``ops.grad_decompress_mean``."""
+    p = vals.shape[0]
+    dense = decompress_nm(vals.to(torch.float32), idx, n, m, axis=-1)
+    acc = torch.zeros_like(dense[0])
+    for r in range(p):
+        acc = acc + dense[r]
+    return acc * inv_pods(p)

@@ -46,14 +46,30 @@ def pack_tree_element(params, cfg: SparsityConfig,
                       idx_bits: Optional[int] = None, *, device=None):
     """Returns ``(packed_tree, stats)``: every eligible ``{"w": (K, F)}``
     leaf-dict becomes ``{"w": PackedOp(vals, idx, cfg, idx_bits)}``, every
-    leaf lies on ``device``, and stats counts the actual bytes."""
+    leaf lies on ``device``, and stats counts the actual bytes and, as
+    the reference counts a layer-stacked leaf once, each packed or dense
+    weight name once however many layers hold it."""
+    packed, stats, _ = _pack(params, cfg, idx_bits, device)
+    return packed, stats
+
+
+def _pack(params, cfg, idx_bits, device, names=None):
+    """``pack_tree_element`` that also returns the weight names counted
+    in ``n_packed``/``n_dense`` (``names``: those counted already, by
+    earlier calls on other layers of the same model)."""
     device = resolve_device(device)
+    names = {"n_packed": set(), "n_dense": set()} if names is None else names
     if idx_bits is None:
         idx_bits = default_idx_bits(cfg)
     if idx_bits not in (4, 8):
         raise ValueError(f"idx_bits must be 4 or 8, got {idx_bits}")
     stats = dict.fromkeys(_COUNTS, 0)
     stats["idx_bits"] = idx_bits
+
+    def count(key, name):
+        if name not in names[key]:
+            names[key].add(name)
+            stats[key] += 1
     acct_bits = 4 if cfg.m <= 16 else 8
 
     def pack_ok(name, w) -> bool:
@@ -69,13 +85,13 @@ def pack_tree_element(params, cfg: SparsityConfig,
             w = node["w"].to(device)
             if not pack_ok("/".join(path), w):
                 out = {k: v.to(device) for k, v in node.items()}
-                stats["n_dense"] += 1
+                count("n_dense", "/".join(path))
                 stats["other_bytes"] += sum(map(_leaf_bytes, out.values()))
                 return out
             vals, idx = nm_pack(w, cfg.n, cfg.m, axis=w.ndim - 2)
             if idx_bits == 4:
                 idx = pack_idx_u4(idx, axis=w.ndim - 2)
-            stats["n_packed"] += 1
+            count("n_packed", "/".join(path))
             stats["dense_bytes"] += _leaf_bytes(w)
             stats["packed_bytes"] += _leaf_bytes(vals) + _leaf_bytes(idx)
             stats["packed_bytes_4bit"] += (
@@ -89,7 +105,7 @@ def pack_tree_element(params, cfg: SparsityConfig,
         stats["other_bytes"] += _leaf_bytes(node)
         return node
 
-    return walk(params, ()), stats
+    return walk(params, ()), stats, names
 
 
 @dataclasses.dataclass
@@ -126,12 +142,11 @@ class PackedParamStore:
         """Same store as ``pack({**shell, "blocks": list(blocks)})``, but
         ``blocks`` is consumed one layer at a time: each dense block is
         packed and dropped before the next is drawn."""
-        params, st = pack_tree_element(shell, sp_cfg, idx_bits,
-                                       device=device)
+        params, st, names = _pack(shell, sp_cfg, idx_bits, device)
         params["blocks"] = []
         for block in blocks:
-            packed, bst = pack_tree_element({"blocks": block}, sp_cfg,
-                                            idx_bits, device=device)
+            packed, bst, names = _pack({"blocks": block}, sp_cfg, idx_bits,
+                                       device, names)
             params["blocks"].append(packed["blocks"])
             for k in _COUNTS:
                 st[k] += bst[k]

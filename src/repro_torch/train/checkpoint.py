@@ -1,0 +1,174 @@
+"""Checkpoints of the port's train state: async, atomic, kept N deep.
+
+Counterpart of ``src/repro/train/checkpoint.py`` (``CheckpointManager``)
+with the same directory layout: ``step_XXXXXXXX/`` holds one file per
+leaf and ``manifest.json`` (step, shapes, dtypes); a save writes
+``step_XXXXXXXX.tmp`` and ``os.replace``s it into place, so a torn
+write is never mistaken for a checkpoint; saves run on a background
+thread (one in flight at a time, ``wait()`` joins it); only the newest
+``keep`` checkpoints stay.
+
+What differs: the files are the port's own (``torch.save`` of each
+tensor leaf, dtype kept, bfloat16 included), not ``.npy``; the state is
+the port's tree of dicts, per-layer lists, ``PregenOp`` leaves (their
+``bp``, ``ff``, ``vals``, ``idx`` and ``mask`` tensors, absent ones as
+None) and Python ints (``step``); the snapshot is a copy on the host,
+because the port's update changes master, momentum and the EF residual
+in place; ``restore`` loads onto a device, the card unless the caller
+names another, instead of resharding onto a mesh.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+import time
+from typing import Optional
+
+import torch
+
+from repro_torch.core.operand import PregenOp
+from repro_torch.device import resolve_device
+
+_PREGEN_FIELDS = ("bp", "ff", "vals", "idx", "mask")
+
+
+def _flatten(node, out: list):
+    """Leaves of a state tree, dict keys sorted: tensors, None, ints."""
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _flatten(node[k], out)
+    elif isinstance(node, list):
+        for v in node:
+            _flatten(v, out)
+    elif isinstance(node, PregenOp):
+        out.extend(getattr(node, f) for f in _PREGEN_FIELDS)
+    else:
+        out.append(node)
+    return out
+
+
+def _unflatten(like, it):
+    if isinstance(like, dict):
+        out = {k: _unflatten(like[k], it) for k in sorted(like)}
+        return {k: out[k] for k in like}
+    if isinstance(like, list):
+        return [_unflatten(v, it) for v in like]
+    if isinstance(like, PregenOp):
+        fields = {f: next(it) for f in _PREGEN_FIELDS}
+        return PregenOp(**fields, cfg=like.cfg, idx_bits=like.idx_bits)
+    return next(it)
+
+
+def _describe(leaf) -> dict:
+    if leaf is None:
+        return {"kind": "none"}
+    if isinstance(leaf, torch.Tensor):
+        return {"kind": "tensor", "shape": list(leaf.shape),
+                "dtype": str(leaf.dtype)}
+    if isinstance(leaf, int):
+        return {"kind": "int", "value": leaf}
+    raise TypeError(f"cannot checkpoint a leaf of type {type(leaf)}")
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, keep: int = 3):
+        self.dir = directory
+        self.keep = keep
+        os.makedirs(directory, exist_ok=True)
+        self._thread: Optional[threading.Thread] = None
+
+    # -- save ---------------------------------------------------------------
+
+    def save(self, step: int, state, blocking: bool = False):
+        """Copy the state to host memory now, write it on a thread."""
+        host = [x.detach().to("cpu", copy=True)
+                if isinstance(x, torch.Tensor) else x
+                for x in _flatten(state, [])]
+        if self._thread is not None:
+            self._thread.join()   # one in-flight save at a time
+
+        def write():
+            tmp = os.path.join(self.dir, f"step_{step:08d}.tmp")
+            final = os.path.join(self.dir, f"step_{step:08d}")
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
+            manifest = {"step": step, "n_leaves": len(host),
+                        "leaves": [_describe(a) for a in host],
+                        "time": time.time()}
+            for i, a in enumerate(host):
+                if isinstance(a, torch.Tensor):
+                    torch.save(a, os.path.join(tmp, f"leaf_{i:05d}.pt"))
+            with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                json.dump(manifest, f)
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.replace(tmp, final)   # atomic commit
+            self._gc()
+
+        self._thread = threading.Thread(target=write, daemon=True)
+        self._thread.start()
+        if blocking:
+            self._thread.join()
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+
+    def _gc(self):
+        steps = self.all_steps()
+        for s in steps[: -self.keep] if self.keep else []:
+            shutil.rmtree(os.path.join(self.dir, f"step_{s:08d}"),
+                          ignore_errors=True)
+
+    # -- restore ------------------------------------------------------------
+
+    def all_steps(self):
+        out = []
+        for name in os.listdir(self.dir):
+            if name.startswith("step_") and not name.endswith(".tmp"):
+                try:
+                    out.append(int(name[5:]))
+                except ValueError:
+                    pass
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, like_state, step: Optional[int] = None, device=None):
+        """Restore into the structure of ``like_state``, every tensor on
+        ``device`` (the card unless another is named), with the dtype it
+        was saved with.  Raises on a structure, shape or dtype mismatch."""
+        device = resolve_device(device)
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        path = os.path.join(self.dir, f"step_{step:08d}")
+        with open(os.path.join(path, "manifest.json")) as f:
+            manifest = json.load(f)
+        like = _flatten(like_state, [])
+        if manifest["n_leaves"] != len(like):
+            raise ValueError(
+                f"checkpoint has {manifest['n_leaves']} leaves, state has "
+                f"{len(like)}: structure mismatch")
+        loaded = []
+        for i, (desc, ref) in enumerate(zip(manifest["leaves"], like)):
+            want = _describe(ref)
+            if desc["kind"] != want["kind"] or (desc["kind"] == "tensor"
+                                                and desc != want):
+                raise ValueError(f"leaf {i}: checkpoint {desc} != state "
+                                 f"{want}")
+            if desc["kind"] == "tensor":
+                loaded.append(torch.load(
+                    os.path.join(path, f"leaf_{i:05d}.pt"),
+                    map_location=device, weights_only=True))
+            elif desc["kind"] == "int":
+                loaded.append(desc["value"])
+            else:
+                loaded.append(None)
+        return _unflatten(like_state, iter(loaded))

@@ -1,20 +1,29 @@
 """Train and serve steps of the LM.
 
-Counterpart of ``src/repro/train/step.py``: the single-device
-pre-generating training step (``lm_train_step`` with ``pregen=True``,
-``init_train_state``, ``state_core``) and the serving steps
-(``lm_prefill_step`` with ``last_index``, ``lm_decode_step`` with
-``per_slot=True``).
+Counterpart of ``src/repro/train/step.py``: the pre-generating training
+step (``lm_train_step`` with ``pregen=True``, with or without the
+compressed cross-pod gradient sync), ``init_train_state``,
+``state_core``, and the serving steps (``lm_prefill_step`` with
+``last_index``, ``lm_decode_step`` with ``per_slot=True``).
 
-What differs: no mesh, activation sharding, compressed gradient sync
-or modality prefix; no step builder (``functools.partial`` of
-``lm_train_step`` is the step function); decode is per-slot only
-(``pos`` is a (B,) vector of per-request positions); the legacy
-``pregen=False`` dataflow is not ported.  Gradients are taken with
-``torch.autograd.grad`` on the compute tree's float leaves, so nothing
-accumulates in ``.grad`` between steps.  The step's three parts are
-profiler ranges ``train/forward``, ``train/backward`` (which includes the
-blocks' recompute) and ``train/update``.
+With ``compress=True`` the step is the reference's pod-split step with
+every pod on this device: the batch is cut into ``n_pods`` contiguous
+row blocks (``_pod_split_batch``), each pod takes its loss and
+gradients on its block through the unchanged compute tree (the
+reference vmaps ``value_and_grad`` over a pod-stacked copy), the pod
+gradients are stacked (P, *shape), and ``optim.compress.cross_pod_sync``
+gives their mean through packed N:M payloads and updates the error
+feedback residual ``state["err"]`` before ``sgd.update``.
+
+What differs: no mesh, activation sharding or modality prefix; no step
+builder (``functools.partial`` of ``lm_train_step`` is the step
+function); decode is per-slot only (``pos`` is a (B,) vector of
+per-request positions); the legacy ``pregen=False`` dataflow is not
+ported.  Gradients are taken with ``torch.autograd.grad`` on the
+compute tree's float leaves, so nothing accumulates in ``.grad``
+between steps.  The step's parts are profiler ranges ``train/forward``,
+``train/backward`` (which includes the blocks' recompute),
+``train/sync`` (compressed steps only) and ``train/update``.
 """
 
 from __future__ import annotations
@@ -23,23 +32,31 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.models import transformer_lm as T
+from repro_torch.optim import compress as C
 from repro_torch.optim import sgd
 
 
 def init_train_state(cfg, sp_cfg, *, seed: int = 0, device=None,
-                     pregen_pack: bool = True):
+                     pregen_pack: bool = True, compress: bool = False,
+                     n_pods: int = 1):
     """Random fp32 params from ``seed`` on ``device`` (the card unless
     another is named), the optimizer state, and the pre-generated
     compute tree of their masks (``sp_cfg``; packed with
-    ``pregen_pack``)."""
+    ``pregen_pack``).  ``compress`` adds the zero error-feedback
+    residual ``err`` of ``n_pods`` pods, (n_pods, err_state_elems)
+    fp32."""
     params = T.init(cfg, seed=seed, device=device, dtype=torch.float32)
-    return train_state_from_params(params, sp_cfg, pregen_pack=pregen_pack)
+    return train_state_from_params(params, sp_cfg, pregen_pack=pregen_pack,
+                                   compress=compress, n_pods=n_pods)
 
 
-def train_state_from_params(params, sp_cfg, *, pregen_pack: bool = True):
+def train_state_from_params(params, sp_cfg, *, pregen_pack: bool = True,
+                            compress: bool = False, n_pods: int = 1):
     """The train state of ``params``, on their device; fp32 params are
     taken over as the master."""
     state = sgd.init_state(params)
+    if compress:
+        state["err"] = C.init_err(state["master"], n_pods, sp_cfg.m)
     state["compute"] = sgd.pregen_tree(state["master"], sp_cfg,
                                        pack=pregen_pack)
     return state
@@ -50,32 +67,67 @@ def state_core(state):
 
 
 def lm_train_step(state, batch, *, cfg, sp_cfg, opt_cfg,
-                  pregen_pack: bool = True):
+                  pregen_pack: bool = True, compress: bool = False,
+                  n_pods: int = 1):
     """One BDWP training step on ``state["compute"]``: FF on the
     pre-generated (packed) operands, BP on ``bp``, the dense WU gradient
     on ``bp``'s gradient, then ``sgd.update``, which writes the next
-    compute tree.  Returns (new_state, {"loss", "lr"}); consumes
-    ``state`` (see ``sgd.update``)."""
+    compute tree.  With ``compress`` the gradient is the compressed pod
+    mean of ``n_pods`` pods (``sp_cfg``'s n:m, the reference's buckets)
+    and the loss the mean of the pod losses.  Returns (new_state,
+    {"loss", "lr"}); consumes ``state`` (see ``sgd.update``,
+    ``cross_pod_sync``).
+    """
     compute = state["compute"]
     roots = sgd.diff_leaves(compute)
+    pods = n_pods if compress else 1
+    rows = batch["tokens"].shape[0]
+    if rows % pods:
+        raise ValueError(f"global batch {rows} not divisible by "
+                         f"n_pods={pods}")
+    per = rows // pods
+    losses, stacked = [], None
     for r in roots:
         r.requires_grad_(True)
     try:
-        with record_function("train/forward"):
-            hidden, _ = T.forward(compute, batch["tokens"], cfg, sp_cfg)
-            loss = T.lm_loss(compute, hidden, batch["labels"], cfg)
-        with record_function("train/backward"):
-            grads = torch.autograd.grad(loss, roots, allow_unused=True,
-                                        materialize_grads=True)
+        for p in range(pods):
+            rows_p = slice(p * per, (p + 1) * per)
+            with record_function("train/forward"):
+                hidden, _ = T.forward(compute, batch["tokens"][rows_p], cfg,
+                                      sp_cfg)
+                loss = T.lm_loss(compute, hidden, batch["labels"][rows_p],
+                                 cfg)
+            with record_function("train/backward"):
+                grads = torch.autograd.grad(loss, roots, allow_unused=True,
+                                            materialize_grads=True)
+            del hidden
+            losses.append(loss.detach())
+            if compress:   # pod p's row of the pod-stacked gradients
+                if stacked is None:
+                    stacked = [g.new_empty((pods, *g.shape)) for g in grads]
+                for s, g in zip(stacked, grads):
+                    s[p].copy_(g)
+                del grads
     finally:
         for r in roots:
             r.requires_grad_(False)
-    del hidden
+    new_err = None
+    if compress:
+        with torch.no_grad(), record_function("train/sync"):
+            gc_cfg = C.GradCompressConfig.from_sparsity(sp_cfg)
+            grads, new_err = C.cross_pod_sync(
+                sgd.pregen_grads(compute, stacked), state["err"], gc_cfg)
+            del stacked
+        loss = torch.stack(losses).mean()
+    else:
+        grads = sgd.pregen_grads(compute, grads)
     with torch.no_grad(), record_function("train/update"):
         new_state, new_compute = sgd.update(
-            state_core(state), sgd.pregen_grads(compute, grads), opt_cfg,
-            sp_cfg, prev_compute=compute, pack=pregen_pack)
+            state_core(state), grads, opt_cfg, sp_cfg, prev_compute=compute,
+            pack=pregen_pack)
     new_state["compute"] = new_compute
+    if new_err is not None:
+        new_state["err"] = new_err
     metrics = {"loss": loss.detach(),
                "lr": sgd.lr_schedule(opt_cfg, state["step"])}
     return new_state, metrics

@@ -4,10 +4,12 @@
   ``chip_smoke.py`` finds no import of ``jax``, ``jaxlib`` or the
   reference package ``repro``.
 * The entry points (``ServeEngine``, ``init``, ``pack_tree_element``,
-  ``params_from_jax``, ``init_train_state`` (and so the state that
-  ``lm_train_step`` takes), ``train_state_from_jax``, ``lm_stream``) run
-  on the card unless the caller names a device; with no card they raise
-  instead of falling back to the CPU.
+  ``params_from_jax``, ``init_train_state`` with and without the
+  compressed sync's residual (and so the state that ``lm_train_step``
+  and ``cross_pod_sync`` take), ``train_state_from_jax``,
+  ``err_from_jax``, ``lm_stream``, ``CheckpointManager.restore`` and
+  ``recover_or_init``) run on the card unless the caller names a device;
+  with no card they raise instead of falling back to the CPU.
 """
 
 import ast
@@ -23,7 +25,9 @@ from repro_torch.data.synthetic import lm_stream
 from repro_torch.models import transformer_lm as T
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 from repro_torch.serve.packed_params import pack_tree_element
+from repro_torch.train import fault as TF
 from repro_torch.train import step as ST
+from repro_torch.train.checkpoint import CheckpointManager
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -52,10 +56,11 @@ def test_no_jax_or_reference_import(path):
 def test_scan_sees_the_package():
     names = {p.name for p in _sources()}
     assert {"nm_spmm.py", "engine.py", "chip_smoke.py", "fused_update.py",
-            "sgd.py", "trainer.py", "synthetic.py"} <= names
+            "sgd.py", "trainer.py", "synthetic.py", "grad_compress.py",
+            "compress.py", "checkpoint.py", "fault.py"} <= names
 
 
-def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     params = T.init(TC.SMOKE, seed=0, device="cpu", dtype=torch.bfloat16)
     sp = SparsityConfig(n=2, m=8)
@@ -70,7 +75,22 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ST.init_train_state(TC.SMOKE, sp)
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        ST.init_train_state(TC.SMOKE, sp, compress=True, n_pods=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         convert.train_state_from_jax({})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.err_from_jax(torch.zeros(2, 8).numpy(), {"w": params[
+            "final_norm"]["norm_scale"][:8]}, 8)
+    state = ST.train_state_from_params(
+        T.init(TC.SMOKE, seed=0, device="cpu"), sp, compress=True, n_pods=2)
+    assert state["err"].device.type == "cpu"
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(0, state, blocking=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mgr.restore(state)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TF.recover_or_init(mgr, lambda: state)
+    assert mgr.restore(state, device="cpu")["err"].device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lm_stream(TC.SMOKE.vocab, 2, 8)
     assert next(lm_stream(TC.SMOKE.vocab, 2, 8, device="cpu"))[1][

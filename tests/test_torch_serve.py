@@ -148,10 +148,8 @@ def test_engine_matches_reference_engine(jparams, tparams, mode):
     assert [len(s) for s in got] == list(NEW)
     assert K.launches == launches        # the CPU path launches no kernel
     if tcfg.packed:
-        got, want = teng.hbm_report(), jeng.hbm_report()
-        # the reference counts a layer-stacked leaf once, the port each layer
-        assert got.pop("n_packed") == want.pop("n_packed") * T_CFG.n_layers
-        assert got == want
+        # both count a weight name once, however many layers hold it
+        assert teng.hbm_report() == jeng.hbm_report()
     else:
         assert teng.hbm_report() is None
 
