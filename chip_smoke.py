@@ -29,8 +29,9 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 max_len=96, packed=True) on six requests that join
                 mid-flight; every batched stream must equal its solo
                 stream and the nm_spmm launch count must be
-                7 x 36 x (prefills + decode steps); then five decode
-                steps under torch.profiler give the device's busy time
+                7 x 36 x (prefills + decode steps), the pack's nm_compact
+                launches 7 x 36 (pack time without the draws); then five
+                decode steps under torch.profiler give the device's busy time
                 and idle share per step and the top kernels and host ops;
   7. update     the fused_update kernel against its plain version at the
                 qwen3-8b projection shapes as the optimizer feeds them
@@ -85,7 +86,32 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 grad_decompress_mean launch per bucket of the plan per
                 step; on one step the EF identity on layer 0's w_gate;
                 a sixth step under torch.profiler (forward / backward /
-                sync / update), peak memory.
+                sync / update), peak memory;
+ 15. compact / shared  nm_compact against its plain version, bitwise: the
+                seven weights as the element pack reads them (strided
+                (K, F) bf16, groups along K, u4 and u8), fp32 score rows
+                (1, K) and (nf, K), odd Kc with u4, K = m, 2:4, 1:8, 3:8,
+                4:16, heavy ties with -0; nm_spmm_shared against
+                its plain version within the phase-3 tolerance, rows
+                bitwise independent of the batch: the seven shapes at
+                B = 4 and at prefill rows (4 x 32) as one tile (TF = F),
+                pack_shared's TF = 128, ragged B / Kc / TF and dtypes;
+                device times (CUDA graph replay, cold L2) per layer
+                against the byte bound, the plain version and (for
+                nm_spmm_shared) torch.matmul on the dense bf16 weight;
+ 16. small shared qwen3-8b SMOKE, 2:8 shared granularity: pack_tree_shared
+                on the card and on the CPU bitwise equal; prefill + 8
+                greedy decode steps, logits within SMALL_ATOL;
+ 17. shared serve  qwen3-8b FULL (36 layers, nothing cut), bf16 weights
+                from a seed packed layer by layer by pack_tree_shared on
+                the card (exactly 7 x 36 nm_compact launches; layer 0
+                bitwise the plain pack); 4 prompts of 5-32 tokens
+                right-padded to 32 and prefilled with last_index, then
+                16 greedy lm_decode_steps with exactly 7 x 36 x 17
+                nm_spmm_shared launches; each prompt's tokens unchanged
+                when the batch's rows are permuted; prefill ms, decode
+                ms/step and tok/s, five decode steps under
+                torch.profiler.
 
 It prints a JSON line with every kernel's numbers, the card line, and as
 its last line {"ok": true, "device": {...}}.  With no card, or outside a
@@ -123,6 +149,10 @@ SEED = 0                        # weights, activations and prompts
 PROJ = [("q_proj", 4096, 4096), ("k_proj", 4096, 1024), ("v_proj", 4096, 1024),
         ("o_proj", 4096, 4096), ("w_gate", 4096, 12288),
         ("w_up", 4096, 12288), ("w_down", 12288, 4096)]
+# the seven projections of one block, as (sub-dict, name) in the tree
+PROJ_PATHS = (("attn", "q_proj"), ("attn", "k_proj"), ("attn", "v_proj"),
+              ("attn", "o_proj"), ("ffn", "w_gate"), ("ffn", "w_up"),
+              ("ffn", "w_down"))
 # ragged cases: (name, B, K, F, n, m, idx_bits)
 RAGGED = [("B=1", 1, 4096, 4096, 2, 8, 4), ("B=3", 3, 4096, 1024, 2, 8, 8),
           ("F=1000", 4, 512, 1000, 2, 8, 4), ("odd Kc u4", 5, 56, 20, 1, 8, 4),
@@ -573,9 +603,7 @@ def phase_train(dev, seed):
     peak = torch.cuda.max_memory_allocated()
     layer = state["compute"]["blocks"][0]
     master = state["master"]["blocks"][0]
-    for part, name in (("attn", "q_proj"), ("attn", "k_proj"),
-                       ("attn", "v_proj"), ("attn", "o_proj"),
-                       ("ffn", "w_gate"), ("ffn", "w_up"), ("ffn", "w_down")):
+    for part, name in PROJ_PATHS:
         op, w = layer[part][name]["w"], master[part][name]["w"]
         vals, idx = S.nm_pack(w, 2, 8, axis=0)
         check(torch.equal(op.vals.view(torch.int16),
@@ -1036,26 +1064,22 @@ def phase_small(dev, seed):
     check(worst <= SMALL_ATOL, "small: card and CPU logits disagree")
 
 
-def profile_decode(engine, prompts, steps: int = 5) -> dict:
-    """torch.profiler over ``steps`` engine decode steps with 4 running
-    requests: device-busy ms per step (sum of kernel self times; one
-    stream, so kernels do not overlap), host wall ms per step under the
-    profiler, and the top kernels."""
+def profile_steps(step, steps: int, kernel_keys) -> dict:
+    """torch.profiler over ``steps`` calls of ``step()``: device-busy ms per
+    step (sum of kernel self times; one stream, so kernels do not
+    overlap), the part of it in kernels whose name holds one of
+    ``kernel_keys``, host wall ms per step under the profiler, and the top
+    kernels and host ops."""
     from torch.profiler import ProfilerActivity, profile
 
-    engine.reset()
-    for p in prompts[:4]:
-        engine.submit(p, max_new_tokens=steps + 2)
-    engine.step()                 # admission: prefills + one decode
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            engine.step()
+            step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    engine.run()
     kernels, host = [], []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0)
@@ -1067,11 +1091,11 @@ def profile_decode(engine, prompts, steps: int = 5) -> dict:
     kernels.sort(reverse=True)
     host.sort(reverse=True)
     busy = sum(k[0] for k in kernels)
-    spmm = sum(k[0] for k in kernels if "nm_spmm" in k[2])
+    mine = sum(k[0] for k in kernels if any(s in k[2] for s in kernel_keys))
     wall_ms = 1e3 * wall / steps
     print(f"  profiled {steps} decode steps: wall {wall_ms:.2f} ms/step "
-          f"(profiler on), device busy {busy:.3f} ms/step, nm_spmm "
-          f"{spmm:.3f} ms/step, device idle share "
+          f"(profiler on), device busy {busy:.3f} ms/step, "
+          f"{'/'.join(kernel_keys)} {mine:.3f} ms/step, device idle share "
           f"{(1 - busy / wall_ms) if busy else float('nan'):.3f}")
     for ms, count, key in kernels[:8]:
         print(f"    {ms:8.4f} ms/step  x{count:<5d} {key[:90]}")
@@ -1080,15 +1104,43 @@ def profile_decode(engine, prompts, steps: int = 5) -> dict:
     for ms, count, key in host[:8]:
         print(f"    {ms:8.4f} ms/step  x{count:<5d} {key[:90]}")
     return {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy,
-            "nm_spmm_ms_per_step": spmm,
+            "kernel_ms_per_step": mine,
             "top_kernels": [list(k) for k in kernels[:12]],
             "top_host_ops": [list(h) for h in host[:12]]}
+
+
+def profile_decode(engine, prompts, steps: int = 5) -> dict:
+    """``profile_steps`` over ``steps`` engine decode steps with 4 running
+    requests."""
+    engine.reset()
+    for p in prompts[:4]:
+        engine.submit(p, max_new_tokens=steps + 2)
+    engine.step()                 # admission: prefills + one decode
+    prof = profile_steps(engine.step, steps, ("nm_spmm",))
+    engine.run()
+    return prof
+
+
+def timed_draws(blocks, clock: list):
+    """Yield ``blocks``, adding the wall time of drawing each (synchronized)
+    to ``clock[0]``."""
+    it = iter(blocks)
+    while True:
+        t0 = time.perf_counter()
+        try:
+            block = next(it)
+        except StopIteration:
+            return
+        torch.cuda.synchronize()
+        clock[0] += time.perf_counter() - t0
+        yield block
 
 
 def phase_serve(dev, seed):
     """qwen3-8b FULL, packed 2:8 u4, through the engine."""
     from repro_torch.configs import qwen3_8b as C
     from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.kernels import nm_compact as KC
     from repro_torch.kernels import nm_spmm as K
     from repro_torch.models import transformer_lm as T
     from repro_torch.serve.engine import ServeConfig, ServeEngine
@@ -1097,16 +1149,26 @@ def phase_serve(dev, seed):
 
     cfg, sp = C.FULL, SparsityConfig(n=2, m=8, method="bdwp")
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
     gen = T.generator(seed, dev)
+    t0 = time.perf_counter()
+    shell = T.init_shell(cfg, gen, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    shell_s, draws = time.perf_counter() - t0, [0.0]
+    KC.launches = 0
+    t0 = time.perf_counter()
     store = PackedParamStore.pack_layerwise(
-        T.init_shell(cfg, gen, device=dev, dtype=torch.bfloat16),
-        T.iter_blocks(cfg, gen, device=dev, dtype=torch.bfloat16),
+        shell, timed_draws(T.iter_blocks(cfg, gen, device=dev,
+                                         dtype=torch.bfloat16), draws),
         sp, idx_bits=4, device=dev)
     torch.cuda.synchronize()
-    print(f"  init + pack {cfg.n_layers} layers: "
-          f"{time.perf_counter() - t0:.1f} s, peak "
+    pack_s = time.perf_counter() - t0 - draws[0]
+    compact = KC.launches
+    del shell
+    print(f"  init {shell_s + draws[0]:.1f} s + pack {pack_s:.2f} s "
+          f"({cfg.n_layers} layers, nm_compact launches {compact}, want "
+          f"{7 * cfg.n_layers}), peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(compact == 7 * cfg.n_layers, "serve: nm_compact launch count")
     engine = ServeEngine(store, cfg, sp, ServeConfig(
         n_slots=4, prompt_bucket=32, max_len=96, packed=True), device=dev)
     rng = np.random.default_rng(seed)
@@ -1155,9 +1217,428 @@ def phase_serve(dev, seed):
     report = engine.hbm_report()
     print(f"  max_memory_allocated {peak / 2**30:.2f} GiB")
     print("  hbm_report " + json.dumps(report))
-    return {"launches": launches, "tok_per_s": st["decoded_tokens"] / wall,
+    return {"launches": launches, "compact_launches": compact,
+            "pack_s": pack_s, "tok_per_s": st["decoded_tokens"] / wall,
             "ms_per_step": 1e3 * wall / st["steps"], "wall_s": wall,
             "stats": st, "max_memory_allocated": peak, "hbm_report": report,
+            "profile": prof}
+
+# phase 15 nm_compact cases beyond the seven weights: (label, R, K, n, m,
+# idx_bits, dtype); the "ties" cases draw small integers, -0 included
+COMPACT_RAGGED = [
+    ("odd Kc u4 1:8 K=56", 5, 56, 1, 8, 4, "fp32"),
+    ("odd Kc u4 3:8 K=24", 9, 24, 3, 8, 4, "bf16"),
+    ("K=m", 3, 8, 2, 8, 4, "bf16"), ("2:4 K=64", 7, 64, 2, 4, 4, "fp32"),
+    ("1:8 K=4096 u4", 2, 4096, 1, 8, 4, "fp32"),
+    ("1:8 K=4096 u8", 3, 4096, 1, 8, 8, "bf16"),
+    ("4:16 K=512", 4, 512, 4, 16, 4, "bf16"),
+    ("2:4 K=100 u8", 3, 100, 2, 4, 8, "fp32")]
+COMPACT_TIES = [("ties 2:8 u4", 64, 512, 2, 8, 4, "bf16"),
+                ("ties 1:4 u8", 33, 64, 1, 4, 8, "fp32"),
+                ("ties 3:8 u4", 17, 96, 3, 8, 4, "fp32")]
+# phase 15 nm_spmm_shared ragged cases: (label, B, K, F, n, m, tile,
+# act dtype, vals dtype); tile None is one tile of TF = F (SharedOp)
+SHARED_RAGGED = [
+    ("B=1", 1, 4096, 4096, 2, 8, None, "bf16", "bf16"),
+    ("B=3", 3, 4096, 1024, 2, 8, None, "bf16", "bf16"),
+    ("B=37 F=384", 37, 1024, 384, 2, 8, None, "bf16", "bf16"),
+    ("odd Kc 1:8", 5, 56, 20, 1, 8, None, "bf16", "bf16"),
+    ("TF=1000", 4, 512, 1000, 2, 8, None, "bf16", "bf16"),
+    ("2:4 F=130", 2, 256, 130, 2, 4, None, "bf16", "bf16"),
+    ("4:16", 6, 512, 64, 4, 16, None, "bf16", "bf16"),
+    ("tile 10 (nf=13, TF=10)", 3, 64, 130, 2, 8, 10, "bf16", "bf16"),
+    ("fp32 act, fp32 vals", 4, 1024, 512, 2, 8, None, "fp32", "fp32"),
+    ("bf16 act, fp32 vals", 4, 1024, 512, 2, 8, 128, "bf16", "fp32"),
+    ("fp32 act, bf16 vals", 9, 1024, 256, 2, 8, None, "fp32", "bf16")]
+PREFILL_ROWS = (4, 32)          # phase 17's prompts x prompt bucket
+
+
+def compact_weight(w, n, m, idx_bits):
+    """nm_compact of a (K, F) weight along K as pack_tree_element runs it:
+    the kernel reads the (F, K) view and writes (Kc, F) vals and idx
+    through their transposed views."""
+    from repro_torch.kernels import nm_compact as K
+
+    k, f = w.shape
+    kc = k // m * n
+    vals = torch.empty((kc, f), dtype=w.dtype, device=w.device)
+    idx = torch.empty(((kc + 1) // 2 if idx_bits == 4 else kc, f),
+                      dtype=torch.uint8, device=w.device)
+    K.nm_compact(w.t(), n, m, idx_bits, out=(vals.t(), idx.t()))
+    return vals, idx
+
+
+def compact_bound_ms(r, k, n, m, idx_bits, itemsize):
+    """Bytes over 3.35 TB/s: x read once, vals and the idx plane written."""
+    kc = k // m * n
+    kci = (kc + 1) // 2 if idx_bits == 4 else kc
+    return r * (k * itemsize + kc * itemsize + kci) / HBM_BYTES_PER_S * 1e3
+
+
+def phase_compact(dev, gen):
+    """nm_compact vs plain, bitwise: the seven weights as the element pack
+    reads them (u4 and u8), score rows, ragged shapes and ties; then its
+    device times per layer (cold L2)."""
+    from repro_torch.kernels import nm_compact as K
+    from repro_torch.kernels import ref
+
+    for name, k, f in PROJ:
+        for bits in (4, 8):
+            w = torch.randn((k, f), generator=gen, device=dev).to(
+                torch.bfloat16)
+            vals, idx = compact_weight(w, 2, 8, bits)
+            want = ref.ref_nm_compact(w.t(), 2, 8, bits)
+            torch.cuda.synchronize()
+            check(bits_equal(vals, want[0].t()) and bits_equal(idx,
+                                                               want[1].t()),
+                  f"nm_compact {name} u{bits}: not bitwise equal")
+        print(f"  {name:7s} ({k}, {f}) bf16 along K, strided: vals and idx "
+              "bitwise equal, u4 and u8")
+    cases = [(f"score rows ({r}, {k})", r, k, 2, 8, 8, "fp32", False)
+             for r, k in ((1, 4096), (1, 12288), (32, 4096), (96, 4096),
+                          (32, 12288))]
+    cases += [(*c, False) for c in COMPACT_RAGGED]
+    cases += [(*c, True) for c in COMPACT_TIES]
+    for label, r, k, n, m, bits, dt, ties in cases:
+        if ties:
+            x = torch.randint(-2, 3, (r, k), generator=gen, device=dev).to(
+                DTYPES[dt])
+            x = torch.where(x == 0, torch.full_like(x, -0.0), x)
+        else:
+            x = torch.randn((r, k), generator=gen, device=dev).to(
+                DTYPES[dt])
+            if label.startswith("score"):
+                x = x.abs() * 64.0
+        got = K.nm_compact(x, n, m, bits)
+        want = ref.ref_nm_compact(x, n, m, bits)
+        torch.cuda.synchronize()
+        check(bits_equal(got[0], want[0]) and bits_equal(got[1], want[1]),
+              f"nm_compact {label}: not bitwise equal")
+        print(f"  {label:24s} {dt} u{bits}: vals and idx bitwise equal")
+    rows = []
+    for name, k, f in PROJ:
+        copies = max(2, -(-2 * L2_BYTES // (k * f * 2)))
+        ws = [torch.randn((k, f), generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(copies)]
+        t_k = time_ms(lambda i: compact_weight(ws[i], 2, 8, 4), copies)
+        t_p = time_ms(lambda i: ref.ref_nm_compact(ws[i].t(), 2, 8, 4),
+                      copies, iters=5)
+        t_b = compact_bound_ms(f, k, 2, 8, 4, 2)
+        rows.append({"proj": name, "K": k, "F": f, "ms": t_k,
+                     "plain_ms": t_p, "bound_ms": t_b, "bound_by": "bytes",
+                     "library_ms": None})
+        print(f"  pack {name:7s} {k:5d}x{f:<5d} bf16 u4: kernel={t_k:.4f} "
+              f"ms bound={t_b:.4f} ms (bytes) plain={t_p:.4f} ms "
+              f"kernel/bound={t_k / t_b:.2f}")
+        del ws
+    for k in (4096, 12288):
+        xs = [torch.rand((1, k), generator=gen, device=dev) for _ in range(2)]
+        t_k = time_ms(lambda i: K.nm_compact(xs[i], 2, 8), 2)
+        t_p = time_ms(lambda i: ref.ref_nm_compact(xs[i], 2, 8), 2, iters=5)
+        print(f"  score row (1, {k}) fp32 u8: kernel={1e3 * t_k:.2f} us "
+              f"bound={1e3 * compact_bound_ms(1, k, 2, 8, 8, 4):.3f} us "
+              f"plain={1e3 * t_p:.1f} us")
+    return 0.0, rows
+
+
+def shared_case(gen, b, k, f, n, m, tile, act_dt, vals_dt, dev):
+    """(act, vals (nf, Kc, TF), rows (nf, Kc)) from a random weight packed
+    as serving packs it (``shared_ff_pack``, one tile) or as
+    ``ops.pack_shared`` does (tiles of ``tile`` columns)."""
+    from repro_torch.core import bdwp
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.kernels import ops
+
+    w = torch.randn((k, f), generator=gen, device=dev).to(DTYPES[vals_dt])
+    if tile is None:
+        vals, rows = bdwp.shared_ff_pack(w, SparsityConfig(n=n, m=m))
+        vals, rows = vals[None], rows[None]
+    else:
+        vals, rows = ops.pack_shared(w, n, m, tile=tile)
+    act = torch.randn((b, k), generator=gen, device=dev).to(DTYPES[act_dt])
+    return act, vals.contiguous(), rows.contiguous()
+
+
+def shared_bound_ms(b, k, kc, f, nf=1):
+    moved = b * k * 2 + kc * f * 2 + nf * kc * 4 + b * f * 4
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, 2 * b * kc * f / BF16_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_shared(dev, gen):
+    """nm_spmm_shared vs plain within the phase-3 tolerance, rows bitwise
+    independent of the batch; then device times per layer (cold L2) at
+    decode (B = 4) and prefill rows (4 x 32), against the bound, the
+    plain version and torch.matmul on the dense bf16 weight."""
+    from repro_torch.kernels import nm_spmm_shared as K
+    from repro_torch.kernels import ref
+
+    b_pre = PREFILL_ROWS[0] * PREFILL_ROWS[1]
+    cases = [(f"{name} B={b} TF=F", b, k, f, 2, 8, None, "bf16", "bf16")
+             for name, k, f in PROJ for b in (4, b_pre)]
+    cases += [(f"{name} B=4 TF=128 (pack_shared)", 4, k, f, 2, 8, 128,
+               "bf16", "bf16") for name, k, f in PROJ]
+    cases += [(f"ragged {c[0]}", *c[1:]) for c in SHARED_RAGGED]
+    worst = 0.0
+    for label, b, k, f, n, m, tile, adt, vdt in cases:
+        act, vals, rows = shared_case(gen, b, k, f, n, m, tile, adt, vdt, dev)
+        out = K.nm_spmm_shared(act, vals, rows)
+        again = K.nm_spmm_shared(act, vals, rows)
+        row0 = K.nm_spmm_shared(act[:1].contiguous(), vals, rows)
+        plain = ref.ref_nm_spmm_shared(act, vals, rows)
+        scale = ref.ref_nm_spmm_shared(act.abs(), vals.abs(), rows)
+        torch.cuda.synchronize()
+        err = (out - plain).abs()
+        excess = float((err - TOL * scale).max())
+        abs_err = float(err.max())
+        worst = max(worst, abs_err)
+        print(f"  {label:34s} max_abs_err={abs_err:.3e} "
+              f"max_rel_err={float((err / scale.clamp_min(1e-30)).max()):.3e}"
+              f" (tol {TOL:g} x |act|@|W|)")
+        check(excess <= 0, f"nm_spmm_shared {label}: error above tolerance")
+        check(torch.equal(out, again),
+              f"nm_spmm_shared {label}: not deterministic")
+        check(torch.equal(out[:1], row0),
+              f"nm_spmm_shared {label}: row 0 depends on the batch")
+    rows_t = []
+    for b in (4, b_pre):
+        for name, k, f in PROJ:
+            kc = k // 4
+            copies = max(2, -(-2 * L2_BYTES // (kc * f * 2)))
+            sets = [shared_case(gen, b, k, f, 2, 8, None, "bf16", "bf16", dev)
+                    for _ in range(copies)]
+            act = sets[0][0]
+            dense = [torch.randn((k, f), generator=gen, device=dev).to(
+                torch.bfloat16) for _ in range(max(2, -(-2 * L2_BYTES
+                                                         // (k * f * 2))))]
+            t_k = time_ms(lambda i: K.nm_spmm_shared(act, *sets[i][1:]),
+                          copies)
+            t_p = time_ms(lambda i: ref.ref_nm_spmm_shared(act, *sets[i][1:]),
+                          copies, iters=10)
+            t_l = time_ms(lambda i: torch.matmul(act, dense[i]), len(dense))
+            t_b, by = shared_bound_ms(b, k, kc, f)
+            rows_t.append({"proj": name, "B": b, "K": k, "F": f, "ms": t_k,
+                           "plain_ms": t_p, "library_ms": t_l,
+                           "bound_ms": t_b, "bound_by": by})
+            print(f"  B={b:3d} {name:7s} {k:5d}x{f:<5d} kernel={t_k:.4f} ms "
+                  f"bound={t_b:.4f} ms ({by}) plain={t_p:.4f} ms "
+                  f"torch.matmul(dense bf16)={t_l:.4f} ms")
+            del sets, dense
+    return worst, rows_t
+
+
+SHARED_STEPS = 16               # phase 17's greedy decode steps
+
+
+def _trees_bitwise(a, b) -> bool:
+    """Two param trees (SharedOp or tensor leaves) equal bit for bit."""
+    from repro_torch.core.operand import SharedOp
+
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_trees_bitwise(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(map(_trees_bitwise, a, b))
+    if isinstance(a, SharedOp):
+        return (isinstance(b, SharedOp) and _trees_bitwise(a.vals, b.vals)
+                and _trees_bitwise(a.idx, b.idx))
+    return bits_equal(a.cpu(), b.cpu())
+
+
+def prefill_extended(params, toks, last, extra: int, cfg, sp):
+    """Prefill right-padded prompts (B, S) with ``last_index``; returns the
+    logits and a cache ``extra`` positions deeper holding the prefill's
+    KV, for per-slot decode steps past S."""
+    from repro_torch.models import transformer_lm as T
+    from repro_torch.train import step as ST
+
+    b, s = toks.shape
+    logits, pre = ST.lm_prefill_step(params, {"tokens": toks}, cfg=cfg,
+                                     sp_cfg=sp, last_index=last)
+    cache = T.init_lm_cache(cfg, b, s + extra, device=toks.device)
+    for dst, src in zip(cache["layers"], pre["layers"]):
+        for key in ("k", "v"):
+            dst[key][:, :s] = src[key]
+    return logits, cache
+
+
+def phase_shared_small(dev, seed):
+    """SMOKE shared-pattern serving: pack_tree_shared on the card and on
+    the CPU bitwise equal; prefill + 8 greedy decode steps, logits within
+    SMALL_ATOL."""
+    from repro_torch.configs import qwen3_8b as C
+    from repro_torch.core import bdwp
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.models import transformer_lm as T
+    from repro_torch.train import step as ST
+
+    cfg = C.SMOKE
+    sp = SparsityConfig(n=2, m=8, method="bdwp", granularity="shared")
+    params = T.init(cfg, seed=seed, device="cpu", dtype=torch.bfloat16)
+    on = {d: bdwp.pack_tree_shared(params, sp, device=d) for d in ("cpu", dev)}
+    check(_trees_bitwise(on["cpu"], on[dev]),
+          "small shared: pack_tree_shared trees differ between card and CPU")
+    print("  pack_tree_shared: card and CPU trees bitwise equal")
+    lens, steps = (5, 9), 8
+    toks = np.zeros((2, 12), np.int64)
+    rng = np.random.default_rng(seed)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(0, cfg.vocab, n)
+    logits, caches = {}, {}
+    for d, p in on.items():
+        logits[d], caches[d] = prefill_extended(
+            p, torch.from_numpy(toks).to(d), [n - 1 for n in lens], steps,
+            cfg, sp)
+    pos, worst = torch.tensor(lens), 0.0
+    for step in range(steps + 1):
+        a, b = logits["cpu"], logits[dev].cpu()
+        check(bool(torch.isfinite(b[..., :cfg.vocab]).all()),
+              "small shared: non-finite logits on the card")
+        worst = max(worst, float((a - b).abs().max()))
+        if step == steps:
+            break
+        tok = torch.argmax(a[:, -1, :cfg.vocab], -1)[:, None]
+        for d, p in on.items():
+            logits[d], caches[d] = ST.lm_decode_step(
+                p, caches[d], tok.to(d), (pos + step).to(d), cfg=cfg,
+                sp_cfg=sp)
+    print(f"  SMOKE prefill + {steps} decode steps, card vs CPU: "
+          f"max |dlogit| = {worst:.3e} (tol {SMALL_ATOL})")
+    check(worst <= SMALL_ATOL, "small shared: card and CPU logits disagree")
+    return worst
+
+
+def phase_shared_serve(dev, seed):
+    """qwen3-8b FULL, 2:8 shared-pattern serving: pack_tree_shared layer by
+    layer on the card, 4 right-padded prompts prefilled, then greedy
+    per-slot decode steps; exact launch counts, layer 0 against the plain
+    pack, tokens independent of the batch's row order."""
+    from repro_torch.configs import qwen3_8b as C
+    from repro_torch.core import bdwp
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.kernels import nm_compact as KC
+    from repro_torch.kernels import nm_spmm_shared as KS
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer_lm as T
+    from repro_torch.train import step as ST
+
+    cfg = C.FULL
+    sp = SparsityConfig(n=2, m=8, method="bdwp", granularity="shared")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = T.generator(seed, dev)
+    t0 = time.perf_counter()
+    shell = T.init_shell(cfg, gen, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    shell_s, draws = time.perf_counter() - t0, [0.0]
+    KC.launches = 0
+    t0 = time.perf_counter()
+    params = bdwp.pack_tree_shared(shell, sp, device=dev)
+    params["blocks"], layer0 = [], None
+    for block in timed_draws(T.iter_blocks(cfg, gen, device=dev,
+                                           dtype=torch.bfloat16), draws):
+        layer0 = block if layer0 is None else layer0
+        params["blocks"].append(bdwp.pack_tree_shared(
+            {"blocks": block}, sp, device=dev)["blocks"])
+        del block
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0 - draws[0]
+    compact = KC.launches
+    del shell
+    print(f"  init {shell_s + draws[0]:.1f} s + pack_tree_shared {pack_s:.2f}"
+          f" s ({cfg.n_layers} layers, nm_compact launches {compact}, want "
+          f"{7 * cfg.n_layers})")
+    check(compact == 7 * cfg.n_layers, "shared serve: nm_compact launches")
+    for part, name in PROJ_PATHS:
+        w, op = layer0[part][name]["w"], params["blocks"][0][part][name]["w"]
+        _, offsets = ref.ref_nm_compact(w.abs().float().sum(1)[None], 2, 8)
+        rows = ops.group_rows(offsets[0], 2, 8)
+        check(bits_equal(op.idx, rows)
+              and bits_equal(op.vals, w.index_select(0, rows)),
+              f"shared serve: layer 0 {name} SharedOp != the plain pack")
+    print("  layer 0: every SharedOp bitwise equal to the plain pack")
+    del layer0
+
+    rng = np.random.default_rng(seed + 17)
+    lens = (5, 32, 17, 9)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in lens]
+    bucket = PREFILL_ROWS[1]
+
+    def greedy(order):
+        toks = np.zeros((len(order), bucket), np.int64)
+        for i, j in enumerate(order):
+            toks[i, :lens[j]] = prompts[j]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill_extended(
+            params, torch.from_numpy(toks).to(dev),
+            [lens[j] - 1 for j in order], SHARED_STEPS, cfg, sp)
+        tok = torch.argmax(logits[:, -1, :cfg.vocab], -1)
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        out, times = [tok], []
+        pos = torch.tensor([lens[j] for j in order], device=dev)
+        for step in range(SHARED_STEPS):
+            t0 = time.perf_counter()
+            logits, cache = ST.lm_decode_step(params, cache, tok[:, None],
+                                              pos + step, cfg=cfg, sp_cfg=sp)
+            tok = torch.argmax(logits[:, -1, :cfg.vocab], -1)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            out.append(tok)
+        check(bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
+              "shared serve: non-finite logits")
+        check(tuple(logits.shape) == (len(order), 1, cfg.padded_vocab),
+              "shared serve: logits shape")
+        return torch.stack(out, 1).tolist(), prefill_ms, times
+
+    KS.launches = 0
+    tokens, prefill_ms, times = greedy((0, 1, 2, 3))
+    launches = KS.launches
+    want = 7 * cfg.n_layers * (1 + SHARED_STEPS)
+    ms = sorted(times)[len(times) // 2]
+    b = len(lens)
+    print(f"  prefill {b} x {bucket} tokens {prefill_ms:.1f} ms; "
+          f"{SHARED_STEPS} decode steps, median {ms:.2f} ms/step "
+          f"({min(times):.2f}-{max(times):.2f}), {b / ms * 1e3:.1f} tok/s; "
+          f"nm_spmm_shared launches {launches} (want {want})")
+    check(launches == want, "shared serve: nm_spmm_shared launch count")
+    order = (2, 0, 3, 1)
+    permuted, prefill2, times2 = greedy(order)
+    for i, j in enumerate(order):
+        check(permuted[i] == tokens[j], f"shared serve: prompt {j}'s tokens "
+              "change when the batch's rows are permuted")
+    print(f"  rows permuted {order}: every prompt's {SHARED_STEPS + 1} greedy "
+          f"tokens unchanged (prefill {prefill2:.1f} ms, median "
+          f"{sorted(times2)[len(times2) // 2]:.2f} ms/step)")
+
+    toks = np.zeros((b, bucket), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, :lens[i]] = p
+    logits, cache = prefill_extended(
+        params, torch.from_numpy(toks).to(dev), [n - 1 for n in lens],
+        SHARED_STEPS, cfg, sp)
+    state = {"tok": torch.argmax(logits[:, -1, :cfg.vocab], -1),
+             "cache": cache, "pos": torch.tensor(lens, device=dev)}
+    del logits, cache
+
+    def decode_one():
+        logits, state["cache"] = ST.lm_decode_step(
+            params, state["cache"], state["tok"][:, None], state["pos"],
+            cfg=cfg, sp_cfg=sp)
+        state["tok"] = torch.argmax(logits[:, -1, :cfg.vocab], -1)
+        state["pos"] = state["pos"] + 1
+
+    prof = profile_steps(decode_one, 5, ("shared_partial", "shared_reduce"))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  max_memory_allocated {peak / 2**30:.2f} GiB")
+    del params, state
+    return {"launches": launches, "compact_launches": compact,
+            "pack_s": pack_s, "prefill_ms": prefill_ms,
+            "decode_ms_per_step": ms, "decode_ms": times,
+            "tok_per_s": b / ms * 1e3, "permuted_prefill_ms": prefill2,
+            "permuted_decode_ms": times2, "max_memory_allocated": peak,
             "profile": prof}
 
 
@@ -1223,6 +1704,15 @@ def main(argv=None) -> int:
     print("[14] train qwen3-8b TRAIN_SYNC (full width, 4 layers), 2 pods, "
           "compressed sync, 2:8 bdwp, packed")
     train_sync = phase_train_sync(dev, SEED)
+    torch.cuda.empty_cache()
+    print("[15] nm_compact and nm_spmm_shared vs plain, and timing (cold L2)")
+    compact_err, compact_rows = phase_compact(dev, gen)
+    shared_err, shared_rows = phase_shared(dev, gen)
+    torch.cuda.empty_cache()
+    print("[16] SMOKE shared-pattern serving: card vs CPU")
+    phase_shared_small(dev, SEED)
+    print("[17] serve qwen3-8b FULL, shared-pattern 2:8 (reduced K)")
+    shared_serve = phase_shared_serve(dev, SEED)
 
     def summed(rs, at, launches, by_path, err):
         return {"launches": launches, "launches_by_path": by_path,
@@ -1241,6 +1731,10 @@ def main(argv=None) -> int:
                   "train_sync": train_sync["launches"]["nm_spmm"]}
     upd_paths = {"train": train["launches"]["fused_update"],
                  "train_sync": train_sync["launches"]["fused_update"]}
+    compact_paths = {"serve": serve["compact_launches"],
+                     "shared_serve": shared_serve["compact_launches"]}
+    shared_decode = [r for r in shared_rows if r["B"] == 4]
+    shared_prefill = [r for r in shared_rows if r["B"] != 4]
     bucket = next(r for r in sync_rows
                   if r["dtype"] == "bf16" and r["K"] == SYNC_BUCKET[1])
 
@@ -1275,7 +1769,26 @@ def main(argv=None) -> int:
         sync_row("grad_compress", "one sync bucket: (2, 65536) bf16 "
                  "gradient rows + fp32 residual, 2:8"),
         sync_row("grad_decompress_mean", "one sync bucket: (2, 16384) "
-                 "packed payload rows -> 65536 bf16 means, 2:8")]
+                 "packed payload rows -> 65536 bf16 means, 2:8"),
+        dict(name="nm_compact", route="cuda",
+             source="src/repro_torch/kernels/csrc/nm_compact.cu",
+             replaces="src/repro/kernels/nm_compact.py:77",
+             **summed(compact_rows, "one layer's element pack: the 7 "
+                      "projections, bf16 (K, F) read as (F, K) views, 2:8 "
+                      "u4, summed", sum(compact_paths.values()),
+                      compact_paths, compact_err)),
+        dict(name="nm_spmm_shared", route="cuda",
+             source="src/repro_torch/kernels/csrc/nm_spmm_shared.cu",
+             replaces="src/repro/kernels/nm_spmm_shared.py:104",
+             **summed(shared_decode, "one decode layer: the 7 projections at "
+                      "B=4, 2:8 shared pattern, one tile (TF = F), summed",
+                      shared_serve["launches"],
+                      {"shared_serve": shared_serve["launches"]}, shared_err),
+             prefill_rows=summed(
+                 shared_prefill, "one prefill layer: the 7 projections at "
+                 f"B={PREFILL_ROWS[0] * PREFILL_ROWS[1]}, summed",
+                 shared_serve["launches"],
+                 {"shared_serve": shared_serve["launches"]}, shared_err))]
     if args.out:
         with open(args.out, "w") as fh:
             json.dump({"card": card, "kernels": kernels, "timing": rows,
@@ -1283,6 +1796,9 @@ def main(argv=None) -> int:
                        "spmm_train_timing": spmm_rows, "serve": serve,
                        "train": train, "sync_timing": sync_rows,
                        "sync_alone": sync_alone, "train_sync": train_sync,
+                       "compact_timing": compact_rows,
+                       "shared_timing": shared_rows,
+                       "shared_serve": shared_serve,
                        "seconds": time.perf_counter() - t_start}, fh,
                       indent=1, default=str)
     print(f"done in {time.perf_counter() - t_start:.1f} s")

@@ -13,6 +13,10 @@ nor ``repro``:
   * a packed operand (the reference's ``PackedOp``, recognised by its
     ``vals``, ``idx``, ``idx_bits`` and ``cfg`` attributes) becomes the
     port's ``PackedOp`` with the same (Kc, F) vals and u8 or u4 idx;
+  * a shared-pattern operand (the reference's ``SharedOp`` from
+    ``bdwp.pack_tree_shared``: ``vals`` and ``idx`` with no ``cfg``)
+    becomes the port's ``SharedOp`` with the same (Kc, F)
+    vals and (Kc,) int32 rows;
   * bfloat16 arrays (numpy's ``ml_dtypes`` bfloat16) are carried bit for
     bit;
   * the error-feedback residual ``err`` of a compressed train state,
@@ -32,7 +36,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.operand import PackedOp, PregenOp
+from repro_torch.core.operand import PackedOp, PregenOp, SharedOp
 from repro_torch.core.sparsity import SparsityConfig
 from repro_torch.device import resolve_device
 from repro_torch.optim import compress as C
@@ -50,6 +54,11 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
 
 def _is_packed(node) -> bool:
     return all(hasattr(node, a) for a in ("vals", "idx", "idx_bits", "cfg"))
+
+
+def _is_shared(node) -> bool:
+    return (all(hasattr(node, a) for a in ("vals", "idx", "fields"))
+            and getattr(node, "cfg", None) is None)
 
 
 def _is_pregen(node) -> bool:
@@ -77,13 +86,15 @@ def _convert(node, device, layer):
                         mask=take(node.mask),
                         cfg=_sparsity_config(node.cfg),
                         idx_bits=node.idx_bits)
-    if _is_packed(node):
+    if _is_packed(node) or _is_shared(node):
         vals, idx = np.asarray(node.vals), np.asarray(node.idx)
         if layer is not None:
             vals, idx = vals[layer], idx[layer]
-        return PackedOp(tensor_from_numpy(vals, device),
-                        tensor_from_numpy(idx, device),
-                        _sparsity_config(node.cfg), node.idx_bits)
+        vals, idx = (tensor_from_numpy(vals, device),
+                     tensor_from_numpy(idx, device))
+        if _is_shared(node):
+            return SharedOp(vals, idx)
+        return PackedOp(vals, idx, _sparsity_config(node.cfg), node.idx_bits)
     a = np.asarray(node)
     return tensor_from_numpy(a if layer is None else a[layer], device)
 
@@ -93,7 +104,7 @@ def _n_layers(node) -> int:
         return _n_layers(next(iter(node.values())))
     if _is_pregen(node):
         return np.asarray(node.bp).shape[0]
-    if _is_packed(node):
+    if _is_packed(node) or _is_shared(node):
         return np.asarray(node.vals).shape[0]
     return np.asarray(node).shape[0]
 

@@ -1,18 +1,24 @@
 """BDWP pruning policy: which weights are N:M-pruned and packed.
 
 Counterpart of ``src/repro/core/bdwp.py``: the policy (``serve_packable``,
-``ff_group_axis``, ``bp_group_axis``, ``should_prune``, ``pick_cfg``) and
-the pre-generation sites (``decays``, ``pregen_site``, ``is_pregen``),
-with the same rules.  Not ported: the bare-array MoE expert sites
-(``bare_nm_leaf``; MoE is not ported, so every site is a ``.../w``
-leaf) and the deprecated ``nm_linear`` shims.
+``ff_group_axis``, ``bp_group_axis``, ``should_prune``, ``pick_cfg``),
+the pre-generation sites (``decays``, ``pregen_site``, ``is_pregen``)
+and shared-pattern serving packing (``shared_ff_pack``,
+``pack_tree_shared``), with the same rules.  Not ported: the bare-array
+MoE expert sites (``bare_nm_leaf``; MoE is not ported, so every site is
+a ``.../w`` leaf), sharding specs, and the deprecated ``nm_linear`` /
+``packed_shared_apply`` shims.
 """
 
 from __future__ import annotations
 
 import re
 
+import torch
+
 from repro_torch.core.sparsity import DENSE, SparsityConfig
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 
 
 def serve_packable(name: str, lshape, cfg: SparsityConfig) -> bool:
@@ -25,6 +31,45 @@ def serve_packable(name: str, lshape, cfg: SparsityConfig) -> bool:
             return False
     k = lshape[0]
     return k % cfg.m == 0 and k >= 2 * cfg.m
+
+
+def shared_ff_pack(w: torch.Tensor, cfg: SparsityConfig):
+    """w (K, F) -> (vals (Kc, F) in w's dtype, idx (Kc,) int32 absolute
+    K rows, ascending): one N:M row pattern for every column, the top n
+    of the fp32 |w| row sums in each group of m rows (``ops.nm_compact``
+    on the (1, K) score row; the lower row wins a tie)."""
+    score = w.abs().to(torch.float32).sum(1)
+    _, offsets = ops.nm_compact(score[None], cfg.n, cfg.m)
+    idx = ops.group_rows(offsets[0], cfg.n, cfg.m)
+    return w.index_select(0, idx), idx
+
+
+def pack_tree_shared(params, cfg: SparsityConfig, *, device=None):
+    """Transform a param tree for shared-pattern serving: every
+    ``{"w": (K, F)}`` leaf-dict that ``serve_packable`` admits becomes
+    ``{"w": operand.SharedOp(vals, idx)}`` (a bias is carried over),
+    and every leaf lies on ``device`` (the card unless the caller names
+    another).  The port's blocks are per layer, so every weight is 2-D."""
+    from repro_torch.core.operand import SharedOp   # operand imports bdwp
+
+    device = resolve_device(device)
+
+    def walk(node, path):
+        if isinstance(node, dict) and "w" in node:
+            w = node["w"].to(device)
+            if serve_packable("/".join(path), tuple(w.shape[-2:]), cfg):
+                new = {"w": SharedOp(*shared_ff_pack(w, cfg))}
+                if "b" in node:
+                    new["b"] = node["b"].to(device)
+                return new
+            return {k: v.to(device) for k, v in node.items()}
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, path) for v in node]
+        return node.to(device)
+
+    return walk(params, ())
 
 
 def ff_group_axis(shape) -> int:

@@ -1,9 +1,9 @@
 """SparseOperand — the N:M weight-consumption seam.
 
 Counterpart of ``src/repro/core/operand.py``: ``DenseOp``, ``MaskedOp``,
-``PregenOp``, ``PackedOp``, ``as_operand``, ``nm_apply``,
-``_packed_serve`` and the custom-gradient cores ``masked_linear``,
-``pregen_linear`` and ``packed_pregen_linear``.  Every weight matmul of
+``PregenOp``, ``PackedOp``, ``SharedOp``, ``as_operand``, ``nm_apply``,
+``_packed_serve``, ``_shared_serve`` and the custom-gradient cores
+``masked_linear``, ``pregen_linear`` and ``packed_pregen_linear``.  Every weight matmul of
 the model calls ``nm_apply(op, x)``.  The cores carry the paper's
 training rules (Alg. 1 / Fig. 11c) as ``torch.autograd.Function``s:
 
@@ -16,11 +16,11 @@ training rules (Alg. 1 / Fig. 11c) as ``torch.autograd.Function``s:
 What differs:
   * operands are plain classes, not registered pytrees;
   * there is no ``backend``/``backend_scope``: a packed pair always goes
-    through ``kernels.ops.nm_spmm``, whose input's device picks the
+    through ``kernels.ops.nm_spmm`` (a ``SharedOp`` through
+    ``kernels.ops.nm_spmm_shared``), whose input's device picks the
     kernel or the plain version; the port's parameters are per layer,
     so a packed pair is always 2-D (K·N/M, F);
-  * ``SharedOp``, conv operands and transposable packed operands are
-    not ported.
+  * conv operands and transposable packed operands are not ported.
 Every product here is fp32-accumulated and rounded once (``matmul_once``).
 """
 
@@ -100,11 +100,28 @@ class PackedOp(SparseOperand):
         self.idx_bits = idx_bits
 
 
+class SharedOp(SparseOperand):
+    """Shared-pattern reduced-K serving weight (``bdwp.pack_tree_shared``):
+    vals (K·N/M, F) the pre-gathered surviving rows of w, idx (K·N/M,)
+    int32 their absolute K rows; the forward gathers those activation
+    columns and contracts an M/N-times-shorter K."""
+
+    def __init__(self, vals: torch.Tensor, idx: torch.Tensor):
+        self.vals = vals
+        self.idx = idx
+
+
 def as_operand(leaf, name: str, cfg: SparsityConfig) -> SparseOperand:
-    """Operands pass through; a plain weight tensor becomes a MaskedOp
-    with its per-parameter config (``bdwp.pick_cfg``)."""
+    """Operands pass through; a flat packed dict ``{"vals", "idx"}``
+    becomes a PackedOp (idx of vals' rank, byte-wide) or a SharedOp (one
+    K row per packed row); a plain weight tensor becomes a MaskedOp with
+    its per-parameter config (``bdwp.pick_cfg``)."""
     if isinstance(leaf, SparseOperand):
         return leaf
+    if isinstance(leaf, dict) and "vals" in leaf and "idx" in leaf:
+        if leaf["idx"].ndim == leaf["vals"].ndim:
+            return PackedOp(leaf["vals"], leaf["idx"], cfg, idx_bits=8)
+        return SharedOp(leaf["vals"], leaf["idx"])
     if isinstance(leaf, torch.Tensor):
         return MaskedOp(leaf, bdwp.pick_cfg(name, tuple(leaf.shape), cfg))
     raise TypeError(f"unrecognized operand for {name}: {type(leaf).__name__}")
@@ -227,6 +244,15 @@ def _packed_serve(x: torch.Tensor, op: PackedOp) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], op.vals.shape[-1]).to(x.dtype)
 
 
+def _shared_serve(x: torch.Tensor, op: SharedOp) -> torch.Tensor:
+    """Shared-pattern serving matmul through ``kernels.ops.nm_spmm_shared``
+    (one output tile, TF = F): fp32 out, rounded once to the activation
+    dtype."""
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    y = ops.nm_spmm_shared(x2, op.vals[None], op.idx[None])
+    return y.reshape(*x.shape[:-1], op.vals.shape[-1]).to(x.dtype)
+
+
 def nm_apply(op: SparseOperand, x: torch.Tensor) -> torch.Tensor:
     """Apply one operand to activations x (..., K) -> (..., F)."""
     if isinstance(op, DenseOp):
@@ -240,4 +266,6 @@ def nm_apply(op: SparseOperand, x: torch.Tensor) -> torch.Tensor:
         return pregen_linear(x, op.ff, op.bp)
     if isinstance(op, PackedOp):
         return _packed_serve(x, op)
+    if isinstance(op, SharedOp):
+        return _shared_serve(x, op)
     raise TypeError(f"nm_apply: not a SparseOperand: {type(op).__name__}")

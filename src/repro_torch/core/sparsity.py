@@ -1,7 +1,8 @@
 """N:M fine-grained structured sparsity primitives (PyTorch).
 
 Counterpart of ``src/repro/core/sparsity.py``: ``SparsityConfig``,
-``DENSE``, ``nm_mask``, ``nm_mask_pair``, ``sparsify``, ``nm_pack``,
+``DENSE``, ``nm_mask``, ``nm_mask_pair``, ``nm_mask_shared``,
+``sparsify`` (element and shared granularity), ``nm_pack``,
 ``nm_pack_from_mask``, ``nm_unpack_n``, ``srste_decay`` and the 4-bit
 index plane ``pack_idx_u4``/``unpack_idx_u4``.  Masks, indices and
 packed values are bitwise equal to the reference's.
@@ -11,8 +12,7 @@ What differs:
     ``lax.top_k``: ``torch.topk`` documents no tie order, while
     ``torch.argmax`` returns the first maximum, which is the reference's
     earliest-index tie-break;
-  * only ``element`` granularity is ported (the ``shared`` pattern and
-    transposable masks are not).
+  * transposable masks are not ported.
 """
 
 from __future__ import annotations
@@ -141,14 +141,49 @@ def nm_mask_pair(x: torch.Tensor, n: int, m: int, ff_axis: int,
     return tuple(out)
 
 
-def sparsify(x: torch.Tensor, cfg: SparsityConfig,
-             axis: int = -1) -> torch.Tensor:
-    """x * mask with cfg's element-granularity N:M pattern along ``axis``."""
+def nm_mask_shared(x: torch.Tensor, n: int, m: int, axis: int,
+                   share_axis: int, tile: int) -> torch.Tensor:
+    """Mask with the N:M pattern along ``axis`` shared across tiles of
+    ``tile`` entries of ``share_axis``: the group score is the fp32 sum
+    of |x| over each tile (a ragged last tile zero-padded), so all
+    columns of a tile keep the same K-slots."""
+    if n == m:
+        return torch.ones_like(x, dtype=torch.bool)
+    axis = axis % x.ndim
+    share_axis = share_axis % x.ndim
+    if share_axis == axis:
+        raise ValueError("share_axis must differ from group axis")
+    s = x.shape[share_axis]
+    absx = x.abs().to(torch.float32)
+    pad = (-s) % tile
+    if pad:
+        shape = list(absx.shape)
+        shape[share_axis] = pad
+        absx = torch.cat([absx, absx.new_zeros(shape)], dim=share_axis)
+    shape = list(absx.shape)
+    shape[share_axis:share_axis + 1] = [shape[share_axis] // tile, tile]
+    scores = absx.reshape(shape).sum(dim=share_axis + 1)
+    mask = nm_mask(scores, n, m, axis=axis)
+    return torch.repeat_interleave(mask, tile, dim=share_axis).narrow(
+        share_axis, 0, s)
+
+
+def sparsify(x: torch.Tensor, cfg: SparsityConfig, axis: int = -1,
+             share_axis=None) -> torch.Tensor:
+    """x * mask with cfg's N:M pattern along ``axis``; with shared
+    granularity the pattern is shared across ``cfg.tile`` entries of
+    ``share_axis`` (default: the axis before ``axis``, or the last axis
+    when ``axis`` is the first)."""
     if cfg.is_dense:
         return x
-    if cfg.granularity != "element":
-        raise NotImplementedError("shared-granularity masks are not ported")
-    return torch.where(nm_mask(x, cfg.n, cfg.m, axis), x, torch.zeros_like(x))
+    if cfg.granularity == "shared":
+        if share_axis is None:
+            a = axis % x.ndim
+            share_axis = a - 1 if a else x.ndim - 1
+        mask = nm_mask_shared(x, cfg.n, cfg.m, axis, share_axis, cfg.tile)
+    else:
+        mask = nm_mask(x, cfg.n, cfg.m, axis)
+    return torch.where(mask, x, torch.zeros_like(x))
 
 
 def nm_pack(x: torch.Tensor, n: int, m: int, axis: int = -1):

@@ -25,7 +25,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {"nm_spmm": "nm_spmm.cu", "fused_update": "fused_update.cu",
-           "grad_compress": "grad_compress.cu"}
+           "grad_compress": "grad_compress.cu", "nm_compact": "nm_compact.cu",
+           "nm_spmm_shared": "nm_spmm_shared.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

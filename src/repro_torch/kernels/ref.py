@@ -1,17 +1,18 @@
 """Plain PyTorch versions of the port's kernels.
 
-Counterpart of ``src/repro/kernels/ref.py`` (``ref_nm_spmm``,
-``ref_fused_update``), of the jnp paths ``_jnp_grad_compress`` and
+Counterpart of ``src/repro/kernels/ref.py`` (``ref_nm_compact``,
+``ref_nm_spmm``, ``ref_nm_spmm_shared``, ``ref_fused_update``), of the
+jnp paths ``_jnp_grad_compress`` and
 ``_jnp_grad_decompress_mean`` in ``src/repro/kernels/ops.py``, and of
 the select-based decompress in
 ``src/repro/kernels/nm_spmm_shared.py`` (``unpack_idx_nibbles``,
 ``decompress_nm``).  These define what the CUDA kernels must compute:
 the CPU path runs them, and ``chip_smoke.py`` holds the kernels against
-them on the card.  ``decompress_nm`` and ``ref_fused_update`` are bitwise
-equal to the reference's, and so are ``ref_grad_compress`` and
-``ref_grad_decompress_mean``; ``ref_nm_spmm`` is an fp32 matmul of the same
-exact bf16 products, so it differs from the reference only in
-summation order.
+them on the card.  ``decompress_nm``, ``ref_nm_compact`` and
+``ref_fused_update`` are bitwise equal to the reference's, and so are
+``ref_grad_compress`` and ``ref_grad_decompress_mean``; ``ref_nm_spmm``
+and ``ref_nm_spmm_shared`` are fp32 matmuls of the same exact bf16
+products, so they differ from the reference only in summation order.
 """
 
 from __future__ import annotations
@@ -67,6 +68,20 @@ def decompress_nm(vals: torch.Tensor, idx: torch.Tensor, n: int, m: int,
     return dense.reshape(shape[:axis] + (g * m,) + shape[axis + 1:])
 
 
+def ref_nm_compact(x: torch.Tensor, n: int, m: int, idx_bits: int = 8):
+    """SORE: pack x N:M along the last axis -> (vals in x's dtype (..., Kc),
+    uint8 offsets (..., Kc), or with ``idx_bits=4`` the u4 plane
+    (..., ceil(Kc/2)), low nibble first, an odd Kc's last high nibble 0).
+    Bitwise the reference's ``ops.nm_compact`` (its oracle; its Pallas
+    kernel turns a -0 survivor into +0, this keeps it)."""
+    vals, idx = S.nm_pack(x, n, m, axis=-1)
+    if idx_bits == 4:
+        idx = S.pack_idx_u4(idx, axis=-1)
+    elif idx_bits != 8:
+        raise ValueError(f"idx_bits must be 4 or 8, got {idx_bits}")
+    return vals, idx
+
+
 def ref_nm_spmm(act: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
                 n: int, m: int, idx_bits: int = 8) -> torch.Tensor:
     """Element-mode N:M sparse matmul: act (B, K) @ unpack(vals (Kc, F),
@@ -74,6 +89,17 @@ def ref_nm_spmm(act: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
     w = decompress_nm(vals, idx, n, m, axis=0, idx_bits=idx_bits)
     return torch.matmul(act.to(torch.float32),
                         w.to(act.dtype).to(torch.float32))
+
+
+def ref_nm_spmm_shared(act: torch.Tensor, vals: torch.Tensor,
+                       rows: torch.Tensor) -> torch.Tensor:
+    """Shared-pattern reduced-K matmul: per output tile j, act[:, rows[j]]
+    (B, Kc) @ vals[j] (Kc, TF) cast to act's dtype, in fp32 ->
+    (B, nf*TF) fp32.  vals (nf, Kc, TF), rows (nf, Kc) integer K rows."""
+    gathered = act[:, rows.long()].to(torch.float32)          # (B, nf, Kc)
+    w = vals.to(act.dtype).to(torch.float32)
+    out = torch.bmm(gathered.transpose(0, 1), w)              # (nf, B, TF)
+    return out.transpose(0, 1).reshape(act.shape[0], -1)
 
 
 def ref_fused_update(w: torch.Tensor, g: torch.Tensor, v: torch.Tensor, *,

@@ -33,8 +33,10 @@ def dense_apply(p, x: torch.Tensor, name: str, cfg: SparsityConfig,
                 compute_dtype=torch.bfloat16) -> torch.Tensor:
     """x @ w through the SparseOperand seam (``core.operand.nm_apply``);
     ``p["w"]`` is a weight tensor (masked per ``bdwp.pick_cfg``) or an
-    operand such as a ``PackedOp``."""
-    op = O.as_operand(p["w"], name, cfg)
+    operand such as a ``PackedOp`` or a ``SharedOp``; a ``p`` without
+    ``"w"`` is itself a flat packed ``{"vals", "idx"}`` dict (the
+    shared-packed layout of older packers)."""
+    op = O.as_operand(p["w"] if "w" in p else p, name, cfg)
     return O.nm_apply(op, x.to(compute_dtype))
 
 

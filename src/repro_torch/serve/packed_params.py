@@ -11,7 +11,10 @@ the reference's for the same tree.
 What differs: the tree is the port's (per-layer block list, walked
 without list indices in the names, so names match the reference's);
 ``pack_tree_element`` moves every leaf to ``device`` (the card unless
-the caller says otherwise) before packing; ``PackedParamStore.
+the caller says otherwise) and packs each weight with one
+``kernels.ops.nm_compact`` (the SORE kernel on the card) that reads the
+(K, F) weight through its transposed view and writes vals and the index
+plane straight into their (Kc, F) layout; ``PackedParamStore.
 pack_layerwise`` packs blocks as an iterator yields them, so a
 full-width model never holds all of its dense layers at once; no
 sharding specs.
@@ -26,8 +29,9 @@ import torch
 
 from repro_torch.core import bdwp
 from repro_torch.core import operand as O
-from repro_torch.core.sparsity import SparsityConfig, nm_pack, pack_idx_u4
+from repro_torch.core.sparsity import SparsityConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 
 _COUNTS = ("n_packed", "n_dense", "packed_bytes", "packed_bytes_4bit",
            "dense_bytes", "other_bytes")
@@ -88,9 +92,13 @@ def _pack(params, cfg, idx_bits, device, names=None):
                 count("n_dense", "/".join(path))
                 stats["other_bytes"] += sum(map(_leaf_bytes, out.values()))
                 return out
-            vals, idx = nm_pack(w, cfg.n, cfg.m, axis=w.ndim - 2)
-            if idx_bits == 4:
-                idx = pack_idx_u4(idx, axis=w.ndim - 2)
+            k, f = w.shape
+            kc = k // cfg.m * cfg.n
+            vals = torch.empty((kc, f), dtype=w.dtype, device=device)
+            idx = torch.empty(((kc + 1) // 2 if idx_bits == 4 else kc, f),
+                              dtype=torch.uint8, device=device)
+            ops.nm_compact(w.t(), cfg.n, cfg.m, idx_bits,
+                           out=(vals.t(), idx.t()))
             count("n_packed", "/".join(path))
             stats["dense_bytes"] += _leaf_bytes(w)
             stats["packed_bytes"] += _leaf_bytes(vals) + _leaf_bytes(idx)

@@ -4,6 +4,7 @@
   ``chip_smoke.py`` finds no import of ``jax``, ``jaxlib`` or the
   reference package ``repro``.
 * The entry points (``ServeEngine``, ``init``, ``pack_tree_element``,
+  ``pack_tree_shared``,
   ``params_from_jax``, ``init_train_state`` with and without the
   compressed sync's residual (and so the state that ``lm_train_step``
   and ``cross_pod_sync`` take), ``train_state_from_jax``,
@@ -20,6 +21,8 @@ import torch
 
 from repro_torch import convert
 from repro_torch.configs import qwen3_8b as TC
+from repro_torch.core import bdwp
+from repro_torch.core.operand import SharedOp
 from repro_torch.core.sparsity import SparsityConfig
 from repro_torch.data.synthetic import lm_stream
 from repro_torch.models import transformer_lm as T
@@ -57,7 +60,8 @@ def test_scan_sees_the_package():
     names = {p.name for p in _sources()}
     assert {"nm_spmm.py", "engine.py", "chip_smoke.py", "fused_update.py",
             "sgd.py", "trainer.py", "synthetic.py", "grad_compress.py",
-            "compress.py", "checkpoint.py", "fault.py"} <= names
+            "compress.py", "checkpoint.py", "fault.py", "nm_compact.py",
+            "nm_spmm_shared.py"} <= names
 
 
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path):
@@ -98,3 +102,17 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path):
     eng = ServeEngine(params, TC.SMOKE, sp, ServeConfig(packed=True),
                       device="cpu")
     assert eng.device.type == "cpu"
+
+
+def test_pack_tree_shared_refuses_to_fall_back_to_cpu(monkeypatch):
+    """The shared-pattern pack runs on the card unless a device is named;
+    with no card it raises, and with ``device="cpu"`` every leaf is
+    there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = T.init(TC.SMOKE, seed=0, device="cpu", dtype=torch.bfloat16)
+    sp = SparsityConfig(n=2, m=8, granularity="shared")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bdwp.pack_tree_shared(params, sp)
+    packed = bdwp.pack_tree_shared(params, sp, device="cpu")
+    op = packed["blocks"][0]["attn"]["q_proj"]["w"]
+    assert isinstance(op, SharedOp) and op.vals.device.type == "cpu"
