@@ -8,13 +8,15 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
 
   1. card       name and power limit from nvidia-smi, device count;
   2. build      every kernel source of the port, one nvcc each, started
-                together;
-  3. kernels    each kernel against its plain PyTorch version at the
-                serving shapes of qwen3-8b (the seven projections, B in
-                {4, 32}, u4 and u8 indices) and at ragged shapes, within
-                |kernel - plain| <= 1e-5 * (|act| @ |W|): both sum the same
-                exact bf16 products in fp32, in other orders; rows must
-                also be bitwise independent of the batch and of the run;
+                together; nvcc's -Xptxas -v lines (registers, shared
+                memory, spills) printed and kept in the details;
+  3. kernels    nm_spmm against its plain PyTorch version at the
+                shapes of qwen3-8b (the seven projections, B in
+                {4, 32, 128, 1024, 2048}, u4 and u8 indices) and at ragged
+                shapes, within |kernel - plain| <= 1e-5 * (|act| @ |W|):
+                both sum the same exact bf16 products in fp32, in other
+                orders; rows must also be bitwise independent of the
+                batch (row 0 equals the B = 1 result) and of the run;
   4. timing     device times (CUDA graph replay between CUDA events)
                 with the weights cold in L2: kernel,
                 its bound (bytes over 3.35 TB/s or operations over 989
@@ -43,9 +45,12 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
   8. train rows nm_spmm at B = 2048 rows (4 x 512 tokens) and at the
                 1024 rows of one pod of phase 14, u8 indices, the seven
                 shapes: within the phase-3 tolerance of the plain
-                version; at B = 2048 device times against its bound
-                (max(bytes / 3.35 TB/s, 2*B*Kc*F / 989 TFLOP/s)), the
-                plain version and torch.matmul on the dense weight;
+                version; device times beside torch.matmul on the dense
+                weight, against
+                the N:M bound (max(bytes / 3.35 TB/s, 2*B*Kc*F / 989
+                TFLOP/s)) and the dense work (2*B*K*F / 989 TFLOP/s), the
+                per-layer factors and the split-K scratch bytes; the
+                plain version's time at B = 2048;
   9. small train qwen3-8b SMOKE, 2:8 bdwp, packed pre-generation: three
                 steps on the card and on the CPU from the same params
                 and batches; the step-0 compute trees bitwise equal,
@@ -153,11 +158,18 @@ PROJ = [("q_proj", 4096, 4096), ("k_proj", 4096, 1024), ("v_proj", 4096, 1024),
 PROJ_PATHS = (("attn", "q_proj"), ("attn", "k_proj"), ("attn", "v_proj"),
               ("attn", "o_proj"), ("ffn", "w_gate"), ("ffn", "w_up"),
               ("ffn", "w_down"))
+# phase 3's batch sizes: decode, the engine's prompt bucket, a prefill of
+# 4 x 32, and the training rows of phases 14 (one pod) and 10
+BATCH_ROWS = (4, 32, 128, 1024, 2048)
 # ragged cases: (name, B, K, F, n, m, idx_bits)
 RAGGED = [("B=1", 1, 4096, 4096, 2, 8, 4), ("B=3", 3, 4096, 1024, 2, 8, 8),
           ("F=1000", 4, 512, 1000, 2, 8, 4), ("odd Kc u4", 5, 56, 20, 1, 8, 4),
           ("B=37", 37, 1024, 384, 2, 8, 4), ("2:4", 4, 256, 256, 2, 4, 4),
-          ("4:16 F=130", 2, 512, 130, 4, 16, 4)]
+          ("4:16 F=130", 2, 512, 130, 4, 16, 4),
+          ("3:8 B=300", 300, 768, 200, 3, 8, 8),
+          ("1:4 K=36", 3, 36, 40, 1, 4, 8),
+          ("2:6 B=600", 600, 480, 64, 2, 6, 8),
+          ("odd Kc u4 B=2048", 2048, 56, 20, 1, 8, 4)]
 
 
 def check(cond: bool, msg: str) -> None:
@@ -226,25 +238,26 @@ def phase_kernels(dev, gen):
     from repro_torch.kernels import ref
 
     cases = [(f"{name} B={b} u{bits}", b, k, f, 2, 8, bits)
-             for name, k, f in PROJ for b in (4, 32) for bits in (4, 8)]
+             for name, k, f in PROJ for b in BATCH_ROWS for bits in (4, 8)]
     cases += [(f"ragged {name}", *rest) for name, *rest in RAGGED]
     worst = 0.0
     for label, b, k, f, n, m, bits in cases:
         act, vals, idx = packed_case(gen, b, k, f, n, m, bits, dev)
+        plain = ref.ref_nm_spmm(act, vals, idx, n, m, idx_bits=bits)
+        w = ref.decompress_nm(vals, idx, n, m, axis=0, idx_bits=bits)
+        scale = act.float().abs() @ w.float().abs()
+        del w
         out = K.nm_spmm(act, vals, idx, n, m, idx_bits=bits)
         again = K.nm_spmm(act, vals, idx, n, m, idx_bits=bits)
         row0 = K.nm_spmm(act[:1].contiguous(), vals, idx, n, m,
                          idx_bits=bits)
-        plain = ref.ref_nm_spmm(act, vals, idx, n, m, idx_bits=bits)
-        w = ref.decompress_nm(vals, idx, n, m, axis=0, idx_bits=bits)
-        scale = act.float().abs() @ w.float().abs()
         torch.cuda.synchronize()
         err = (out - plain).abs()
         excess = float((err - TOL * scale).max())
         abs_err = float(err.max())
         rel_err = float((err / scale.clamp_min(1e-30)).max())
         worst = max(worst, abs_err)
-        print(f"  {label:28s} max_abs_err={abs_err:.3e} "
+        print(f"  {label:30s} max_abs_err={abs_err:.3e} "
               f"max_rel_err={rel_err:.3e} (tol {TOL:g} x |act|@|W|)")
         check(excess <= 0, f"nm_spmm {label}: error above tolerance")
         check(torch.equal(out, again), f"nm_spmm {label}: not deterministic")
@@ -361,10 +374,18 @@ def phase_update(dev, gen):
 
 
 def spmm_train_bound_ms(b, k, f, kc):
+    """The N:M product's bound: its bytes over 3.35 TB/s or its 2*B*Kc*F
+    operations over 989 TFLOP/s, whichever is larger."""
     moved = b * k * 2 + kc * f * 3 + b * f * 4
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, 2 * b * kc * f / BF16_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def dense_work_ms(b, k, f):
+    """2*B*K*F operations over 989 TFLOP/s: the dense-tile design's
+    work (the dense product's), which a 2:4 path would halve."""
+    return 2 * b * k * f / BF16_OPS_PER_S * 1e3
 
 
 def spmm_case_err(gen, b, name, k, f, dev):
@@ -386,42 +407,56 @@ def spmm_case_err(gen, b, name, k, f, dev):
 
 
 def phase_spmm_train(dev, gen):
-    """nm_spmm at training rows: error and times at B = 2048, error at
-    the B = 1024 rows of one pod of the compressed step (phase 14)."""
+    """nm_spmm at training rows, B = 2048 (phase 10) and B = 1024 (one
+    pod of phase 14): error, then device times beside torch.matmul on
+    the dense bf16 weight, against the N:M bound and the dense work,
+    with the split-K scratch; the plain version's time at B = 2048."""
     from repro_torch.kernels import nm_spmm as K
     from repro_torch.kernels import ref
 
+    b_train = TRAIN_ROWS[0] * TRAIN_ROWS[1]
     b_pod = SYNC_ROWS[0] // SYNC_PODS * SYNC_ROWS[1]
     worst = 0.0
-    for name, k, f in PROJ:
-        *_, e = spmm_case_err(gen, b_pod, name, k, f, dev)
-        worst = max(worst, e)
-    print(f"  B={b_pod} (one pod of phase 14), the 7 shapes: max abs err "
-          f"{worst:.3e} (tol {TOL:g} x |act|@|W|)")
-    b = TRAIN_ROWS[0] * TRAIN_ROWS[1]
-    rows = []
-    for name, k, f in PROJ:
-        act, vals, idx, w, e = spmm_case_err(gen, b, name, k, f, dev)
-        worst = max(worst, e)
-        _, _, splits = K.split_plan(k, f, 8)
-        t_k = time_ms(lambda i: K.nm_spmm(act, vals, idx, 2, 8, 8), 1,
-                      iters=3)
-        t_p = time_ms(lambda i: ref.ref_nm_spmm(act, vals, idx, 2, 8, 8), 1,
-                      iters=3)
-        t_l = time_ms(lambda i: torch.matmul(act, w), 1, iters=10)
-        t_b, by = spmm_train_bound_ms(b, k, f, vals.shape[0])
-        scratch = splits * b * f * 4 if splits > 1 else 0
-        rows.append({"proj": name, "B": b, "K": k, "F": f, "ms": t_k,
-                     "plain_ms": t_p, "library_ms": t_l, "bound_ms": t_b,
-                     "bound_by": by, "splits": splits,
-                     "scratch_bytes": scratch, "max_abs_err": float(worst)})
-        print(f"  B={b} {name:7s} {k:5d}x{f:<5d} kernel={t_k:.3f} ms "
-              f"bound={t_b:.4f} ms ({by}) plain={t_p:.3f} ms "
-              f"torch.matmul(dense bf16)={t_l:.4f} ms; split-K {splits}, "
-              f"scratch {scratch / 2**30:.2f} GiB")
-        del act, vals, idx, w
+    rows, pod_rows = [], []
+    for b in (b_train, b_pod):
+        for name, k, f in PROJ:
+            act, vals, idx, w, e = spmm_case_err(gen, b, name, k, f, dev)
+            worst = max(worst, e)
+            pl = K.plan(b, k, f, 2, 8)
+            t_k = time_ms(lambda i: K.nm_spmm(act, vals, idx, 2, 8, 8), 1,
+                          iters=10)
+            t_l = time_ms(lambda i: torch.matmul(act, w), 1, iters=10)
+            t_p = (time_ms(lambda i: ref.ref_nm_spmm(act, vals, idx, 2, 8,
+                                                     8), 1, iters=3)
+                   if b == b_train else None)
+            t_b, by = spmm_train_bound_ms(b, k, f, vals.shape[0])
+            r = {"proj": name, "B": b, "K": k, "F": f, "ms": t_k,
+                 "plain_ms": t_p, "library_ms": t_l, "bound_ms": t_b,
+                 "bound_by": by, "dense_work_ms": dense_work_ms(b, k, f),
+                 "config": pl.config, "splits": pl.splits,
+                 "scratch_bytes": pl.scratch_floats * 4, "max_abs_err": e}
+            (rows if b == b_train else pod_rows).append(r)
+            print(f"  B={b} {name:7s} {k:5d}x{f:<5d} kernel={t_k:.4f} ms "
+                  f"torch.matmul(dense bf16)={t_l:.4f} ms bound={t_b:.4f} "
+                  f"ms ({by}; dense work {r['dense_work_ms']:.4f})"
+                  + (f" plain={t_p:.3f} ms" if t_p is not None else "")
+                  + f"; config {pl.config}, split-K {pl.splits}, scratch "
+                  f"{r['scratch_bytes'] / 2**20:.1f} MiB")
+            del act, vals, idx, w
+    for b, rs in ((b_train, rows), (b_pod, pod_rows)):
+        t = {key: sum(r[key] for r in rs)
+             for key in ("ms", "library_ms", "bound_ms", "dense_work_ms",
+                         "scratch_bytes")}
+        print(f"  B={b} one layer (7 projections): kernel {t['ms']:.4f} ms "
+              f"= {t['ms'] / t['library_ms']:.2f}x dense torch.matmul "
+              f"({t['library_ms']:.4f} ms), {t['ms'] / t['bound_ms']:.2f}x "
+              f"the N:M bound ({t['bound_ms']:.4f} ms), "
+              f"{t['ms'] / t['dense_work_ms']:.2f}x the dense work "
+              f"({t['dense_work_ms']:.4f} ms, the dense-tile design's "
+              f"operations; no 2:4 path yet); split-K scratch "
+              f"{t['scratch_bytes']} bytes")
     print(f"  max abs err {worst:.3e} (tol {TOL:g} x |act|@|W|)")
-    return worst, rows
+    return worst, rows, pod_rows
 
 
 def _compute_bitwise(a, b) -> bool:
@@ -537,7 +572,8 @@ def profile_train_step(step_fn, state, batch):
             if k in parts)
     print(f"  profiled step: wall {wall_ms:.1f} ms (profiler on), device "
           f"busy {busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}; "
-          + ", ".join(f"{k} {v:.2f} ms" for k, v in share.items() if v))
+          + ", ".join(f"{k} {v:.2f} ms ({v / busy:.3f} of busy)"
+                      for k, v in share.items() if v))
     for key, t in sorted(parts.items()):
         print(f"    {key:16s} host {t['host_ms']:9.1f} ms  device "
               f"{t['device_ms']:9.1f} ms")
@@ -1095,7 +1131,9 @@ def profile_steps(step, steps: int, kernel_keys) -> dict:
     wall_ms = 1e3 * wall / steps
     print(f"  profiled {steps} decode steps: wall {wall_ms:.2f} ms/step "
           f"(profiler on), device busy {busy:.3f} ms/step, "
-          f"{'/'.join(kernel_keys)} {mine:.3f} ms/step, device idle share "
+          f"{'/'.join(kernel_keys)} {mine:.3f} ms/step "
+          f"({mine / busy if busy else float('nan'):.3f} of busy), "
+          f"device idle share "
           f"{(1 - busy / wall_ms) if busy else float('nan'):.3f}")
     for ms, count, key in kernels[:8]:
         print(f"    {ms:8.4f} ms/step  x{count:<5d} {key[:90]}")
@@ -1418,13 +1456,27 @@ def phase_shared(dev, gen):
                           copies, iters=10)
             t_l = time_ms(lambda i: torch.matmul(act, dense[i]), len(dense))
             t_b, by = shared_bound_ms(b, k, kc, f)
+            pl = K.plan(b, kc, f, 1)
             rows_t.append({"proj": name, "B": b, "K": k, "F": f, "ms": t_k,
                            "plain_ms": t_p, "library_ms": t_l,
-                           "bound_ms": t_b, "bound_by": by})
+                           "bound_ms": t_b, "bound_by": by,
+                           "config": pl.config, "splits": pl.splits,
+                           "scratch_bytes": pl.scratch_floats * 4
+                           + b * -(-kc // 8) * 8 * 2})
             print(f"  B={b:3d} {name:7s} {k:5d}x{f:<5d} kernel={t_k:.4f} ms "
                   f"bound={t_b:.4f} ms ({by}) plain={t_p:.4f} ms "
-                  f"torch.matmul(dense bf16)={t_l:.4f} ms")
+                  f"torch.matmul(dense bf16)={t_l:.4f} ms; config "
+                  f"{pl.config}, split {pl.splits}")
             del sets, dense
+        rs = [r for r in rows_t if r["B"] == b]
+        t = {key: sum(r[key] for r in rs)
+             for key in ("ms", "library_ms", "bound_ms", "scratch_bytes")}
+        print(f"  B={b} one layer (7 projections): {1e3 * t['ms']:.2f} us = "
+              f"{t['ms'] / t['library_ms']:.2f}x dense torch.matmul "
+              f"({1e3 * t['library_ms']:.2f} us), "
+              f"{t['ms'] / t['bound_ms']:.2f}x the bound "
+              f"({1e3 * t['bound_ms']:.2f} us); scratch (partials and the "
+              f"gathered activations) {t['scratch_bytes']} bytes")
     return worst, rows_t
 
 
@@ -1630,7 +1682,7 @@ def phase_shared_serve(dev, seed):
         state["tok"] = torch.argmax(logits[:, -1, :cfg.vocab], -1)
         state["pos"] = state["pos"] + 1
 
-    prof = profile_steps(decode_one, 5, ("shared_partial", "shared_reduce"))
+    prof = profile_steps(decode_one, 5, ("nm_spmm_shared",))
     peak = torch.cuda.max_memory_allocated()
     print(f"  max_memory_allocated {peak / 2**30:.2f} GiB")
     del params, state
@@ -1685,7 +1737,7 @@ def main(argv=None) -> int:
     upd_err, upd_rows = phase_update(dev, gen)
     print(f"[8] nm_spmm at training rows (B = {TRAIN_ROWS[0]} x "
           f"{TRAIN_ROWS[1]}, and one pod's rows of [14]), u8")
-    spmm_err, spmm_rows = phase_spmm_train(dev, gen)
+    spmm_err, spmm_rows, spmm_pod_rows = phase_spmm_train(dev, gen)
     print("[9] SMOKE-size training: card vs CPU")
     phase_train_small(dev, SEED)
     print("[10] train qwen3-8b TRAIN (full width, 8 layers), 2:8 bdwp, "
@@ -1793,7 +1845,9 @@ def main(argv=None) -> int:
         with open(args.out, "w") as fh:
             json.dump({"card": card, "kernels": kernels, "timing": rows,
                        "update_timing": upd_rows,
-                       "spmm_train_timing": spmm_rows, "serve": serve,
+                       "spmm_train_timing": spmm_rows,
+                       "spmm_pod_timing": spmm_pod_rows, "serve": serve,
+                       "build": built,
                        "train": train, "sync_timing": sync_rows,
                        "sync_alone": sync_alone, "train_sync": train_sync,
                        "compact_timing": compact_rows,

@@ -114,39 +114,153 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     assert K.launches == launches
 
 
-@pytest.mark.parametrize("k,f", [(4096, 4096), (4096, 1024), (4096, 12288),
-                                 (12288, 4096), (64, 24), (56, 1000)])
-def test_split_plan_covers_k_once(k, f):
-    """The K split is a function of the weight shape only and its splits
-    tile the m-groups exactly once, none empty."""
-    m = 8
-    quarter, cps, splits = K.split_plan(k, f, m)
-    assert quarter % 2 == 0          # u4 rows pair up inside a quarter
-    cg = 4 * quarter                 # m-groups per staged chunk
+QWEN_PROJ = [(4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096)]
+ROWS = (1, 4, 32, 128, 1024, 2048)
+
+
+PLAN_SHAPES = [(k, f, n, m) for k, f in QWEN_PROJ + [
+    (64, 24), (56, 1000), (512, 130), (8, 8), (48, 20), (36, 40)]
+    for n, m in [(2, 8), (1, 8), (3, 8), (4, 16), (1, 4), (2, 6)]
+    if k % m == 0]
+
+
+def _chains(pl, k):
+    """Per chunk, the dense K columns of each k16 tensor-core product
+    the plan issues, in order (padding past sk or K left out): what
+    decides an output's bits."""
+    chains = []
+    for c in range(pl.n_chunks):
+        steps = []
+        for s in range(c * pl.chunk_stages,
+                       min(pl.n_stages, (c + 1) * pl.chunk_stages)):
+            for j in range(0, pl.tk, 16):
+                cols = tuple(s * pl.sk + x for x in range(j, j + 16)
+                             if x < pl.sk and s * pl.sk + x < k)
+                if cols:
+                    steps.append(cols)
+        chains.append(steps)
+    return chains
+
+
+@pytest.mark.parametrize("k,f,n,m", PLAN_SHAPES)
+def test_split_plan_covers_k_once(k, f, n, m):
+    """At every B, the stages tile the m-groups exactly once, every chunk
+    is a whole number of stages, the splits tile the chunks (none empty),
+    the chunks' k16 products cover K once in order, and the block fits in
+    the card's shared memory."""
     groups = k // m
-    spans = [(s * cps * cg, min(groups, (s + 1) * cps * cg))
-             for s in range(splits)]
-    assert spans[0][0] == 0 and spans[-1][1] == groups
-    assert all(lo < hi for lo, hi in spans)
-    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    for b in ROWS:
+        pl = K.plan(b, k, f, n, m)
+        assert pl.sk == pl.gs * m and pl.cr == pl.gs * n
+        assert pl.tk % 64 == 0 and pl.sk <= pl.tk
+        assert (pl.n_stages - 1) * pl.gs < groups <= pl.n_stages * pl.gs
+        assert pl.chunk_stages * pl.gs == pl.chunk_groups
+        assert pl.n_chunks == -(-groups // pl.chunk_groups)
+        spans = [(s * pl.chunks_per_split,
+                  min(pl.n_chunks, (s + 1) * pl.chunks_per_split))
+                 for s in range(pl.splits)]
+        assert spans[0][0] == 0 and spans[-1][1] == pl.n_chunks
+        assert all(lo < hi for lo, hi in spans)
+        assert all(x[1] == y[0] for x, y in zip(spans, spans[1:]))
+        assert K.smem_bytes(pl.config, pl.tk, pl.cr) <= K.MAX_SMEM
+        cols = [c for chain in _chains(pl, k) for step in chain
+                for c in step]
+        assert cols == list(range(k))
+
+
+@pytest.mark.parametrize("k,f,n,m", PLAN_SHAPES)
+def test_plan_chunks_independent_of_rows(k, f, n, m):
+    """Batch independence: whatever tile configuration, stage width and
+    split B picks, the chunks are the same and each chunk's k16 products
+    run over the same dense columns in the same order."""
+    want = _chains(K.plan(1, k, f, n, m), k)
+    pl1 = K.plan(1, k, f, n, m)
+    assert pl1.chunk_groups * m >= K.CHUNK_K or pl1.n_chunks == 1
+    assert pl1.n_chunks <= K.MAX_CHUNKS
+    for b in ROWS[1:]:
+        pl = K.plan(b, k, f, n, m)
+        assert pl.chunk_groups == pl1.chunk_groups
+        assert _chains(pl, k) == want
+
+
+@pytest.mark.parametrize("b", ROWS)
+def test_plan_scratch_bounded(b):
+    """Per-chunk scratch at the qwen3-8b projections: at most 32 MiB for
+    one launch at any B, and none at the training rows (B >= 1024), whose
+    grid is full and folds in registers (PR 14's plan allocated up to
+    1 GiB of split-K partials there)."""
+    for k, f in QWEN_PROJ:
+        pl = K.plan(b, k, f, 2, 8)
+        assert pl.scratch_floats == (pl.n_chunks * b * f
+                                     if pl.splits > 1 else 0)
+        assert pl.scratch_floats * 4 <= 32 * 2**20, (k, f, pl)
+        if b >= 1024:
+            assert pl.splits == 1 and pl.scratch_floats == 0
+
+
+@pytest.mark.parametrize("n,m,ok", [(2, 8, True), (1, 8, True),
+                                    (2, 4, True), (1, 4, True),
+                                    (3, 8, False), (4, 8, False),
+                                    (4, 16, False), (2, 6, False)])
+def test_sparse_path_eligibility(n, m, ok):
+    """The 2:4 tensor-core path takes an n:m exactly when every aligned
+    4-group of an m-group can hold at most 2 survivors: true for any
+    n <= 2 with m % 4 == 0; 3:8 packs 3 in one half."""
+    assert K.sparse_ok(n, m) is ok
+    if m % 4 == 0:     # random packs: the fullest aligned 4-group
+        rng = np.random.default_rng(n * 100 + m)
+        w = torch.from_numpy(rng.standard_normal((64 * m, 5), np.float32))
+        _, idx = TS.nm_pack(w, n, m, axis=0)
+        quad = idx.reshape(-1, n, 5).long() // 4
+        fullest = max(int((quad == q).sum(1).max()) for q in range(m // 4))
+        assert (fullest <= 2) is ok
+
+
+def _gpu_cases():
+    """(B, K, F, n, m, idx_bits): the training and prefill rows, ragged F,
+    odd Kc with u4, and n:m off the 2:4 path."""
+    cases = [(b, 4096, 1024, 2, 8, bits) for b in ROWS for bits in (8, 4)]
+    cases += [(b, 512, 1000, 2, 8, 4) for b in ROWS]
+    cases += [(b, 56, 20, 1, 8, 4) for b in ROWS]
+    cases += [(b, 512, 130, 4, 16, 4) for b in (1, 4, 128)]
+    cases += [(b, 768, 200, 3, 8, 8) for b in (1, 32, 1024)]
+    return cases
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("idx_bits", [8, 4])
-def test_cuda_kernel_matches_plain(idx_bits):
-    """The CUDA kernel against the plain version on the card: same
-    summation-order bound; rows are bitwise independent of the batch."""
+def test_cuda_kernel_matches_plain():
+    """The CUDA kernel against the plain version on the card: the
+    summation-order bound at every case; deterministic; row 0 bitwise
+    equal across every B (and so across tile configurations and
+    split-K plans)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    n, m = 2, 8
-    for b, k, f in [(4, 4096, 1024), (32, 4096, 4096), (3, 56 * 8, 1000)]:
+    row0 = {}
+    for b, k, f, n, m, idx_bits in _gpu_cases():
         vt, it, _, _ = _packed(k, f, n, m, idx_bits)
-        at, _ = _act(b, k)
+        at, _ = _act(max(ROWS), k)
+        at = at[:b].contiguous()
         vc, ic, ac = vt.cuda(), it.cuda(), at.cuda()
-        got = K.nm_spmm(ac, vc, ic, n, m, idx_bits=idx_bits)
         want = TR.ref_nm_spmm(ac, vc, ic, n, m, idx_bits=idx_bits)
+        got = K.nm_spmm(ac, vc, ic, n, m, idx_bits=idx_bits)
+        again = K.nm_spmm(ac, vc, ic, n, m, idx_bits=idx_bits)
         torch.cuda.synchronize()
         _assert_spmm_close(got.cpu().numpy(), want.cpu().numpy(), at, vt,
                            it, n, m, idx_bits)
-        one = K.nm_spmm(ac[:1].contiguous(), vc, ic, n, m, idx_bits=idx_bits)
-        assert torch.equal(one[0], got[0])
+        assert torch.equal(got, again)
+        key = (k, f, n, m, idx_bits)
+        first = row0.setdefault(key, got[0].cpu())
+        assert torch.equal(first, got[0].cpu()), (b, key)
+
+
+@pytest.mark.gpu
+def test_cuda_plan_layout_matches_source():
+    """The wrapper's shared-memory formula is the source's Layout."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    lib = K._library()
+    for config in range(len(K.CONFIGS)):
+        bm, bn, _ = K.tile(config)
+        for tk, cr in [(64, 16), (128, 32), (128, 22), (128, 128)]:
+            assert lib.nm_spmm_smem_bytes(bm, bn, tk, cr) == \
+                K.smem_bytes(config, tk, cr)

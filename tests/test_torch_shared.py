@@ -52,6 +52,7 @@ from repro_torch.configs import qwen3_8b as TC
 from repro_torch.core import bdwp as TB
 from repro_torch.core import operand as O
 from repro_torch.core import sparsity as TS
+from repro_torch.kernels import nm_spmm as KN
 from repro_torch.kernels import nm_spmm_shared as K
 from repro_torch.kernels import ops as TO
 from repro_torch.kernels import ref as TR
@@ -289,27 +290,80 @@ def test_shared_prefill_and_decode_logits(jparams, tparams):
         pos = pos + 1
 
 
+SHARED_SHAPES = [(1024, 4096, 1), (1024, 1024, 1), (1024, 12288, 1),
+                 (3072, 4096, 1), (1024, 128, 32), (7, 20, 1), (64, 130, 3)]
+ROWS = (1, 4, 32, 128, 1024)
+
+
+@pytest.mark.parametrize("kc,tf,nf", SHARED_SHAPES)
+def test_shared_plan_covers_kc_once(kc, tf, nf):
+    """At every B, the stages tile Kc exactly once in whole 64-row wgmma
+    steps, every chunk is a whole number of stages, the splits tile the
+    chunks (none empty), and the block fits in shared memory; the chunks
+    do not depend on B."""
+    chunks = set()
+    for b in ROWS:
+        pl = K.plan(b, kc, tf, nf)
+        chunks.add(pl.chunk_rows)
+        assert pl.tk % 64 == 0 and pl.chunk_stages * pl.tk == pl.chunk_rows
+        assert (pl.n_stages - 1) * pl.tk < kc <= pl.n_stages * pl.tk
+        assert pl.n_chunks == -(-kc // pl.chunk_rows) <= KN.MAX_CHUNKS
+        spans = [(s * pl.chunks_per_split,
+                  min(pl.n_chunks, (s + 1) * pl.chunks_per_split))
+                 for s in range(pl.splits)]
+        assert spans[0][0] == 0 and spans[-1][1] == pl.n_chunks
+        assert all(lo < hi for lo, hi in spans)
+        assert all(x[1] == y[0] for x, y in zip(spans, spans[1:]))
+        assert K.smem_bytes(pl.config, pl.tk) <= KN.MAX_SMEM
+    assert len(chunks) == 1
+
+
+@pytest.mark.parametrize("b", (4, 128))
+def test_shared_plan_scratch_bounded(b):
+    """Per-chunk scratch of the shared serve shapes (one tile, TF = F) at
+    decode and prefill rows: at most 24 MiB, and none for the widest
+    projections at prefill, whose grid is full."""
+    for kc, tf, nf in SHARED_SHAPES[:4]:
+        pl = K.plan(b, kc, tf, nf)
+        assert pl.scratch_floats == (pl.n_chunks * b * nf * tf
+                                     if pl.splits > 1 else 0)
+        assert pl.scratch_floats * 4 <= 24 * 2**20, (kc, tf, pl)
+        if b == 128 and tf == 12288:
+            assert pl.splits == 1
+
+
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain():
     """The CUDA kernel against the plain version on the card: the
-    summation-order bound; rows bitwise independent of the batch."""
+    summation-order bound; row 0 bitwise equal at B = 1, 4, 32, 128 and
+    1024 (bf16, tensor cores) and at B = 1, 4 and 37 (fp32 operands,
+    CUDA cores)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    for b, k, f, tile in [(4, 4096, 1024, None), (32, 1024, 384, 128),
-                          (3, 56, 20, None)]:
-        wt, _ = _w((k, f), seed=8)
-        at, _ = _w((b, k), seed=9)
+    cases = [(4096, 1024, None, "bfloat16", "bfloat16", ROWS),
+             (1024, 384, 128, "bfloat16", "bfloat16", ROWS),
+             (56, 20, None, "bfloat16", "bfloat16", ROWS),
+             (1024, 384, 128, "float32", "bfloat16", (1, 4, 37)),
+             (56, 20, None, "bfloat16", "float32", (1, 4, 37))]
+    for k, f, tile, adt, vdt, rows_b in cases:
+        wt, _ = _w((k, f), seed=8, dtype=vdt)
+        at, _ = _w((max(rows_b), k), seed=9, dtype=adt)
         if tile is None:
             vals, rows = TB.shared_ff_pack(wt, TS.SparsityConfig(n=1, m=8)
                                            if k == 56 else T_SP)
             vals, rows = vals[None], rows[None]
         else:
             vals, rows = TO.pack_shared(wt, 2, 8, tile=tile)
-        vc, rc, ac = vals.cuda(), rows.cuda(), at.cuda()
-        got = K.nm_spmm_shared(ac, vc, rc)
-        row0 = K.nm_spmm_shared(ac[:1].contiguous(), vc, rc)
-        want = TR.ref_nm_spmm_shared(ac, vc, rc)
-        torch.cuda.synchronize()
-        assert torch.equal(got[:1], row0)
-        _assert_shared_close(got.cpu().numpy(), want.cpu().numpy(), at, vals,
-                             rows)
+        vc, rc = vals.contiguous().cuda(), rows.contiguous().cuda()
+        first = None
+        for b in rows_b:
+            ac = at[:b].contiguous().cuda()
+            got = K.nm_spmm_shared(ac, vc, rc)
+            again = K.nm_spmm_shared(ac, vc, rc)
+            want = TR.ref_nm_spmm_shared(ac, vc, rc)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again)
+            first = got[:1].cpu() if first is None else first
+            assert torch.equal(first, got[:1].cpu()), (k, f, tile, b)
+            _assert_shared_close(got.cpu().numpy(), want.cpu().numpy(),
+                                 at[:b], vals, rows)
