@@ -64,34 +64,41 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 busy and idle, top kernels), layer 0's packed operands
                 equal nm_pack of its new fp32 master and its stored mask
                 nm_mask of it;
- 11. sync kernels grad_compress and grad_decompress_mean against their
-                plain versions: buckets (2, 65536) and (P, 4096) for P in
-                1..4, ragged K (K = m, 513 groups), 2:4, 1:8, 4:16, heavy
-                ties, bf16 and fp32 gradients, strided rows, the residual
-                written in place: vals, idx, err' and the mean (fp32 and
-                the gradient's dtype) bitwise equal, and decode(vals,
-                idx) + err' == g + err bitwise; device times (CUDA graph
-                replay, cold L2) at the sync's bucket, the mean written
-                in the gradient's dtype as the sync writes it, against
-                the byte bound over 3.35 TB/s and the plain versions;
+ 11. sync kernels grad_compress and grad_decompress_mean, each in its
+                vector and its scalar variant, against their plain
+                versions: buckets (2, 65536) and (P, 4096) for P in 1..4,
+                ragged K (K = m, 513 groups, a partial tile), 2:4, 1:8,
+                3:8, 4:16, heavy ties, bf16 and fp32 gradients, strided
+                rows, rows off a whole m-group (the scalar variant only,
+                which "auto" must pick), the residual written in place:
+                vals, idx, err' and the mean (fp32 and the gradient's
+                dtype) bitwise equal, and decode(vals, idx) + err' == g +
+                err bitwise; the w_gate (2, 50331648) and embed
+                (2, 622854144) leaves the same way;
+                device times (CUDA graph replay) of both variants at
+                those two leaves (cold by their size) and at the
+                reference's bucket (2, 65536) (cold copies), the mean in
+                the gradient's dtype as the sync writes it, against the
+                byte bound over 3.35 TB/s and the plain versions;
  12. sync alone cross_pod_sync at qwen3-8b TRAIN_SYNC leaf shapes, 2 pods
-                of random bf16 gradients and a random residual, with
-                buckets of 1 << 16 and 1 << 24 elements: mean gradients
-                and residuals bitwise equal, launches equal to the plan's
-                bucket count, ms per sync;
+                of random bf16 gradients and a random residual: one
+                launch of each kernel per leaf (47, all vector variant),
+                against the reference's 1 << 16 buckets launched chunk by
+                chunk from plan_sync (30,801 of each): mean gradients and
+                residuals bitwise equal, ms per sync for both;
  13. small sync qwen3-8b SMOKE compressed training, 2 pods: three steps
                 on the card and on the CPU; the card's sync of each step
                 equals the CPU sync of the same pod-stacked gradients
                 bitwise, losses within SMALL_LOSS_ATOL;
  14. train sync qwen3-8b TRAIN_SYNC (every FULL width, 4 of 36 layers),
-                2 pods x (2 x 512) tokens a step, compressed sync with
-                the reference's buckets (1 << 16): five timed steps with
-                finite losses and exactly 2 x 7 x 4 x 2 nm_spmm, 7 x 4
-                fused_update, and one grad_compress and one
-                grad_decompress_mean launch per bucket of the plan per
-                step; on one step the EF identity on layer 0's w_gate;
-                a sixth step under torch.profiler (forward / backward /
-                sync / update), peak memory;
+                2 pods x (2 x 512) tokens a step, compressed sync: five
+                timed steps with finite losses and exactly 2 x 7 x 4 x 2
+                nm_spmm, 7 x 4 fused_update, and 47 grad_compress and 47
+                grad_decompress_mean launches per step (one per leaf),
+                every one on the vector variant; on one step the EF
+                identity on layer 0's w_gate; a sixth step under
+                torch.profiler (forward / backward / sync / update),
+                peak memory;
  15. compact / shared  nm_compact against its plain version, bitwise: the
                 seven weights as the element pack reads them (strided
                 (K, F) bf16, groups along K, u4 and u8), fp32 score rows
@@ -661,36 +668,55 @@ def phase_train(dev, seed):
             "profile": prof}
 
 
-# phase 11 cases: (label, pods, K, n, m, gradient dtype, ties)
-SYNC_CASES = [(f"P={p} K=4096 2:8 {dt}", p, 4096, 2, 8, dt, False)
+# phase 11 cases: (label, pods, K, n, m, gradient dtype, ties, shift):
+# rows strided as the sync hands them over; ``shift`` > 0 moves g and
+# err off a whole m-group, so only the scalar variant may take them
+SYNC_CASES = [(f"P={p} K=4096 2:8 {dt}", p, 4096, 2, 8, dt, False, 0)
               for p in (1, 2, 3, 4) for dt in ("bf16", "fp32")]
-SYNC_CASES += [("bucket P=2 K=65536 2:8 bf16", 2, 65536, 2, 8, "bf16", False),
-               ("bucket P=2 K=65536 2:8 fp32", 2, 65536, 2, 8, "fp32", False),
-               ("ragged K=m", 2, 8, 2, 8, "bf16", False),
-               ("ragged K=4104 (513 groups)", 3, 4104, 2, 8, "fp32", False),
-               ("2:4 K=4100", 2, 4100, 2, 4, "bf16", False),
-               ("1:8 K=4096", 4, 4096, 1, 8, "fp32", False),
-               ("4:16 K=4112", 2, 4112, 4, 16, "bf16", False),
-               ("ties 2:8 P=2 K=65536", 2, 65536, 2, 8, "bf16", True),
-               ("ties 2:4 P=3 K=4096", 3, 4096, 2, 4, "fp32", True)]
-SYNC_BUCKET = (2, 1 << 16)          # (pods, bucket_elems) of the sync
+SYNC_CASES += [
+    ("bucket P=2 K=65536 2:8 bf16", 2, 65536, 2, 8, "bf16", False, 0),
+    ("bucket P=2 K=65536 2:8 fp32", 2, 65536, 2, 8, "fp32", False, 0),
+    ("ragged K=m", 2, 8, 2, 8, "bf16", False, 0),
+    ("ragged K=4104 (513 groups)", 3, 4104, 2, 8, "fp32", False, 0),
+    ("ragged tile K=528392", 2, 528392, 2, 8, "bf16", False, 0),
+    ("2:4 K=4100", 2, 4100, 2, 4, "bf16", False, 0),
+    ("1:8 K=4096", 4, 4096, 1, 8, "fp32", False, 0),
+    ("4:16 K=4112", 2, 4112, 4, 16, "bf16", False, 0),
+    ("3:8 K=8200", 2, 8200, 3, 8, "bf16", False, 0),
+    ("ties 2:8 P=2 K=65536", 2, 65536, 2, 8, "bf16", True, 0),
+    ("ties 2:4 P=3 K=4096", 3, 4096, 2, 4, "fp32", True, 0),
+    ("misaligned 2:8 bf16", 2, 65536, 2, 8, "bf16", False, 1),
+    ("misaligned 2:4 fp32", 3, 4100, 2, 4, "fp32", False, 1)]
+SYNC_BUCKET = (2, 1 << 16)          # (pods, bucket_elems) of the reference
 SYNC_PODS = 2
 SYNC_ROWS = (4, 512)                # 2 pods x (2 x 512) tokens a step
+# phase 11's leaf shapes: (name, numel) of the TRAIN_SYNC leaves the
+# sync hands over whole (one launch each): a layer's w_gate, and the
+# embedding table (the largest)
+SYNC_LEAVES = [("w_gate", 4096 * 12288), ("embed", 152064 * 4096)]
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
 
-def sync_case(gen, pods, k, m, dtype, ties, dev):
+def sync_case(gen, pods, k, m, dtype, ties, dev, shift=0):
     """(g, err) as the sync feeds the compress kernel: rows strided (a
-    bucket of a wider pod-stacked leaf, and a column range of the
-    residual), g in its dtype, err fp32; ``ties`` draws half-integers (no
-    negative zeros, which the plain version keeps and the reference's
-    Pallas kernel does not)."""
+    leaf inside a wider tensor, a column range of the residual), g in its
+    dtype, err fp32, both ``shift`` elements past a whole m-group;
+    ``ties`` draws half-integers (no negative zeros, which the plain
+    version keeps and the reference's Pallas kernel does not)."""
     g = torch.randn((pods, k + 2 * m), generator=gen, device=dev)
     if ties:
         g = torch.round(g * 2) / 2 + 0.0
-    g = g.to(DTYPES[dtype])[:, m:m + k]
-    err = torch.randn((pods, k + m), generator=gen, device=dev)[:, :k] * 0.1
-    return g, err
+    g = g.to(DTYPES[dtype])[:, m + shift:m + shift + k]
+    err = torch.randn((pods, k + m), generator=gen, device=dev) * 0.1
+    return g, err[:, shift:shift + k]
+
+
+def _copy_view(t):
+    """A copy of the 2-D view ``t`` with its strides and storage offset
+    (so with its alignment)."""
+    size = t.storage_offset() + t.stride(0) * (t.shape[0] - 1) + t.shape[1]
+    base = torch.empty(size, dtype=t.dtype, device=t.device)
+    return base.as_strided(t.shape, t.stride(), t.storage_offset()).copy_(t)
 
 
 def compress_bound_ms(pods, k, n, m, gbytes):
@@ -705,39 +731,127 @@ def mean_bound_ms(pods, k, n, m, obytes):
     return k * (pods * 3 * n / m + obytes) / HBM_BYTES_PER_S * 1e3
 
 
+def _variant_counts(K):
+    return {op: dict(v) for op, v in K.variant_launches.items()}
+
+
+def _check_sync_case(K, ref, label, g, err, n, m, variants):
+    """Both kernels in each of ``variants`` against the plain versions,
+    bitwise (err' in place, the mean in fp32 and in g's dtype), and
+    decode(vals, idx) + err' == g + err.  Returns (the largest
+    difference, 0 when bitwise; {kernel: the variants its last launch
+    took})."""
+    want = ref.ref_grad_compress(g, err, n, m)
+    plain_mean = ref.ref_grad_decompress_mean(want[0], want[1], n, m)
+    worst = 0.0
+    for variant in variants:
+        e = _copy_view(err)
+        before = _variant_counts(K)
+        got = K.grad_compress(g, e, n, m, out_err=e, variant=variant)
+        decoded = ref.decompress_nm(got[0].float(), got[1], n, m)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("vals", "idx", "err'"), got, want):
+            check(bits_equal(a, b), f"grad_compress {label} ({variant}): "
+                  f"{name} not bitwise equal to the plain version")
+            worst = max(worst, float((a.float() - b.float()).abs().max()))
+        check(bits_equal(decoded.add_(got[2]),
+                         g.to(torch.float32, copy=True).add_(err)),
+              f"grad_compress {label} ({variant}): decode + err' != g + err")
+        del decoded
+        for out_dtype in (torch.float32, g.dtype):
+            out = torch.empty(g.shape[1], dtype=out_dtype, device=g.device)
+            mean = K.grad_decompress_mean(got[0], got[1], n, m, out=out,
+                                          variant=variant)
+            torch.cuda.synchronize()
+            want_mean = plain_mean.to(out_dtype)
+            check(bits_equal(mean, want_mean),
+                  f"grad_decompress_mean {label} ({variant}) -> "
+                  f"{out_dtype}: not bitwise equal to the plain version")
+            worst = max(worst, float((mean.float()
+                                      - want_mean.float()).abs().max()))
+        after = _variant_counts(K)
+        took = {op: [v for v in after[op] if after[op][v] > before[op][v]]
+                for op in after}
+        check(variant == "auto" or all(t == [variant] for t in took.values()),
+              f"{label}: asked for {variant}, launched {took}")
+    return worst, took
+
+
 def phase_sync_kernels(dev, gen):
-    """grad_compress and grad_decompress_mean vs plain (bitwise), the EF
-    identity on the card, then device times at the sync's bucket."""
+    """grad_compress and grad_decompress_mean in both variants vs plain
+    (bitwise), the EF identity on the card, then device times at the
+    sync's leaf shapes and at the reference's bucket."""
     from repro_torch.kernels import grad_compress as K
     from repro_torch.kernels import ref
 
     worst = 0.0
-    for label, pods, k, n, m, dt, ties in SYNC_CASES:
-        g, err = sync_case(gen, pods, k, m, dt, ties, dev)
-        want = ref.ref_grad_compress(g, err, n, m)
-        before = err.clone()
-        got = K.grad_compress(g, err, n, m, out_err=err)      # in place
-        decoded = ref.decompress_nm(got[0].float(), got[1], n, m)
-        torch.cuda.synchronize()
-        for name, a, b in zip(("vals", "idx", "err'"), got, want):
-            check(bits_equal(a, b), f"grad_compress {label}: {name} not "
-                  "bitwise equal to the plain version")
-            worst = max(worst, float((a.float() - b.float()).abs().max()))
-        check(bits_equal(decoded + got[2], g.float() + before),
-              f"grad_compress {label}: decode + err' != g + err")
-        for out_dtype in (torch.float32, g.dtype):
-            out = torch.empty(k, dtype=out_dtype, device=dev)
-            mean = K.grad_decompress_mean(got[0], got[1], n, m, out=out)
-            plain = ref.ref_grad_decompress_mean(got[0], got[1], n, m)
-            torch.cuda.synchronize()
-            check(bits_equal(mean, plain.to(out_dtype)),
-                  f"grad_decompress_mean {label} -> {out_dtype}: not "
-                  "bitwise equal to the plain version")
-            worst = max(worst, float((mean.float() - plain.to(
-                out_dtype).float()).abs().max()))
-        print(f"  {label:30s} vals, idx, err', mean bitwise equal; "
-              f"decode + err' == g + err bitwise")
+    for label, pods, k, n, m, dt, ties, shift in SYNC_CASES:
+        g, err = sync_case(gen, pods, k, m, dt, ties, dev, shift)
+        variants = ("auto", "scalar") if shift else ("vector", "scalar")
+        w, took = _check_sync_case(K, ref, label, g, err, n, m, variants)
+        if shift:   # off a whole m-group: auto took the scalar variant
+            check(took["grad_compress"] == ["scalar"],
+                  f"{label}: auto launched {took}, not the scalar variant")
+        worst = max(worst, w)
+        print(f"  {label:30s} {' and '.join(variants)}: vals, idx, err', "
+              "mean bitwise equal; decode + err' == g + err bitwise")
     rows = []
+    # the sync's leaves, whole, as it launches them (cold by their size)
+    for name, numel in SYNC_LEAVES:
+        g, err = sync_case(gen, 2, numel, 8, "bf16", False, dev)
+        worst = max(worst, _check_sync_case(
+            K, ref, f"leaf {name} (2, {numel})", g, err, 2, 8,
+            ("vector", "scalar"))[0])
+        torch.cuda.empty_cache()
+        vals, idx, _ = K.grad_compress(g, _copy_view(err), 2, 8)
+        out_v = torch.empty(numel, dtype=torch.bfloat16, device=dev)
+        # the median of three graph replays of each, the variants in
+        # turns (vector, scalar, scalar, vector, vector, scalar)
+        runs = {}
+        iters = 20 if name == "w_gate" else 5
+        for variant in ("vector", "scalar", "scalar", "vector", "vector",
+                        "scalar"):
+            runs.setdefault(f"grad_compress_{variant}", []).append(time_ms(
+                lambda i: K.grad_compress(g, err, 2, 8, out_err=err,
+                                          variant=variant), 1, iters=iters))
+            runs.setdefault(f"grad_decompress_mean_{variant}", []).append(
+                time_ms(lambda i: K.grad_decompress_mean(
+                    vals, idx, 2, 8, out=out_v, variant=variant), 1,
+                    iters=iters))
+        times = {k: sorted(v)[1] for k, v in runs.items()}
+        if name == "w_gate":
+            times["grad_compress_plain"] = time_ms(
+                lambda i: ref.ref_grad_compress(g, err, 2, 8), 1, iters=2)
+            times["grad_decompress_mean_plain"] = time_ms(
+                lambda i: out_v.copy_(ref.ref_grad_decompress_mean(
+                    vals, idx, 2, 8)), 1, iters=2)
+        b_c = compress_bound_ms(2, numel, 2, 8, 2)
+        b_m = mean_bound_ms(2, numel, 2, 8, 2)
+        row = {"leaf": name, "dtype": "bf16", "P": 2, "K": numel}
+        for op, bound in (("grad_compress", b_c),
+                          ("grad_decompress_mean", b_m)):
+            row[op] = {"ms": times[f"{op}_vector"],
+                       "ms_runs": runs[f"{op}_vector"],
+                       "scalar_ms": times[f"{op}_scalar"],
+                       "scalar_ms_runs": runs[f"{op}_scalar"],
+                       "plain_ms": times.get(f"{op}_plain"),
+                       "bound_ms": bound,
+                       "bound_share": bound / times[f"{op}_vector"]}
+        rows.append(row)
+        plain = (f"; plain {times['grad_compress_plain']:.3f} / "
+                 f"{times['grad_decompress_mean_plain']:.3f} ms"
+                 if name == "w_gate" else "; plain not timed at this size")
+        t_c, t_m = (times["grad_compress_vector"],
+                    times["grad_decompress_mean_vector"])
+        print(f"  leaf {name} (2, {numel}) bf16 g, 2:8: grad_compress "
+              f"{t_c:.4f} ms (bound {b_c:.4f} ms, bytes: {b_c / t_c:.0%}; "
+              f"scalar variant {times['grad_compress_scalar']:.4f} ms); "
+              f"grad_decompress_mean {t_m:.4f} ms (bound {b_m:.4f} ms: "
+              f"{b_m / t_m:.0%}; scalar "
+              f"{times['grad_decompress_mean_scalar']:.4f} ms){plain}")
+        del g, err, vals, idx, out_v
+        torch.cuda.empty_cache()
+    # the reference's bucket, (2, 1 << 16), cycling cold copies
     pods, k = SYNC_BUCKET
     for dt in ("bf16", "fp32"):
         gbytes = 2 if dt == "bf16" else 4
@@ -748,46 +862,35 @@ def phase_sync_kernels(dev, gen):
         # the mean in the gradient's dtype, as the sync writes it
         outs = [torch.empty(k, dtype=DTYPES[dt], device=dev)
                 for _ in range(copies)]
-        t_c = time_ms(lambda i: K.grad_compress(*sets[i], 2, 8), copies,
-                      iters=copies)
+        t = {}
+        for variant in ("vector", "scalar"):
+            t[f"c_{variant}"] = time_ms(lambda i: K.grad_compress(
+                *sets[i], 2, 8, variant=variant), copies, iters=copies)
+            t[f"m_{variant}"] = time_ms(lambda i: K.grad_decompress_mean(
+                *packs[i], 2, 8, out=outs[i], variant=variant), copies,
+                iters=copies)
         t_cp = time_ms(lambda i: ref.ref_grad_compress(*sets[i], 2, 8),
                        copies, iters=copies)
-        t_m = time_ms(lambda i: K.grad_decompress_mean(*packs[i], 2, 8,
-                                                       out=outs[i]),
-                      copies, iters=copies)
         t_mp = time_ms(lambda i: outs[i].copy_(
             ref.ref_grad_decompress_mean(*packs[i], 2, 8)), copies,
             iters=copies)
         b_c = compress_bound_ms(pods, k, 2, 8, gbytes)
         b_m = mean_bound_ms(pods, k, 2, 8, gbytes)
-        rows.append({"dtype": dt, "P": pods, "K": k,
-                     "grad_compress": {"ms": t_c, "plain_ms": t_cp,
-                                       "bound_ms": b_c},
-                     "grad_decompress_mean": {"ms": t_m, "plain_ms": t_mp,
+        rows.append({"leaf": "bucket", "dtype": dt, "P": pods, "K": k,
+                     "grad_compress": {"ms": t["c_vector"],
+                                       "scalar_ms": t["c_scalar"],
+                                       "plain_ms": t_cp, "bound_ms": b_c},
+                     "grad_decompress_mean": {"ms": t["m_vector"],
+                                              "scalar_ms": t["m_scalar"],
+                                              "plain_ms": t_mp,
                                               "bound_ms": b_m}})
-        print(f"  ({pods}, {k}) {dt} g: grad_compress {1e3 * t_c:.2f} us "
-              f"(bound {1e3 * b_c:.2f} us, bytes; plain {1e3 * t_cp:.1f} "
-              f"us); grad_decompress_mean {1e3 * t_m:.2f} us (bound "
-              f"{1e3 * b_m:.2f} us; plain {1e3 * t_mp:.1f} us)")
+        print(f"  bucket ({pods}, {k}) {dt} g: grad_compress "
+              f"{1e3 * t['c_vector']:.2f} us (scalar {1e3 * t['c_scalar']:.2f}"
+              f" us; bound {1e3 * b_c:.2f} us; plain {1e3 * t_cp:.1f} us); "
+              f"grad_decompress_mean {1e3 * t['m_vector']:.2f} us (scalar "
+              f"{1e3 * t['m_scalar']:.2f} us; bound {1e3 * b_m:.2f} us; "
+              f"plain {1e3 * t_mp:.1f} us)")
         del sets, packs, outs
-    # one bucket of 1 << 24 (the sync's other plan), cold by its size
-    big = 1 << 24
-    g, err = sync_case(gen, 2, big, 8, "bf16", False, dev)
-    vals, idx, _ = K.grad_compress(g, err, 2, 8)
-    out = torch.empty(big, dtype=torch.bfloat16, device=dev)
-    t_c = time_ms(lambda i: K.grad_compress(g, err, 2, 8), 1, iters=5)
-    t_m = time_ms(lambda i: K.grad_decompress_mean(vals, idx, 2, 8, out=out),
-                  1, iters=5)
-    b_c = compress_bound_ms(2, big, 2, 8, 2)
-    b_m = mean_bound_ms(2, big, 2, 8, 2)
-    rows.append({"dtype": "bf16", "P": 2, "K": big,
-                 "grad_compress": {"ms": t_c, "bound_ms": b_c},
-                 "grad_decompress_mean": {"ms": t_m, "bound_ms": b_m}})
-    print(f"  (2, {big}) bf16 g: grad_compress {t_c:.4f} ms (bound "
-          f"{b_c:.4f} ms, {b_c / t_c:.0%} of the memory rate); "
-          f"grad_decompress_mean {t_m:.4f} ms (bound {b_m:.4f} ms, "
-          f"{b_m / t_m:.0%})")
-    del g, err, vals, idx, out
     return worst, rows
 
 
@@ -802,9 +905,39 @@ def _sync_shapes(cfg):
     return tree, [tuple(x.shape) for x in sgd.tree_leaves(tree)]
 
 
+def bucket_sync(grads, err, cfg):
+    """The reference's launch plan on the card: ``cross_pod_sync``'s work
+    launched chunk by chunk over ``plan_sync``'s buckets (one
+    ``grad_compress`` and one ``grad_decompress_mean`` per bucket), the
+    port's sync before it launched once per leaf.  Returns (the mean of
+    each compressible leaf, None for a ragged one, in ``tree_leaves``
+    order; ``err``, updated in place)."""
+    from repro_torch.kernels import ops
+    from repro_torch.optim import compress as CS
+    from repro_torch.optim import sgd
+
+    leaves = sgd.tree_leaves(grads)
+    pods = leaves[0].shape[0]
+    plan = CS.plan_sync([tuple(x.shape[1:]) for x in leaves],
+                        cfg.bucket_elems, cfg.m)
+    outs = [None if off is None else torch.empty(
+        x.shape[1:], dtype=x.dtype, device=err.device)
+        for x, off in zip(leaves, plan.offsets)]
+    for i, s, e in plan.chunks:
+        col = plan.offsets[i]
+        vals, idx, _ = ops.grad_compress(
+            leaves[i].reshape(pods, -1)[:, s:e], err[:, col + s:col + e],
+            cfg.n, cfg.m)
+        ops.grad_decompress_mean(vals, idx, cfg.n, cfg.m,
+                                 outs[i].view(-1)[s:e])
+    return outs, err
+
+
 def phase_sync_alone(dev, seed):
     """cross_pod_sync at qwen3-8b TRAIN_SYNC leaf shapes, P = 2, bf16
-    gradients, buckets of 1 << 16 and 1 << 24: bitwise equal results."""
+    gradients: one launch of each kernel per leaf (47), against the
+    reference's 1 << 16 buckets launched chunk by chunk (30,801): mean
+    gradients and residuals bitwise equal."""
     from repro_torch.configs import qwen3_8b as C
     from repro_torch.kernels import grad_compress as KG
     from repro_torch.optim import compress as CS
@@ -817,47 +950,50 @@ def phase_sync_alone(dev, seed):
         (pods, *x.shape), generator=gen, device=dev) * 1e-3).to(
             torch.bfloat16), tree)
     width = CS.err_state_elems(tree, 8)
+    cfg = CS.GradCompressConfig(n=2, m=8, bucket_elems=SYNC_BUCKET[1])
+    plan = CS.plan_sync(shapes, cfg.bucket_elems, 8)
 
     def residual():   # drawn in place: no 16 GB temporary
         g = torch.Generator(device=dev).manual_seed(seed + 13)
         return torch.empty((pods, width), device=dev).normal_(
             0.0, 1e-4, generator=g)
 
+    runs = {"per leaf": (CS.cross_pod_sync, len(plan.leaves)),
+            "1 << 16 buckets": (bucket_sync, plan.n_buckets)}
     results, report = {}, {}
-    for bucket in (1 << 16, 1 << 24):
-        cfg = CS.GradCompressConfig(n=2, m=8, bucket_elems=bucket)
-        plan = CS.plan_sync(shapes, bucket, 8)
+    for label, (sync, want) in runs.items():
         times = []
         for rep in range(2):   # the second run's results are kept
             err = residual()
             torch.cuda.synchronize()
-            c0 = dict(KG.launches)
+            c0, v0 = dict(KG.launches), _variant_counts(KG)
             t0 = time.perf_counter()
-            out, err = CS.cross_pod_sync(grads, err, cfg)
+            out, err = sync(grads, err, cfg)
             torch.cuda.synchronize()
             times.append(1e3 * (time.perf_counter() - t0))
             got = {k: KG.launches[k] - c0[k] for k in c0}
-            check(got == {k: plan.n_buckets for k in c0},
-                  f"sync alone: launches {got} != the plan's "
-                  f"{plan.n_buckets} buckets")
+            check(got == dict.fromkeys(c0, want),
+                  f"sync alone ({label}): launches {got} != {want} each")
+            vec = {op: KG.variant_launches[op]["vector"] - v0[op]["vector"]
+                   for op in v0}
+            check(vec == got, f"sync alone ({label}): vector-variant "
+                  f"launches {vec} != all {got}")
             if rep == 1:
-                results[bucket] = (out, err)
+                kept = out if sync is bucket_sync else sgd.tree_leaves(out)
+                results[label] = ([kept[i] for i, _, _ in plan.leaves], err)
             del out, err
-        report[bucket] = {"buckets": plan.n_buckets, "ms": times,
-                          "launches_each": plan.n_buckets}
-        print(f"  bucket_elems {bucket}: {plan.n_buckets} buckets, "
-              f"{plan.n_buckets} launches of each kernel; sync "
-              f"{times[0]:.1f} ms, again {times[1]:.1f} ms")
+        report[label] = {"launches_each": want, "ms": times}
+        print(f"  {label}: {want} launches of each kernel (all vector "
+              f"variant); sync {times[0]:.1f} ms, again {times[1]:.1f} ms")
         torch.cuda.empty_cache()
-        if len(results) == 2:
-            (oa, ea), (ob, eb) = results.values()
-            check(bits_equal(ea, eb), "sync alone: residuals differ between "
-                  "bucket sizes")
-            for a, b in zip(sgd.tree_leaves(oa), sgd.tree_leaves(ob)):
-                check(bits_equal(a, b), "sync alone: mean gradients differ "
-                      "between bucket sizes")
-            print("  mean gradients and residuals bitwise equal across "
-                  "the two bucket sizes")
+    (oa, ea), (ob, eb) = results.values()
+    check(bits_equal(ea, eb), "sync alone: residuals differ between the "
+          "per-leaf sync and the bucket walk")
+    for a, b in zip(oa, ob):
+        check(bits_equal(a, b), "sync alone: mean gradients differ between "
+              "the per-leaf sync and the bucket walk")
+    print("  mean gradients and residuals bitwise equal: per leaf == "
+          "1 << 16 buckets")
     peak = torch.cuda.max_memory_allocated()
     print(f"  residual ({pods}, {width}) fp32; max_memory_allocated "
           f"{peak / 2**30:.2f} GiB")
@@ -977,16 +1113,21 @@ def phase_train_sync(dev, seed):
     data = lm_stream(cfg.vocab, *SYNC_ROWS, device=dev, seed=seed)
     want = {"nm_spmm": 2 * 7 * cfg.n_layers * SYNC_PODS,
             "fused_update": 7 * cfg.n_layers,
-            "grad_compress": plan.n_buckets,
-            "grad_decompress_mean": plan.n_buckets}
+            "grad_compress": len(plan.leaves),
+            "grad_decompress_mean": len(plan.leaves)}
     tokens = SYNC_ROWS[0] * SYNC_ROWS[1]
 
     def counts():
         return {"nm_spmm": KS.launches, "fused_update": KF.launches,
-                **KG.launches}
+                **KG.launches,
+                **{f"{op}/vector": v["vector"]
+                   for op, v in KG.variant_launches.items()}}
 
+    want.update({f"{op}/vector": want[op] for op in KG.launches})
     KS.launches = KF.launches = 0
     KG.launches.update(dict.fromkeys(KG.launches, 0))
+    for v in KG.variant_launches.values():
+        v.update(dict.fromkeys(v, 0))
     losses, times, per_step, spied = [], [], [], None
     for i in range(5):
         _, batch = next(data)
@@ -1031,12 +1172,12 @@ def phase_train_sync(dev, seed):
     ms = steady[len(steady) // 2]
     print(f"  {cfg.name} x{cfg.n_layers} layers, {SYNC_PODS} pods: median "
           f"of steps 1-4 {ms:.1f} ms/step, {tokens / ms * 1e3:.0f} "
-          f"tokens/s; {plan.n_buckets} buckets a sync; "
-          f"max_memory_allocated {peak / 2**30:.2f} GiB")
+          f"tokens/s; {len(plan.leaves)} leaves (launches of each sync "
+          f"kernel) a sync; max_memory_allocated {peak / 2**30:.2f} GiB")
     del state
     return {"losses": losses, "step_ms": times, "ms_per_step": ms,
             "tokens_per_s": tokens / ms * 1e3, "launches": launches,
-            "launches_per_step": per_step, "buckets": plan.n_buckets,
+            "launches_per_step": per_step, "leaves": len(plan.leaves),
             "max_memory_allocated": peak, "profile": prof}
 
 
@@ -1787,11 +1928,10 @@ def main(argv=None) -> int:
                      "shared_serve": shared_serve["compact_launches"]}
     shared_decode = [r for r in shared_rows if r["B"] == 4]
     shared_prefill = [r for r in shared_rows if r["B"] != 4]
-    bucket = next(r for r in sync_rows
-                  if r["dtype"] == "bf16" and r["K"] == SYNC_BUCKET[1])
+    sync_at = {(r["leaf"], r["dtype"]): r for r in sync_rows}
 
     def sync_row(name, at):
-        r = bucket[name]
+        r = sync_at["w_gate", "bf16"][name]
         return dict(
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/grad_compress.cu",
@@ -1799,8 +1939,11 @@ def main(argv=None) -> int:
                      + ("61" if name == "grad_compress" else "117"),
             launches=train_sync["launches"][name],
             launches_by_path={"train_sync": train_sync["launches"][name]},
+            launches_vector_variant=train_sync["launches"][f"{name}/vector"],
             max_abs_err=sync_err, ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by="bytes", library_ms=None, at=at)
+            bound_ms=r["bound_ms"], bound_by="bytes", library_ms=None, at=at,
+            embed_leaf=sync_at["embed", "bf16"][name],
+            bucket=sync_at["bucket", "bf16"][name])
     kernels = [dict(
         name="nm_spmm", route="cuda",
         source="src/repro_torch/kernels/csrc/nm_spmm.cu",
@@ -1818,10 +1961,12 @@ def main(argv=None) -> int:
              **summed(upd_rows, "one layer's update: the 7 projections, "
                       "2:8, summed", sum(upd_paths.values()), upd_paths,
                       upd_err)),
-        sync_row("grad_compress", "one sync bucket: (2, 65536) bf16 "
-                 "gradient rows + fp32 residual, 2:8"),
-        sync_row("grad_decompress_mean", "one sync bucket: (2, 16384) "
-                 "packed payload rows -> 65536 bf16 means, 2:8"),
+        sync_row("grad_compress", "one leaf, as the sync launches it: a "
+                 "layer's w_gate, (2, 50331648) bf16 gradient rows + fp32 "
+                 "residual columns, 2:8, vector variant"),
+        sync_row("grad_decompress_mean", "one leaf: w_gate's (2, 12582912) "
+                 "packed payload rows -> 50331648 bf16 means, 2:8, vector "
+                 "variant"),
         dict(name="nm_compact", route="cuda",
              source="src/repro_torch/kernels/csrc/nm_compact.cu",
              replaces="src/repro/kernels/nm_compact.py:77",

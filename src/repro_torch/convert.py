@@ -120,12 +120,26 @@ def params_from_jax(tree, *, device=None):
     return out
 
 
+def _pregen_cfgs(node):
+    """The sparsity configs of the pre-generated operands in a reference
+    tree."""
+    if isinstance(node, dict):
+        for v in node.values():
+            yield from _pregen_cfgs(v)
+    elif _is_pregen(node):
+        yield node.cfg
+
+
 def train_state_from_jax(state, *, device=None):
     """The reference's train state (``master``, ``momentum``, ``step``,
     the pre-generated ``compute`` tree and, when it has one, the EF
     residual ``err``, whose m-groups are those of the compute tree's
-    sparsity config) as the port's per-layer state."""
+    sparsity config) as the port's per-layer state.  A compute tree with
+    shared or transposable masks is refused: the port's update would
+    train element-wise masks from it."""
     device = resolve_device(device)
+    for cfg in _pregen_cfgs(state["compute"]):
+        sgd.refuse_unported_masks(cfg)
     out = {k: params_from_jax(state[k], device=device)
            for k in ("master", "momentum", "compute")}
     out["step"] = int(np.asarray(state["step"]))

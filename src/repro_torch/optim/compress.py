@@ -20,16 +20,21 @@ Layout.  The reference concatenates the compressible leaves into one
 slab and cuts it into ``bucket_elems`` buckets.  An m-group never
 straddles a leaf (a compressible leaf's size is a multiple of m) or a
 bucket (buckets are m-aligned), so the result depends neither on the
-slab's order nor on ``bucket_elems``; the port therefore walks each
-leaf's flat (P, numel) view in chunks of at most ``bucket_elems``
-(``plan_sync``) and never builds a slab, which would be a 16 GB fp32
-copy at qwen3-8b TRAIN_SYNC.  The EF residual is one (P, width) fp32
-tensor; leaf i of ``sgd.tree_leaves(master)`` that is compressible owns
-the columns ``plan.offsets[i] : + numel``, in that order, and the width
-is padded to whole m-groups (with zeros, which compress to nothing).
-Each chunk is one ``grad_compress`` launch on its (P, chunk) rows and
-one ``grad_decompress_mean`` launch that writes the chunk's mean
-straight into the output leaf, in the gradient's dtype.
+slab's order nor on ``bucket_elems``, and the port never builds a slab,
+which would be a 16 GB fp32 copy at qwen3-8b TRAIN_SYNC.  The EF
+residual is one (P, width) fp32 tensor; leaf i of
+``sgd.tree_leaves(master)`` that is compressible owns the columns
+``plan.offsets[i] : + numel``, in that order, and the width is padded
+to whole m-groups (with zeros, which compress to nothing).
+
+On one card the unit of launch is the leaf: each compressible leaf's
+whole (P, numel) view and its residual columns are one
+``grad_compress`` launch, and its payload one ``grad_decompress_mean``
+launch that writes the mean straight into the output leaf, in the
+gradient's dtype (47 launches of each at TRAIN_SYNC).  The buckets of
+``plan_sync`` (``SyncPlan.chunks``) give the same bits; they become the
+unit of the wire again when the NCCL hop lands (ROADMAP queue 1 item
+4), where a bucket is what one exchange carries.
 
 What differs: the ``mvue`` estimator is not ported (ROADMAP queue 1);
 the residual is updated in place (``cross_pod_sync`` consumes ``err``),
@@ -112,34 +117,49 @@ def compress_leaf(g: torch.Tensor, err: torch.Tensor, n: int, m: int):
 
 @dataclasses.dataclass(frozen=True)
 class SyncPlan:
-    """The launch plan of one sync, a function of the leaf shapes,
+    """The plan of one sync, a function of the leaf shapes,
     ``bucket_elems`` and m alone.
 
     ``offsets[i]``: leaf i's first column in the residual, None for a
-    ragged leaf; ``chunks``: (leaf, start, stop) over the leaf's flat
-    elements, one ``grad_compress`` and one ``grad_decompress_mean``
-    launch each; ``width``: the residual's width."""
+    ragged leaf; ``leaves``: (leaf, offset, numel) of each compressible
+    leaf, one ``grad_compress`` and one ``grad_decompress_mean`` launch
+    each; ``width``: the residual's width; ``chunks``: (leaf, start,
+    stop) over the leaf's flat elements, the reference's buckets (made
+    on request: 30,801 at TRAIN_SYNC, which the sync does not walk)."""
 
     offsets: tuple
-    chunks: tuple
+    leaves: tuple
     width: int
+    bucket_elems: int
+    m: int
+
+    @property
+    def chunks(self) -> tuple:
+        return tuple((i, s, e) for i, _, numel in self.leaves
+                     for s, e in plan_buckets(numel, self.bucket_elems,
+                                              self.m))
 
     @property
     def n_buckets(self) -> int:
-        return len(self.chunks)
+        return sum(-(-numel // self.bucket_elems)
+                   for _, _, numel in self.leaves)
 
 
 def plan_sync(shapes, bucket_elems: int, m: int) -> SyncPlan:
-    offsets, chunks, total = [], [], 0
+    if bucket_elems <= 0 or bucket_elems % m:
+        raise ValueError(
+            f"bucket_elems={bucket_elems} would split an M-group (m={m})")
+    offsets, leaves, total = [], [], 0
     for i, shape in enumerate(shapes):
         if not compressible_shape(tuple(shape), m):
             offsets.append(None)
             continue
         numel = math.prod(shape)
         offsets.append(total)
-        chunks += [(i, s, e) for s, e in plan_buckets(numel, bucket_elems, m)]
+        leaves.append((i, total, numel))
         total += numel
-    return SyncPlan(tuple(offsets), tuple(chunks), (total + m - 1) // m * m)
+    return SyncPlan(tuple(offsets), tuple(leaves), (total + m - 1) // m * m,
+                    bucket_elems, m)
 
 
 def err_state_elems(master, m: int) -> int:
@@ -164,10 +184,11 @@ def cross_pod_sync(grads, err: torch.Tensor, cfg: GradCompressConfig):
     ``grads``: a master-structured tree of (P, *shape) leaves, each
     pod's own gradient; ``err``: the (P, width) fp32 residual, updated
     in place.  Returns (the master-shaped mean gradients, each in its
-    leaf's dtype; ``err``).  Compressible leaves go through
-    ``ops.grad_compress`` and ``ops.grad_decompress_mean`` chunk by chunk
-    (``plan_sync``); ragged leaves take the fp32 mean over the pods.
-    CUDA tensors launch the kernels, CPU tensors run the plain versions.
+    leaf's dtype; ``err``).  Each compressible leaf goes through one
+    ``ops.grad_compress`` and one ``ops.grad_decompress_mean`` call
+    (``SyncPlan.leaves``); ragged leaves take the fp32 mean over the
+    pods.  CUDA tensors launch the kernels, CPU tensors run the plain
+    versions.
     """
     leaves = sgd.tree_leaves(grads)
     pods = leaves[0].shape[0]
@@ -182,7 +203,6 @@ def cross_pod_sync(grads, err: torch.Tensor, cfg: GradCompressConfig):
             raise ValueError(
                 f"gradient leaf {tuple(x.shape)} on {x.device} is not "
                 f"stacked over {pods} pods on {err.device}")
-    flats = [x.reshape(pods, -1) for x in leaves]
     outs = []
     for x, off in zip(leaves, plan.offsets):
         if off is None:   # dense fp32 pod mean, as the reference's pmean
@@ -194,11 +214,11 @@ def cross_pod_sync(grads, err: torch.Tensor, cfg: GradCompressConfig):
             outs.append(torch.empty(x.shape[1:], dtype=x.dtype,
                                     device=x.device))
     n, m = cfg.n, cfg.m
-    for leaf, s, e in plan.chunks:
-        col = plan.offsets[leaf]
-        vals, idx, _ = ops.grad_compress(
-            flats[leaf][:, s:e], err[:, col + s:col + e], n, m)
-        ops.grad_decompress_mean(vals, idx, n, m, outs[leaf].view(-1)[s:e])
+    for i, col, numel in plan.leaves:
+        vals, idx, _ = ops.grad_compress(leaves[i].reshape(pods, numel),
+                                         err[:, col:col + numel], n, m)
+        ops.grad_decompress_mean(vals, idx, n, m, outs[i].view(-1))
+        del vals, idx   # one leaf's payload alive at a time
     it = iter(outs)
     return sgd.tree_map(lambda _, x: next(it), grads), err
 

@@ -112,13 +112,20 @@ def init_state(params):
 # ---------------------------------------------------------------------------
 
 
+def refuse_unported_masks(sp_cfg: SparsityConfig) -> None:
+    """Raise for the mask kinds the port does not build yet: shared
+    granularity and transposable masks (ROADMAP queue 1 item 2)."""
+    if sp_cfg.transposable or sp_cfg.granularity != "element":
+        raise NotImplementedError(
+            "only element-granularity, non-transposable masks are ported "
+            "(ROADMAP queue 1 item 2)")
+
+
 def _pregen_masks(w: torch.Tensor, sp_cfg: SparsityConfig):
     """(ff_mask, bp_mask, decay_mask) of one fp32 weight; the FF and BP
     masks of a bdwp weight come from one selection (``nm_mask_pair``);
     unused directions are None."""
-    if sp_cfg.transposable or sp_cfg.granularity != "element":
-        raise NotImplementedError(
-            "only element-granularity, non-transposable masks are ported")
+    refuse_unported_masks(sp_cfg)
     n, m = sp_cfg.n, sp_cfg.m
     ff_ax, bp_ax = w.ndim - 2, w.ndim - 1
     ff_mask = bp_mask = None
@@ -196,8 +203,13 @@ def update(state, grads, opt_cfg: SGDConfig, sp_cfg: SparsityConfig, *,
     uses the mask stored in ``prev_compute`` (the one FF/BP just
     consumed; re-derived from master where there is none).  The master
     and momentum of non-site leaves, and their fp32 gradients, are
-    updated in place.
+    updated in place.  A config with shared or transposable masks is
+    refused before any leaf is touched when the tree has a pre-generated
+    site (``refuse_unported_masks``).
     """
+    if any(tree_leaves(tree_map(lambda name, w: bdwp.pregen_site(
+            name, tuple(w.shape), sp_cfg), state["master"]))):
+        refuse_unported_masks(sp_cfg)
     lr = float(lr_schedule(opt_cfg, state["step"]))
     n, m = sp_cfg.n, sp_cfg.m
 

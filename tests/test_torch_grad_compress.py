@@ -17,11 +17,17 @@ Also: the EF telescoping identity decode(vals, idx) + err' == g + err
 (bitwise, fp32 and bf16 gradients); the reference's two-pod fast path
 ((own + peer) * 0.5 with own = t - err') equals the general mean bit for
 bit; ``plan_buckets`` / ``GradCompressConfig`` refusals; the sync's
-result does not depend on ``bucket_elems``; the launch plan of qwen3-8b
-TRAIN_SYNC.
+result does not depend on ``bucket_elems``; the sync calls each op once
+per compressible leaf (5 on the test tree, 47 at qwen3-8b TRAIN_SYNC,
+counted with the ops patched), and its result is bitwise a walk over
+the reference's buckets (8, 64 and 1 << 16 elements, three steps of
+residual); the launch plan of qwen3-8b TRAIN_SYNC.
 
-The CUDA kernels against the plain versions on the card (bitwise) are
-marked ``gpu`` and skip where there is no card:
+The CUDA kernels against the plain versions on the card (bitwise), in
+both variants (vector: aligned rows, up to whole leaves of several
+million elements; scalar: any rows, and the only one "auto" picks for
+rows off a whole m-group), the residual written in place, are marked
+``gpu`` and skip where there is no card:
 ``python -m pytest -m gpu tests/test_torch_grad_compress.py``.
 """
 
@@ -205,6 +211,75 @@ def _tree(pods, seed):
             "emb": leaf(40, 8), "bias": leaf(3)}
 
 
+def _bucket_sync(grads, err, cfg):
+    """The reference's bucket walk, one call of each op per bucket of
+    ``plan_sync`` (the port's sync before it launched once per leaf)."""
+    leaves = sgd.tree_leaves(grads)
+    pods = leaves[0].shape[0]
+    plan = C.plan_sync([tuple(x.shape[1:]) for x in leaves],
+                       cfg.bucket_elems, cfg.m)
+    outs = [x.float().mean(0).to(x.dtype) if off is None
+            else torch.empty(x.shape[1:], dtype=x.dtype)
+            for x, off in zip(leaves, plan.offsets)]
+    for i, s, e in plan.chunks:
+        col = plan.offsets[i]
+        vals, idx, _ = TO.grad_compress(leaves[i].reshape(pods, -1)[:, s:e],
+                                        err[:, col + s:col + e], cfg.n, cfg.m)
+        TO.grad_decompress_mean(vals, idx, cfg.n, cfg.m,
+                                outs[i].view(-1)[s:e])
+    return outs, err
+
+
+@pytest.mark.parametrize("bucket", [8, 64, 1 << 16])
+def test_per_leaf_sync_equals_bucket_walk(bucket):
+    """Three steps of residual: the per-leaf sync and a per-bucket walk
+    give bitwise equal compressible means and residuals."""
+    cfg = C.GradCompressConfig(bucket_elems=bucket)
+    err_leaf, err_bucket = torch.zeros(2, 1104), torch.zeros(2, 1104)
+    for step in range(3):
+        tree = _tree(2, 10 + step)
+        out, err_leaf = C.cross_pod_sync(tree, err_leaf, cfg)
+        want, err_bucket = _bucket_sync(tree, err_bucket, cfg)
+        assert torch.equal(err_leaf, err_bucket)
+        for a, b, x in zip(sgd.tree_leaves(out), want, sgd.tree_leaves(tree)):
+            if C.compressible_shape(tuple(x.shape[1:]), cfg.m):
+                assert torch.equal(a, b)
+
+
+class _CountingOps:
+    """Counts ``ops.grad_compress`` / ``ops.grad_decompress_mean`` calls,
+    optionally passing them through to the plain path."""
+
+    def __init__(self, monkeypatch, through=True):
+        self.calls = {"grad_compress": 0, "grad_decompress_mean": 0}
+        for name in self.calls:
+            real = getattr(TO, name)
+
+            def count(*args, _name=name, _real=real):
+                self.calls[_name] += 1
+                if through:
+                    return _real(*args)
+                if _name == "grad_compress":   # shapes only (meta tensors)
+                    g, err, n, m = args
+                    shape = (g.shape[0], g.shape[1] // m * n)
+                    return (g.new_empty(shape, dtype=torch.bfloat16),
+                            g.new_empty(shape, dtype=torch.uint8), err)
+                return args[-1]
+
+            monkeypatch.setattr(TO, name, count)
+
+
+def test_sync_launches_once_per_leaf(monkeypatch):
+    """Five compressible leaves (two (16, 24) weights, two (8,) norms,
+    one (40, 8) table; the (3,) bias rides dense): five calls of each op
+    whatever the bucket size."""
+    ops = _CountingOps(monkeypatch)
+    for bucket in (8, 1 << 16):
+        C.cross_pod_sync(_tree(2, 0), torch.zeros(2, 1104),
+                         C.GradCompressConfig(bucket_elems=bucket))
+    assert ops.calls == {"grad_compress": 10, "grad_decompress_mean": 10}
+
+
 def test_sync_independent_of_bucket_size():
     results = []
     for bucket in (8, 64, 1 << 16):
@@ -227,9 +302,11 @@ def test_ragged_leaf_takes_dense_mean():
     assert torch.equal(out["bias"], (tree["bias"][0] + tree["bias"][1]) / 2)
 
 
-def test_train_sync_plan():
+def test_train_sync_plan(monkeypatch):
     """qwen3-8b TRAIN_SYNC: 9504 buckets each for embed and lm_head, 2948
-    per layer, 1 for the final norm at 1 << 16; 145 at 1 << 24."""
+    per layer, 1 for the final norm at 1 << 16; 145 at 1 << 24; 47
+    compressible leaves (11 a layer, embed, lm_head, the final norm), so
+    the sync calls each op 47 times (counted on meta tensors)."""
     cfg = TC.TRAIN_SYNC
     tree = TT.init_shell(cfg, None, device="meta")
     tree["blocks"] = list(TT.iter_blocks(cfg, None, device="meta"))
@@ -238,29 +315,106 @@ def test_train_sync_plan():
     assert plan.n_buckets == 2 * 9504 + 4 * 2948 + 1 == 30801
     assert plan.width == C.err_state_elems(tree, 8) == 2017498112
     assert C.plan_sync(shapes, 1 << 24, 8).n_buckets == 145
+    assert len(plan.leaves) == 11 * cfg.n_layers + 3 == 47
+    assert sum(numel for _, _, numel in plan.leaves) == plan.width
+    assert max(numel for _, _, numel in plan.leaves) == 622854144
+    ops = _CountingOps(monkeypatch, through=False)
+    grads = sgd.tree_map(lambda _, x: torch.empty(
+        (2, *x.shape), dtype=torch.bfloat16, device="meta"), tree)
+    C.cross_pod_sync(grads, torch.empty((2, plan.width), device="meta"),
+                     C.GradCompressConfig())
+    assert ops.calls == {"grad_compress": 47, "grad_decompress_mean": 47}
+
+
+def _check_cuda_case(g, err, n, m, variant):
+    """One compress (err' in place) and mean (fp32 and g's dtype) launch
+    of ``variant`` against the plain versions, bitwise."""
+    want = TR.ref_grad_compress(g, err, n, m)
+    before = dict(K.variant_launches["grad_compress"])
+    got = K.grad_compress(g, err, n, m, out_err=err, variant=variant)
+    torch.cuda.synchronize()
+    assert got[2] is err
+    if variant != "auto":
+        assert K.variant_launches["grad_compress"][variant] == \
+            before[variant] + 1
+    for name, a, b in zip(("vals", "idx", "err'"), got, want):
+        assert np.array_equal(_bits(a), _bits(b)), (g.shape, name, variant)
+    plain = TR.ref_grad_decompress_mean(got[0], got[1], n, m)
+    for dt in (torch.float32, g.dtype):
+        out = torch.empty(g.shape[1], dtype=dt, device=g.device)
+        mean = K.grad_decompress_mean(got[0], got[1], n, m, out=out,
+                                      variant=variant)
+        torch.cuda.synchronize()
+        assert np.array_equal(_bits(mean), _bits(plain.to(dt))), (
+            g.shape, dt, variant)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["auto", "vector", "scalar"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,m", NM)
+def test_cuda_kernels_match_plain(n, m, dtype, variant):
+    """Both kernels, in each variant, against the plain versions on the
+    card, bitwise, on even, ragged and strided rows, with and without
+    ties, the residual written in place; every row here starts on a
+    whole m-group, so the vector variant may run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for pods, k in [(2, 65536), (1, m), (3, 4096 + m), (4, 4096),
+                    (2, 4096 * 129 + m)]:
+        for kind in ("normal", "ties"):
+            g, err = _inputs(pods, 2 * k, kind, seed=pods)
+            # rows strided by 2k, as a column range of a wider tensor
+            g = _t(g).cuda().to(dtype)[:, m:m + k]
+            err = _t(err).cuda()[:, :k]
+            _check_cuda_case(g, err, n, m, variant)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,m", NM)
-def test_cuda_kernels_match_plain(n, m, dtype):
-    """Both kernels against the plain versions on the card, bitwise, on
-    even, ragged and strided rows, with and without ties."""
+def test_cuda_kernels_whole_leaves(dtype):
+    """A pod-stacked leaf of several million elements and its residual
+    columns as the sync hands them over (2:8): the vector variant runs,
+    bitwise the plain versions and the scalar variant."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    for pods, k in [(2, 65536), (1, m), (3, 4096 + m), (4, 4096)]:
-        for kind in ("normal", "ties"):
-            g, err = _inputs(pods, 2 * k, kind, seed=pods)
-            # rows strided by 2k, as a bucket of a wider leaf is
-            g = _t(g).cuda().to(dtype)[:, m:m + k]
-            err = _t(err).cuda()[:, :k]
-            want = TR.ref_grad_compress(g, err, n, m)
-            got = K.grad_compress(g, err, n, m, out_err=err)   # in place
-            torch.cuda.synchronize()
-            assert got[2] is err
-            for name, a, b in zip(("vals", "idx", "err'"), got, want):
-                assert np.array_equal(_bits(a), _bits(b)), (pods, k, name)
-            mean = K.grad_decompress_mean(got[0], got[1], n, m)
-            plain = TR.ref_grad_decompress_mean(got[0], got[1], n, m)
-            torch.cuda.synchronize()
-            assert np.array_equal(_bits(mean), _bits(plain)), (pods, k)
+    numel, col = 4096 * 1024 + 8 * 37, 8 * 1001
+    g, err = _inputs(2, numel + col, "normal", seed=7)
+    g = _t(g[:, :numel]).cuda().to(dtype)           # a whole leaf
+    err = _t(err).cuda()[:, col:col + numel]       # its residual columns
+    err0 = err.clone()
+    before = dict(K.variant_launches["grad_compress"])
+    _check_cuda_case(g, err, 2, 8, "auto")
+    assert K.variant_launches["grad_compress"]["vector"] == \
+        before["vector"] + 1
+    vec = K.grad_compress(g, err0.clone(), 2, 8, variant="vector")
+    sca = K.grad_compress(g, err0.clone(), 2, 8, variant="scalar")
+    torch.cuda.synchronize()
+    for a, b in zip(vec, sca):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m", NM)
+def test_cuda_kernels_misaligned_rows(n, m):
+    """Rows that start off a whole m-group (odd element offsets, an odd
+    row stride): "auto" takes the scalar variant, "vector" refuses,
+    both bitwise the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    k = 4096 + m
+    g, err = _inputs(3, k + 3, "normal", seed=11)
+    g = _t(g).cuda().to(torch.bfloat16)[:, 1:1 + k]     # off by 2 bytes
+    err = _t(err).cuda()[:, 3:3 + k]                    # off by 12 bytes
+    before = dict(K.variant_launches["grad_compress"])
+    _check_cuda_case(g, err, n, m, "auto")
+    assert K.variant_launches["grad_compress"]["scalar"] == \
+        before["scalar"] + 1
+    with pytest.raises(ValueError, match="vector variant"):
+        K.grad_compress(g, err, n, m, variant="vector")
+    out = torch.empty(k + 1, device="cuda")[1:]         # off by 4 bytes
+    vals, idx, _ = K.grad_compress(g, err.clone(), n, m)
+    mean = K.grad_decompress_mean(vals, idx, n, m, out=out)
+    torch.cuda.synchronize()
+    assert np.array_equal(_bits(mean), _bits(
+        TR.ref_grad_decompress_mean(vals, idx, n, m)))
