@@ -9,7 +9,10 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
   1. card       name and power limit from nvidia-smi, device count;
   2. build      every kernel source of the port, one nvcc each, started
                 together; nvcc's -Xptxas -v lines (registers, shared
-                memory, spills) printed and kept in the details;
+                memory, spills) printed (for nm_compact's many
+                instantiations a summary and the element pack's kernels)
+                and kept in the details; static SASS counts (cuobjdump)
+                of the element pack's nm_compact kernels;
   3. kernels    nm_spmm against its plain PyTorch version at the
                 shapes of qwen3-8b (the seven projections, B in
                 {4, 32, 128, 1024, 2048}, u4 and u8 indices) and at ragged
@@ -32,7 +35,8 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 mid-flight; every batched stream must equal its solo
                 stream and the nm_spmm launch count must be
                 7 x 36 x (prefills + decode steps), the pack's nm_compact
-                launches 7 x 36 (pack time without the draws); then five
+                launches 7 x 36, every one on the vector variant (pack
+                time without the draws); then five
                 decode steps under torch.profiler give the device's busy time
                 and idle share per step and the top kernels and host ops;
   7. update     the fused_update kernel against its plain version at the
@@ -99,24 +103,35 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 identity on layer 0's w_gate; a sixth step under
                 torch.profiler (forward / backward / sync / update),
                 peak memory;
- 15. compact / shared  nm_compact against its plain version, bitwise: the
-                seven weights as the element pack reads them (strided
-                (K, F) bf16, groups along K, u4 and u8), fp32 score rows
+ 15. compact / shared  nm_compact against its plain version, bitwise, in
+                both variants: the seven weights as the element pack
+                reads them (strided (K, F) bf16, groups along K, u4 and
+                u8) and strided cases (1:8 u4 with an odd group count,
+                3:8, 2:4, 4:16 fp32, -0 ties, NaNs of any payload, two in
+                many groups), where "vector" must run; F = 1000 and a
+                view off by one element, where "auto" must take the
+                scalar variant and "vector" must refuse; fp32 score rows
                 (1, K) and (nf, K), odd Kc with u4, K = m, 2:4, 1:8, 3:8,
-                4:16, heavy ties with -0; nm_spmm_shared against
+                4:16, heavy ties with -0 (contiguous rows: the scalar
+                variant); device times per layer (CUDA graph replay,
+                cold L2, the median of three in turns) of the vector and
+                the scalar variant (u4) and of the vector one (u8),
+                against their byte bounds and the plain version;
+                nm_spmm_shared against
                 its plain version within the phase-3 tolerance, rows
                 bitwise independent of the batch: the seven shapes at
                 B = 4 and at prefill rows (4 x 32) as one tile (TF = F),
                 pack_shared's TF = 128, ragged B / Kc / TF and dtypes;
                 device times (CUDA graph replay, cold L2) per layer
-                against the byte bound, the plain version and (for
-                nm_spmm_shared) torch.matmul on the dense bf16 weight;
+                against the byte bound, the plain version and
+                torch.matmul on the dense bf16 weight;
  16. small shared qwen3-8b SMOKE, 2:8 shared granularity: pack_tree_shared
                 on the card and on the CPU bitwise equal; prefill + 8
                 greedy decode steps, logits within SMALL_ATOL;
  17. shared serve  qwen3-8b FULL (36 layers, nothing cut), bf16 weights
                 from a seed packed layer by layer by pack_tree_shared on
-                the card (exactly 7 x 36 nm_compact launches; layer 0
+                the card (exactly 7 x 36 nm_compact launches, on the
+                scalar variant: the score rows are contiguous; layer 0
                 bitwise the plain pack); 4 prompts of 5-32 tokens
                 right-padded to 32 and prefilled with last_index, then
                 16 greedy lm_decode_steps with exactly 7 x 36 x 17
@@ -133,9 +148,11 @@ checkout, it exits non-zero without that line.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -190,6 +207,82 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+# kernels whose -Xptxas -v lines and static SASS counts phase 2 prints
+# from a library with many instantiations: the element pack's nm_compact
+# (bf16, m = 8; vector 2:8 u4 and u8, scalar u4)
+SASS_KERNELS = {
+    "nm_compact": {
+        "vector 2:8 u4": "nm_compact_vec_kernelI13__nv_bfloat16Li8ELi2ELi4E",
+        "vector 2:8 u8": "nm_compact_vec_kernelI13__nv_bfloat16Li8ELi2ELi8E",
+        "scalar m=8 u4": "nm_compact_kernelI13__nv_bfloat16Li8ELi4E"}}
+INT_OPS = {"IMAD", "IADD3", "LOP3", "SHF", "IMNMX", "ISETP", "SEL", "PRMT",
+           "LEA", "IABS", "BMSK", "FLO", "POPC", "BREV", "VIMNMX", "IMUL"}
+
+
+def ptxas_entries(log: str) -> dict:
+    """nvcc -Xptxas -v's log split by kernel: {mangled name: its lines}."""
+    entries, name = {}, None
+    for line in log.splitlines():
+        found = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?([\w]+)'?", line)
+        if found:
+            name = found.group(1)
+        if name:
+            entries.setdefault(name, []).append(line.strip())
+    return entries
+
+
+def print_build_log(name: str, log: str) -> None:
+    """nvcc's log as it is, or for a library of many kernels one summary
+    line plus the kernels of SASS_KERNELS."""
+    if log.count("\n") <= 60:
+        print("    " + log.strip().replace("\n", "\n    "))
+        return
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        log)
+    spilled = sum(1 for a, b in spills if int(a) or int(b))
+    print(f"    {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
+          f"{spilled} with spills (all lines in the details)")
+    for label, key in SASS_KERNELS.get(name, {}).items():
+        for fn, lines in ptxas_entries(log).items():
+            if key in fn:
+                print(f"    {label}: " + "; ".join(
+                    ln.split(":", 1)[-1].strip() for ln in lines
+                    if "Used" in ln or "spill" in ln))
+
+
+def sass_counts(lib, kernels: dict) -> dict:
+    """Static SASS instruction counts (cuobjdump -sass) of the kernels of
+    the library ``lib`` named in ``kernels`` ({label: part of the mangled
+    name}): all instructions, global loads and stores by opcode, integer
+    ALU instructions."""
+    from repro_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if not os.path.isfile(tool):
+        print(f"  SASS: no {tool}")
+        return {}
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts = {}
+    for block in sass.split("Function : ")[1:]:
+        fn = block.split()[0]
+        label = next((k for k, v in kernels.items() if v in fn), None)
+        if label is None:
+            continue
+        ops = collections.Counter(re.findall(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)",
+            block))
+        counts[label] = {
+            "total": sum(ops.values()),
+            "loads": {o: c for o, c in ops.items() if o.startswith("LDG")},
+            "stores": {o: c for o, c in ops.items() if o.startswith("STG")},
+            "integer": sum(c for o, c in ops.items()
+                           if o.split(".")[0] in INT_OPS)}
+    return counts
 
 
 def packed_case(gen, b, k, f, n, m, idx_bits, dev):
@@ -1334,6 +1427,7 @@ def phase_serve(dev, seed):
     torch.cuda.synchronize()
     shell_s, draws = time.perf_counter() - t0, [0.0]
     KC.launches = 0
+    KC.variant_launches.update(dict.fromkeys(KC.VARIANTS, 0))
     t0 = time.perf_counter()
     store = PackedParamStore.pack_layerwise(
         shell, timed_draws(T.iter_blocks(cfg, gen, device=dev,
@@ -1341,13 +1435,15 @@ def phase_serve(dev, seed):
         sp, idx_bits=4, device=dev)
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0 - draws[0]
-    compact = KC.launches
+    compact, compact_variants = KC.launches, dict(KC.variant_launches)
     del shell
-    print(f"  init {shell_s + draws[0]:.1f} s + pack {pack_s:.2f} s "
+    print(f"  init {shell_s + draws[0]:.1f} s + pack {pack_s:.4f} s "
           f"({cfg.n_layers} layers, nm_compact launches {compact}, want "
-          f"{7 * cfg.n_layers}), peak "
+          f"{7 * cfg.n_layers}, by variant {compact_variants}), peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     check(compact == 7 * cfg.n_layers, "serve: nm_compact launch count")
+    check(compact_variants["vector"] == compact,
+          "serve: an element-pack launch missed the vector variant")
     engine = ServeEngine(store, cfg, sp, ServeConfig(
         n_slots=4, prompt_bucket=32, max_len=96, packed=True), device=dev)
     rng = np.random.default_rng(seed)
@@ -1397,6 +1493,7 @@ def phase_serve(dev, seed):
     print(f"  max_memory_allocated {peak / 2**30:.2f} GiB")
     print("  hbm_report " + json.dumps(report))
     return {"launches": launches, "compact_launches": compact,
+            "compact_variants": compact_variants,
             "pack_s": pack_s, "tok_per_s": st["decoded_tokens"] / wall,
             "ms_per_step": 1e3 * wall / st["steps"], "wall_s": wall,
             "stats": st, "max_memory_allocated": peak, "hbm_report": report,
@@ -1432,18 +1529,35 @@ SHARED_RAGGED = [
 PREFILL_ROWS = (4, 32)          # phase 17's prompts x prompt bucket
 
 
-def compact_weight(w, n, m, idx_bits):
-    """nm_compact of a (K, F) weight along K as pack_tree_element runs it:
-    the kernel reads the (F, K) view and writes (Kc, F) vals and idx
+# phase 15 nm_compact cases on the element pack's strided layout beyond
+# the seven weights: (label, K, F, n, m, idx_bits, dtype, kind, view);
+# kind "ties" draws small integers with -0 for every zero, "nan" adds
+# infinities and NaNs of random payload and sign (many groups hold two);
+# view "off" reads the (F, K) view one element into the weight's storage
+COMPACT_STRIDED = [
+    ("F=1000", 512, 1000, 2, 8, 4, "bf16", "normal", None),
+    ("view off one element", 512, 512, 2, 8, 4, "bf16", "normal", "off"),
+    ("1:8 u4, odd G", 8 * 61, 1024, 1, 8, 4, "bf16", "ties", None),
+    ("3:8 u4", 8 * 33, 512, 3, 8, 4, "bf16", "ties", None),
+    ("NaN, -0 ties 2:8 u4", 512, 4096, 2, 8, 4, "bf16", "nan", None),
+    ("NaN 3:8 u4 fp32", 8 * 33, 512, 3, 8, 4, "fp32", "nan", None),
+    ("4:16 u8 fp32", 512, 1024, 4, 16, 8, "fp32", "ties", None),
+    ("2:4 u4", 256, 2048, 2, 4, 4, "bf16", "normal", None)]
+INT_VIEW = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+
+
+def compact_view(x, n, m, idx_bits, variant="auto"):
+    """nm_compact of the (F, K) view ``x`` of a (K, F) weight along K, as
+    pack_tree_element runs it: vals and idx written as (Kc, F) planes
     through their transposed views."""
     from repro_torch.kernels import nm_compact as K
 
-    k, f = w.shape
+    f, k = x.shape
     kc = k // m * n
-    vals = torch.empty((kc, f), dtype=w.dtype, device=w.device)
+    vals = torch.empty((kc, f), dtype=x.dtype, device=x.device)
     idx = torch.empty(((kc + 1) // 2 if idx_bits == 4 else kc, f),
-                      dtype=torch.uint8, device=w.device)
-    K.nm_compact(w.t(), n, m, idx_bits, out=(vals.t(), idx.t()))
+                      dtype=torch.uint8, device=x.device)
+    K.nm_compact(x, n, m, idx_bits, out=(vals.t(), idx.t()), variant=variant)
     return vals, idx
 
 
@@ -1454,25 +1568,107 @@ def compact_bound_ms(r, k, n, m, idx_bits, itemsize):
     return r * (k * itemsize + kc * itemsize + kci) / HBM_BYTES_PER_S * 1e3
 
 
+def compact_case_weight(gen, k, f, kind, dtype, dev):
+    """A (K, F) weight for COMPACT_STRIDED."""
+    if kind == "normal":
+        return torch.randn((k, f), generator=gen, device=dev).to(dtype)
+    w = torch.randint(-2, 3, (k, f), generator=gen, device=dev).to(dtype)
+    w = torch.where(w == 0, torch.full_like(w, -0.0), w)
+    if kind == "nan":
+        at = torch.rand((k, f), generator=gen, device=dev)
+        w = torch.where(at < 0.05, torch.full_like(w, math.inf), w)
+        w = torch.where(at > 0.95, torch.full_like(w, -math.inf), w)
+        bits = w.view(INT_VIEW[dtype])
+        top = 8 * w.element_size()
+        pay = torch.randint(1, 64, (k, f), generator=gen, device=dev)
+        neg = torch.rand((k, f), generator=gen, device=dev) < 0.5
+        nan = (pay | (0x7f80 << (top - 16))) | (neg.long() << (top - 1))
+        pick = (at > 0.3) & (at < 0.45)
+        bits[pick] = nan[pick].to(bits.dtype)
+    return w
+
+
+def expected_compact(x, n, m, idx_bits):
+    """The plain version's (vals, idx) of (R, K) ``x``, a NaN survivor's
+    bits x's own at its offset: the values are copied, and a gather of a
+    NaN need not keep its payload."""
+    from repro_torch.kernels import ref
+
+    vals, idx = ref.ref_nm_compact(x, n, m, idx_bits)
+    nan = torch.isnan(vals)
+    if not bool(nan.any()):
+        return vals, idx
+    _, offs = ref.ref_nm_compact(x, n, m, 8)
+    r, k = x.shape
+    iv = INT_VIEW[x.dtype]
+    raw = x.contiguous().view(iv).reshape(r, k // m, m)
+    copied = torch.gather(raw, -1, offs.reshape(r, k // m, n).long())
+    return torch.where(nan, copied.reshape(r, -1), vals.view(iv)).view(
+        x.dtype), idx
+
+
+def check_compact_view(x, n, m, bits, variants, label):
+    """nm_compact of the (F, K) view ``x`` in each of ``variants`` against
+    the plain version, bitwise; returns the variant each launch took."""
+    from repro_torch.kernels import nm_compact as K
+
+    want = expected_compact(x, n, m, bits)
+    took = []
+    for variant in variants:
+        before = dict(K.variant_launches)
+        vals, idx = compact_view(x, n, m, bits, variant)
+        torch.cuda.synchronize()
+        took += [v for v in K.VARIANTS if K.variant_launches[v] != before[v]]
+        check(variant == "auto" or took[-1] == variant,
+              f"nm_compact {label}: asked for {variant}, took {took[-1]}")
+        check(bits_equal(vals.t(), want[0]) and bits_equal(idx.t(), want[1]),
+              f"nm_compact {label} ({variant}): not bitwise equal")
+    return took
+
+
 def phase_compact(dev, gen):
-    """nm_compact vs plain, bitwise: the seven weights as the element pack
-    reads them (u4 and u8), score rows, ragged shapes and ties; then its
-    device times per layer (cold L2)."""
+    """nm_compact vs plain, bitwise, in both variants: the seven weights as
+    the element pack reads them (u4 and u8), strided cases the vector
+    variant must refuse or take, score rows, ragged shapes and ties; then
+    each variant's device times per layer (cold L2)."""
     from repro_torch.kernels import nm_compact as K
     from repro_torch.kernels import ref
 
     for name, k, f in PROJ:
+        w = torch.randn((k, f), generator=gen, device=dev).to(torch.bfloat16)
         for bits in (4, 8):
-            w = torch.randn((k, f), generator=gen, device=dev).to(
-                torch.bfloat16)
-            vals, idx = compact_weight(w, 2, 8, bits)
-            want = ref.ref_nm_compact(w.t(), 2, 8, bits)
-            torch.cuda.synchronize()
-            check(bits_equal(vals, want[0].t()) and bits_equal(idx,
-                                                               want[1].t()),
-                  f"nm_compact {name} u{bits}: not bitwise equal")
+            check_compact_view(w.t(), 2, 8, bits, ("vector", "scalar"),
+                               f"{name} u{bits}")
         print(f"  {name:7s} ({k}, {f}) bf16 along K, strided: vals and idx "
-              "bitwise equal, u4 and u8")
+              "bitwise equal, u4 and u8, vector and scalar")
+    for label, k, f, n, m, bits, dt, kind, view in COMPACT_STRIDED:
+        w = compact_case_weight(gen, k, f + (view == "off"), kind,
+                                DTYPES[dt], dev)
+        x = (w.flatten()[1:1 + k * f].view(k, f) if view else w).t()
+        # compact_view's planes: new (Kc, F) tensors, read transposed
+        if K.vector_ok(f, x.element_size(), n,
+                       (x.data_ptr(), x.stride(0), x.stride(1)), (0, 1, f),
+                       (0, 1, f)):
+            took = check_compact_view(x, n, m, bits, ("vector", "scalar"),
+                                      label)
+        else:
+            took = check_compact_view(x, n, m, bits, ("auto", "scalar"),
+                                      label)
+            check(took[0] == "scalar", f"nm_compact {label}: auto took "
+                  f"{took[0]}, not the scalar variant")
+            count = K.launches
+            try:
+                compact_view(x, n, m, bits, "vector")
+            except ValueError:
+                pass
+            else:
+                raise RuntimeError(f"nm_compact {label}: the vector variant "
+                                   "took a view it must refuse")
+            check(K.launches == count, f"nm_compact {label}: a refused "
+                  "launch counted")
+        print(f"  {label:24s} ({k}, {f}) {dt} u{bits} strided: bitwise "
+              f"equal, variants {took}"
+              + ("" if "vector" in took else ", vector refused"))
     cases = [(f"score rows ({r}, {k})", r, k, 2, 8, 8, "fp32", False)
              for r, k in ((1, 4096), (1, 12288), (32, 4096), (96, 4096),
                           (32, 12288))]
@@ -1488,28 +1684,54 @@ def phase_compact(dev, gen):
                 DTYPES[dt])
             if label.startswith("score"):
                 x = x.abs() * 64.0
+        scalar = K.variant_launches["scalar"]
         got = K.nm_compact(x, n, m, bits)
         want = ref.ref_nm_compact(x, n, m, bits)
         torch.cuda.synchronize()
         check(bits_equal(got[0], want[0]) and bits_equal(got[1], want[1]),
               f"nm_compact {label}: not bitwise equal")
-        print(f"  {label:24s} {dt} u{bits}: vals and idx bitwise equal")
+        check(K.variant_launches["scalar"] == scalar + 1,
+              f"nm_compact {label}: auto did not take the scalar variant")
+        print(f"  {label:24s} {dt} u{bits}: vals and idx bitwise equal "
+              "(scalar)")
     rows = []
     for name, k, f in PROJ:
         copies = max(2, -(-2 * L2_BYTES // (k * f * 2)))
         ws = [torch.randn((k, f), generator=gen, device=dev).to(
             torch.bfloat16) for _ in range(copies)]
-        t_k = time_ms(lambda i: compact_weight(ws[i], 2, 8, 4), copies)
+        # the median of three graph replays of each, in turns
+        runs = {}
+        for kind, bits in (("vector", 4), ("scalar", 4), ("vector", 8),
+                           ("vector", 8), ("scalar", 4), ("vector", 4),
+                           ("vector", 4), ("vector", 8), ("scalar", 4)):
+            runs.setdefault(f"{kind} u{bits}", []).append(time_ms(
+                lambda i: compact_view(ws[i].t(), 2, 8, bits, kind), copies))
+        t = {key: sorted(v)[1] for key, v in runs.items()}
         t_p = time_ms(lambda i: ref.ref_nm_compact(ws[i].t(), 2, 8, 4),
                       copies, iters=5)
         t_b = compact_bound_ms(f, k, 2, 8, 4, 2)
-        rows.append({"proj": name, "K": k, "F": f, "ms": t_k,
-                     "plain_ms": t_p, "bound_ms": t_b, "bound_by": "bytes",
-                     "library_ms": None})
-        print(f"  pack {name:7s} {k:5d}x{f:<5d} bf16 u4: kernel={t_k:.4f} "
-              f"ms bound={t_b:.4f} ms (bytes) plain={t_p:.4f} ms "
-              f"kernel/bound={t_k / t_b:.2f}")
+        t_b8 = compact_bound_ms(f, k, 2, 8, 8, 2)
+        rows.append({"proj": name, "K": k, "F": f, "ms": t["vector u4"],
+                     "scalar_ms": t["scalar u4"], "u8_ms": t["vector u8"],
+                     "u8_bound_ms": t_b8, "plain_ms": t_p, "bound_ms": t_b,
+                     "bound_by": "bytes", "library_ms": None, "runs": runs})
+        print(f"  pack {name:7s} {k:5d}x{f:<5d} bf16 u4: vector="
+              f"{t['vector u4']:.4f} ms scalar={t['scalar u4']:.4f} ms "
+              f"bound={t_b:.4f} ms (bytes) plain={t_p:.4f} ms "
+              f"bound/vector={t_b / t['vector u4']:.2f}; u8 vector="
+              f"{t['vector u8']:.4f} ms bound={t_b8:.4f} ms")
         del ws
+    tot = {key: sum(r[key] for r in rows)
+           for key in ("ms", "scalar_ms", "u8_ms", "bound_ms", "u8_bound_ms",
+                       "plain_ms")}
+    print(f"  one layer's element pack (7 weights, 2:8): u4 vector "
+          f"{1e3 * tot['ms']:.1f} us = {tot['bound_ms'] / tot['ms']:.2f} of "
+          f"its {1e3 * tot['bound_ms']:.1f} us bound, scalar "
+          f"{1e3 * tot['scalar_ms']:.1f} us; u8 vector "
+          f"{1e3 * tot['u8_ms']:.1f} us = "
+          f"{tot['u8_bound_ms'] / tot['u8_ms']:.2f} of its "
+          f"{1e3 * tot['u8_bound_ms']:.1f} us bound; plain "
+          f"{1e3 * tot['plain_ms']:.1f} us")
     for k in (4096, 12288):
         xs = [torch.rand((1, k), generator=gen, device=dev) for _ in range(2)]
         t_k = time_ms(lambda i: K.nm_compact(xs[i], 2, 8), 2)
@@ -1726,6 +1948,7 @@ def phase_shared_serve(dev, seed):
     torch.cuda.synchronize()
     shell_s, draws = time.perf_counter() - t0, [0.0]
     KC.launches = 0
+    KC.variant_launches.update(dict.fromkeys(KC.VARIANTS, 0))
     t0 = time.perf_counter()
     params = bdwp.pack_tree_shared(shell, sp, device=dev)
     params["blocks"], layer0 = [], None
@@ -1737,12 +1960,15 @@ def phase_shared_serve(dev, seed):
         del block
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0 - draws[0]
-    compact = KC.launches
+    compact, compact_variants = KC.launches, dict(KC.variant_launches)
     del shell
-    print(f"  init {shell_s + draws[0]:.1f} s + pack_tree_shared {pack_s:.2f}"
+    print(f"  init {shell_s + draws[0]:.1f} s + pack_tree_shared {pack_s:.4f}"
           f" s ({cfg.n_layers} layers, nm_compact launches {compact}, want "
-          f"{7 * cfg.n_layers})")
+          f"{7 * cfg.n_layers}, by variant {compact_variants})")
     check(compact == 7 * cfg.n_layers, "shared serve: nm_compact launches")
+    # the pattern's (1, K) score rows are contiguous: the scalar variant
+    check(compact_variants["scalar"] == compact,
+          "shared serve: a score-row launch took the vector variant")
     for part, name in PROJ_PATHS:
         w, op = layer0[part][name]["w"], params["blocks"][0][part][name]["w"]
         _, offsets = ref.ref_nm_compact(w.abs().float().sum(1)[None], 2, 8)
@@ -1828,6 +2054,7 @@ def phase_shared_serve(dev, seed):
     print(f"  max_memory_allocated {peak / 2**30:.2f} GiB")
     del params, state
     return {"launches": launches, "compact_launches": compact,
+            "compact_variants": compact_variants,
             "pack_s": pack_s, "prefill_ms": prefill_ms,
             "decode_ms_per_step": ms, "decode_ms": times,
             "tok_per_s": b / ms * 1e3, "permuted_prefill_ms": prefill2,
@@ -1861,8 +2088,15 @@ def main(argv=None) -> int:
     built = build.build_all()
     for name, info in built.items():
         print(f"  {name}: {info['seconds']:.1f} s")
-        print("    " + info["log"].strip().replace("\n", "\n    "))
+        print_build_log(name, info["log"])
     print(f"  built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
+    sass = {name: sass_counts(build.library_path(name), kernels)
+            for name, kernels in SASS_KERNELS.items()}
+    for name, per in sass.items():
+        for label, c in per.items():
+            print(f"  SASS {name} {label}: {c['total']} instructions, "
+                  f"{c['integer']} integer, loads {c['loads']}, stores "
+                  f"{c['stores']}")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     print("[3] kernels vs plain versions")
@@ -1972,8 +2206,14 @@ def main(argv=None) -> int:
              replaces="src/repro/kernels/nm_compact.py:77",
              **summed(compact_rows, "one layer's element pack: the 7 "
                       "projections, bf16 (K, F) read as (F, K) views, 2:8 "
-                      "u4, summed", sum(compact_paths.values()),
-                      compact_paths, compact_err)),
+                      "u4, summed, vector variant", sum(
+                          compact_paths.values()), compact_paths,
+                      compact_err),
+             launches_by_variant={
+                 "serve": serve["compact_variants"],
+                 "shared_serve": shared_serve["compact_variants"]},
+             **{key: sum(r[key] for r in compact_rows)
+                for key in ("scalar_ms", "u8_ms", "u8_bound_ms")}),
         dict(name="nm_spmm_shared", route="cuda",
              source="src/repro_torch/kernels/csrc/nm_spmm_shared.cu",
              replaces="src/repro/kernels/nm_spmm_shared.py:104",
@@ -1992,7 +2232,7 @@ def main(argv=None) -> int:
                        "update_timing": upd_rows,
                        "spmm_train_timing": spmm_rows,
                        "spmm_pod_timing": spmm_pod_rows, "serve": serve,
-                       "build": built,
+                       "build": built, "sass": sass,
                        "train": train, "sync_timing": sync_rows,
                        "sync_alone": sync_alone, "train_sync": train_sync,
                        "compact_timing": compact_rows,

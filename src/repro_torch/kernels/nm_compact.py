@@ -14,8 +14,19 @@ Kc is taken, an odd one with u4 indices included (the reference's
 ``ops.nm_compact`` sends an odd u4 tile to its oracle), so the port has
 no shape fallback.  This wrapper only launches: it checks device, dtype,
 shape and m and raises on anything else; ``kernels.ops.nm_compact``
-sends CPU tensors to the plain version instead.  ``launches`` counts the
-launches made here and nowhere else.
+sends CPU tensors to the plain version instead.
+
+The kernel has two hand-written variants with the same bits: "vector"
+(a thread packs one 16-byte chunk of columns of one group with 16-byte
+loads and stores, a persistent grid) where ``vector_ok`` holds: n <= 4,
+the R axis has unit stride in x, vals and idx (the element pack's
+transposed weight views), R is a whole number of 16-byte chunks of x
+and every base pointer and K stride is a multiple of 16 bytes; and
+"scalar" (one thread per group, any strides) for the rest: score rows,
+ragged or misaligned views, n > 4.  ``variant="auto"`` picks the vector
+one where it may run; asking for "vector" where it may not raises.
+``launches`` counts the launches made here and nowhere else,
+``variant_launches`` the same launches per variant.
 """
 
 from __future__ import annotations
@@ -27,8 +38,11 @@ import torch
 from repro_torch.kernels import build
 
 launches = 0
+VARIANTS = ("vector", "scalar")
+variant_launches = dict.fromkeys(VARIANTS, 0)
 GROUP_SIZES = (2, 4, 8, 16)   # the m the kernel is instantiated for
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+VECTOR_MAX_N = 4              # the n the vector variant is built for
 
 _lib = None
 
@@ -39,7 +53,7 @@ def _library():
         lib = build.load("nm_compact")
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.nm_compact_launch.argtypes = [p, i, i64, i64, p, i64, i64, p,
-                                          i64, i64, i64, i, i, i, i, p]
+                                          i64, i64, i64, i, i, i, i, i, p]
         lib.nm_compact_launch.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -54,11 +68,48 @@ def _check_out(name, t, shape, dtype, like):
                          f"{shape}, got {t.dtype} {tuple(t.shape)}")
 
 
+def vector_ok(rows: int, itemsize: int, n: int, x, vals, idx) -> bool:
+    """May the vector variant take an n:m call with ``rows`` = R and x of
+    ``itemsize`` bytes?  ``x``, ``vals`` and ``idx`` are each (data
+    pointer, R stride, K stride), strides in elements."""
+    if n > VECTOR_MAX_N or (rows * itemsize) % 16:
+        return False
+    for (ptr, s_r, s_k), size in ((x, itemsize), (vals, itemsize),
+                                  (idx, 1)):
+        if s_r != 1 or ptr % 16 or (s_k * size) % 16:
+            return False
+    return True
+
+
+def pick_variant(variant: str, x: torch.Tensor, vals: torch.Tensor,
+                 idx: torch.Tensor, n: int) -> str:
+    """The variant an n:m launch on (x, vals, idx) takes: "auto" is
+    "vector" where ``vector_ok`` holds, else "scalar"; "vector" where it
+    does not hold raises."""
+    if variant not in ("auto", *VARIANTS):
+        raise ValueError(f"nm_compact: variant must be 'auto' or one of "
+                         f"{VARIANTS}, got {variant!r}")
+    ok = vector_ok(x.shape[0], x.element_size(), n,
+                   *((t.data_ptr(), t.stride(0), t.stride(1))
+                     for t in (x, vals, idx)))
+    if variant == "auto":
+        return "vector" if ok else "scalar"
+    if variant == "vector" and not ok:
+        raise ValueError(
+            f"nm_compact: the vector variant needs n <= {VECTOR_MAX_N}, unit "
+            "R strides, R a whole number of 16-byte chunks and 16-byte "
+            f"aligned pointers and K strides (n={n}, x {tuple(x.shape)} "
+            f"strides {x.stride()}, vals strides {vals.stride()}, idx "
+            f"strides {idx.stride()})")
+    return variant
+
+
 def nm_compact(x: torch.Tensor, n: int, m: int, idx_bits: int = 8, *,
-               out=None):
+               out=None, variant: str = "auto"):
     """Launch the CUDA kernel on the (R, K) CUDA tensor ``x`` (fp32 or
     bf16, any strides); returns (vals, idx), written into ``out`` =
-    (vals, idx) views when given, else into new contiguous tensors."""
+    (vals, idx) views when given, else into new contiguous tensors.
+    ``variant``: "auto", "vector" or "scalar"."""
     global launches
     if not x.is_cuda:
         raise ValueError(f"nm_compact: x is on {x.device}, not CUDA")
@@ -85,15 +136,18 @@ def nm_compact(x: torch.Tensor, n: int, m: int, idx_bits: int = 8, *,
         vals, idx = out
         _check_out("vals", vals, (r, kc), x.dtype, x)
         _check_out("idx", idx, (r, kci), torch.uint8, x)
+    kind = pick_variant(variant, x, vals, idx, n)
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.nm_compact_launch(
             x.data_ptr(), DTYPES[x.dtype], x.stride(0), x.stride(1),
             vals.data_ptr(), vals.stride(0), vals.stride(1), idx.data_ptr(),
-            idx.stride(0), idx.stride(1), r, k, n, m, idx_bits, stream)
+            idx.stride(0), idx.stride(1), r, k, n, m, idx_bits,
+            int(kind == "vector"), stream)
     if err != 0:
         raise RuntimeError(f"nm_compact: kernel launch failed, CUDA error "
                            f"{err}")
     launches += 1
+    variant_launches[kind] += 1
     return vals, idx

@@ -147,3 +147,232 @@ def test_cuda_kernel_matches_plain(idx_bits):
     torch.cuda.synchronize()
     assert torch.equal(vals.view(torch.int16), want[0].t().view(torch.int16))
     assert torch.equal(idx, want[1].t())
+
+
+# ---- the two kernel variants ------------------------------------------
+
+# qwen3-8b's seven projections (K, F), packed along K as the element pack
+# packs them
+QWEN3_8B = {"q_proj": (4096, 4096), "k_proj": (4096, 1024),
+            "v_proj": (4096, 1024), "o_proj": (4096, 4096),
+            "w_gate": (4096, 12288), "w_up": (4096, 12288),
+            "w_down": (12288, 4096)}
+
+
+def _weight_views(f):
+    """(x, vals, idx) of ``vector_ok`` for a contiguous (K, F) weight read
+    as its (F, K) view, written into contiguous (Kc, F) vals and idx
+    planes through their transposed views: each (pointer, R stride, K
+    stride); allocations 512-byte aligned."""
+    return (0, 1, f), (512, 1, f), (1024, 1, f)
+
+
+@pytest.mark.parametrize("name", QWEN3_8B)
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_vector_rule_takes_qwen3_weights(name, itemsize):
+    """Every qwen3-8b weight's view as the element pack hands it over
+    (bf16, and fp32 too) may take the vector variant at every n <= 4;
+    the u8 and the u4 index planes alike have K stride F."""
+    f = QWEN3_8B[name][1]
+    for n in (1, 2, 3, 4):
+        assert K.vector_ok(f, itemsize, n, *_weight_views(f))
+
+
+@pytest.mark.parametrize("case", [
+    "F=1000", "F=1004", "view off by one column",
+    "row stride off by one column", "score rows", "contiguous outputs",
+    "vals off 8 bytes", "idx K stride 8 bytes", "n=5"])
+def test_vector_rule_refuses(case):
+    """The vector variant's rule refuses: F = 1000 (its u8/u4 index
+    plane's K stride, 1000 bytes, is off 16), F = 1004 (not a whole
+    number of 16-byte chunks), a view whose pointer or row stride is off
+    by one bf16 column, contiguous (R, K) score rows, contiguous (R, Kc)
+    outputs, a vals pointer off 16 bytes, an idx K stride that is not a
+    multiple of 16 bytes, n > 4."""
+    rows = f = 4096
+    n = 2
+    x, vals, idx = _weight_views(f)
+    if case in ("F=1000", "F=1004"):
+        rows = int(case[2:])
+        x, vals, idx = _weight_views(rows)
+    elif case == "view off by one column":       # w.flatten()[1:].view
+        x = (x[0] + 2, 1, f)
+    elif case == "row stride off by one column":  # w[:, 1:] of (K, F + 1)
+        x = (x[0] + 2, 1, f + 1)
+    elif case == "score rows":                    # (nf, K) contiguous
+        rows = 32
+        x, vals, idx = (0, 4096, 1), (512, 1024, 1), (1024, 1024, 1)
+    elif case == "contiguous outputs":            # out=None
+        vals, idx = (512, 1024, 1), (1024, 1024, 1)
+    elif case == "vals off 8 bytes":
+        vals = (vals[0] + 8, 1, f)
+    elif case == "idx K stride 8 bytes":   # a column range of a wider one
+        idx = (idx[0], 1, f + 8)
+    else:
+        n = 5
+    assert not K.vector_ok(rows, 2, n, x, vals, idx)
+
+
+def test_pick_variant_on_cpu_tensors():
+    """``pick_variant`` reads only shapes, strides and pointers: an
+    aligned transposed weight view goes to the vector variant under
+    "auto" (to the scalar one at n = 5); a view off by one column goes
+    to the scalar one, and asking for "vector" there raises; an unknown
+    variant raises."""
+    w = torch.zeros((65, 48), dtype=torch.bfloat16)
+    vals = torch.empty((16, 48), dtype=w.dtype)
+    idx = torch.empty((8, 48), dtype=torch.uint8)
+    good = w[:64].t()
+    assert K.pick_variant("auto", good, vals.t(), idx.t(), 2) == "vector"
+    assert K.pick_variant("scalar", good, vals.t(), idx.t(), 2) == "scalar"
+    assert K.pick_variant("auto", good, vals.t(), idx.t(), 5) == "scalar"
+    off = w.flatten()[1:1 + 64 * 48].view(64, 48).t()
+    assert K.pick_variant("auto", off, vals.t(), idx.t(), 2) == "scalar"
+    with pytest.raises(ValueError, match="vector variant"):
+        K.pick_variant("vector", off, vals.t(), idx.t(), 2)
+    rows = torch.zeros((4, 64))
+    with pytest.raises(ValueError, match="vector variant"):
+        K.pick_variant("vector", rows, *TR.ref_nm_compact(rows, 2, 8), 2)
+    with pytest.raises(ValueError, match="variant must be"):
+        K.pick_variant("wide", good, vals.t(), idx.t(), 2)
+
+
+_INT = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+
+
+def _expected(x, n, m, idx_bits):
+    """The plain version's (vals bits, idx) for (R, K) ``x``; a NaN
+    survivor's bits are x's own at its offset (the values are copied:
+    the plain gather of a bf16 NaN need not keep its payload)."""
+    vals, idx = TR.ref_nm_compact(x, n, m, idx_bits)
+    _, offs = TR.ref_nm_compact(x, n, m, 8)
+    r, k = x.shape
+    raw = x.contiguous().view(_INT[x.dtype]).reshape(r, k // m, m)
+    copied = torch.gather(raw, -1, offs.reshape(r, k // m, n).long())
+    return (torch.where(torch.isnan(vals), copied.reshape(r, -1),
+                        vals.view(_INT[x.dtype])), idx)
+
+
+def _weight(k, f, kind, dtype, seed=0):
+    """A (K, F) CUDA weight: normal draws; "ties" small integers with -0
+    for every zero; "nan" that plus NaNs of random payload and sign
+    (many groups hold two) and infinities."""
+    rng = np.random.default_rng(seed)
+    if kind == "normal":
+        w = torch.from_numpy(rng.standard_normal((k, f)).astype(np.float32))
+        return w.to(dtype).cuda()
+    w = rng.integers(-2, 3, (k, f)).astype(np.float32)
+    w[w == 0] = -0.0
+    if kind == "nan":
+        w[rng.random((k, f)) < 0.05] = np.inf
+        w[rng.random((k, f)) < 0.05] = -np.inf
+    w = torch.from_numpy(w).to(dtype)
+    if kind == "nan":
+        bits = w.view(_INT[dtype])
+        top = 16 if dtype == torch.bfloat16 else 32
+        pay = torch.from_numpy(rng.integers(1, 64, (k, f))).to(bits.dtype)
+        sign = torch.from_numpy(rng.random((k, f)) < 0.5)
+        nan = (pay | (0x7f80 << (top - 16))).to(bits.dtype)
+        nan = torch.where(sign, nan | torch.tensor(-1 << (top - 1),
+                                                   dtype=bits.dtype), nan)
+        at = torch.from_numpy(rng.random((k, f)) < 0.15)
+        bits[at] = nan[at]
+    return w.cuda()
+
+
+def _pack_view(w, n, m, idx_bits, variant, x=None):
+    """nm_compact of the (K, F) weight ``w`` (or the (F, K) view ``x``)
+    into (Kc, F) vals and idx through their transposed views; returns
+    (vals (F, Kc) bits, idx (F, *)) and the variant that ran."""
+    x = w.t() if x is None else x
+    f, k = x.shape
+    kc = k // m * n
+    vals = torch.empty((kc, f), dtype=x.dtype, device=x.device)
+    idx = torch.empty(((kc + 1) // 2 if idx_bits == 4 else kc, f),
+                      dtype=torch.uint8, device=x.device)
+    before = dict(K.variant_launches)
+    K.nm_compact(x, n, m, idx_bits, out=(vals.t(), idx.t()), variant=variant)
+    torch.cuda.synchronize()
+    ran = [v for v in K.VARIANTS if K.variant_launches[v] != before[v]]
+    assert len(ran) == 1
+    return vals.t().contiguous().view(_INT[x.dtype]), idx.t(), ran[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["auto", "vector", "scalar"])
+@pytest.mark.parametrize("idx_bits", [8, 4])
+def test_cuda_variants_match_plain(variant, idx_bits):
+    """Each variant against the plain version on the card, bitwise: every
+    CASES pattern as a strided (K, F) weight (F = 16 R, bf16 and fp32,
+    normal draws and -0 ties; "auto" takes the vector variant), and as
+    contiguous rows (the scalar variant only: "auto" takes it, "vector"
+    raises)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for n, m, r, k in CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for kind in ("normal", "ties"):
+                w = _weight(k, 16 * r, kind, dtype, seed=r)
+                vb, ib, ran = _pack_view(w, n, m, idx_bits, variant)
+                assert ran == ("vector" if variant == "auto" else variant)
+                want = _expected(w.t(), n, m, idx_bits)
+                assert torch.equal(vb, want[0]), (n, m, k, dtype, kind)
+                assert torch.equal(ib, want[1]), (n, m, k, dtype, kind)
+        x = torch.from_numpy(_x(r, k, "ties")).cuda()
+        if variant == "vector":
+            with pytest.raises(ValueError, match="vector variant"):
+                K.nm_compact(x, n, m, idx_bits, variant=variant)
+            continue
+        before = K.variant_launches["scalar"]
+        got = K.nm_compact(x, n, m, idx_bits, variant=variant)
+        want = TR.ref_nm_compact(x, n, m, idx_bits)
+        torch.cuda.synchronize()
+        assert K.variant_launches["scalar"] == before + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m,k,f", [(1, 8, 8 * 61, 256), (3, 8, 8 * 33, 512),
+                                     (2, 8, 512, 4096), (4, 16, 512, 128)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_vector_odd_n_ties_nans(n, m, k, f, dtype):
+    """Strided weights with odd n and u4 (a thread pairs two groups, an
+    odd group count leaves the last byte's high nibble 0), -0 ties and
+    groups with two NaNs: both variants bitwise the plain version, the
+    NaN payloads copied."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for kind in ("ties", "nan"):
+        w = _weight(k, f, kind, dtype, seed=k)
+        want = _expected(w.t(), n, m, 4)
+        for variant in ("vector", "scalar"):
+            vb, ib, _ = _pack_view(w, n, m, 4, variant)
+            assert torch.equal(vb, want[0]), (kind, variant)
+            assert torch.equal(ib, want[1]), (kind, variant)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["F=1000", "view off by one column",
+                                  "row stride off by one column"])
+def test_cuda_misaligned_views_take_scalar(case):
+    """Views the vector variant may not take: "auto" launches the scalar
+    variant, bitwise the plain version; "vector" raises and launches
+    nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    k, f = 512, 1000 if case == "F=1000" else 512
+    w = _weight(k, f + 1, "normal", torch.bfloat16, seed=5)
+    if case == "F=1000":
+        x = w[:, :f].t()          # row stride f + 1, f % 16 != 0
+    elif case == "view off by one column":
+        x = w.flatten()[1:1 + k * f].view(k, f).t()
+    else:
+        x = w[:, 1:].t()
+    vb, ib, ran = _pack_view(None, 2, 8, 4, "auto", x=x)
+    assert ran == "scalar"
+    want = _expected(x, 2, 8, 4)
+    assert torch.equal(vb, want[0]) and torch.equal(ib, want[1])
+    count = K.launches
+    with pytest.raises(ValueError, match="vector variant"):
+        _pack_view(None, 2, 8, 4, "vector", x=x)
+    assert K.launches == count
