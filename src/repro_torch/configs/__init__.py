@@ -1,2 +1,2 @@
-"""Model configs of the port (own copies of ``src/repro/configs/``; only
-qwen3-8b, the slice's model, so far)."""
+"""Model configs of the port (own copies of ``src/repro/configs/``:
+qwen3-8b and the paper's Table I models so far)."""

@@ -2,14 +2,17 @@
 port's layout.
 
 No reference counterpart.  ``params_from_jax`` takes the reference's
-``transformer_lm.init`` tree, and ``train_state_from_jax`` its train
-state, with every array already turned into numpy
-(``jax.tree.map(np.asarray, tree)``), so this module needs neither JAX
-nor ``repro``:
+``transformer_lm.init`` or ``convnets.*_init`` tree, and
+``train_state_from_jax`` its train state, with every array already
+turned into numpy (``jax.tree.map(np.asarray, tree)``), so this module
+needs neither JAX nor ``repro``:
 
   * leaves under ``"blocks"`` are stacked along a leading layer axis
-    (L, …) and become a list of L per-layer dicts;
-  * ``{"w": (K, F)}`` leaf-dicts keep their layout (``x @ w``);
+    (L, …) and become a list of L per-layer dicts; a tree without
+    ``"blocks"`` (the convnets) keeps its structure;
+  * ``{"w": (K, F)}`` leaf-dicts keep their layout (``x @ w``), and so
+    do HWIO conv weights and their pre-generated operands;
+  * integer leaves (ResNet's ``_meta``) keep their dtype;
   * a packed operand (the reference's ``PackedOp``, recognised by its
     ``vals``, ``idx``, ``idx_bits`` and ``cfg`` attributes) becomes the
     port's ``PackedOp`` with the same (Kc, F) vals and u8 or u4 idx;
@@ -114,9 +117,10 @@ def params_from_jax(tree, *, device=None):
     device = resolve_device(device)
     out = {k: _convert(v, device, None) for k, v in tree.items()
            if k != "blocks"}
-    blocks = tree["blocks"]
-    out["blocks"] = [_convert(blocks, device, i)
-                     for i in range(_n_layers(blocks))]
+    if "blocks" in tree:
+        blocks = tree["blocks"]
+        out["blocks"] = [_convert(blocks, device, i)
+                         for i in range(_n_layers(blocks))]
     return out
 
 

@@ -3,7 +3,9 @@
 Counterpart of ``src/repro/core/operand.py``: ``DenseOp``, ``MaskedOp``,
 ``PregenOp``, ``PackedOp``, ``SharedOp``, ``as_operand``, ``nm_apply``,
 ``_packed_serve``, ``_shared_serve`` and the custom-gradient cores
-``masked_linear``, ``pregen_linear`` and ``packed_pregen_linear``.  Every weight matmul of
+``masked_linear``, ``pregen_linear`` and ``packed_pregen_linear``, and
+their conv views ``masked_conv`` and ``pregen_conv`` (NHWC activations,
+HWIO weights) with ``_pregen_ff_dense``.  Every weight matmul or conv of
 the model calls ``nm_apply(op, x)``.  The cores carry the paper's
 training rules (Alg. 1 / Fig. 11c) as ``torch.autograd.Function``s:
 
@@ -20,16 +22,23 @@ What differs:
     ``kernels.ops.nm_spmm_shared``), whose input's device picks the
     kernel or the plain version; the port's parameters are per layer,
     so a packed pair is always 2-D (K·N/M, F);
-  * conv operands and transposable packed operands are not ported.
-Every product here is fp32-accumulated and rounded once (``matmul_once``).
+  * transposable packed operands are not ported;
+  * ``padding`` is "SAME" or "VALID" (the reference also takes explicit
+    pads; no caller passes them).  SAME is XLA's: an odd total goes to
+    the high side (``same_padding``), which torch's symmetric
+    ``padding=`` cannot express, so such an input is padded first.
+Every product here is fp32-accumulated and rounded once (``matmul_once``;
+a conv is cuDNN's on the card and an fp32 conv rounded once on the CPU).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import bdwp
-from repro_torch.core.sparsity import DENSE, SparsityConfig, sparsify
+from repro_torch.core.sparsity import (DENSE, SparsityConfig, nm_unpack_n,
+                                       sparsify, unpack_idx_u4)
 from repro_torch.kernels import ops
 
 
@@ -57,11 +66,12 @@ class MaskedOp(SparseOperand):
 class PregenOp(SparseOperand):
     """Pre-generated WU-time operands (``optim.sgd``, paper Fig. 11c).
 
-    ``bp`` (K, F) is the BP operand; its gradient carries the dense
-    straight-through WU gradient.  Exactly one FF operand: ``ff`` (K, F)
-    in the dense layout, or the SORE-packed pair ``vals`` (K·N/M, F) and
-    ``idx`` (uint8 offsets of the same shape, ``idx_bits=8``).  ``mask``
-    is the stored SR-STE decay mask."""
+    ``bp`` (K, F), or (H, W, I, O) for a conv, is the BP operand; its
+    gradient carries the dense straight-through WU gradient.  Exactly one
+    FF operand: ``ff`` of bp's shape in the dense layout, or the
+    SORE-packed pair along the contraction axis, ``vals`` (K·N/M, F) or
+    (H, W, I·N/M, O) and ``idx`` (uint8 offsets of the same shape,
+    ``idx_bits=8``).  ``mask`` is the stored SR-STE decay mask."""
 
     def __init__(self, *, bp, ff=None, vals=None, idx=None, mask=None,
                  cfg: SparsityConfig | None = None, idx_bits: int = 8):
@@ -236,6 +246,140 @@ def packed_pregen_linear(x: torch.Tensor, vals: torch.Tensor,
     return _PackedPregenLinear.apply(x, vals, idx, bp, n, m, idx_bits)
 
 
+# ---------------------------------------------------------------------------
+# Conv view: x (N, H, W, C) NHWC, w (KH, KW, I, O) HWIO -> (N, H', W', O)
+# ---------------------------------------------------------------------------
+
+_CONV_IN_AXIS = 2   # HWIO: input-channel axis (FF grouping, Fig. 5a)
+_CONV_OUT_AXIS = 3  # HWIO: output-channel axis (BP grouping, Fig. 5b)
+
+
+def same_padding(size: int, k: int, stride: int) -> tuple:
+    """XLA's SAME padding of one spatial axis, (low, high): the output
+    has ceil(size / stride) positions, and of an odd total the extra unit
+    goes to the high side."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv_pads(x_shape, w_shape, stride: int, padding: str) -> tuple:
+    """((low, high) of H, (low, high) of W) for an NHWC input and an HWIO
+    weight (or a window of that size)."""
+    if padding == "VALID":
+        return (0, 0), (0, 0)
+    if padding == "SAME":
+        return tuple(same_padding(x_shape[1 + a], w_shape[a], stride)
+                     for a in range(2))
+    raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+
+
+def _conv_input(x: torch.Tensor, pads):
+    """(x as cuDNN's channels_last NCHW view, torch's symmetric padding):
+    a padding whose two sides differ is applied to x first."""
+    (hl, hh), (wl, wh) = pads
+    if hl != hh or wl != wh:
+        x = F.pad(x, (0, 0, wl, wh, hl, hh))
+        hl = wl = 0
+    xc = x.permute(0, 3, 1, 2)
+    return (xc if x.is_cuda else xc.to(torch.float32)), (hl, wl)
+
+
+def _conv_weight(w: torch.Tensor, dtype) -> torch.Tensor:
+    """An HWIO weight as the OIHW view conv2d takes, in ``dtype`` (fp32 on
+    the CPU)."""
+    wc = w.to(dtype).permute(3, 2, 0, 1)
+    return wc if w.is_cuda else wc.to(torch.float32)
+
+
+def _conv(x: torch.Tensor, w: torch.Tensor, stride: int, pads) -> torch.Tensor:
+    """NHWC x HWIO conv with w cast to x's dtype, output in x's dtype."""
+    xc, pad = _conv_input(x, pads)
+    y = F.conv2d(xc, _conv_weight(w, x.dtype), stride=stride, padding=pad)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def _conv_grads(x, w, g, stride: int, pads, need_dx: bool, need_dw: bool):
+    """(dx, dw) of ``_conv(x, w)`` for the output gradient g, both in x's
+    dtype (None where not needed); dw is contiguous HWIO."""
+    xc, pad = _conv_input(x, pads)
+    gc = g.to(x.dtype).permute(0, 3, 1, 2)
+    if not x.is_cuda:
+        gc = gc.to(torch.float32)
+    dx, dw, _ = torch.ops.aten.convolution_backward(
+        gc, xc, _conv_weight(w, x.dtype), None, [stride, stride], list(pad),
+        [1, 1], False, [0, 0], 1, [need_dx, need_dw, False])
+    if dx is not None:
+        (hl, _), (wl, _) = pads
+        dx = dx.permute(0, 2, 3, 1)
+        if tuple(dx.shape) != tuple(x.shape):    # padded first: crop
+            dx = dx[:, hl:hl + x.shape[1], wl:wl + x.shape[2]]
+        dx = dx.to(x.dtype)
+    if dw is not None:
+        dw = dw.permute(2, 3, 1, 0).to(x.dtype).contiguous()
+    return dx, dw
+
+
+class _MaskedConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, cfg, stride, pads):
+        ctx.cfg, ctx.stride, ctx.pads = cfg, stride, pads
+        ctx.save_for_backward(x, w)
+        w_ff = sparsify(w, cfg, axis=_CONV_IN_AXIS,
+                        share_axis=_CONV_OUT_AXIS) \
+            if cfg.prunes_ff_weights() else w
+        return _conv(x, w_ff, stride, pads)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        cfg, stride, pads = ctx.cfg, ctx.stride, ctx.pads
+        need_dx = ctx.needs_input_grad[0]
+        if cfg.prunes_bp_grads():   # SDGP: N:M across output channels
+            dx, _ = _conv_grads(x, w, sparsify(g, cfg, axis=-1), stride,
+                                pads, need_dx, False)
+            _, dw = _conv_grads(x, w, g, stride, pads, False, True)
+        else:   # the wgrad does not read the weights: one call for both
+            w_bp = sparsify(w, cfg, axis=_CONV_OUT_AXIS,
+                            share_axis=_CONV_IN_AXIS) \
+                if cfg.prunes_bp_weights() else w
+            dx, dw = _conv_grads(x, w_bp, g, stride, pads, need_dx, True)
+        return dx, dw.to(w.dtype), None, None, None
+
+
+class _PregenConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ff, bp, stride, pads):
+        ctx.stride, ctx.pads = stride, pads
+        ctx.save_for_backward(x, bp)
+        return _conv(x, ff, stride, pads)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, bp = ctx.saved_tensors
+        dx, dw = _conv_grads(x, bp, g, ctx.stride, ctx.pads,
+                             ctx.needs_input_grad[0], True)
+        return dx, None, dw.to(bp.dtype), None, None
+
+
+def masked_conv(x: torch.Tensor, w: torch.Tensor, cfg: SparsityConfig,
+                stride: int = 1, padding: str = "SAME") -> torch.Tensor:
+    """Conv view of ``masked_linear``: FF on w N:M-masked along its input
+    channels, dgrad on w masked along its output channels (or, for SDGP,
+    on the N:M-pruned output gradient), dense straight-through wgrad."""
+    return _MaskedConv.apply(x, w, cfg, stride,
+                             conv_pads(x.shape, w.shape, stride, padding))
+
+
+def pregen_conv(x: torch.Tensor, ff: torch.Tensor, bp: torch.Tensor,
+                stride: int = 1, padding: str = "SAME") -> torch.Tensor:
+    """Conv view of ``pregen_linear``: FF convolves ``ff``, dgrad
+    convolves ``bp``, and the dense straight-through wgrad is ``bp``'s
+    gradient; ``ff`` gets none."""
+    return _PregenConv.apply(x, ff, bp, stride,
+                             conv_pads(x.shape, bp.shape, stride, padding))
+
+
 def _packed_serve(x: torch.Tensor, op: PackedOp) -> torch.Tensor:
     """Element-packed serving matmul through ``kernels.ops.nm_spmm``:
     fp32 out, cast back to the activation dtype."""
@@ -253,13 +397,32 @@ def _shared_serve(x: torch.Tensor, op: SharedOp) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], op.vals.shape[-1]).to(x.dtype)
 
 
-def nm_apply(op: SparseOperand, x: torch.Tensor) -> torch.Tensor:
-    """Apply one operand to activations x (..., K) -> (..., F)."""
+def _pregen_ff_dense(op: PregenOp) -> torch.Tensor:
+    """The dense-layout FF operand of a PregenOp: ``ff``, or the packed
+    pair scattered back along the contraction axis (exact)."""
+    if op.ff is not None:
+        return op.ff
+    idx = op.idx
+    if op.idx_bits == 4:
+        idx = unpack_idx_u4(idx, op.vals.shape[-2], axis=-2)
+    return nm_unpack_n(op.vals, idx, op.cfg.n, op.cfg.m, axis=-2)
+
+
+def nm_apply(op: SparseOperand, x: torch.Tensor, *, stride: int = 1,
+             padding: str = "SAME") -> torch.Tensor:
+    """Apply one operand to activations: x (..., K) -> (..., F) for a
+    2-D weight; the conv view (NHWC x HWIO, ``stride``, ``padding``) for
+    a rank-4 one."""
     if isinstance(op, DenseOp):
         op = MaskedOp(op.w, DENSE)
     if isinstance(op, MaskedOp):
+        if op.w.ndim == 4:
+            return masked_conv(x, op.w, op.cfg, stride, padding)
         return masked_linear(x, op.w, op.cfg)
     if isinstance(op, PregenOp):
+        if op.bp.ndim == 4:
+            return pregen_conv(x, _pregen_ff_dense(op), op.bp, stride,
+                               padding)
         if op.is_packed:
             return packed_pregen_linear(x, op.vals, op.idx, op.bp, op.cfg.n,
                                         op.cfg.m, op.idx_bits)

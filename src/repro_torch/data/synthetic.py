@@ -1,13 +1,18 @@
-"""Deterministic synthetic token stream (numpy, then torch).
+"""Deterministic synthetic token and image streams (numpy, then torch).
 
-The port's own copy of ``TokenTaskConfig``, ``token_batch`` and
-``lm_stream`` from ``src/repro/data/synthetic.py`` (that module imports
-JAX): Zipfian unigram tokens with a copy-task signal, seeded per
-(seed, step), so the same seed gives the reference's batches exactly.
+The port's own copy of ``TokenTaskConfig``, ``token_batch``,
+``lm_stream``, ``ImageTaskConfig`` and ``image_batch`` from
+``src/repro/data/synthetic.py`` (that module imports JAX): Zipfian
+unigram tokens with a copy-task signal, and class-conditional image
+blobs, seeded per (seed, step), so the same seed gives the reference's
+batches exactly.
 
-What differs: batches are torch tensors (int64, as torch indexing wants)
-on an explicit device, the card unless the caller names another; the
-modality prefix and the image/encoder-decoder streams are not ported.
+What differs: batches are torch tensors (tokens and labels int64, as
+torch indexing wants; images fp32 NHWC) on an explicit device, the card
+unless the caller names another; ``image_stream`` is the image
+counterpart of ``lm_stream`` (the reference's image callers loop over
+``image_batch`` themselves); the modality prefix and the
+encoder-decoder stream are not ported.
 """
 
 from __future__ import annotations
@@ -58,4 +63,48 @@ def _stream(cfg: TokenTaskConfig, device, step: int):
         tokens, labels = token_batch(cfg, step)
         yield step, {"tokens": torch.from_numpy(tokens).long().to(device),
                      "labels": torch.from_numpy(labels).long().to(device)}
+        step += 1
+
+
+@dataclasses.dataclass(frozen=True)
+class ImageTaskConfig:
+    image: int = 32
+    num_classes: int = 10
+    batch: int = 128
+    noise: float = 0.6
+    seed: int = 0
+
+
+def _image_arrays(cfg: ImageTaskConfig, step: int):
+    """The reference's ``image_batch``: (images (B, H, W, 3) fp32, labels
+    (B,) int32) numpy arrays, class prototypes plus noise."""
+    rng = np.random.default_rng(np.random.PCG64([cfg.seed + 1, step]))
+    labels = rng.integers(0, cfg.num_classes, size=(cfg.batch,))
+    proto_rng = np.random.default_rng(np.random.PCG64([cfg.seed + 2]))
+    protos = proto_rng.normal(size=(cfg.num_classes, cfg.image, cfg.image, 3))
+    x = protos[labels] + cfg.noise * rng.normal(
+        size=(cfg.batch, cfg.image, cfg.image, 3))
+    return x.astype(np.float32), labels.astype(np.int32)
+
+
+def image_batch(cfg: ImageTaskConfig, step: int, *, device=None):
+    """Class-conditional blobs of ``step``: (images (B, H, W, 3) fp32,
+    labels (B,) int64) on ``device`` (the card unless another is named),
+    the reference's values bit for bit."""
+    device = resolve_device(device)
+    x, labels = _image_arrays(cfg, step)
+    return (torch.from_numpy(x).to(device),
+            torch.from_numpy(labels).long().to(device))
+
+
+def image_stream(cfg: ImageTaskConfig, *, device=None, start: int = 0):
+    """An iterator of (step, {"images", "labels"}) from ``image_batch``,
+    on ``device`` (the card unless another is named)."""
+    return _image_stream(cfg, resolve_device(device), start)
+
+
+def _image_stream(cfg: ImageTaskConfig, device, step: int):
+    while True:
+        images, labels = image_batch(cfg, step, device=device)
+        yield step, {"images": images, "labels": labels}
         step += 1

@@ -1,11 +1,13 @@
 """Shared layer primitives on plain parameter dicts.
 
 Counterpart of ``src/repro/models/layers.py``: ``dense_init``,
-``dense_apply``, ``rmsnorm_init``/``rmsnorm_apply``, ``embed_init``/
-``embed_apply``, ``rope_freqs``, ``apply_rope`` and ``swiglu``, with the
-reference's arithmetic: rmsnorm in fp32 cast back to the input dtype,
+``dense_apply``, ``rmsnorm_init``/``rmsnorm_apply``,
+``layernorm_init``/``layernorm_apply``, ``embed_init``/``embed_apply``,
+``rope_freqs``, ``apply_rope``, ``swiglu`` and ``gelu_tanh`` (the
+reference's ``jax.nn.gelu``), with the reference's arithmetic: the
+norms in fp32 cast back to the input dtype,
 RoPE over the two halves of head_dim (not interleaved pairs) in fp32,
-SiLU as the compiled reference computes it in bf16.
+SiLU and GELU as the reference computes them in bf16.
 
 What differs: no logical-axis spec trees (sharding is not ported), and
 init draws from an explicit ``torch.Generator`` on an explicit device —
@@ -14,6 +16,8 @@ load the reference's weights through ``convert.params_from_jax``.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -53,6 +57,51 @@ def rmsnorm_apply(p, x: torch.Tensor, eps: float = 1e-6,
     return out.to(out_dtype or x.dtype)
 
 
+def layernorm_init(d: int, *, device, dtype=torch.float32):
+    return {"norm_scale": torch.ones((d,), dtype=dtype, device=device),
+            "norm_bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm_apply(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis: fp32 mean and population variance,
+    ``(x - mu) * rsqrt(var + eps) * scale + bias``, cast back to x's
+    dtype."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + eps) * p["norm_scale"] \
+        + p["norm_bias"]
+    return out.to(x.dtype)
+
+
+class _HeadProduct(torch.autograd.Function):
+    """h (T, d) @ w (d, V) -> fp32 logits, w cast to h's dtype, products
+    summed in fp32 (``operand.matmul_once``).  On the card the backward
+    rounds the fp32 logit gradient to h's dtype before its two products,
+    which keeps them on the tensor cores (as a TPU's default-precision
+    fp32 dot rounds to bf16) and makes no fp32 copy of the table; on the
+    CPU it stays fp32, as the reference's XLA CPU computes it.  Gradients
+    come back in h's and w's dtypes."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        return O.matmul_once(h, w.to(h.dtype), torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        gc = g.to(h.dtype) if h.is_cuda else g
+        return (O.matmul_once(gc, w.to(h.dtype).t(), h.dtype),
+                O.matmul_once(h.t(), gc, w.dtype))
+
+
+def head_product(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The reference's ``jnp.matmul(h, w.astype(h.dtype),
+    preferred_element_type=jnp.float32)`` of a 2-D h: fp32 logits."""
+    return _HeadProduct.apply(h, w)
+
+
 def embed_init(gen: torch.Generator, vocab: int, d: int, *, device,
                dtype=torch.float32):
     t = torch.randn((vocab, d), generator=gen, device=device,
@@ -90,3 +139,16 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     expands ``jax.nn.silu`` (a fused ``torch.sigmoid`` rounds once and
     disagrees in ~30% of bf16 outputs)."""
     return gate * (1.0 / (1.0 + torch.exp(-gate))) * up
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)``: x * 0.5 * (1 + tanh(c * (x +
+    0.044715 * x**3))) with c = sqrt(2/pi), every op rounded to x's dtype
+    and both constants rounded to it first, as JAX casts them.  On every
+    bf16 input of magnitude above 1e-10 this is bitwise the reference's,
+    jitted or eager (XLA flushes the tiny rest to zero);
+    ``torch.nn.functional.gelu(approximate="tanh")`` rounds once and
+    differs in about 1500 of the 65280 finite bf16 values."""
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype).item()
+    k = torch.tensor(0.044715, dtype=x.dtype).item()
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))

@@ -30,7 +30,6 @@ import dataclasses
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.operand import matmul_once
 from repro_torch.core.sparsity import DENSE, SparsityConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
@@ -173,33 +172,11 @@ def _block_out(p, x, cfg, sp_cfg, positions):
     return block_apply(p, x, cfg, sp_cfg, positions=positions)[0]
 
 
-class _HeadProduct(torch.autograd.Function):
-    """h (T, d) @ w (d, V) -> fp32 logits, w cast to h's dtype, products
-    summed in fp32 (``operand.matmul_once``).  On the card the backward
-    rounds the fp32 logit gradient to h's dtype before its two products,
-    which keeps them on the tensor cores (as a TPU's default-precision
-    fp32 dot rounds to bf16) and makes no fp32 copy of the 1.25 GB
-    table; on the CPU it stays fp32, as the reference's XLA CPU computes
-    it.  Gradients come back in h's and w's dtypes."""
-
-    @staticmethod
-    def forward(ctx, h, w):
-        ctx.save_for_backward(h, w)
-        return matmul_once(h, w.to(h.dtype), torch.float32)
-
-    @staticmethod
-    def backward(ctx, g):
-        h, w = ctx.saved_tensors
-        gc = g.to(h.dtype) if h.is_cuda else g
-        return (matmul_once(gc, w.to(h.dtype).t(), h.dtype),
-                matmul_once(h.t(), gc, w.dtype))
-
-
 def logits_from_hidden(params, hidden: torch.Tensor,
                        cfg: LMConfig) -> torch.Tensor:
     """hidden @ lm_head with fp32 accumulation; padded columns -1e30."""
     w = params["lm_head"]["w"]
-    logits = _HeadProduct.apply(hidden.reshape(-1, hidden.shape[-1]), w)
+    logits = L.head_product(hidden.reshape(-1, hidden.shape[-1]), w)
     logits = logits.reshape(*hidden.shape[:-1], w.shape[-1])
     if cfg.padded_vocab != cfg.vocab:
         valid = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab

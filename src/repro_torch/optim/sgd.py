@@ -18,6 +18,10 @@ fp32 master) and emits the packed FF operand; the BP operand is the
 output-axis ``nm_mask`` of the new master, as the reference's
 ``pallas_upd`` derives it.  Other leaves take the elementwise path.
 
+A conv master (H, W, I, O) takes the same kernel on its (H*W*I, O) view:
+its m-groups of rows are the reference's groups along I, which is what
+``pallas_upd`` builds by moving I last.
+
 What differs:
   * trees are the port's per-layer trees (``"blocks"`` is a list), and
     leaf names skip the list index, so a name is the reference's
@@ -214,13 +218,25 @@ def update(state, grads, opt_cfg: SGDConfig, sp_cfg: SparsityConfig, *,
     n, m = sp_cfg.n, sp_cfg.m
 
     def fused_upd(w, g, v):
+        # the kernel groups rows of a (K, F) master along K; a conv
+        # master (H, W, I, O) is viewed as (H*W*I, O), whose groups of m
+        # rows are the reference's groups along I as long as m divides I
+        shape, ff_ax = w.shape, w.ndim - 2
+        if shape[ff_ax] % m:
+            raise ValueError(f"fused update of {tuple(shape)}: contraction "
+                             f"axis {shape[ff_ax]} is not a multiple of m={m}")
+        f = shape[-1]
         nw, nv, vals, idx = ops.fused_update(
-            w, g.to(torch.float32), v, lr, opt_cfg.momentum,
-            opt_cfg.weight_decay, sp_cfg.lam, n, m)
+            w.reshape(-1, f), g.to(torch.float32).reshape(-1, f),
+            v.reshape(-1, f), lr, opt_cfg.momentum, opt_cfg.weight_decay,
+            sp_cfg.lam, n, m)
+        nw, nv = nw.view(shape), nv.view(shape)
+        vals = vals.view(*shape[:-2], -1, f)
+        idx = idx.view(*shape[:-2], -1, f)
         ff_mask = nm_unpack_n(torch.ones_like(vals, dtype=torch.bool), idx,
-                              n, m, axis=0)
+                              n, m, axis=ff_ax)
         if sp_cfg.prunes_bp_weights():   # bdwp: BP operand from the new master
-            bp = torch.where(nm_mask(nw, n, m, axis=1), nw, 0.0)
+            bp = torch.where(nm_mask(nw, n, m, axis=w.ndim - 1), nw, 0.0)
         else:                            # srste: BP runs dense
             bp = nw
         if pack:
@@ -228,7 +244,8 @@ def update(state, grads, opt_cfg: SGDConfig, sp_cfg: SparsityConfig, *,
                             mask=ff_mask, cfg=sp_cfg, idx_bits=8)
         else:
             leaf = PregenOp(bp=bp.to(torch.bfloat16), mask=ff_mask,
-                            cfg=sp_cfg, ff=nm_unpack_n(vals, idx, n, m, axis=0))
+                            cfg=sp_cfg,
+                            ff=nm_unpack_n(vals, idx, n, m, axis=ff_ax))
         return nw, nv, leaf
 
     def elementwise_upd(name, w, g, v, prev, site):

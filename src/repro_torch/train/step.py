@@ -1,10 +1,16 @@
-"""Train and serve steps of the LM.
+"""Train and serve steps of the LM, and the training step of the paper's
+image models.
 
 Counterpart of ``src/repro/train/step.py``: the pre-generating training
 step (``lm_train_step`` with ``pregen=True``, with or without the
 compressed cross-pod gradient sync), ``init_train_state``,
 ``state_core``, and the serving steps (``lm_prefill_step`` with
 ``last_index``, ``lm_decode_step`` with ``per_slot=True``).
+``init_image_train_state`` and ``image_train_step`` are the same
+pre-generating step for ``models.convnets`` (ResNet9, VGG19, ViT), which
+the reference composes inline (``sgd.pregen_tree``, ``convnets.*_apply``,
+the loss of ``examples/paper_loss_curves.py``, ``sgd.update(pregen=True,
+pack=True, use_pallas=True)``).
 
 With ``compress=True`` the step is the reference's pod-split step with
 every pod on this device: the batch is cut into ``n_pods`` contiguous
@@ -31,6 +37,7 @@ from __future__ import annotations
 import torch
 from torch.profiler import record_function
 
+from repro_torch.models import convnets as CN
 from repro_torch.models import transformer_lm as T
 from repro_torch.optim import compress as C
 from repro_torch.optim import sgd
@@ -121,16 +128,61 @@ def lm_train_step(state, batch, *, cfg, sp_cfg, opt_cfg,
         loss = torch.stack(losses).mean()
     else:
         grads = sgd.pregen_grads(compute, grads)
-    with torch.no_grad(), record_function("train/update"):
-        new_state, new_compute = sgd.update(
-            state_core(state), grads, opt_cfg, sp_cfg, prev_compute=compute,
-            pack=pregen_pack)
-    new_state["compute"] = new_compute
+    new_state, metrics = _update(state, grads, loss, opt_cfg=opt_cfg,
+                                 sp_cfg=sp_cfg, pregen_pack=pregen_pack)
     if new_err is not None:
         new_state["err"] = new_err
-    metrics = {"loss": loss.detach(),
-               "lr": sgd.lr_schedule(opt_cfg, state["step"])}
     return new_state, metrics
+
+
+def _update(state, grads, loss, *, opt_cfg, sp_cfg, pregen_pack):
+    """``sgd.update`` of ``state`` with master-shaped ``grads`` (range
+    ``train/update``): the new state with the next compute tree, and the
+    step's {"loss", "lr"}."""
+    with torch.no_grad(), record_function("train/update"):
+        new_state, new_compute = sgd.update(
+            state_core(state), grads, opt_cfg, sp_cfg,
+            prev_compute=state["compute"], pack=pregen_pack)
+    new_state["compute"] = new_compute
+    return new_state, {"loss": loss.detach(),
+                       "lr": sgd.lr_schedule(opt_cfg, state["step"])}
+
+
+def init_image_train_state(model: CN.ImageModel, sp_cfg, *, seed: int = 0,
+                           device=None, pregen_pack: bool = True):
+    """``init_train_state`` for one of the paper's image models: random
+    fp32 params of ``model`` from ``seed`` on ``device`` (the card unless
+    another is named), the optimizer state and the pre-generated compute
+    tree."""
+    return train_state_from_params(CN.init(model, seed=seed, device=device),
+                                   sp_cfg, pregen_pack=pregen_pack)
+
+
+def image_train_step(state, batch, *, model: CN.ImageModel, sp_cfg, opt_cfg,
+                     pregen_pack: bool = True):
+    """One BDWP step of an image model on ``state["compute"]`` and
+    ``batch`` ({"images" (B, H, W, 3), "labels" (B,)}): the forward on
+    the bf16 images, the mean cross-entropy (``convnets.image_loss``),
+    gradients of ``sgd.diff_leaves`` mapped to the master's shape, then
+    ``sgd.update``, which writes the next compute tree.  Returns
+    (new_state, {"loss", "lr"}); consumes ``state``."""
+    compute = state["compute"]
+    roots = sgd.diff_leaves(compute)
+    for r in roots:
+        r.requires_grad_(True)
+    try:
+        with record_function("train/forward"):
+            logits = CN.apply(model, compute,
+                             batch["images"].to(torch.bfloat16), sp_cfg)
+            loss = CN.image_loss(logits, batch["labels"])
+        with record_function("train/backward"):
+            grads = torch.autograd.grad(loss, roots, allow_unused=True,
+                                        materialize_grads=True)
+    finally:
+        for r in roots:
+            r.requires_grad_(False)
+    return _update(state, sgd.pregen_grads(compute, grads), loss,
+                   opt_cfg=opt_cfg, sp_cfg=sp_cfg, pregen_pack=pregen_pack)
 
 
 def lm_prefill_step(params, batch, *, cfg, sp_cfg, last_index=None,

@@ -9,8 +9,8 @@ after a resume is fast-forwarded, and the final save is skipped when the
 last periodic save already covered it.
 
 What differs: the step function is a plain callable (``functools.
-partial`` of ``train.step.lm_train_step``), not a step bundle; the card
-is synchronised by reading the loss.
+partial`` of ``train.step.lm_train_step`` or ``image_train_step``), not
+a step bundle; the card is synchronised by reading the loss.
 """
 
 from __future__ import annotations
@@ -38,15 +38,17 @@ class TrainerConfig:
 def train_steps(step_fn, state, data_iter: Iterator, n_steps: int):
     """``n_steps`` of ``state, metrics = step_fn(state, batch)`` over
     ``data_iter`` (yielding (step, batch)); returns the final state and
-    the per-step metrics, after the card (if the state is on one) has
-    finished."""
+    the per-step metrics, after the card that holds the batch (if one
+    does) has finished."""
     history = []
     for _ in range(n_steps):
         _, batch = next(data_iter)
         state, metrics = step_fn(state, batch)
         history.append(metrics)
-    if batch["tokens"].is_cuda:
-        torch.cuda.synchronize(batch["tokens"].device)
+    for t in batch.values():
+        if isinstance(t, torch.Tensor) and t.is_cuda:
+            torch.cuda.synchronize(t.device)
+            break
     return state, history
 
 

@@ -1,0 +1,497 @@
+"""Port parity: the paper's image models (``models.convnets``), their
+conv operands and their BDWP update, against the JAX reference.
+
+The reference's model-level results come from a subprocess
+(``tests/jax_paper_reference.py``, which says why: its XLA flags make
+the compiled reference round as its source reads); its params go
+through ``convert``.
+
+1. ``image_batch`` is bitwise the reference's.
+2. ``gelu_tanh`` is bitwise ``jax.nn.gelu`` (jitted) on every finite
+   bf16 input of magnitude above 1e-10 (XLA flushes the rest to zero);
+   ``layernorm_apply`` is within one bf16 ulp (2^-8 relative) of the
+   largest output: both sum fp32 statistics in other orders and round
+   once.
+3. The conv Functions (masked bdwp and sdgp, pregen, packed pregen) at
+   strides 1 and 2, odd and even sizes, kernels 1, 3 and 7: forward,
+   dgrad and wgrad within 2^-7 of the largest magnitude, as the linear
+   cores in ``test_torch_train.py`` (an fp32 sum rounded once to bf16,
+   summed in another order, lands one bf16 ulp away now and then).
+   XLA's SAME max-pool (3x3/2) and the port's -inf padding give equal
+   values and gradients.
+4. Logits and per-leaf gradients of ResNet9 (width 16) and a 2-block ViT
+   on the pre-generated packed tree, and of ResNet18 (width 16) on the
+   MaskedOp path (ResNet50 in ``test_torch_paper_train.py``): logits
+   within ``LOGIT_RTOL`` of their largest magnitude, each gradient within
+   ``GRAD_RTOL`` of its leaf's largest |gradient|.  Measured: ResNet9's
+   logits bitwise, gradients within 0.13%; the ViT's within 1.3%.
+   VGG19 (batch 2) is chaotic at init (one bf16 ulp on one pixel moves
+   the reference's own logits by about 3%), so its logits are held
+   within ``VGG19_LOGIT_RTOL`` and its 16 conv-BN-ReLU layers one by one
+   on the reference's inputs: outputs within one bf16 ulp of the
+   largest, input and weight gradients within 2^-7, the norm's within
+   ``GRAD_RTOL``.
+5. ``pregen_tree`` of the same master is bitwise equal, rank-4 leaves
+   included, and ``sgd.update`` fed the reference's gradients gives the
+   reference's master, momentum and compute tree bitwise (the reference
+   compiled without FMA contraction, ``jax_paper_reference.FLAGS``).
+   The port's conv sites take the fused path on the (H*W*I, O) view.
+6. ``gpu`` cases (skipped without a card): the ``fused_update`` kernel
+   on the conv views of ResNet9 and VGG19 and on ViT's linears, bitwise
+   against the plain version; ``nm_spmm`` at ViT's 33,280 rows within
+   the phase-3 tolerance, rows bitwise independent of the batch.
+   ``python -m pytest -m gpu tests/test_torch_convnets.py``.
+"""
+
+import dataclasses
+import os
+import pickle
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+try:
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core import operand as JO
+    from repro.core.sparsity import SparsityConfig as JSparsity
+    from repro.data import synthetic as JD
+    from repro.models import layers as JL
+    from repro.optim import sgd as JSGD
+
+    import jax_paper_reference as JR
+
+    jax.config.update("jax_platform_name", "cpu")
+    J_SP = JSparsity(n=2, m=8, method="bdwp")
+except ImportError:      # the card's machine: only the gpu tests run
+    jax = None
+
+from repro_torch import convert
+from repro_torch.core import operand as TO
+from repro_torch.core.sparsity import SparsityConfig, nm_pack
+from repro_torch.data import synthetic as TD
+from repro_torch.kernels import fused_update as KF
+from repro_torch.kernels import nm_spmm as KS
+from repro_torch.kernels import ref as KR
+from repro_torch.models import convnets as TC
+from repro_torch.models import layers as TL
+from repro_torch.optim import sgd as TSGD
+from repro_torch.train import step as TST
+
+T_SP = SparsityConfig(n=2, m=8, method="bdwp")
+CONV_RTOL = 2.0 ** -7
+LOGIT_RTOL = 2e-2
+GRAD_RTOL = 2e-2
+VGG19_LOGIT_RTOL = 1e-1
+VIT_SMALL = dict(image=8, patch=4, d_model=64, n_layers=2, n_heads=4,
+                 d_ff=128, num_classes=10)
+
+needs_jax = pytest.mark.skipif(jax is None, reason="needs the JAX reference")
+
+
+def _bits(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu()
+        if a.dtype == torch.bfloat16:
+            return a.view(torch.int16).numpy().view(np.uint16)
+        return a.numpy()
+    a = np.asarray(a)
+    return a.view(np.uint16) if a.dtype.name == "bfloat16" else a
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _t(a):
+    return convert.tensor_from_numpy(np.asarray(a), "cpu")
+
+
+def _close(port, ref, rtol):
+    ref = np.asarray(ref, np.float32)
+    port = port.detach().float().numpy()
+    err = np.abs(port - ref).max()
+    assert err <= rtol * float(np.abs(ref).max()), (err, np.abs(ref).max())
+
+
+# ---------------------------------------------------------------------------
+# 1-2. data, norm, activation
+# ---------------------------------------------------------------------------
+
+
+@needs_jax
+@pytest.mark.parametrize("step", [0, 3])
+def test_image_batch_bitwise(step):
+    jcfg = JD.ImageTaskConfig(image=8, num_classes=10, batch=6, seed=5)
+    tcfg = TD.ImageTaskConfig(image=8, num_classes=10, batch=6, seed=5)
+    jx, jy = JD.image_batch(jcfg, step)
+    tx, ty = TD.image_batch(tcfg, step, device="cpu")
+    assert tx.dtype == torch.float32 and ty.dtype == torch.int64
+    assert tx.shape == (6, 8, 8, 3)
+    assert np.array_equal(_bits(tx), jx) and np.array_equal(ty.numpy(), jy)
+    _, batch = next(TD.image_stream(tcfg, device="cpu", start=step))
+    assert torch.equal(batch["images"], tx)
+
+
+@needs_jax
+def test_gelu_bitwise():
+    bits = np.arange(65536, dtype=np.uint16)
+    x = bits.view(jnp.bfloat16)
+    x = x[np.isfinite(x.astype(np.float32))]
+    ref = np.asarray(jax.jit(jax.nn.gelu)(jnp.asarray(x)))
+    port = TL.gelu_tanh(_t(x))
+    big = np.abs(x.astype(np.float32)) > 1e-10
+    assert np.array_equal(_bits(port)[big], ref.view(np.uint16)[big])
+
+
+@needs_jax
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_layernorm_matches_reference(dtype):
+    rng = np.random.default_rng(1)
+    x = (rng.standard_normal((3, 7, 48)) * 3 + 1).astype(np.float32)
+    p = {"norm_scale": rng.standard_normal(48).astype(np.float32),
+         "norm_bias": rng.standard_normal(48).astype(np.float32)}
+    jx = jnp.asarray(x, getattr(jnp, dtype))
+    ref = jax.jit(JL.layernorm_apply)(p, jx)
+    port = TL.layernorm_apply({k: torch.from_numpy(v) for k, v in p.items()},
+                              _t(jx))
+    assert port.dtype == getattr(torch, dtype)
+    _close(port, ref, 2.0 ** -8)
+
+
+# ---------------------------------------------------------------------------
+# 3. conv operands and pooling
+# ---------------------------------------------------------------------------
+
+# (core, kernel, stride, size): every padding shape on the masked bdwp
+# core (SAME at stride 1; stride 2 on odd and even sizes, kernels 1, 3
+# and 7: low/high pads (1, 1), (0, 1), (0, 0) and (2, 3)), the others on
+# a stride-1 and a stride-2 case
+CONV_CASES = [("masked", 3, 1, 7), ("masked", 3, 2, 9), ("masked", 3, 2, 8),
+              ("masked", 1, 2, 8), ("masked", 7, 2, 11), ("sdgp", 3, 2, 8),
+              ("pregen", 3, 1, 7), ("pregen", 7, 2, 11), ("packed", 3, 1, 7),
+              ("packed", 3, 2, 8)]
+
+
+@needs_jax
+@pytest.mark.parametrize("core,kh,stride,size", CONV_CASES)
+def test_conv_functions_match_reference(core, kh, stride, size):
+    rng = np.random.default_rng(kh * 100 + stride * 10 + size)
+    cin, cout = 16, 24
+    x = rng.standard_normal((2, size, size + 1, cin)).astype(np.float32)
+    w = (rng.standard_normal((kh, kh, cin, cout))
+         * (kh * kh * cin) ** -0.5).astype(np.float32)
+    jx = jnp.asarray(x, jnp.bfloat16)
+    tx = _t(jx).requires_grad_()
+    if core in ("masked", "sdgp"):
+        jcfg = J_SP if core == "masked" else JSparsity(n=2, m=8,
+                                                      method="sdgp")
+        tcfg = SparsityConfig(n=2, m=8, method=jcfg.method)
+        jw = jnp.asarray(w)
+
+        def jf(a, b):
+            return JO.masked_conv(a, b, jcfg, stride, "SAME")
+        tw = torch.from_numpy(w).requires_grad_()
+        ty = TO.masked_conv(tx, tw, tcfg, stride, "SAME")
+    else:
+        op = JSGD._pregen_leaf(jnp.asarray(w), J_SP, pack=core == "packed")
+        jw = op.bp
+
+        def jf(a, b):
+            return JO.nm_apply(JO.PregenOp(
+                bp=b, ff=op.ff, vals=op.vals, idx=op.idx, cfg=J_SP), a,
+                stride=stride)
+        tw = _t(op.bp).requires_grad_()
+        top = TO.PregenOp(bp=tw, ff=None if op.ff is None else _t(op.ff),
+                          vals=None if op.vals is None else _t(op.vals),
+                          idx=None if op.idx is None else _t(op.idx),
+                          cfg=T_SP)
+        ty = TO.nm_apply(top, tx, stride=stride)
+    y, vjp = jax.vjp(jax.jit(jf), jx, jw)
+    g = rng.standard_normal(y.shape).astype(np.float32)
+    dx, dw = vjp(jnp.asarray(g, y.dtype))
+    tdx, tdw = torch.autograd.grad(ty, (tx, tw), _t(jnp.asarray(g, y.dtype)))
+    assert ty.shape == y.shape and ty.dtype == torch.bfloat16
+    assert tdx.dtype == torch.bfloat16 and tdw.dtype == tw.dtype
+    _close(ty, y, CONV_RTOL)
+    _close(tdx, dx, CONV_RTOL)
+    _close(tdw, dw, CONV_RTOL)
+
+
+@needs_jax
+@pytest.mark.parametrize("size", [8, 9, 15, 16])
+def test_same_max_pool_matches_reference(size):
+    rng = np.random.default_rng(size)
+    x = jnp.asarray(rng.standard_normal((2, size, size + 1, 4)), jnp.bfloat16)
+
+    def jpool(a):
+        return jax.lax.reduce_window(a, -jnp.inf, jax.lax.max, (1, 3, 3, 1),
+                                     (1, 2, 2, 1), "SAME")
+    y, vjp = jax.vjp(jpool, x)
+    g = jnp.asarray(rng.standard_normal(y.shape), jnp.bfloat16)
+    (dx,) = vjp(g)
+    tx = _t(x).requires_grad_()
+    ty = TC._max_pool(tx, 3, 2, "SAME")
+    (tdx,) = torch.autograd.grad(ty, tx, _t(g))
+    assert np.array_equal(_bits(ty), _bits(y))
+    np.testing.assert_array_equal(tdx.float().numpy(),
+                                  np.asarray(dx, np.float32))
+
+
+def test_same_padding_rule():
+    """XLA's SAME: ceil(size/stride) outputs, the odd unit high."""
+    assert TO.same_padding(64, 7, 2) == (2, 3)
+    assert TO.same_padding(32, 3, 2) == (0, 1)
+    assert TO.same_padding(32, 1, 2) == (0, 0)
+    assert TO.same_padding(32, 3, 1) == (1, 1)
+    assert TO.same_padding(7, 3, 2) == (1, 1)
+    assert TO.same_padding(5, 7, 1) == (3, 3)
+    with pytest.raises(ValueError, match="SAME"):
+        TO.conv_pads((1, 4, 4, 1), (3, 3), 1, "FULL")
+
+
+# ---------------------------------------------------------------------------
+# 4-5. whole models: logits, gradients, pre-generation, update
+# ---------------------------------------------------------------------------
+
+ROOT = Path(__file__).resolve().parents[1]
+MODELS = {
+    "resnet9": TC.ImageModel("resnet9", 10, 16),
+    "vgg19": TC.ImageModel("vgg19", 100),
+    "vit": TC.ImageModel("vit", 10, vit=TC.ViTConfig(**VIT_SMALL)),
+    "resnet18": TC.ImageModel("resnet18", 16, 16),
+    "resnet50": TC.ImageModel("resnet50", 16, 8),
+}
+SITES = {"resnet9": 7, "vgg19": 15, "vit": 12}
+
+
+def reference(names, tmp_path_factory):
+    """Run ``tests/jax_paper_reference.py`` on ``names`` in a subprocess
+    with its XLA flags; returns its pickled results."""
+    dst = tmp_path_factory.mktemp("jax_paper") / "out.pkl"
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=JR.FLAGS,
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "tests" / "jax_paper_reference.py"),
+         str(dst), *names], env=env, capture_output=True, text=True,
+        timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    with open(dst, "rb") as f:
+        return pickle.load(f)
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    return reference(["resnet9", "vgg19", "vit", "resnet18"],
+                     tmp_path_factory)
+
+
+def _pairs(jtree, ttree, path=""):
+    if isinstance(ttree, dict):
+        for k in ttree:
+            yield from _pairs(jtree[k], ttree[k], f"{path}/{k}")
+    else:
+        yield path, jtree, ttree
+
+
+def _assert_tree_bitwise(jtree, ttree):
+    n = 0
+    for name, j, t in _pairs(jtree, ttree):
+        if isinstance(t, TO.PregenOp):
+            for f in ("bp", "ff", "vals", "idx", "mask"):
+                jf, tf = getattr(j, f), getattr(t, f)
+                assert (jf is None) == (tf is None), f"{name}.{f}"
+                if tf is not None:
+                    assert jf.shape == tuple(tf.shape), f"{name}.{f}"
+                    assert np.array_equal(_bits(jf), _bits(tf)), f"{name}.{f}"
+                    n += 1
+        else:
+            assert np.array_equal(_bits(j), _bits(t)), name
+            n += 1
+    assert n > 0
+
+
+def port_logits_and_grads(model, tree, x, y):
+    """The port's fp32 logits and master-shaped gradients of the mean
+    cross-entropy on ``tree`` (a compute tree or an fp32 master)."""
+    roots = TSGD.diff_leaves(tree)
+    for r in roots:
+        r.requires_grad_(True)
+    logits = TC.apply(model, tree, torch.from_numpy(x).to(torch.bfloat16),
+                      T_SP)
+    loss = TC.image_loss(logits, torch.from_numpy(y).long())
+    grads = TSGD.pregen_grads(tree, torch.autograd.grad(
+        loss, roots, allow_unused=True, materialize_grads=True))
+    return logits, grads
+
+
+def assert_logits_and_grads_close(rec, model, tree):
+    logits, grads = port_logits_and_grads(model, tree, rec["x"], rec["y"])
+    assert logits.dtype == torch.float32
+    _close(logits, rec["logits"], LOGIT_RTOL)
+    n = 0
+    for leaf, j, t in _pairs(rec["grads"], grads):
+        assert str(t.dtype) == f"torch.{np.asarray(j).dtype.name}", leaf
+        j = np.asarray(j, np.float32)
+        if not np.abs(j).max():
+            assert not t.abs().max(), leaf
+            continue
+        err = np.abs(t.float().numpy() - j).max()
+        assert err <= GRAD_RTOL * np.abs(j).max(), (leaf, err,
+                                                     np.abs(j).max())
+        n += 1
+    assert n >= 8
+
+
+@needs_jax
+@pytest.mark.parametrize("name", ["resnet9", "vit"])
+def test_pregen_logits_and_gradients_match_reference(ref, name):
+    rec = ref[name]
+    tree = convert.params_from_jax(rec["compute"], device="cpu")
+    assert_logits_and_grads_close(rec, MODELS[name], tree)
+
+
+@needs_jax
+def test_vgg19_layers_match_reference(ref):
+    """Each of VGG19's 16 conv-BN-ReLU layers alone, on the input the
+    reference's forward gives it and a random cotangent: output within
+    one bf16 ulp of the largest, input and weight gradients within
+    ``CONV_RTOL``, the norm's within ``GRAD_RTOL``."""
+    rec = ref["vgg19"]
+    tree = convert.params_from_jax(rec["compute"], device="cpu")
+    assert len(rec["layers"]) == 16
+    for lay in rec["layers"]:
+        p = tree[lay["name"]]
+        w = p["conv"]["w"]
+        diff = w.bp if isinstance(w, TO.PregenOp) else w
+        leaves = [diff, p["bn"]["norm_scale"], p["bn"]["norm_bias"],
+                  _t(lay["x"])]
+        for t in leaves:
+            t.requires_grad_(True)
+        y = torch.relu(TC._bn_apply(p["bn"], TC._nm_conv_auto(
+            p["conv"], leaves[3], T_SP, lay["name"])))
+        grads = torch.autograd.grad(y, leaves, _t(lay["g"]))
+        for t in leaves[:3]:
+            t.requires_grad_(False)
+        _close(y, lay["y"], 2.0 ** -8)
+        _close(grads[0], lay["dbp"], CONV_RTOL)
+        _close(grads[3], lay["dx"], CONV_RTOL)
+        _close(grads[1], lay["dbn"]["norm_scale"], GRAD_RTOL)
+        _close(grads[2], lay["dbn"]["norm_bias"], GRAD_RTOL)
+
+
+@needs_jax
+def test_vgg19_logits_within_the_references_own_spread(ref):
+    """At init VGG19 is chaotic: moving one input pixel by one bf16 ulp
+    moves the reference's logits by about 3% of their largest magnitude
+    (``logits_nudged``; its eager and compiled logits differ as much),
+    so the whole model is held within ``VGG19_LOGIT_RTOL`` and its
+    layers one by one (``test_vgg19_layers_match_reference``)."""
+    rec = ref["vgg19"]
+    scale = float(np.abs(rec["logits"]).max())
+    spread = float(np.abs(rec["logits_nudged"] - rec["logits"]).max())
+    assert spread > 5e-3 * scale
+    tree = convert.params_from_jax(rec["compute"], device="cpu")
+    logits, grads = port_logits_and_grads(MODELS["vgg19"], tree, rec["x"],
+                                          rec["y"])
+    _close(logits, rec["logits"], VGG19_LOGIT_RTOL)
+    assert all(bool(torch.isfinite(g).all())
+               for g in TSGD.tree_leaves(grads))
+
+
+@needs_jax
+def test_resnet18_masked_logits_and_gradients_match_reference(ref):
+    """The MaskedOp path on the fp32 master: the 7x7/2 head, the SAME
+    3x3/2 max-pool, the 3x3/2 convs and the 1x1/2 projections."""
+    rec = ref["resnet18"]
+    tree = convert.params_from_jax(rec["master"], device="cpu")
+    assert_logits_and_grads_close(rec, MODELS["resnet18"], tree)
+
+
+@needs_jax
+@pytest.mark.parametrize("name", ["resnet9", "vgg19", "vit"])
+def test_pregen_tree_bitwise(ref, name):
+    rec = ref[name]
+    master = convert.params_from_jax(rec["master"], device="cpu")
+    compute = TSGD.pregen_tree(master, T_SP, pack=True)
+    _assert_tree_bitwise(rec["compute"], compute)
+    sites = [t for t in TSGD.tree_leaves(compute)
+             if isinstance(t, TO.PregenOp)]
+    assert len(sites) == SITES[name]
+    assert all(s.is_packed for s in sites)
+    if name != "vit":
+        assert all(s.bp.ndim == 4 for s in sites)
+
+
+@needs_jax
+@pytest.mark.parametrize("name", ["resnet9", "vgg19", "vit", "resnet18"])
+def test_update_bitwise_with_reference_gradients(ref, name):
+    """ResNet18's gradients are random (its pre-generated tree cannot run
+    the forward, ``test_torch_paper_train.py``); its tree carries the
+    ``_meta`` leaf, which the reference's update decays as an fp32 leaf."""
+    upd = ref[name]["update"]
+    state = convert.train_state_from_jax(upd["state"], device="cpu")
+    grads = convert.params_from_jax(upd["grads"], device="cpu")
+    opt = TSGD.SGDConfig(**dataclasses.asdict(JR.OPT))
+    new, compute = TSGD.update(TST.state_core(state), grads, opt, T_SP,
+                               prev_compute=state["compute"], pack=True)
+    assert new["step"] == 6
+    _assert_tree_bitwise(upd["new"]["master"], new["master"])
+    _assert_tree_bitwise(upd["new"]["momentum"], new["momentum"])
+    _assert_tree_bitwise(upd["compute"], compute)
+
+
+# ---------------------------------------------------------------------------
+# 6. the kernels at this slice's shapes, on the card
+# ---------------------------------------------------------------------------
+
+# (H*W*I, O) views of ResNet9's and VGG19's conv sites, and ViT's linears
+UPDATE_VIEWS = [(576, 128), (1152, 128), (1152, 256), (2304, 512),
+                (4608, 512), (576, 64), (2304, 256), (384, 384),
+                (384, 1536), (1536, 384)]
+VIT_ROWS = 512 * 65
+
+
+@pytest.mark.gpu
+def test_cuda_fused_update_on_model_views():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    s = dict(lr=0.0123, mu=0.9, wd=5e-4, lam=2e-4)
+    for k, f in UPDATE_VIEWS:
+        w, g, v = (torch.randn((k, f), generator=gen, device="cuda")
+                   for _ in range(3))
+        got = KF.fused_update(w, g, v, s["lr"], s["mu"], s["wd"], s["lam"],
+                              2, 8)
+        want = KR.ref_fused_update(w, g, v, n=2, m=8, axis=0, **s)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert np.array_equal(_bits(a), _bits(b)), (k, f)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,f", [(384, 384), (384, 1536), (1536, 384)])
+def test_cuda_nm_spmm_at_vit_rows(k, f):
+    """Every row within 1e-5 x (|act| @ |W|) of the plain version (the
+    phase-3 tolerance: both sum the same exact bf16 products in fp32, in
+    other orders), and row 0 bitwise the B = 1 result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(k + f)
+    act = torch.randn((VIT_ROWS, k), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w = torch.randn((k, f), generator=gen, device="cuda").to(torch.bfloat16)
+    vals, idx = nm_pack(w, 2, 8, axis=0)
+    got = KS.nm_spmm(act, vals, idx, 2, 8)
+    want = KR.ref_nm_spmm(act, vals, idx, 2, 8)
+    dense = KR.decompress_nm(vals, idx, 2, 8, axis=0).float()
+    scale = act.float().abs() @ dense.abs()
+    assert bool(((got - want).abs() <= 1e-5 * scale).all())
+    assert torch.equal(got[:1], KS.nm_spmm(act[:1].contiguous(), vals, idx,
+                                           2, 8))

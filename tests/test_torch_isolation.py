@@ -9,22 +9,28 @@
   compressed sync's residual (and so the state that ``lm_train_step``
   and ``cross_pod_sync`` take), ``train_state_from_jax``,
   ``err_from_jax``, ``lm_stream``, ``CheckpointManager.restore`` and
-  ``recover_or_init``) run on the card unless the caller names a device;
+  ``recover_or_init``, and for the paper's image models
+  ``convnets.init``, ``init_image_train_state``, ``image_batch`` and
+  ``image_stream``) run on the card unless the caller names a device;
   with no card they raise instead of falling back to the CPU.
 """
 
 import ast
+import dataclasses
 from pathlib import Path
 
 import pytest
 import torch
 
 from repro_torch import convert
+from repro_torch.configs import paper_models as PM
 from repro_torch.configs import qwen3_8b as TC
 from repro_torch.core import bdwp
-from repro_torch.core.operand import SharedOp
+from repro_torch.core.operand import PregenOp, SharedOp
 from repro_torch.core.sparsity import SparsityConfig
+from repro_torch.data import synthetic as TD
 from repro_torch.data.synthetic import lm_stream
+from repro_torch.models import convnets as CN
 from repro_torch.models import transformer_lm as T
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 from repro_torch.serve.packed_params import pack_tree_element
@@ -116,3 +122,46 @@ def test_pack_tree_shared_refuses_to_fall_back_to_cpu(monkeypatch):
     packed = bdwp.pack_tree_shared(params, sp, device="cpu")
     op = packed["blocks"][0]["attn"]["q_proj"]["w"]
     assert isinstance(op, SharedOp) and op.vals.device.type == "cpu"
+
+
+def test_scan_sees_the_image_models():
+    names = {p.name for p in _sources()}
+    assert {"convnets.py", "paper_models.py", "step.py"} <= names
+
+
+@pytest.mark.parametrize("name", ["resnet9", "vgg19", "vit"])
+def test_image_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, name):
+    """The image models' init, train state and data run on the card
+    unless a device is named; with no card they raise, and with
+    ``device="cpu"`` everything is there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = PM.image_model(name, width=16)
+    if name == "vit":
+        model = dataclasses.replace(model, vit=dataclasses.replace(
+            model.vit, d_model=32, n_layers=1, n_heads=2, d_ff=64))
+    sp = SparsityConfig(n=2, m=8)
+    icfg = TD.ImageTaskConfig(image=32, num_classes=model.num_classes,
+                              batch=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CN.init(model, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ST.init_image_train_state(model, sp)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TD.image_batch(icfg, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TD.image_stream(icfg)
+    state = ST.init_image_train_state(model, sp, device="cpu")
+    assert all(t.device.type == "cpu" for t in _tensors(state))
+    images, labels = TD.image_batch(icfg, 0, device="cpu")
+    assert images.device.type == labels.device.type == "cpu"
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, PregenOp):
+        yield from (t for t in (tree.bp, tree.vals, tree.idx, tree.mask)
+                    if t is not None)
