@@ -41,11 +41,17 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 and idle share per step and the top kernels and host ops;
   7. update     the fused_update kernel against its plain version at the
                 qwen3-8b projection shapes as the optimizer feeds them
-                ((K, F) fp32 master, gradient and momentum), at ragged
-                shapes and on heavy ties: w', v', vals and idx bitwise
-                equal; then device times (CUDA graph replay, cold L2)
-                against the byte bound (20.75 B per element at 2:8 over
-                3.35 TB/s) and the plain version;
+                ((K, F) fp32 master and momentum, bf16 gradient), at
+                ragged shapes (fp32 and bf16 gradients) and on heavy ties,
+                in its three modes (FF only, srste's cast BP operand,
+                bdwp's selected one; bdwp must refuse F % m != 0): w',
+                v', vals, idx, the BP operand and the FF mask bitwise
+                equal; one layer's 7 sites in one grouped launch against
+                per-site plain calls, out of place and in place; then
+                device times (CUDA graph replay, cold L2) of each site
+                alone and of the layer's grouped launch against the byte
+                bound (21.75 B per element at 2:8 with a bf16 gradient
+                over 3.35 TB/s) and the plain version;
   8. train rows nm_spmm at B = 2048 rows (4 x 512 tokens) and at the
                 1024 rows of one pod of phase 14, u8 indices, the seven
                 shapes: within the phase-3 tolerance of the plain
@@ -63,11 +69,12 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 bdwp, packed pre-generation, 4 x 512 tokens a step: five
                 timed steps with finite losses and exactly 2 x 7 x 8
                 nm_spmm launches (forward and the blocks' recompute) and
-                7 x 8 fused_update launches per step; after a sixth step
-                under torch.profiler (forward / backward / update, device
-                busy and idle, top kernels), layer 0's packed operands
-                equal nm_pack of its new fp32 master and its stored mask
-                nm_mask of it;
+                one grouped fused_update launch over the 7 x 8 sites per
+                step; after a sixth step under torch.profiler (forward /
+                backward / update, device busy and idle, top kernels; no
+                argmax reduce left), layer 0's packed operands equal
+                nm_pack of its new fp32 master, its stored mask nm_mask of
+                it and its BP operand the BP-axis mask's;
  11. sync kernels grad_compress and grad_decompress_mean, each in its
                 vector and its scalar variant, against their plain
                 versions: buckets (2, 65536) and (P, 4096) for P in 1..4,
@@ -97,7 +104,8 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
  14. train sync qwen3-8b TRAIN_SYNC (every FULL width, 4 of 36 layers),
                 2 pods x (2 x 512) tokens a step, compressed sync: five
                 timed steps with finite losses and exactly 2 x 7 x 4 x 2
-                nm_spmm, 7 x 4 fused_update, and 47 grad_compress and 47
+                nm_spmm, one fused_update over 7 x 4 sites, and 47
+                grad_compress and 47
                 grad_decompress_mean launches per step (one per leaf),
                 every one on the vector variant; on one step the EF
                 identity on layer 0's w_gate; a sixth step under
@@ -143,10 +151,12 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 33,280) and its six linear shapes, u8: within the
                 phase-3 tolerance, row 0 bitwise the B = 1 result; device
                 times beside dense torch.matmul, the bound and the plain
-                version; fused_update at the (H*W*I, O) views of every
-                ResNet9 and VGG19 conv site and at ViT's linears, bitwise
-                against the plain version, timed (cold L2 by cycled
-                copies) per view and summed per model's step;
+                version; fused_update over each model's site list (the
+                (H*W*I, O) views of every ResNet9 and VGG19 conv site,
+                ViT's linears) in one grouped launch, bitwise against
+                per-site plain calls, out of place and in place; timed
+                (cold L2 by cycled copies) per view alone and as the
+                step's one grouped launch;
  19. small paper ResNet9 (width 16) and a 2-block ViT, 2:8 bdwp, packed:
                 three steps on the card and on the CPU from the same
                 params and batches; step-0 compute trees bitwise equal,
@@ -160,8 +170,9 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 (VIT_PAPER; both CIFAR-100 shapes) at Table I's batch of
                 512, 2:8 bdwp, packed pre-generation, the paper's lr and
                 weight decay: five timed steps each (batches drawn
-                before the clock) with finite losses and exactly 7 / 15 /
-                42 fused_update and 0 / 0 / 42 nm_spmm launches a step;
+                before the clock) with finite losses and exactly one
+                fused_update launch over 7 / 15 / 42 sites and 0 / 0 / 42
+                nm_spmm launches a step;
                 a sixth under torch.profiler; ms/step, images/s, peak
                 memory; the first site's stored operands equal the pack
                 of its new fp32 master.
@@ -431,17 +442,18 @@ FU_RAGGED = [("K=48 F=1000", 48, 1000, 2, 8), ("K=8 F=1", 8, 1, 2, 8),
              ("4:16 K=128 F=33", 128, 33, 4, 16)]
 
 
-def update_case(gen, k, f, dev, ties=False):
-    """(w, g, v) as the optimizer feeds the kernel: fp32 master, the bf16
-    WU gradient cast to fp32, fp32 momentum; ``ties`` draws small
-    integers (many equal |w| and |w'|, negative zeros included)."""
+def update_case(gen, k, f, dev, ties=False, g_dtype=torch.bfloat16):
+    """(w, g, v) as the optimizer feeds the kernel: fp32 master, the WU
+    gradient as the step hands it over (bf16), fp32 momentum;
+    ``g_dtype`` fp32 gives its fp32 cast; ``ties`` draws small integers
+    (many equal |w| and |w'|, negative zeros included)."""
     if ties:
         w, g, v = (torch.randint(-2, 3, (k, f), generator=gen, device=dev)
                    .float() for _ in range(3))
-        return torch.where(w == 0, -0.0, w), g, v
+        return torch.where(w == 0, -0.0, w), g.to(g_dtype), v
     w = torch.randn((k, f), generator=gen, device=dev) * k ** -0.5
     g = (torch.randn((k, f), generator=gen, device=dev) * 1e-3).to(
-        torch.bfloat16).float()
+        torch.bfloat16).to(g_dtype)
     v = torch.randn((k, f), generator=gen, device=dev) * 1e-3
     return w, g, v
 
@@ -452,51 +464,133 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
         a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
 
 
-def update_bound_ms(k, f, n, m):
-    return (k * f * (20 + 3 * n / m)) / HBM_BYTES_PER_S * 1e3
+def update_bound_ms(k, f, n, m, g_bytes=2, bp=True):
+    """Bytes of one fused update of a (K, F) site over the memory rate:
+    w, g, v read, w', v', vals and idx (n/m each) written, and with
+    ``bp`` the bf16 BP operand and the byte FF mask (21.75 B per element
+    at 2:8 with a bf16 g)."""
+    per = 4 + g_bytes + 4 + 8 + 3 * n / m + (3 if bp else 0)
+    return k * f * per / HBM_BYTES_PER_S * 1e3
 
 
-def phase_update(dev, gen):
-    """fused_update vs plain (bitwise), then its times at the 7 shapes."""
+UPDATE_OUTS = ("w'", "v'", "vals", "idx", "bp", "mask")
+
+
+def check_update(got, want, label):
+    """Every output of a fused update bitwise equal to the plain one;
+    returns the largest |difference| (0 when equal)."""
+    check(len(got) == len(want), f"fused_update {label}: {len(got)} "
+          f"outputs, the plain version {len(want)}")
+    worst = 0.0
+    for name, a, b in zip(UPDATE_OUTS, got, want):
+        check(bits_equal(a, b),
+              f"fused_update {label}: {name} not bitwise equal")
+        worst = max(worst, float((a.float() - b.float()).abs().max()))
+    return worst
+
+
+def grouped_update_check(gen, views, dev, s, label, n=2, m=8):
+    """One grouped launch over the (K, F) ``views`` (bf16 gradients,
+    bdwp) against per-site plain calls, out of place and in place."""
     from repro_torch.kernels import fused_update as K
     from repro_torch.kernels import ref
 
-    cases = [(name, k, f, 2, 8, False) for name, k, f in PROJ]
-    cases += [(f"ragged {name}", k, f, n, m, False)
-              for name, k, f, n, m in FU_RAGGED]
-    cases += [("ties 2:8 K=512 F=300", 512, 300, 2, 8, True),
-              ("ties 1:4 K=64 F=64", 64, 64, 1, 4, True)]
+    sites = [update_case(gen, k, f, dev) for k, f in views]
+    args = (s["lr"], s["mu"], s["wd"], s["lam"], n, m, "bdwp")
+    before = (K.launches, K.launched_sites)
+    got = K.fused_update_sites(sites, *args)
+    check((K.launches - before[0], K.launched_sites - before[1])
+          == (1, len(sites)), f"fused_update {label}: not one grouped "
+          "launch over every site")
+    copies = [(w.clone(), g, v.clone()) for w, g, v in sites]
+    inplace = K.fused_update_sites(copies, *args, inplace=True)
     worst = 0.0
-    for label, k, f, n, m, ties in cases:
-        w, g, v = update_case(gen, k, f, dev, ties)
-        s = dict(lr=0.25, mu=0.5, wd=0.25, lam=0.5) if ties \
-            else UPDATE_SCALARS
-        got = K.fused_update(w, g, v, s["lr"], s["mu"], s["wd"], s["lam"],
-                             n, m)
-        want = ref.ref_fused_update(w, g, v, n=n, m=m, axis=0, **s)
+    for (w, g, v), a, b in zip(sites, got, inplace):
+        want = ref.ref_fused_update(w, g, v, n=n, m=m, axis=0,
+                                    bp_mode="bdwp", **s)
         torch.cuda.synchronize()
-        for name, a, b in zip(("w'", "v'", "vals", "idx"), got, want):
-            check(bits_equal(a, b),
-                  f"fused_update {label}: {name} not bitwise equal")
-            worst = max(worst, float((a.float() - b.float()).abs().max()))
-        print(f"  {label:24s} w', v', vals, idx bitwise equal")
-    rows = []
+        worst = max(worst, check_update(a, want, f"{label} grouped"),
+                    check_update(b, want, f"{label} grouped in place"))
+        del want
+    return worst
+
+
+def phase_update(dev, gen):
+    """fused_update vs plain (bitwise), single site and grouped, then
+    times of single sites and of one layer's grouped launch."""
+    from repro_torch.kernels import fused_update as K
+    from repro_torch.kernels import ref
+
+    dyadic = dict(lr=0.25, mu=0.5, wd=0.25, lam=0.5)
+    cases = [(name, k, f, 2, 8, False, torch.bfloat16) for name, k, f in PROJ]
+    cases += [(f"ragged {name}", k, f, n, m, False,
+               torch.float32 if i % 2 else torch.bfloat16)
+              for i, (name, k, f, n, m) in enumerate(FU_RAGGED)]
+    cases += [("ties 2:8 K=512 F=300", 512, 300, 2, 8, True, torch.bfloat16),
+              ("ties 2:8 K=512 F=304", 512, 304, 2, 8, True, torch.bfloat16),
+              ("ties 4:16 K=64 F=96", 64, 96, 4, 16, True, torch.bfloat16),
+              ("ties 1:4 K=64 F=64", 64, 64, 1, 4, True, torch.float32)]
+    worst = 0.0
+    for label, k, f, n, m, ties, g_dtype in cases:
+        w, g, v = update_case(gen, k, f, dev, ties, g_dtype)
+        s = dyadic if ties else UPDATE_SCALARS
+        modes = (None, "srste") + (("bdwp",) if f % m == 0 else ())
+        for mode in modes:
+            got = K.fused_update(w, g, v, s["lr"], s["mu"], s["wd"],
+                                 s["lam"], n, m, bp_mode=mode)
+            want = ref.ref_fused_update(w, g, v, n=n, m=m, axis=0,
+                                        bp_mode=mode, **s)
+            torch.cuda.synchronize()
+            worst = max(worst, check_update(got, want, f"{label} {mode}"))
+            del got, want
+        if f % m:
+            try:
+                K.fused_update(w, g, v, s["lr"], s["mu"], s["wd"], s["lam"],
+                               n, m, bp_mode="bdwp")
+                check(False, f"fused_update {label}: bdwp with F % m != 0 "
+                      "was not refused")
+            except ValueError:
+                pass
+        print(f"  {label:24s} g {str(g_dtype)[6:]:8s} modes "
+              f"{', '.join(map(str, modes))}: every output bitwise equal"
+              + ("; bdwp refused (F % m)" if f % m else ""))
+    views = [(k, f) for _, k, f in PROJ]
+    worst = max(worst, grouped_update_check(gen, views, dev, UPDATE_SCALARS,
+                                            "one layer's sites"))
+    print(f"  one layer's {len(views)} sites in one grouped launch (bf16 g, "
+          "bdwp): bitwise equal to per-site plain calls, out of place and "
+          "in place")
+    rows, s = [], UPDATE_SCALARS
+    args = (s["lr"], s["mu"], s["wd"], s["lam"], 2, 8)
     for name, k, f in PROJ:
         sets = [update_case(gen, k, f, dev) for _ in range(2)]
-        s = UPDATE_SCALARS
-        t_k = time_ms(lambda i: K.fused_update(
-            *sets[i], s["lr"], s["mu"], s["wd"], s["lam"], 2, 8), 2)
+        t_k = time_ms(lambda i: K.fused_update(*sets[i], *args,
+                                               bp_mode="bdwp"), 2)
         t_p = time_ms(lambda i: ref.ref_fused_update(
-            *sets[i], n=2, m=8, axis=0, **s), 2, iters=5)
+            *sets[i], n=2, m=8, axis=0, bp_mode="bdwp", **s), 2, iters=3)
         t_b = update_bound_ms(k, f, 2, 8)
         rows.append({"proj": name, "K": k, "F": f, "ms": t_k,
                      "plain_ms": t_p, "bound_ms": t_b, "bound_by": "bytes",
                      "library_ms": None})
-        print(f"  {name:7s} {k:5d}x{f:<5d} kernel={t_k:.4f} ms "
-              f"bound={t_b:.4f} ms (bytes) plain={t_p:.4f} ms "
-              f"kernel/bound={t_k / t_b:.2f}")
+        print(f"  {name:7s} {k:5d}x{f:<5d} one site kernel={t_k:.4f} ms "
+              f"bound={t_b:.4f} ms (bytes, 21.75 B/element) "
+              f"plain={t_p:.4f} ms bound/kernel={t_b / t_k:.2f}")
         del sets
-    return worst, rows
+    layer = [update_case(gen, k, f, dev) for _, k, f in PROJ]
+    t_g = time_ms(lambda i: K.fused_update_sites(layer, *args, "bdwp"), 1,
+                  iters=10)
+    t_b = sum(r["bound_ms"] for r in rows)
+    grouped = {"sites": len(layer), "ms": t_g, "bound_ms": t_b,
+               "bound_by": "bytes", "singles_ms": sum(r["ms"] for r in rows),
+               "plain_ms": sum(r["plain_ms"] for r in rows),
+               "library_ms": None}
+    print(f"  one layer's {len(rows)} sites, one grouped launch: {t_g:.4f} "
+          f"ms against a {t_b:.4f} ms bound (bound/kernel "
+          f"{t_b / t_g:.2f}); {len(rows)} single launches "
+          f"{grouped['singles_ms']:.4f} ms; plain "
+          f"{grouped['plain_ms']:.3f} ms")
+    del layer
+    return worst, rows, grouped
 
 
 def spmm_train_bound_ms(b, k, f, kc):
@@ -682,6 +776,7 @@ def profile_train_step(step_fn, state, batch):
             kernels.append((us / 1e3, e.count, e.key))
     kernels.sort(reverse=True)
     busy = sum(k[0] for k in kernels)
+    argmax = sum(k[1] for k in kernels if "ArgMax" in k[2])
     share = {name: sum(k[0] for k in kernels if name in k[2])
              for name in ("nm_spmm", "fused_update", "grad_compress",
                           "grad_decompress_mean")}
@@ -705,7 +800,9 @@ def profile_train_step(step_fn, state, batch):
               f"{t['device_ms']:9.1f} ms")
     for ms, count, key in kernels[:10]:
         print(f"    {ms:9.3f} ms  x{count:<5d} {key[:90]}")
+    print(f"    argmax reduce kernels in the step: {argmax}")
     return state, met, {"wall_ms": wall_ms, "device_busy_ms": busy,
+                        "argmax_kernels": argmax,
                         "parts": parts, "kernel_ms": share,
                         "top_kernels": [list(k) for k in kernels[:15]]}
 
@@ -736,13 +833,14 @@ def phase_train(dev, seed):
     step_fn = functools.partial(ST.lm_train_step, cfg=cfg, sp_cfg=sp,
                                 opt_cfg=opt)
     data = lm_stream(cfg.vocab, *TRAIN_ROWS, device=dev, seed=seed)
-    want_spmm, want_upd = 2 * 7 * cfg.n_layers, 7 * cfg.n_layers
+    # one grouped fused_update launch a step over the 7 x L sites
+    want = (2 * 7 * cfg.n_layers, 1, 7 * cfg.n_layers)
     tokens = TRAIN_ROWS[0] * TRAIN_ROWS[1]
-    KS.launches = KF.launches = 0
+    KS.launches = KF.launches = KF.launched_sites = 0
     losses, times, per_step = [], [], []
     for _ in range(5):
         _, batch = next(data)
-        s0, f0 = KS.launches, KF.launches
+        c0 = (KS.launches, KF.launches, KF.launched_sites)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, met = step_fn(state, batch)
@@ -750,18 +848,23 @@ def phase_train(dev, seed):
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
         losses.append(loss)
-        per_step.append((KS.launches - s0, KF.launches - f0))
+        per_step.append(tuple(a - b for a, b in zip(
+            (KS.launches, KF.launches, KF.launched_sites), c0)))
         print(f"  step {len(losses) - 1}: loss {loss:.6f} lr "
               f"{float(met['lr']):.4g} {times[-1]:.1f} ms "
               f"({tokens / times[-1] * 1e3:.0f} tok/s); launches nm_spmm "
-              f"{per_step[-1][0]} (want {want_spmm}), fused_update "
-              f"{per_step[-1][1]} (want {want_upd})")
+              f"{per_step[-1][0]} (want {want[0]}), fused_update "
+              f"{per_step[-1][1]} over {per_step[-1][2]} sites (want "
+              f"{want[1]} over {want[2]})")
         check(math.isfinite(loss), "train: non-finite loss")
-        check(per_step[-1] == (want_spmm, want_upd), "train: launch counts")
-    launches = {"nm_spmm": KS.launches, "fused_update": KF.launches}
+        check(per_step[-1] == want, "train: launch counts")
+    launches = {"nm_spmm": KS.launches, "fused_update": KF.launches,
+                "fused_update_sites": KF.launched_sites}
     _, batch = next(data)
     state, met, prof = profile_train_step(step_fn, state, batch)
     check(math.isfinite(float(met["loss"])), "train: non-finite loss")
+    check(prof["argmax_kernels"] == 0,
+          "train: an argmax reduce (a plain N:M selection) is left")
     peak = torch.cuda.max_memory_allocated()
     layer = state["compute"]["blocks"][0]
     master = state["master"]["blocks"][0]
@@ -774,8 +877,12 @@ def phase_train(dev, seed):
               f"train: layer 0 {name} packed operand != nm_pack(master)")
         check(torch.equal(op.mask, S.nm_mask(w, 2, 8, axis=0)),
               f"train: layer 0 {name} stored mask != nm_mask(master)")
+        bp = torch.where(S.nm_mask(w, 2, 8, axis=1), w, 0.0)
+        check(bits_equal(op.bp, bp.to(torch.bfloat16)),
+              f"train: layer 0 {name} bp != the BP-axis mask's operand")
     print("  layer 0: packed vals/idx == nm_pack(new master), stored mask "
-          "== nm_mask(new master), all 7 projections")
+          "== nm_mask(new master), bp == bf16(where(nm_mask(new master, "
+          "axis=1), master, 0)), all 7 projections")
     steady = sorted(times[1:])
     ms = steady[len(steady) // 2]
     print(f"  {cfg.name} x{cfg.n_layers} layers: median of steps 1-4 "
@@ -1231,19 +1338,19 @@ def phase_train_sync(dev, seed):
                                 opt_cfg=opt, compress=True, n_pods=SYNC_PODS)
     data = lm_stream(cfg.vocab, *SYNC_ROWS, device=dev, seed=seed)
     want = {"nm_spmm": 2 * 7 * cfg.n_layers * SYNC_PODS,
-            "fused_update": 7 * cfg.n_layers,
+            "fused_update": 1, "fused_update_sites": 7 * cfg.n_layers,
             "grad_compress": len(plan.leaves),
             "grad_decompress_mean": len(plan.leaves)}
     tokens = SYNC_ROWS[0] * SYNC_ROWS[1]
 
     def counts():
         return {"nm_spmm": KS.launches, "fused_update": KF.launches,
-                **KG.launches,
+                "fused_update_sites": KF.launched_sites, **KG.launches,
                 **{f"{op}/vector": v["vector"]
                    for op, v in KG.variant_launches.items()}}
 
     want.update({f"{op}/vector": want[op] for op in KG.launches})
-    KS.launches = KF.launches = 0
+    KS.launches = KF.launches = KF.launched_sites = 0
     KG.launches.update(dict.fromkeys(KG.launches, 0))
     for v in KG.variant_launches.values():
         v.update(dict.fromkeys(v, 0))
@@ -1286,6 +1393,8 @@ def phase_train_sync(dev, seed):
     _, batch = next(data)
     state, met, prof = profile_train_step(step_fn, state, batch)
     check(math.isfinite(float(met["loss"])), "train sync: non-finite loss")
+    check(prof["argmax_kernels"] == 0,
+          "train sync: an argmax reduce (a plain N:M selection) is left")
     peak = torch.cuda.max_memory_allocated()
     steady = sorted(times[1:])
     ms = steady[len(steady) // 2]
@@ -2092,9 +2201,12 @@ def phase_shared_serve(dev, seed):
 # pre-generation, at the batch of PAPER_MODELS
 PAPER_NAMES = ("resnet9", "vgg19", "vit")
 PAPER_STEPS = 5
-# exact launches per training step: one fused_update per pre-generated
-# site, one nm_spmm per ViT linear's forward (6 per block, no recompute)
-PAPER_LAUNCHES = {"resnet9": (7, 0), "vgg19": (15, 0), "vit": (42, 42)}
+# exact launches per training step: (fused_update launches, the sites
+# they cover, nm_spmm launches): one grouped fused_update over every
+# pre-generated site, one nm_spmm per ViT linear's forward (6 per block,
+# no recompute)
+PAPER_LAUNCHES = {"resnet9": (1, 7, 0), "vgg19": (1, 15, 0),
+                  "vit": (1, 42, 42)}
 PAPER_BATCH = None              # None: each model's Table I batch
 PAPER_WIDTH = 64                # ResNet9's base width in Table I
 # card vs CPU at small size: ResNet9 (width 16) and a 2-block ViT,
@@ -2178,48 +2290,52 @@ def phase_paper_kernels(dev, gen):
           f"ms); max abs err {worst_spmm:.3e} (tol {TOL:g} x |act|@|W|)")
 
     s = UPDATE_SCALARS
+    args = (s["lr"], s["mu"], s["wd"], s["lam"], 2, 8)
     worst_upd, upd_rows = 0.0, {}   # fused_update is held bitwise
     for model_name in PAPER_NAMES:
         model = PM.image_model(model_name, PAPER_WIDTH)
-        views = _site_views(CN.init(model, seed=0, device=dev), sp)
-        per_shape = collections.Counter(v for _, v in views)
+        views = [v for _, v in _site_views(CN.init(model, seed=0,
+                                                   device=dev), sp)]
+        worst_upd = max(worst_upd, grouped_update_check(
+            gen, views, dev, s, f"{model_name}'s {len(views)} sites"))
         rows = []
-        for (k, f), count in sorted(per_shape.items()):
-            w, g, v = update_case(gen, k, f, dev)
-            got = KF.fused_update(w, g, v, s["lr"], s["mu"], s["wd"],
-                                  s["lam"], 2, 8)
-            want = ref.ref_fused_update(w, g, v, n=2, m=8, axis=0, **s)
-            torch.cuda.synchronize()
-            for fld, a, c in zip(("w'", "v'", "vals", "idx"), got, want):
-                check(bits_equal(a, c), f"fused_update {model_name} view "
-                      f"({k}, {f}): {fld} not bitwise equal")
-                worst_upd = max(worst_upd,
-                                float((a.float() - c.float()).abs().max()))
-            copies = max(2, -(-2 * L2_BYTES // (k * f * 12)))
-            sets = [(w, g, v)] + [update_case(gen, k, f, dev)
-                                  for _ in range(copies - 1)]
-            t_k = time_ms(lambda i: KF.fused_update(
-                *sets[i], s["lr"], s["mu"], s["wd"], s["lam"], 2, 8), copies,
-                iters=max(20, copies))
+        for (k, f), count in sorted(collections.Counter(views).items()):
+            copies = max(2, -(-2 * L2_BYTES // (k * f * 10)))
+            sets = [update_case(gen, k, f, dev) for _ in range(copies)]
+            t_k = time_ms(lambda i: KF.fused_update(*sets[i], *args,
+                                                    bp_mode="bdwp"),
+                          copies, iters=max(20, copies))
             t_p = time_ms(lambda i: ref.ref_fused_update(
-                *sets[i], n=2, m=8, axis=0, **s), copies,
+                *sets[i], n=2, m=8, axis=0, bp_mode="bdwp", **s), copies,
                 iters=min(copies, 10))
             t_b = update_bound_ms(k, f, 2, 8)
             rows.append({"view": [k, f], "sites": count, "ms": t_k,
                          "plain_ms": t_p, "bound_ms": t_b,
                          "bound_by": "bytes", "library_ms": None})
             print(f"  fused_update {model_name:7s} ({k:5d}, {f:4d}) x{count:2d} "
-                  f"kernel={t_k:.4f} ms bound={t_b:.4f} ms (bytes) "
-                  f"plain={t_p:.4f} ms kernel/bound={t_k / t_b:.2f}; "
-                  f"bitwise equal")
+                  f"one site kernel={t_k:.4f} ms bound={t_b:.4f} ms (bytes) "
+                  f"plain={t_p:.4f} ms bound/kernel={t_b / t_k:.2f}")
             del sets
         tot = {key: sum(r[key] * r["sites"] for r in rows)
                for key in ("ms", "plain_ms", "bound_ms")}
+        step_bytes = sum(k * f * 10 for k, f in views)
+        copies = max(2, -(-2 * L2_BYTES // step_bytes))
+        sets = [[update_case(gen, k, f, dev) for k, f in views]
+                for _ in range(copies)]
+        t_g = time_ms(lambda i: KF.fused_update_sites(sets[i], *args,
+                                                      "bdwp"),
+                      copies, iters=max(20, copies))
+        del sets
         print(f"  fused_update {model_name}: one step's {len(views)} sites "
-              f"{tot['ms']:.4f} ms against a {tot['bound_ms']:.4f} ms "
-              f"bound ({tot['ms'] / tot['bound_ms']:.2f}x), plain "
-              f"{tot['plain_ms']:.3f} ms")
-        upd_rows[model_name] = {"views": rows, "sites": len(views), **tot}
+              f"in one grouped launch {t_g:.4f} ms against a "
+              f"{tot['bound_ms']:.4f} ms bound (bound/kernel "
+              f"{tot['bound_ms'] / t_g:.2f}); {len(views)} single launches "
+              f"{tot['ms']:.4f} ms; plain {tot['plain_ms']:.3f} ms; "
+              f"bitwise equal to per-site plain calls")
+        upd_rows[model_name] = {"views": rows, "sites": len(views),
+                                "singles_ms": tot["ms"], "ms": t_g,
+                                "plain_ms": tot["plain_ms"],
+                                "bound_ms": tot["bound_ms"]}
     return worst_spmm, spmm_rows, worst_upd, upd_rows
 
 
@@ -2397,10 +2513,10 @@ def phase_paper_train(dev, seed):
         step_fn = functools.partial(ST.image_train_step, model=model,
                                     sp_cfg=sp, opt_cfg=opt)
         want = PAPER_LAUNCHES[name]
-        KS.launches = KF.launches = 0
+        KS.launches = KF.launches = KF.launched_sites = 0
         losses, times, per_step = [], [], []
         for batch_d in batches[:PAPER_STEPS]:
-            s0, f0 = KS.launches, KF.launches
+            c0 = (KF.launches, KF.launched_sites, KS.launches)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             state, met = step_fn(state, batch_d)
@@ -2408,15 +2524,19 @@ def phase_paper_train(dev, seed):
             torch.cuda.synchronize()
             times.append(1e3 * (time.perf_counter() - t0))
             losses.append(loss)
-            per_step.append((KF.launches - f0, KS.launches - s0))
+            per_step.append(tuple(a - b for a, b in zip(
+                (KF.launches, KF.launched_sites, KS.launches), c0)))
             print(f"  {name} step {len(losses) - 1}: loss {loss:.6f} lr "
                   f"{float(met['lr']):.4g} {times[-1]:.1f} ms "
                   f"({batch / times[-1] * 1e3:.0f} images/s); launches "
-                  f"fused_update {per_step[-1][0]} (want {want[0]}), "
-                  f"nm_spmm {per_step[-1][1]} (want {want[1]})")
+                  f"fused_update {per_step[-1][0]} over {per_step[-1][1]} "
+                  f"sites (want {want[0]} over {want[1]}), nm_spmm "
+                  f"{per_step[-1][2]} (want {want[2]})")
             check(math.isfinite(loss), f"{name}: non-finite loss")
             check(per_step[-1] == want, f"{name}: launch counts")
-        launches = {"fused_update": KF.launches, "nm_spmm": KS.launches}
+        launches = {"fused_update": KF.launches,
+                    "fused_update_sites": KF.launched_sites,
+                    "nm_spmm": KS.launches}
         state, met, prof = profile_train_step(step_fn, state,
                                               batches[PAPER_STEPS])
         check(math.isfinite(float(met["loss"])), f"{name}: non-finite loss")
@@ -2503,7 +2623,7 @@ def main(argv=None) -> int:
     serve = phase_serve(dev, SEED)
     torch.cuda.empty_cache()
     print("[7] fused_update vs plain, and timing (cold L2)")
-    upd_err, upd_rows = phase_update(dev, gen)
+    upd_err, upd_rows, upd_layer = phase_update(dev, gen)
     print(f"[8] nm_spmm at training rows (B = {TRAIN_ROWS[0]} x "
           f"{TRAIN_ROWS[1]}, and one pod's rows of [14]), u8")
     spmm_err, spmm_rows, spmm_pod_rows = phase_spmm_train(dev, gen)
@@ -2563,10 +2683,11 @@ def main(argv=None) -> int:
                   "train_sync": train_sync["launches"]["nm_spmm"],
                   "paper_train": sum(r["launches"]["nm_spmm"]
                                      for r in paper.values())}
-    upd_paths = {"train": train["launches"]["fused_update"],
-                 "train_sync": train_sync["launches"]["fused_update"],
-                 "paper_train": sum(r["launches"]["fused_update"]
-                                    for r in paper.values())}
+    upd_paths, upd_sites = ({
+        "train": train["launches"][key],
+        "train_sync": train_sync["launches"][key],
+        "paper_train": sum(r["launches"][key] for r in paper.values())}
+        for key in ("fused_update", "fused_update_sites"))
     compact_paths = {"serve": serve["compact_launches"],
                      "shared_serve": shared_serve["compact_launches"]}
     shared_decode = [r for r in shared_rows if r["B"] == 4]
@@ -2606,14 +2727,21 @@ def main(argv=None) -> int:
         dict(name="fused_update", route="cuda",
              source="src/repro_torch/kernels/csrc/fused_update.cu",
              replaces="src/repro/kernels/fused_update.py:73",
-             **summed(upd_rows, "one layer's update: the 7 projections, "
-                      "2:8, summed", sum(upd_paths.values()), upd_paths,
-                      max(upd_err, paper_upd_err)),
+             launches=sum(upd_paths.values()), launches_by_path=upd_paths,
+             sites_by_path=upd_sites, max_abs_err=max(upd_err, paper_upd_err),
+             ms=upd_layer["ms"], plain_ms=upd_layer["plain_ms"],
+             bound_ms=upd_layer["bound_ms"], bound_by="bytes",
+             library_ms=None, singles_ms=upd_layer["singles_ms"],
+             at="one layer's update as the step launches it: the 7 "
+                "projections in one grouped launch, bf16 g, 2:8 bdwp (BP "
+                "operand and FF mask written), 21.75 B/element",
              paper_steps={name: dict(
-                 at=f"one {name} step's updates: its {r['sites']} sites' "
-                    "(H*W*I, O) or (K, F) views, 2:8",
+                 at=f"one {name} step's update: its {r['sites']} sites' "
+                    "(H*W*I, O) or (K, F) views in one grouped launch, 2:8 "
+                    "bdwp",
                  launches=paper[name]["launches"]["fused_update"],
-                 ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                 ms=r["ms"], singles_ms=r["singles_ms"],
+                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                  bound_by="bytes", library_ms=None)
                  for name, r in paper_upd_rows.items()}),
         sync_row("grad_compress", "one leaf, as the sync launches it: a "
@@ -2650,7 +2778,7 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as fh:
             json.dump({"card": card, "kernels": kernels, "timing": rows,
-                       "update_timing": upd_rows,
+                       "update_timing": upd_rows, "update_layer": upd_layer,
                        "spmm_train_timing": spmm_rows,
                        "spmm_pod_timing": spmm_pod_rows, "serve": serve,
                        "build": built, "sass": sass,

@@ -33,3 +33,32 @@ __device__ __forceinline__ unsigned select_topn(const float (&x)[M], int n) {
   }
   return keep;
 }
+
+// The same selection on integer keys, for fp32 x: key = |bits|, every NaN
+// clamped to one value above +inf's (0x7f800001), so the keys order as
+// the magnitudes do under the rule above (+0 == -0, all NaNs equal and
+// above everything).  Each round takes the first largest key and retires
+// it as -1: n rounds of M compare-and-selects, no float compares.
+template <int M>
+__device__ __forceinline__ unsigned select_topn_keys(const float (&x)[M],
+                                                     int n) {
+  static_assert(M <= 32, "one bit per group position");
+  int key[M];
+#pragma unroll
+  for (int j = 0; j < M; ++j)
+    key[j] = min(__float_as_int(x[j]) & 0x7fffffff, 0x7f800001);
+  unsigned keep = 0u;
+  for (int r = 0; r < n; ++r) {
+    int best = 0, top = key[0];
+#pragma unroll
+    for (int j = 1; j < M; ++j) {
+      const bool gt = key[j] > top;
+      top = gt ? key[j] : top;
+      best = gt ? j : best;
+    }
+    keep |= 1u << best;
+#pragma unroll
+    for (int j = 0; j < M; ++j) key[j] = j == best ? -1 : key[j];
+  }
+  return keep;
+}

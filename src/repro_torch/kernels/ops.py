@@ -63,6 +63,27 @@ def fused_update(w: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
                                 m=m, axis=0)
 
 
+def fused_update_sites(sites, lr: float, mu: float, wd: float, lam: float,
+                       n: int, m: int, bp_mode, *, inplace: bool = False):
+    """``fused_update`` of every (w, g, v) of ``sites`` ((K, F) fp32
+    master and momentum, g bf16 or fp32), each with its BP operand and FF
+    mask when ``bp_mode`` is "bdwp" or "srste": per site (w', v', vals,
+    idx[, bp (K, F) bf16, FF mask (K, F) bool]).  ``inplace`` writes w'
+    and v' over w and v.  On the card one launch covers all the sites;
+    on the CPU the plain version runs site by site."""
+    if sites and sites[0][0].is_cuda:
+        return _fused_update.fused_update_sites(sites, lr, mu, wd, lam, n,
+                                                m, bp_mode, inplace=inplace)
+    outs = []
+    for w, g, v in sites:
+        out = ref.ref_fused_update(w, g, v, lr=lr, mu=mu, wd=wd, lam=lam,
+                                   n=n, m=m, axis=0, bp_mode=bp_mode)
+        if inplace:
+            out = (w.copy_(out[0]), v.copy_(out[1]), *out[2:])
+        outs.append(out)
+    return outs
+
+
 def grad_compress(g: torch.Tensor, err: torch.Tensor, n: int, m: int):
     """Error-feedback N:M compress of (R, K) gradient rows (bf16 or fp32)
     and their fp32 residual: (vals (R, K*n/m) bf16, idx uint8, err'),

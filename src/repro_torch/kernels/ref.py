@@ -104,22 +104,40 @@ def ref_nm_spmm_shared(act: torch.Tensor, vals: torch.Tensor,
 
 def ref_fused_update(w: torch.Tensor, g: torch.Tensor, v: torch.Tensor, *,
                      lr: float, mu: float, wd: float, lam: float, n: int,
-                     m: int, axis: int = -1):
+                     m: int, axis: int = -1, bp_mode=None):
     """WUVE + SORE pre-generation (momentum SGD on the fp32 master).
 
     mask = N:M survivors of the pre-update ``w`` along ``axis``;
-    g_eff = (g + wd*w) + lam*where(mask, 0, w); v' = mu*v + g_eff;
+    g_eff = (f32(g) + wd*w) + lam*where(mask, 0, w); v' = mu*v + g_eff;
     w' = w - lr*v'; then w' packed along ``axis``.  Returns (w' fp32,
     v' fp32, vals bf16, idx uint8), the packed pair with ``axis``
-    shortened to K*n/m.  Every op rounds to fp32 on its own, in this
-    order: the CUDA kernel is held to these bits.
+    shortened to K*n/m.  With ``bp_mode`` (a 2-D ``w`` only) also the
+    next step's BP operand and FF mask, as ``optim.sgd`` derives them
+    from the pack: bp = bf16(where(nm_mask(w', other axis), w', 0)) for
+    "bdwp", bf16(w') for "srste"; the FF mask is the pack's survivors,
+    ``nm_unpack_n(ones, idx)``.  Every op rounds to fp32 on its own, in
+    this order: the CUDA kernel is held to these bits.
     """
+    if bp_mode not in (None, "bdwp", "srste"):
+        raise ValueError(f"unknown bp_mode {bp_mode!r}")
+    if bp_mode is not None and w.ndim != 2:
+        raise ValueError(f"bp_mode needs a 2-D master, got {tuple(w.shape)}")
     mask = S.nm_mask(w, n, m, axis=axis)
-    g_eff = g + wd * w + lam * torch.where(mask, 0.0, w)
+    g_eff = g.to(torch.float32) + wd * w + lam * torch.where(mask, 0.0, w)
     new_v = mu * v + g_eff
     new_w = w - lr * new_v
     vals, idx = S.nm_pack(new_w, n, m, axis=axis)
-    return new_w, new_v, vals.to(torch.bfloat16), idx
+    vals = vals.to(torch.bfloat16)
+    if bp_mode is None:
+        return new_w, new_v, vals, idx
+    ff_mask = S.nm_unpack_n(torch.ones_like(vals, dtype=torch.bool), idx, n,
+                            m, axis=axis)
+    if bp_mode == "bdwp":
+        bp = torch.where(S.nm_mask(new_w, n, m, axis=1 - axis % 2), new_w,
+                         0.0)
+    else:
+        bp = new_w
+    return new_w, new_v, vals, idx, bp.to(torch.bfloat16), ff_mask
 
 
 @functools.lru_cache(maxsize=None)

@@ -10,13 +10,15 @@ its bf16 BP operand, its FF operand (SORE-packed ``vals``/``idx`` with
 ``pack``) and its SR-STE decay mask, all from ONE selection on the fp32
 master; every other leaf becomes its bf16 copy.
 
-The fused path: an srste/bdwp site is updated by
-``kernels.ops.fused_update`` (the ``fused_update`` kernel on the card,
-its plain version on the CPU), which applies the decay from the mask of
-the pre-update master (bitwise the stored mask: both select on the same
-fp32 master) and emits the packed FF operand; the BP operand is the
+The fused path: all srste/bdwp sites of a step are updated together by
+``kernels.ops.fused_update_sites`` (one launch of the ``fused_update``
+kernel on the card, its plain version site by site on the CPU), which
+applies the decay from the mask of the pre-update master (bitwise the
+stored mask: both select on the same fp32 master) and writes the packed
+FF operand, the FF mask and the bf16 BP operand (for bdwp the
 output-axis ``nm_mask`` of the new master, as the reference's
-``pallas_upd`` derives it.  Other leaves take the elementwise path.
+``pallas_upd`` derives it in jnp).  Other leaves take the elementwise
+path.
 
 A conv master (H, W, I, O) takes the same kernel on its (H*W*I, O) view:
 its m-groups of rows are the reference's groups along I, which is what
@@ -29,9 +31,10 @@ What differs:
     is its logical shape;
   * there is no ``use_pallas`` flag: the tensors' device picks kernel
     or plain version, and every eligible site takes the fused path;
-  * ``update`` consumes its state: master and momentum of non-site
-    leaves are updated in place (the reference donates them), which
-    saves several 2.5 GB temporaries on the embed and lm_head tables;
+  * ``update`` consumes its state: master and momentum are updated in
+    place (the reference donates them), which saves several 2.5 GB
+    temporaries on the embed and lm_head tables and a new copy of every
+    site's master and momentum;
   * ``step`` is a Python int;
   * ``update`` reads each leaf's stored decay mask from the same
     position of ``prev_compute`` (the trees are per layer, so the
@@ -46,6 +49,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import typing
 
 import torch
 
@@ -199,15 +203,22 @@ def pregen_grads(compute, grads):
 # ---------------------------------------------------------------------------
 
 
+class _Pending(typing.NamedTuple):
+    """A fused site between the two passes of ``update``: its place in
+    the list handed to ``ops.fused_update_sites``, its master shape."""
+    index: int
+    shape: tuple
+
+
 def update(state, grads, opt_cfg: SGDConfig, sp_cfg: SparsityConfig, *,
            prev_compute=None, pack: bool = False):
     """One optimizer step: (new_state, next step's compute tree).
 
     ``grads`` is master-shaped (``pregen_grads``).  The SR-STE decay
     uses the mask stored in ``prev_compute`` (the one FF/BP just
-    consumed; re-derived from master where there is none).  The master
-    and momentum of non-site leaves, and their fp32 gradients, are
-    updated in place.  A config with shared or transposable masks is
+    consumed; re-derived from master where there is none).  Master and
+    momentum, and the fp32 gradients of non-site leaves, are updated in
+    place.  A config with shared or transposable masks is
     refused before any leaf is touched when the tree has a pre-generated
     site (``refuse_unported_masks``).
     """
@@ -217,36 +228,32 @@ def update(state, grads, opt_cfg: SGDConfig, sp_cfg: SparsityConfig, *,
     lr = float(lr_schedule(opt_cfg, state["step"]))
     n, m = sp_cfg.n, sp_cfg.m
 
-    def fused_upd(w, g, v):
-        # the kernel groups rows of a (K, F) master along K; a conv
-        # master (H, W, I, O) is viewed as (H*W*I, O), whose groups of m
-        # rows are the reference's groups along I as long as m divides I
+    fused = []   # (w, g, v) (K, F) views of the fused sites, tree order
+
+    def fused_site(w, g, v):
+        # the kernel groups rows of a (K, F) master along K; a conv master
+        # (H, W, I, O) is viewed as (H*W*I, O), whose groups of m rows are
+        # the reference's groups along I as long as m divides I
         shape, ff_ax = w.shape, w.ndim - 2
         if shape[ff_ax] % m:
             raise ValueError(f"fused update of {tuple(shape)}: contraction "
                              f"axis {shape[ff_ax]} is not a multiple of m={m}")
         f = shape[-1]
-        nw, nv, vals, idx = ops.fused_update(
-            w.reshape(-1, f), g.to(torch.float32).reshape(-1, f),
-            v.reshape(-1, f), lr, opt_cfg.momentum, opt_cfg.weight_decay,
-            sp_cfg.lam, n, m)
-        nw, nv = nw.view(shape), nv.view(shape)
-        vals = vals.view(*shape[:-2], -1, f)
-        idx = idx.view(*shape[:-2], -1, f)
-        ff_mask = nm_unpack_n(torch.ones_like(vals, dtype=torch.bool), idx,
-                              n, m, axis=ff_ax)
-        if sp_cfg.prunes_bp_weights():   # bdwp: BP operand from the new master
-            bp = torch.where(nm_mask(nw, n, m, axis=w.ndim - 1), nw, 0.0)
-        else:                            # srste: BP runs dense
-            bp = nw
+        fused.append((w.view(-1, f), g.reshape(-1, f), v.view(-1, f)))
+        return _Pending(len(fused) - 1, tuple(shape))
+
+    def fused_leaf(out, shape):
+        nw, nv, vals, idx, bp, ff_mask = out
+        vals = vals.view(*shape[:-2], -1, shape[-1])
+        idx = idx.view(*shape[:-2], -1, shape[-1])
+        common = dict(bp=bp.view(shape), mask=ff_mask.view(shape),
+                      cfg=sp_cfg)
         if pack:
-            leaf = PregenOp(bp=bp.to(torch.bfloat16), vals=vals, idx=idx,
-                            mask=ff_mask, cfg=sp_cfg, idx_bits=8)
+            leaf = PregenOp(vals=vals, idx=idx, idx_bits=8, **common)
         else:
-            leaf = PregenOp(bp=bp.to(torch.bfloat16), mask=ff_mask,
-                            cfg=sp_cfg,
-                            ff=nm_unpack_n(vals, idx, n, m, axis=ff_ax))
-        return nw, nv, leaf
+            ff = nm_unpack_n(vals, idx, n, m, axis=len(shape) - 2)
+            leaf = PregenOp(ff=ff, **common)
+        return nw.view(shape), nv.view(shape), leaf
 
     def elementwise_upd(name, w, g, v, prev, site):
         # one rounding per op, in the reference's order: g + wd*w, then
@@ -272,11 +279,18 @@ def update(state, grads, opt_cfg: SGDConfig, sp_cfg: SparsityConfig, *,
     def upd(name, w, g, v, prev):
         site = bdwp.pregen_site(name, tuple(w.shape), sp_cfg)
         if site and sp_cfg.method in ("srste", "bdwp"):
-            return fused_upd(w, g, v)
+            return fused_site(w, g, v)
         return elementwise_upd(name, w, g, v, prev, site)
 
+    # two passes: the elementwise leaves and the list of fused sites,
+    # then one fused_update_sites over all sites, then their PregenOps
     prev = prev_compute if prev_compute is not None else state["master"]
     outs = tree_map(upd, state["master"], grads, state["momentum"], prev)
+    done = ops.fused_update_sites(
+        fused, lr, opt_cfg.momentum, opt_cfg.weight_decay, sp_cfg.lam, n, m,
+        "bdwp" if sp_cfg.prunes_bp_weights() else "srste", inplace=True)
+    outs = tree_map(lambda _, o: fused_leaf(done[o.index], o.shape)
+                    if isinstance(o, _Pending) else o, outs)
     master, momentum, compute = (tree_map(lambda _, o, i=i: o[i], outs)
                                  for i in range(3))
     return ({"master": master, "momentum": momentum,
