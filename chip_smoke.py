@@ -175,7 +175,35 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 nm_spmm launches a step;
                 a sixth under torch.profiler; ms/step, images/s, peak
                 memory; the first site's stored operands equal the pack
-                of its new fp32 master.
+                of its new fp32 master;
+ 21. dataflow small qwen3-8b SMOKE, three steps on the card and on the
+                CPU for each of dense, srste, sdgp, sdwp and bdwp on the
+                pre-generating and the legacy (pregen=False) dataflow,
+                bdwp with shared masks, with transposable masks (packed
+                and not) and the legacy compressed step (2 pods): step-0
+                compute trees bitwise, losses within SMALL_LOSS_ATOL,
+                one fused_update launch a step for element srste/bdwp
+                pre-generation and none for the others;
+ 22. train transposable  qwen3-8b TRAIN, 2:8 bdwp with transposable
+                masks, packed: five timed steps with exactly 2 x 7 x 8
+                nm_spmm launches and no fused_update launch a step (the
+                reference keeps transposable sites off the fused kernel),
+                a profiled sixth; layer 0's operands against
+                nm_mask_transposable of its new master; the mask
+                selection's time over the 56 sites;
+ 23. train shared  the same with shared-granularity masks (tile 128),
+                pre-generated and unpacked: no nm_spmm or fused_update
+                launch; then pack_tree_shared on the trained master and
+                the share of each FF operand's surviving |w| mass its one
+                row pattern keeps;
+ 24. train legacy  the same on the legacy dataflow (pregen=False): no
+                compute tree in the state, no nm_spmm or fused_update
+                launch;
+ 25. paper legacy  ResNet9 under each of Fig. 4's five methods, ResNet18
+                and ResNet50 under 2:8 bdwp, legacy dataflow, at Table
+                I's widths and batch (a batch that does not fit is
+                halved and said so): five timed steps each, no nm_spmm or
+                fused_update launch; ms/step, images/s, peak memory.
 
 It prints a JSON line with every kernel's numbers, the card line, and as
 its last line {"ok": true, "device": {...}}.  With no card, or outside a
@@ -765,7 +793,7 @@ def profile_train_step(step_fn, state, batch):
     # not land under the train/backward range: its device time is the
     # busy time less forward and update
     for e in prof.key_averages():
-        if e.key.startswith("train/"):
+        if e.key.startswith(("train/", "sgd/")):
             if not str(e.device_type).endswith("CUDA"):
                 parts[e.key] = {
                     "host_ms": e.cpu_time_total / 1e3,
@@ -2228,13 +2256,20 @@ PAPER_LOGIT_RTOL, PAPER_GRAD_RTOL = 2e-2, 5e-2
 def _site_views(master, sp):
     """(name, (H*W*I or K, O) view) of every pre-generated site of a
     master tree, in tree order."""
+    return [(name, (w.numel() // w.shape[-1], w.shape[-1]))
+            for name, w in _site_leaves(master, sp)]
+
+
+def _site_leaves(master, sp):
+    """(name, tensor) of every pre-generated site of a master tree, in
+    tree order (per layer)."""
     from repro_torch.core import bdwp
     from repro_torch.optim import sgd
 
     out = []
-    sgd.tree_map(lambda name, w: out.append(
-        (name, (w.numel() // w.shape[-1], w.shape[-1])))
-        if bdwp.pregen_site(name, tuple(w.shape), sp) else None, master)
+    sgd.tree_map(lambda name, w: out.append((name, w))
+                 if bdwp.pregen_site(name, tuple(w.shape), sp) else None,
+                 master)
     return out
 
 
@@ -2570,6 +2605,384 @@ def phase_paper_train(dev, seed):
     return out
 
 
+# phases 21-25: the rest of the training dataflow — transposable and
+# shared masks and the legacy pregen=False step.  Phase 21's cases:
+# label -> (method, mask kind, pregen, pack, compressed)
+DATAFLOW_CASES = {
+    **{f"{meth} {flow}": (meth, None, flow == "pregen", True, False)
+       for meth in ("dense", "srste", "sdgp", "sdwp", "bdwp")
+       for flow in ("pregen", "legacy")},
+    "bdwp shared": ("bdwp", "shared", True, True, False),
+    "bdwp transposable packed": ("bdwp", "transposable", True, True, False),
+    "bdwp transposable": ("bdwp", "transposable", True, False, False),
+    "bdwp legacy compressed": ("bdwp", None, False, True, True),
+}
+MASK_KINDS = {None: {}, "shared": dict(granularity="shared"),
+              "transposable": dict(transposable=True)}
+# phases 22-24 at qwen3-8b TRAIN: label -> (mask kind, pregen, pack)
+TRAIN_FLOWS = {"transposable": ("transposable", True, True),
+               "shared": ("shared", True, False),
+               "legacy": (None, False, True)}
+# phase 25: (model, method) on the legacy dataflow at Table I's batch
+PAPER_LEGACY = ([("resnet9", m) for m in ("dense", "srste", "sdgp", "sdwp",
+                                          "bdwp")]
+                + [("resnet18", "bdwp"), ("resnet50", "bdwp")])
+
+
+def _fused_path(sp, pregen) -> bool:
+    """Does this config's update take the grouped fused_update launch?"""
+    return (pregen and sp.method in ("srste", "bdwp") and not sp.is_dense
+            and sp.granularity == "element" and not sp.transposable)
+
+
+def _on_device(state, dev) -> bool:
+    from repro_torch.optim import sgd
+
+    return all(t.device == torch.device(dev)
+               for t in sgd.tree_leaves(state["master"]))
+
+
+def phase_dataflow_small(dev, seed):
+    """qwen3-8b SMOKE, three steps on the card and on the CPU for every
+    method on both dataflows, shared and transposable masks and the
+    legacy compressed step (P = 2): step-0 compute trees bitwise, losses
+    within SMALL_LOSS_ATOL, and the fused_update launches a step where
+    (and only where) the reference's fused path runs."""
+    from repro_torch.configs import qwen3_8b as C
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.data.synthetic import lm_stream
+    from repro_torch.kernels import fused_update as KF
+    from repro_torch.kernels import grad_compress as KG
+    from repro_torch.models import transformer_lm as T
+    from repro_torch.optim import sgd
+    from repro_torch.train import step as ST
+
+    cfg = C.SMOKE
+    opt = sgd.SGDConfig(lr=0.1, warmup_steps=2, total_steps=50)
+    params = T.init(cfg, seed=seed, device="cpu")
+    sync = {}
+    worst = 0.0
+    for label, (meth, kind, pregen, pack, comp) in DATAFLOW_CASES.items():
+        sp = SparsityConfig(n=2, m=8, method=meth, **MASK_KINDS[kind])
+        pods = SYNC_PODS if comp else 1
+        states = {d: ST.train_state_from_params(
+            sgd.tree_map(lambda _, t: t.to(d, copy=True), params), sp,
+            pregen=pregen, pregen_pack=pack, compress=comp, n_pods=pods)
+            for d in ("cpu", dev)}
+        if pregen:
+            check(_compute_bitwise(states["cpu"]["compute"],
+                                   states[dev]["compute"]),
+                  f"dataflow {label}: step-0 compute trees differ")
+        else:
+            check("compute" not in states[dev],
+                  f"dataflow {label}: a legacy state holds a compute tree")
+        streams = {d: lm_stream(cfg.vocab, 2 * pods, 16, device=d,
+                                seed=seed) for d in states}
+        losses = {d: [] for d in states}
+        want_fused = 1 if _fused_path(sp, pregen) else 0
+        KG.launches.update({k: 0 for k in KG.launches})
+        for step in range(3):
+            for d in states:
+                _, batch = next(streams[d])
+                f0 = KF.launches
+                states[d], met = ST.lm_train_step(
+                    states[d], batch, cfg=cfg, sp_cfg=sp, opt_cfg=opt,
+                    pregen=pregen, pregen_pack=pack, compress=comp,
+                    n_pods=pods)
+                losses[d].append(float(met["loss"]))
+                if d == dev:
+                    check(KF.launches - f0 == want_fused,
+                          f"dataflow {label}: {KF.launches - f0} "
+                          f"fused_update launches a step, want {want_fused}")
+        if comp:
+            sync = dict(KG.launches)
+            check(sync["grad_compress"] > 0
+                  and sync["grad_decompress_mean"] > 0,
+                  f"dataflow {label}: the sync kernels did not run")
+        check(_on_device(states[dev], dev) and ("compute" in states[dev])
+              == pregen, f"dataflow {label}: the card state moved or "
+              "changed its dataflow")
+        diffs = [abs(a - b) for a, b in zip(losses["cpu"], losses[dev])]
+        worst = max(worst, *diffs)
+        print(f"  {label:26s} losses card "
+              + " ".join(f"{x:.5f}" for x in losses[dev]) + "  |d| "
+              + " ".join(f"{x:.2e}" for x in diffs)
+              + f"; fused_update {want_fused} a step"
+              + (f"; grad_compress {sync['grad_compress']}, "
+                 f"grad_decompress_mean {sync['grad_decompress_mean']} "
+                 "launches in 3 steps" if comp else ""))
+        check(all(math.isfinite(x) for x in losses[dev]),
+              f"dataflow {label}: non-finite loss")
+        check(all(x <= t for x, t in zip(diffs, SMALL_LOSS_ATOL)),
+              f"dataflow {label}: losses disagree")
+    return worst, sync
+
+
+def _time_transposable_masks(master, sp):
+    """Wall ms of ``nm_mask_transposable`` over every site's fp32 master,
+    on a synchronised clock (the update's mask work alone)."""
+    from repro_torch.core import sparsity as S
+
+    views = [w for _, w in _site_leaves(master, sp)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for w in views:
+        S.nm_mask_transposable(w, sp.n, sp.m)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0), len(views)
+
+
+def _check_layer0(state, sp, kind, label):
+    """Layer 0's stored operands against the masks of its new master."""
+    from repro_torch.core import sparsity as S
+
+    layer = state["compute"]["blocks"][0]
+    master = state["master"]["blocks"][0]
+    for part, name in PROJ_PATHS:
+        op, w = layer[part][name]["w"], master[part][name]["w"]
+        if kind == "transposable":
+            tm = S.nm_mask_transposable(w, sp.n, sp.m)
+            bp = torch.where(tm, w, 0.0).to(torch.bfloat16)
+            ok = torch.equal(op.mask, tm) and bits_equal(op.bp, bp) \
+                and op.ff is None
+            if op.is_packed:
+                vals, idx = S.nm_pack_from_mask(bp, tm, sp.n, sp.m, axis=0)
+                ok = ok and bits_equal(op.vals, vals) and torch.equal(
+                    op.idx, idx)
+        else:
+            ffm = S.nm_mask_shared(w, sp.n, sp.m, 0, 1, sp.tile)
+            bpm = S.nm_mask_shared(w, sp.n, sp.m, 1, 0, sp.tile)
+            ok = (torch.equal(op.mask, ffm) and bits_equal(
+                op.ff, torch.where(ffm, w, 0.0).to(torch.bfloat16))
+                and bits_equal(op.bp, torch.where(bpm, w, 0.0).to(
+                    torch.bfloat16)) and not op.is_packed)
+        check(ok, f"{label}: layer 0 {name}'s operands != the masks of its "
+              "new master")
+    print(f"  layer 0: every projection's stored operands == the {kind} "
+          "masks of its new fp32 master")
+
+
+def _shared_pack_kept_mass(state, sp, dev):
+    """PERF.md's open question: the share of each trained FF operand's
+    surviving |w| mass that ``pack_tree_shared``'s one row pattern per
+    weight keeps, at F > 128 (shared masks pick per 128 columns)."""
+    from repro_torch.core import bdwp
+    from repro_torch.core.operand import SharedOp
+    from repro_torch.kernels import nm_compact as KC
+
+    c0 = KC.launches
+    packed = bdwp.pack_tree_shared(state["master"], sp, device=dev)
+    torch.cuda.synchronize()
+    shares = []
+    for layer, (cl, pl) in enumerate(zip(state["compute"]["blocks"],
+                                         packed["blocks"])):
+        for part, name in PROJ_PATHS:
+            op, sop = cl[part][name]["w"], pl[part][name]["w"]
+            check(isinstance(sop, SharedOp), "shared pack: not a SharedOp")
+            mass = op.ff.float().abs()
+            kept = float(mass.index_select(0, sop.idx).sum())
+            shares.append((name, layer, kept / float(mass.sum()),
+                           op.ff.shape[1]))
+    vals = sorted(s for _, _, s, _ in shares)
+    print(f"  pack_tree_shared on the trained master ({KC.launches - c0} "
+          f"nm_compact launches): of each FF operand's surviving |w| mass "
+          f"the one-pattern pack keeps min {vals[0]:.4f}, median "
+          f"{vals[len(vals) // 2]:.4f}, max {vals[-1]:.4f} over "
+          f"{len(vals)} operands ({sum(f > 128 for *_, f in shares)} with "
+          "F > 128)")
+    widths = {name: f for name, _, _, f in shares}
+    for _, name in PROJ_PATHS:
+        per = [s for n, _, s, _ in shares if n == name]
+        print(f"    {name:8s} F {widths[name]:6d}: mean "
+              f"{sum(per) / len(per):.4f} over {len(per)} layers")
+    return {"min": vals[0], "median": vals[len(vals) // 2],
+            "max": vals[-1], "per_operand": shares}
+
+
+def phase_train_flow(dev, seed, flow):
+    """qwen3-8b TRAIN, 2:8 bdwp on one of TRAIN_FLOWS: five timed steps
+    with exact launches (nm_spmm 2 x 7 x L a step for the packed
+    transposable FF, else 0; fused_update 0: these sites stay off it, as
+    in the reference), a profiled sixth, peak memory, and layer 0's
+    operands against its new master (the pre-generating flows)."""
+    import functools
+
+    from repro_torch.configs import qwen3_8b as C
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.data.synthetic import lm_stream
+    from repro_torch.kernels import fused_update as KF
+    from repro_torch.kernels import nm_spmm as KS
+    from repro_torch.optim import sgd
+    from repro_torch.train import step as ST
+
+    kind, pregen, pack = TRAIN_FLOWS[flow]
+    cfg = C.TRAIN
+    sp = SparsityConfig(n=2, m=8, method="bdwp", **MASK_KINDS[kind])
+    opt = sgd.SGDConfig(lr=0.004, warmup_steps=2, total_steps=100)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = ST.init_train_state(cfg, sp, seed=seed, device=dev,
+                                pregen=pregen, pregen_pack=pack)
+    torch.cuda.synchronize()
+    print(f"  init {cfg.n_layers} layers"
+          + (" + pre-generation" if pregen else "")
+          + f": {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    step_fn = functools.partial(ST.lm_train_step, cfg=cfg, sp_cfg=sp,
+                                opt_cfg=opt, pregen=pregen, pregen_pack=pack)
+    stream = lm_stream(cfg.vocab, *TRAIN_ROWS, device=dev, seed=seed)
+    batches = [next(stream)[1] for _ in range(6)]
+    want = (2 * 7 * cfg.n_layers if kind == "transposable" and pack
+            else 0, 0)
+    tokens = TRAIN_ROWS[0] * TRAIN_ROWS[1]
+    KS.launches = KF.launches = KF.launched_sites = 0
+    losses, times, per_step = [], [], []
+    for batch in batches[:5]:
+        c0 = (KS.launches, KF.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step_fn(state, batch)
+        loss = float(met["loss"])
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss)
+        per_step.append((KS.launches - c0[0], KF.launches - c0[1]))
+        print(f"  step {len(losses) - 1}: loss {loss:.6f} {times[-1]:.1f} ms "
+              f"({tokens / times[-1] * 1e3:.0f} tok/s); launches nm_spmm "
+              f"{per_step[-1][0]} (want {want[0]}), fused_update "
+              f"{per_step[-1][1]} (want {want[1]})")
+        check(math.isfinite(loss), f"train {flow}: non-finite loss")
+        check(per_step[-1] == want, f"train {flow}: launch counts")
+        check(("compute" in state) == pregen,
+              f"train {flow}: the state's compute tree")
+    launches = {"nm_spmm": KS.launches, "fused_update": KF.launches}
+    state, met, prof = profile_train_step(step_fn, state, batches[5])
+    check(math.isfinite(float(met["loss"])), f"train {flow}: non-finite")
+    check(_on_device(state, dev), f"train {flow}: the state left the card")
+    peak = torch.cuda.max_memory_allocated()
+    steady = sorted(times[1:])
+    ms = steady[len(steady) // 2]
+    print(f"  {cfg.name} x{cfg.n_layers} layers, {flow}: median of steps "
+          f"1-4 {ms:.1f} ms/step, {tokens / ms * 1e3:.0f} tokens/s; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    out = {"losses": losses, "step_ms": times, "ms_per_step": ms,
+           "tokens_per_s": tokens / ms * 1e3, "launches": launches,
+           "launches_per_step": per_step, "max_memory_allocated": peak,
+           "profile": prof}
+    if pregen:
+        _check_layer0(state, sp, kind, f"train {flow}")
+    if kind == "transposable":
+        mask_ms, sites = _time_transposable_masks(state["master"], sp)
+        upd = prof["parts"].get("train/update", {})
+        rng = prof["parts"].get("sgd/nm_mask_transposable", {})
+        print(f"  nm_mask_transposable (plain PyTorch) over the {sites} "
+              f"sites alone: {mask_ms:.1f} ms of wall; in the profiled "
+              f"update: device {rng.get('device_ms', 0):.1f} of "
+              f"{upd.get('device_ms', 0):.1f} ms, host "
+              f"{rng.get('host_ms', 0):.1f} of {upd.get('host_ms', 0):.1f} ms")
+        out["nm_mask_transposable_ms"] = mask_ms
+    if kind == "shared":
+        out["shared_pack"] = _shared_pack_kept_mass(state, sp, dev)
+    del state, batches
+    return out
+
+
+def phase_paper_legacy(dev, seed):
+    """The paper's models on the legacy dataflow at Table I's widths and
+    batch: ResNet9 under each of Fig. 4's five methods, ResNet18 and
+    ResNet50 under 2:8 bdwp; five timed steps each (batches drawn before
+    the clock) with finite losses and no nm_spmm or fused_update launch
+    (the reference reaches neither on this dataflow).  A batch that does
+    not fit the card is halved until it does, and said so."""
+    from repro_torch.configs import paper_models as PM
+    from repro_torch.core.sparsity import SparsityConfig
+
+    out = {}
+    for name, meth in PAPER_LEGACY:
+        pm = PM.PAPER_MODELS[name]
+        model = PM.image_model(name, PAPER_WIDTH)
+        sp = SparsityConfig(n=2, m=8, method=meth)
+        batch = PAPER_BATCH or pm.batch
+        cuts = []
+        while True:
+            try:
+                out[f"{name}/{meth}"] = _paper_legacy_run(
+                    dev, seed, pm, model, sp, batch)
+                break
+            except torch.OutOfMemoryError:
+                peak = torch.cuda.max_memory_allocated()
+                torch.cuda.empty_cache()
+                print(f"  {name} {meth}: batch {batch} does not fit the "
+                      f"card (out of memory at max_memory_allocated "
+                      f"{peak / 2**30:.2f} GiB); cut to {batch // 2}")
+                cuts.append({"batch": batch, "peak": peak})
+                check(batch > 1, f"{name}: no batch fits")
+                batch //= 2
+        out[f"{name}/{meth}"]["cuts"] = cuts
+    return out
+
+
+def _paper_legacy_run(dev, seed, pm, model, sp, batch):
+    """Phase 25's run of one model and method at one batch."""
+    import functools
+
+    from repro_torch.data import synthetic as D
+    from repro_torch.kernels import fused_update as KF
+    from repro_torch.kernels import nm_spmm as KS
+    from repro_torch.optim import sgd
+    from repro_torch.train import step as ST
+
+    opt = sgd.SGDConfig(lr=pm.lr, weight_decay=pm.wd, warmup_steps=100,
+                        total_steps=pm.epochs * 50000 // batch)
+    label = f"{model.name} {sp.method}"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = ST.init_image_train_state(model, sp, seed=seed, device=dev,
+                                      pregen=False)
+    icfg = D.ImageTaskConfig(image=pm.image, num_classes=pm.num_classes,
+                             batch=batch, seed=seed)
+    t0 = time.perf_counter()
+    batches = [dict(zip(("images", "labels"),
+                        D.image_batch(icfg, i, device=dev)))
+               for i in range(PAPER_STEPS)]
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    step_fn = functools.partial(ST.image_train_step, model=model, sp_cfg=sp,
+                                opt_cfg=opt, pregen=False)
+    KS.launches = KF.launches = 0
+    losses, times = [], []
+    for batch_d in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step_fn(state, batch_d)
+        loss = float(met["loss"])
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss)
+        check(math.isfinite(loss), f"{label}: non-finite loss")
+        check("compute" not in state, f"{label}: a compute tree appeared")
+    check(KS.launches == 0 and KF.launches == 0,
+          f"{label}: nm_spmm {KS.launches} / fused_update {KF.launches} "
+          "launches on the legacy dataflow, want 0 / 0")
+    check(_on_device(state, dev), f"{label}: the state left the card")
+    peak = torch.cuda.max_memory_allocated()
+    steady = sorted(times[1:])
+    ms = steady[len(steady) // 2]
+    print(f"  {label:16s} batch {batch} ({pm.image} px, "
+          f"{pm.num_classes} classes): losses "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f"; median of steps 1-4 {ms:.1f} ms/step, "
+          f"{batch / ms * 1e3:.0f} images/s; max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB; batches drawn in {draw_s:.1f} s")
+    del state, batches
+    return {"losses": losses, "step_ms": times, "ms_per_step": ms,
+            "images_per_s": batch / ms * 1e3, "batch": batch,
+            "max_memory_allocated": peak,
+            "launches": {"nm_spmm": KS.launches,
+                         "fused_update": KF.launches}}
+
+
 def _leaf_at(tree, name):
     for key in name.split("/"):
         tree = tree[key]
@@ -2665,6 +3078,22 @@ def main(argv=None) -> int:
     print("[20] train ResNet9, VGG19 and ViT at Table I's widths and batch, "
           "2:8 bdwp, packed")
     paper = phase_paper_train(dev, SEED)
+    torch.cuda.empty_cache()
+    print("[21] SMOKE-size training, every method on both dataflows, shared "
+          "and transposable masks, the legacy compressed step: card vs CPU")
+    _, legacy_sync = phase_dataflow_small(dev, SEED)
+    flows = {}
+    for num, flow in ((22, "transposable"), (23, "shared"), (24, "legacy")):
+        torch.cuda.empty_cache()
+        print(f"[{num}] train qwen3-8b TRAIN (full width, 8 layers), 2:8 "
+              f"bdwp, {flow}" + (", packed" if flow == "transposable" else "")
+              + (", pre-generated, unpacked" if flow == "shared" else "")
+              + (" (pregen=False)" if flow == "legacy" else ""))
+        flows[flow] = phase_train_flow(dev, SEED, flow)
+    torch.cuda.empty_cache()
+    print("[25] the paper's models on the legacy dataflow at Table I's "
+          "widths and batch")
+    paper_legacy = phase_paper_legacy(dev, SEED)
 
     def summed(rs, at, launches, by_path, err):
         return {"launches": launches, "launches_by_path": by_path,
@@ -2678,16 +3107,23 @@ def main(argv=None) -> int:
                 else sum(r["library_ms"] for r in rs), "at": at}
 
     decode = [r for r in rows if r["B"] == 4]
+    flow_paths = {f"train_{flow}": r["launches"]
+                  for flow, r in flows.items()}
+    flow_paths["paper_legacy"] = {
+        k: sum(r["launches"][k] for r in paper_legacy.values())
+        for k in ("nm_spmm", "fused_update")}
     spmm_paths = {"serve": serve["launches"],
                   "train": train["launches"]["nm_spmm"],
                   "train_sync": train_sync["launches"]["nm_spmm"],
                   "paper_train": sum(r["launches"]["nm_spmm"]
-                                     for r in paper.values())}
+                                     for r in paper.values()),
+                  **{k: v["nm_spmm"] for k, v in flow_paths.items()}}
     upd_paths, upd_sites = ({
         "train": train["launches"][key],
         "train_sync": train_sync["launches"][key],
         "paper_train": sum(r["launches"][key] for r in paper.values())}
         for key in ("fused_update", "fused_update_sites"))
+    upd_paths.update({k: v["fused_update"] for k, v in flow_paths.items()})
     compact_paths = {"serve": serve["compact_launches"],
                      "shared_serve": shared_serve["compact_launches"]}
     shared_decode = [r for r in shared_rows if r["B"] == 4]
@@ -2702,7 +3138,8 @@ def main(argv=None) -> int:
             replaces="src/repro/kernels/grad_compress.py:"
                      + ("61" if name == "grad_compress" else "117"),
             launches=train_sync["launches"][name],
-            launches_by_path={"train_sync": train_sync["launches"][name]},
+            launches_by_path={"train_sync": train_sync["launches"][name],
+                              "legacy_sync_small": legacy_sync[name]},
             launches_vector_variant=train_sync["launches"][f"{name}/vector"],
             max_abs_err=sync_err, ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by="bytes", library_ms=None, at=at,
@@ -2789,7 +3226,8 @@ def main(argv=None) -> int:
                        "shared_serve": shared_serve,
                        "paper_spmm_timing": paper_spmm_rows,
                        "paper_update_timing": paper_upd_rows,
-                       "paper_train": paper,
+                       "paper_train": paper, "train_flows": flows,
+                       "paper_legacy": paper_legacy,
                        "seconds": time.perf_counter() - t_start}, fh,
                       indent=1, default=str)
     print(f"done in {time.perf_counter() - t_start:.1f} s")

@@ -11,7 +11,9 @@ needs neither JAX nor ``repro``:
     (L, …) and become a list of L per-layer dicts; a tree without
     ``"blocks"`` (the convnets) keeps its structure;
   * ``{"w": (K, F)}`` leaf-dicts keep their layout (``x @ w``), and so
-    do HWIO conv weights and their pre-generated operands;
+    do HWIO conv weights and their pre-generated operands (a
+    transposable one may hold ``bp`` alone, or ``bp`` and the packed
+    pair);
   * integer leaves (ResNet's ``_meta``) keep their dtype;
   * a packed operand (the reference's ``PackedOp``, recognised by its
     ``vals``, ``idx``, ``idx_bits`` and ``cfg`` attributes) becomes the
@@ -124,32 +126,25 @@ def params_from_jax(tree, *, device=None):
     return out
 
 
-def _pregen_cfgs(node):
-    """The sparsity configs of the pre-generated operands in a reference
-    tree."""
-    if isinstance(node, dict):
-        for v in node.values():
-            yield from _pregen_cfgs(v)
-    elif _is_pregen(node):
-        yield node.cfg
-
-
-def train_state_from_jax(state, *, device=None):
+def train_state_from_jax(state, *, device=None, m=None):
     """The reference's train state (``master``, ``momentum``, ``step``,
-    the pre-generated ``compute`` tree and, when it has one, the EF
-    residual ``err``, whose m-groups are those of the compute tree's
-    sparsity config) as the port's per-layer state.  A compute tree with
-    shared or transposable masks is refused: the port's update would
-    train element-wise masks from it."""
+    the pre-generated ``compute`` tree of any mask kind when it has one,
+    none on the legacy dataflow, and, when it has one, the EF residual
+    ``err``) as the port's per-layer state.  The residual's m-groups are
+    those of the compute tree's sparsity config, or ``m`` for a state
+    without pre-generated operands."""
     device = resolve_device(device)
-    for cfg in _pregen_cfgs(state["compute"]):
-        sgd.refuse_unported_masks(cfg)
     out = {k: params_from_jax(state[k], device=device)
-           for k in ("master", "momentum", "compute")}
+           for k in ("master", "momentum", "compute") if k in state}
     out["step"] = int(np.asarray(state["step"]))
     if "err" in state:
-        m = next(leaf.cfg.m for leaf in sgd.tree_leaves(out["compute"])
-                 if isinstance(leaf, PregenOp))
+        ms = [leaf.cfg.m for leaf in sgd.tree_leaves(out.get("compute", {}))
+              if isinstance(leaf, PregenOp)]
+        if m is None:
+            if not ms:
+                raise ValueError("a residual without pre-generated operands "
+                                 "needs m")
+            m = ms[0]
         out["err"] = err_from_jax(state["err"], out["master"], m,
                                   device=device)
     return out

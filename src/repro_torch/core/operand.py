@@ -3,9 +3,10 @@
 Counterpart of ``src/repro/core/operand.py``: ``DenseOp``, ``MaskedOp``,
 ``PregenOp``, ``PackedOp``, ``SharedOp``, ``as_operand``, ``nm_apply``,
 ``_packed_serve``, ``_shared_serve`` and the custom-gradient cores
-``masked_linear``, ``pregen_linear`` and ``packed_pregen_linear``, and
-their conv views ``masked_conv`` and ``pregen_conv`` (NHWC activations,
-HWIO weights) with ``_pregen_ff_dense``.  Every weight matmul or conv of
+``masked_linear``, ``pregen_linear``, ``packed_pregen_linear`` and
+``packed_pregen_linear_t`` (transposable masks), and their conv views
+``masked_conv`` and ``pregen_conv`` (NHWC activations, HWIO weights)
+with ``_pregen_ff_dense``.  Every weight matmul or conv of
 the model calls ``nm_apply(op, x)``.  The cores carry the paper's
 training rules (Alg. 1 / Fig. 11c) as ``torch.autograd.Function``s:
 
@@ -22,7 +23,6 @@ What differs:
     ``kernels.ops.nm_spmm_shared``), whose input's device picks the
     kernel or the plain version; the port's parameters are per layer,
     so a packed pair is always 2-D (K·N/M, F);
-  * transposable packed operands are not ported;
   * ``padding`` is "SAME" or "VALID" (the reference also takes explicit
     pads; no caller passes them).  SAME is XLA's: an odd total goes to
     the high side (``same_padding``), which torch's symmetric
@@ -40,6 +40,7 @@ from repro_torch.core import bdwp
 from repro_torch.core.sparsity import (DENSE, SparsityConfig, nm_unpack_n,
                                        sparsify, unpack_idx_u4)
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import decompress_nm
 
 
 class SparseOperand:
@@ -71,12 +72,19 @@ class PregenOp(SparseOperand):
     FF operand: ``ff`` of bp's shape in the dense layout, or the
     SORE-packed pair along the contraction axis, ``vals`` (K·N/M, F) or
     (H, W, I·N/M, O) and ``idx`` (uint8 offsets of the same shape,
-    ``idx_bits=8``).  ``mask`` is the stored SR-STE decay mask."""
+    ``idx_bits=8``).  ``mask`` is the stored SR-STE decay mask.
+
+    With a transposable config (one mask N:M along both axes) ``bp``
+    alone is also valid: the same array is the FF operand."""
 
     def __init__(self, *, bp, ff=None, vals=None, idx=None, mask=None,
                  cfg: SparsityConfig | None = None, idx_bits: int = 8):
-        if (ff is None) == (vals is None):
-            raise ValueError("PregenOp needs exactly one of ff | (vals, idx)")
+        transposable = cfg is not None and cfg.transposable
+        if ff is not None and vals is not None:
+            raise ValueError("PregenOp needs at most one of ff | (vals, idx)")
+        if ff is None and vals is None and not transposable:
+            raise ValueError("PregenOp needs exactly one of ff | (vals, idx)"
+                             " (bp-only operands need a transposable cfg)")
         if (vals is None) != (idx is None):
             raise ValueError("PregenOp packed form needs both vals and idx")
         if idx_bits not in (4, 8):
@@ -92,6 +100,10 @@ class PregenOp(SparseOperand):
     @property
     def is_packed(self) -> bool:
         return self.vals is not None
+
+    @property
+    def is_transposable(self) -> bool:
+        return self.cfg is not None and self.cfg.transposable
 
 
 class PackedOp(SparseOperand):
@@ -207,18 +219,23 @@ class _PregenLinear(torch.autograd.Function):
 
 class _PackedPregenLinear(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, vals, idx, bp, n, m, idx_bits):
-        ctx.save_for_backward(x, bp)
+    def forward(ctx, x, vals, idx, bp, n, m, idx_bits, transposable):
+        ctx.nm = (n, m, idx_bits, transposable)
+        ctx.save_for_backward(x, bp, vals, idx)
         x2 = x.reshape(-1, x.shape[-1]).contiguous()
         y = ops.nm_spmm(x2, vals, idx, n, m, idx_bits)
         return y.reshape(*x.shape[:-1], vals.shape[-1]).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        x, bp = ctx.saved_tensors
+        x, bp, vals, idx = ctx.saved_tensors
+        n, m, idx_bits, transposable = ctx.nm
         gc = g.to(x.dtype)
-        return (_linear(gc, bp.t()), None, None,
-                _weight_grad(x, gc, bp.dtype), None, None, None)
+        # a transposable pair is N:M along F too: dgrad reads it, not bp
+        w_bp = (decompress_nm(vals, idx, n, m, axis=-2, idx_bits=idx_bits)
+                if transposable else bp)
+        return (_linear(gc, w_bp.t()), None, None,
+                _weight_grad(x, gc, bp.dtype), None, None, None, None)
 
 
 def masked_linear(x: torch.Tensor, w: torch.Tensor,
@@ -243,7 +260,19 @@ def packed_pregen_linear(x: torch.Tensor, vals: torch.Tensor,
     reads (vals, idx) through ``kernels.ops.nm_spmm`` and never builds the
     dense FF weight; BP and WU as ``pregen_linear``; ``vals`` and
     ``idx`` get no gradient."""
-    return _PackedPregenLinear.apply(x, vals, idx, bp, n, m, idx_bits)
+    return _PackedPregenLinear.apply(x, vals, idx, bp, n, m, idx_bits, False)
+
+
+def packed_pregen_linear_t(x: torch.Tensor, vals: torch.Tensor,
+                           idx: torch.Tensor, bp: torch.Tensor, n: int,
+                           m: int, idx_bits: int = 8) -> torch.Tensor:
+    """``packed_pregen_linear`` for a transposable mask (arXiv
+    2102.08124): the one mask is N:M along both axes, so the packed pair
+    serves FF and BP.  The forward is ``packed_pregen_linear``'s; dgrad
+    contracts g with the decompressed pair (``kernels.ref.decompress_nm``,
+    exact: bitwise ``bp``) instead of reading ``bp``, which only carries
+    the dense straight-through WU gradient."""
+    return _PackedPregenLinear.apply(x, vals, idx, bp, n, m, idx_bits, True)
 
 
 # ---------------------------------------------------------------------------
@@ -398,10 +427,13 @@ def _shared_serve(x: torch.Tensor, op: SharedOp) -> torch.Tensor:
 
 
 def _pregen_ff_dense(op: PregenOp) -> torch.Tensor:
-    """The dense-layout FF operand of a PregenOp: ``ff``, or the packed
-    pair scattered back along the contraction axis (exact)."""
+    """The dense-layout FF operand of a PregenOp: ``ff``, the packed
+    pair scattered back along the contraction axis (exact), or, for a
+    transposable bp-only operand, ``bp`` itself."""
     if op.ff is not None:
         return op.ff
+    if not op.is_packed:
+        return op.bp
     idx = op.idx
     if op.idx_bits == 4:
         idx = unpack_idx_u4(idx, op.vals.shape[-2], axis=-2)
@@ -424,9 +456,11 @@ def nm_apply(op: SparseOperand, x: torch.Tensor, *, stride: int = 1,
             return pregen_conv(x, _pregen_ff_dense(op), op.bp, stride,
                                padding)
         if op.is_packed:
-            return packed_pregen_linear(x, op.vals, op.idx, op.bp, op.cfg.n,
-                                        op.cfg.m, op.idx_bits)
-        return pregen_linear(x, op.ff, op.bp)
+            fn = (packed_pregen_linear_t if op.is_transposable
+                  else packed_pregen_linear)
+            return fn(x, op.vals, op.idx, op.bp, op.cfg.n, op.cfg.m,
+                      op.idx_bits)
+        return pregen_linear(x, _pregen_ff_dense(op), op.bp)
     if isinstance(op, PackedOp):
         return _packed_serve(x, op)
     if isinstance(op, SharedOp):

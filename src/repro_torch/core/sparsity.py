@@ -1,18 +1,21 @@
 """N:M fine-grained structured sparsity primitives (PyTorch).
 
 Counterpart of ``src/repro/core/sparsity.py``: ``SparsityConfig``,
-``DENSE``, ``nm_mask``, ``nm_mask_pair``, ``nm_mask_shared``,
-``sparsify`` (element and shared granularity), ``nm_pack``,
-``nm_pack_from_mask``, ``nm_unpack_n``, ``srste_decay`` and the 4-bit
-index plane ``pack_idx_u4``/``unpack_idx_u4``.  Masks, indices and
-packed values are bitwise equal to the reference's.
+``DENSE``, ``nm_mask``, ``nm_mask_pair``, ``nm_mask_transposable``,
+``nm_mask_shared``, ``sparsify`` (element and shared granularity),
+``nm_pack``, ``nm_pack_from_mask``, ``nm_unpack_n``, ``srste_decay`` and
+the 4-bit index plane ``pack_idx_u4``/``unpack_idx_u4``.  Masks, indices
+and packed values are bitwise equal to the reference's.
 
 What differs:
   * selection is n rounds of masked ``argmax`` instead of
     ``lax.top_k``: ``torch.topk`` documents no tie order, while
     ``torch.argmax`` returns the first maximum, which is the reference's
     earliest-index tie-break;
-  * transposable masks are not ported.
+  * ``nm_mask_transposable`` runs its repair and fallback phases on the
+    tiles the greedy phase left short only (the others pass through
+    both phases unchanged in the reference too), and stops repairing
+    once no tile is short.
 """
 
 from __future__ import annotations
@@ -141,6 +144,101 @@ def nm_mask_pair(x: torch.Tensor, n: int, m: int, ff_axis: int,
     return tuple(out)
 
 
+def nm_mask_transposable(x: torch.Tensor, n: int, m: int) -> torch.Tensor:
+    """One mask serving W and W^T: N:M along the rows and the columns of
+    every m x m tile of the last two axes (arXiv 2102.08124).  Leading
+    axes batch through; both trailing lengths must divide by m.
+
+    The reference's three phases, vectorised over all tiles:
+      1. greedy: cells largest-|x| first (a stable sort, so ties go to
+         the earliest row-major cell), each accepted while its row and
+         its column quota are both open;
+      2. repair: while a quota is open, the best augmenting swap — add
+         (r, c2) and (r', c), drop the selected (r', c2) with the
+         largest score gain, for the first short row r and column c;
+         at most n*m rounds;
+      3. fallback: a tile still short gets the n cyclic diagonals of
+         largest summed |x|, transposable by construction.
+    """
+    if n == m:
+        return torch.ones_like(x, dtype=torch.bool)
+    *lead, rdim, cdim = x.shape
+    if rdim % m or cdim % m:
+        raise ValueError(f"dims ({rdim}, {cdim}) not divisible by m={m}")
+    rt, ct = rdim // m, cdim // m
+    tiles = x.reshape(*lead, rt, m, ct, m).movedim(-3, -2)
+    score = tiles.abs().to(torch.float32).reshape(-1, m * m)
+    t = score.shape[0]
+    # the k-th cells of all tiles, contiguous for each round k
+    order = torch.argsort(-score, dim=-1, stable=True).t().contiguous()
+    rows_of, cols_of = order // m, order % m
+    mask = torch.zeros((t, m * m), dtype=torch.bool, device=x.device)
+    rows = torch.zeros((t, m), dtype=torch.int32, device=x.device)
+    cols = torch.zeros((t, m), dtype=torch.int32, device=x.device)
+    for k in range(m * m):
+        r, c = rows_of[k][:, None], cols_of[k][:, None]
+        ok = (rows.gather(1, r) < n) & (cols.gather(1, c) < n)
+        mask.scatter_(1, order[k][:, None], ok)
+        rows.scatter_add_(1, r, ok.to(torch.int32))
+        cols.scatter_add_(1, c, ok.to(torch.int32))
+    mask = mask.view(t, m, m)
+    short = torch.nonzero(((rows < n).any(-1)) | ((cols < n).any(-1)))[:, 0]
+    if short.numel():
+        sc = score.view(t, m, m).index_select(0, short)
+        mask[short] = _transposable_repair(mask.index_select(0, short), sc,
+                                           n, m)
+    mask = mask.view(*lead, rt, ct, m, m).movedim(-3, -2)
+    return mask.reshape(*lead, rdim, cdim)
+
+
+def _transposable_repair(mask: torch.Tensor, sc: torch.Tensor, n: int,
+                         m: int) -> torch.Tensor:
+    """Phases 2 and 3 of ``nm_mask_transposable`` on (T, m, m) tiles."""
+    t = mask.shape[0]
+    slot = torch.arange(m, device=mask.device)
+    tile = torch.arange(t, device=mask.device)
+    neg_inf = torch.tensor(float("-inf"), device=mask.device)
+    for _ in range(n * m):
+        rows, cols = mask.sum(-1), mask.sum(-2)
+        need = (rows < n).any(-1)
+        if not bool(need.any()):
+            break
+        r = torch.argmax((rows < n).to(torch.uint8), dim=-1)
+        c = torch.argmax((cols < n).to(torch.uint8), dim=-1)
+        row_r, col_c = mask[tile, r], mask[tile, :, c]
+        s_row, s_col = sc[tile, r], sc[tile, :, c]
+        # swap candidates (r', c2): drop the selected (r', c2), add
+        # (r, c2) and (r', c); c2 == c and r' == r exclude themselves
+        valid = (mask & ~row_r[:, None, :] & ~col_c[:, :, None]
+                 & need[:, None, None])
+        gain = s_row[:, None, :] + s_col[:, :, None] - sc
+        best = torch.argmax(torch.where(valid, gain, neg_inf).view(t, m * m),
+                            dim=-1)
+        rp, c2 = best // m, best % m
+        apply = (need & valid.view(t, m * m).any(-1))[:, None, None]
+
+        def hot(i):
+            return slot[None, :] == i[:, None]
+
+        add = ((hot(r)[:, :, None] & hot(c2)[:, None, :])
+               | (hot(rp)[:, :, None] & hot(c)[:, None, :]))
+        rem = hot(rp)[:, :, None] & hot(c2)[:, None, :]
+        mask = (mask | (add & apply)) & ~(rem & apply)
+    ok = (mask.sum(-1) == n).all(-1) & (mask.sum(-2) == n).all(-1)
+    if bool(ok.all()):
+        return mask
+    # the fallback: diagonal d holds cells (i, (i + d) % m); its score is
+    # summed from row 0 down, one term at a time
+    diag = (slot[:, None] + slot[None, :]) % m          # (d, i) -> column
+    cells = sc[:, slot[None, :].expand(m, m), diag]     # (T, d, i)
+    dscore = cells[..., 0]
+    for i in range(1, m):
+        dscore = dscore + cells[..., i]
+    dsel = nm_mask(dscore, n, m, axis=-1)                # (T, d)
+    fallback = dsel[:, (slot[None, :] - slot[:, None]) % m]
+    return torch.where(ok[:, None, None], mask, fallback)
+
+
 def nm_mask_shared(x: torch.Tensor, n: int, m: int, axis: int,
                    share_axis: int, tile: int) -> torch.Tensor:
     """Mask with the N:M pattern along ``axis`` shared across tiles of
@@ -208,7 +306,15 @@ def nm_pack_from_mask(x: torch.Tensor, mask: torch.Tensor, n: int, m: int,
     offset 0, as the reference's scatter into a zero row does."""
     g = _groups(x, m, axis)
     gm = _groups(mask, m, axis)
-    rank = torch.cumsum(gm.to(torch.int64), dim=-1) - 1
+    # a survivor's rank in its group, as m running sums: torch.cumsum
+    # over a length-m innermost axis is a slow scan on the card (22 ms
+    # for a 4096 x 12288 weight)
+    run = torch.full(gm.shape[:-1], -1, dtype=torch.int64, device=x.device)
+    ranks = []
+    for j in range(m):
+        run = run + gm[..., j]
+        ranks.append(run)
+    rank = torch.stack(ranks, dim=-1)
     slot = torch.where(gm, rank, n)     # pruned entries land in slot n
     pos = torch.arange(m, device=x.device).expand(g.shape)
     vals = torch.zeros((*g.shape[:-1], n + 1), dtype=x.dtype, device=x.device)

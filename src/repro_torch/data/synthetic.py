@@ -9,7 +9,8 @@ batches exactly.
 
 What differs: batches are torch tensors (tokens and labels int64, as
 torch indexing wants; images fp32 NHWC) on an explicit device, the card
-unless the caller names another; ``image_stream`` is the image
+unless the caller names another; the class prototypes are drawn once
+per task and cached (the same bits); ``image_stream`` is the image
 counterpart of ``lm_stream`` (the reference's image callers loop over
 ``image_batch`` themselves); the modality prefix and the
 encoder-decoder stream are not ported.
@@ -18,6 +19,7 @@ encoder-decoder stream are not ported.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -75,13 +77,24 @@ class ImageTaskConfig:
     seed: int = 0
 
 
+@functools.lru_cache(maxsize=4)
+def _prototypes(seed: int, num_classes: int, image: int) -> np.ndarray:
+    """The class prototypes of a task, drawn once per (seed, classes,
+    image size): at ImageNet's shapes a draw is 1000 x 224 x 224 x 3
+    float64 normals (1.2 GB), which the reference draws anew for every
+    batch.  Read-only, so a cached array cannot be changed."""
+    proto_rng = np.random.default_rng(np.random.PCG64([seed + 2]))
+    protos = proto_rng.normal(size=(num_classes, image, image, 3))
+    protos.flags.writeable = False
+    return protos
+
+
 def _image_arrays(cfg: ImageTaskConfig, step: int):
     """The reference's ``image_batch``: (images (B, H, W, 3) fp32, labels
     (B,) int32) numpy arrays, class prototypes plus noise."""
     rng = np.random.default_rng(np.random.PCG64([cfg.seed + 1, step]))
     labels = rng.integers(0, cfg.num_classes, size=(cfg.batch,))
-    proto_rng = np.random.default_rng(np.random.PCG64([cfg.seed + 2]))
-    protos = proto_rng.normal(size=(cfg.num_classes, cfg.image, cfg.image, 3))
+    protos = _prototypes(cfg.seed, cfg.num_classes, cfg.image)
     x = protos[labels] + cfg.noise * rng.normal(
         size=(cfg.batch, cfg.image, cfg.image, 3))
     return x.astype(np.float32), labels.astype(np.int32)

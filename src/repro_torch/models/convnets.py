@@ -22,8 +22,9 @@ What differs:
   * the classifier of a ResNet18/50 tree whose ``fc/w`` was
     pre-generated raises ``TypeError``: that ``fc`` passes
     ``bdwp.should_prune``, and the reference fails there too (it calls
-    ``.astype`` on the ``PregenOp``); its training waits for the legacy
-    dataflow (ROADMAP queue 1 item 2).
+    ``.astype`` on the ``PregenOp``); both train on the legacy dataflow
+    (``train.step.image_train_step(pregen=False)``), which hands the
+    model its fp32 master.
 """
 
 from __future__ import annotations
@@ -105,7 +106,7 @@ def _classifier(w, x: torch.Tensor) -> torch.Tensor:
             f"the classifier weight is a {type(w).__name__}: this model's "
             "fc passes should_prune, so pregen_tree made it an operand "
             "that the reference cannot consume either (ROADMAP queue 3); "
-            "train it on the MaskedOp path")
+            "train it on the MaskedOp path (pregen=False)")
     return L.head_product(x, w)
 
 

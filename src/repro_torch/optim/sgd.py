@@ -3,22 +3,34 @@
 Counterpart of ``src/repro/optim/sgd.py`` (``SGDConfig``,
 ``lr_schedule``, ``init_state``, ``_pregen_masks``/``_pregen_leaf``,
 ``pregen_tree``, ``pregen_grads``, ``update``).
-State per parameter: fp32 ``master`` and ``momentum``.  Each update
-also writes the next step's compute tree (paper Fig. 11c): every
-prunable weight (``bdwp.pregen_site``) becomes a ``PregenOp`` holding
-its bf16 BP operand, its FF operand (SORE-packed ``vals``/``idx`` with
-``pack``) and its SR-STE decay mask, all from ONE selection on the fp32
-master; every other leaf becomes its bf16 copy.
+State per parameter: fp32 ``master`` and ``momentum``.  With
+``pregen=True`` each update also writes the next step's compute tree
+(paper Fig. 11c): every prunable weight (``bdwp.pregen_site``) becomes a
+``PregenOp`` holding its bf16 BP operand, its FF operand (SORE-packed
+``vals``/``idx`` with ``pack``) and its SR-STE decay mask, all from the
+masks of the fp32 master: one selection for element masks
+(``nm_mask_pair``), one ``nm_mask_shared`` per direction for shared
+granularity, one ``nm_mask_transposable`` for a transposable config,
+whose one mask serves FF, BP and the decay (its operand keeps ``bp``
+and, with ``pack``, the packed pair; no ``ff``).  Every other leaf
+becomes its bf16 copy.  With ``pregen=False`` (the legacy dataflow,
+whose FF and BP re-derive their masks inside the model) every leaf takes
+the elementwise path, the decay mask is ``nm_mask`` of the pre-update
+master along the FF axis (the BP axis for sdwp) whatever the
+granularity, as in the reference, and the returned tree is the plain
+bf16 cast of the new master.
 
-The fused path: all srste/bdwp sites of a step are updated together by
+The fused path: the element-granularity srste/bdwp sites of a
+pre-generating step are updated together by
 ``kernels.ops.fused_update_sites`` (one launch of the ``fused_update``
 kernel on the card, its plain version site by site on the CPU), which
 applies the decay from the mask of the pre-update master (bitwise the
 stored mask: both select on the same fp32 master) and writes the packed
 FF operand, the FF mask and the bf16 BP operand (for bdwp the
 output-axis ``nm_mask`` of the new master, as the reference's
-``pallas_upd`` derives it in jnp).  Other leaves take the elementwise
-path.
+``pallas_upd`` derives it in jnp).  Shared and transposable sites stay
+off it, as in the reference (the kernel derives one-sided element
+masks), and take the elementwise path with the rest.
 
 A conv master (H, W, I, O) takes the same kernel on its (H*W*I, O) view:
 its m-groups of rows are the reference's groups along I, which is what
@@ -40,9 +52,7 @@ What differs:
     position of ``prev_compute`` (the trees are per layer, so the
     reference's name -> mask dict, ``stored_decay_masks``, would need a
     layer index);
-  * only the pre-generating dataflow (the reference's ``pregen=True``)
-    with element granularity is ported; no transposable or shared
-    masks, no bare-array MoE sites.
+  * no bare-array MoE sites.
 """
 
 from __future__ import annotations
@@ -52,12 +62,14 @@ import math
 import typing
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.core import bdwp
 from repro_torch.core.operand import PregenOp
 from repro_torch.core.sparsity import (SparsityConfig, nm_mask,
-                                       nm_mask_pair, nm_pack_from_mask,
-                                       nm_unpack_n)
+                                       nm_mask_pair, nm_mask_shared,
+                                       nm_mask_transposable,
+                                       nm_pack_from_mask, nm_unpack_n)
 from repro_torch.kernels import ops
 
 
@@ -120,42 +132,57 @@ def init_state(params):
 # ---------------------------------------------------------------------------
 
 
-def refuse_unported_masks(sp_cfg: SparsityConfig) -> None:
-    """Raise for the mask kinds the port does not build yet: shared
-    granularity and transposable masks (ROADMAP queue 1 item 2)."""
-    if sp_cfg.transposable or sp_cfg.granularity != "element":
-        raise NotImplementedError(
-            "only element-granularity, non-transposable masks are ported "
-            "(ROADMAP queue 1 item 2)")
-
-
 def _pregen_masks(w: torch.Tensor, sp_cfg: SparsityConfig):
     """(ff_mask, bp_mask, decay_mask) of one fp32 weight; the FF and BP
-    masks of a bdwp weight come from one selection (``nm_mask_pair``);
+    masks of an element-granularity bdwp weight come from one selection
+    (``nm_mask_pair``), a transposable config's three are one mask;
     unused directions are None."""
-    refuse_unported_masks(sp_cfg)
     n, m = sp_cfg.n, sp_cfg.m
     ff_ax, bp_ax = w.ndim - 2, w.ndim - 1
+    if sp_cfg.transposable:
+        with record_function("sgd/nm_mask_transposable"):
+            tm = nm_mask_transposable(w, n, m)
+        return tm, tm, tm
+    shared = sp_cfg.granularity == "shared"
+
+    def one(axis, share_axis):
+        if shared:
+            return nm_mask_shared(w, n, m, axis, share_axis, sp_cfg.tile)
+        return nm_mask(w, n, m, axis=axis)
+
     ff_mask = bp_mask = None
     if sp_cfg.prunes_ff_weights() and sp_cfg.prunes_bp_weights():
-        ff_mask, bp_mask = nm_mask_pair(w, n, m, ff_ax, bp_ax)
+        if shared:
+            ff_mask, bp_mask = one(ff_ax, bp_ax), one(bp_ax, ff_ax)
+        else:
+            ff_mask, bp_mask = nm_mask_pair(w, n, m, ff_ax, bp_ax)
     elif sp_cfg.prunes_ff_weights():
-        ff_mask = nm_mask(w, n, m, axis=ff_ax)
+        ff_mask = one(ff_ax, bp_ax)
     elif sp_cfg.prunes_bp_weights():
-        bp_mask = nm_mask(w, n, m, axis=bp_ax)
+        bp_mask = one(bp_ax, ff_ax)
     decay_mask = bp_mask if sp_cfg.method == "sdwp" else ff_mask
     return ff_mask, bp_mask, decay_mask
 
 
 def _pregen_leaf(w: torch.Tensor, sp_cfg: SparsityConfig,
                  pack: bool) -> PregenOp:
-    """fp32 weight -> PregenOp{ff | (vals, idx), bp, mask}.  Masking
-    commutes with the bf16 cast, and the selection scores fp32 master."""
+    """fp32 weight -> PregenOp{ff | (vals, idx), bp, mask}, or for a
+    transposable config PregenOp{bp, (vals, idx) with ``pack``, mask}.
+    Masking commutes with the bf16 cast, and the selection scores fp32
+    master.  Only element-granularity FF operands are packed."""
     ff_mask, bp_mask, decay_mask = _pregen_masks(w, sp_cfg)
     bp = torch.where(bp_mask, w, 0.0) if bp_mask is not None else w
+    if sp_cfg.transposable:
+        bp16 = bp.to(torch.bfloat16)
+        if pack:
+            vals, idx = nm_pack_from_mask(bp16, ff_mask, sp_cfg.n, sp_cfg.m,
+                                          axis=w.ndim - 2)
+            return PregenOp(bp=bp16, vals=vals, idx=idx, mask=decay_mask,
+                            cfg=sp_cfg, idx_bits=8)
+        return PregenOp(bp=bp16, mask=decay_mask, cfg=sp_cfg)
     ff = torch.where(ff_mask, w, 0.0) if ff_mask is not None else w
     ff16 = ff.to(torch.bfloat16)
-    if pack and ff_mask is not None:
+    if pack and ff_mask is not None and sp_cfg.granularity == "element":
         vals, idx = nm_pack_from_mask(ff16, ff_mask, sp_cfg.n, sp_cfg.m,
                                       axis=w.ndim - 2)
         return PregenOp(bp=bp.to(torch.bfloat16), vals=vals, idx=idx,
@@ -211,20 +238,17 @@ class _Pending(typing.NamedTuple):
 
 
 def update(state, grads, opt_cfg: SGDConfig, sp_cfg: SparsityConfig, *,
-           prev_compute=None, pack: bool = False):
-    """One optimizer step: (new_state, next step's compute tree).
+           prev_compute=None, pregen: bool = True, pack: bool = False):
+    """One optimizer step: (new_state, compute tree).
 
-    ``grads`` is master-shaped (``pregen_grads``).  The SR-STE decay
-    uses the mask stored in ``prev_compute`` (the one FF/BP just
-    consumed; re-derived from master where there is none).  Master and
-    momentum, and the fp32 gradients of non-site leaves, are updated in
-    place.  A config with shared or transposable masks is
-    refused before any leaf is touched when the tree has a pre-generated
-    site (``refuse_unported_masks``).
+    ``grads`` is master-shaped (``pregen_grads``).  With ``pregen`` the
+    SR-STE decay uses the mask stored in ``prev_compute`` (the one FF/BP
+    just consumed; re-derived from master where there is none) and the
+    compute tree is the next step's pre-generated operands; without it
+    the decay mask is re-derived from master and the compute tree is the
+    bf16 cast of the new master.  Master and momentum, and the fp32
+    gradients of non-site leaves, are updated in place.
     """
-    if any(tree_leaves(tree_map(lambda name, w: bdwp.pregen_site(
-            name, tuple(w.shape), sp_cfg), state["master"]))):
-        refuse_unported_masks(sp_cfg)
     lr = float(lr_schedule(opt_cfg, state["step"]))
     n, m = sp_cfg.n, sp_cfg.m
 
@@ -277,14 +301,19 @@ def update(state, grads, opt_cfg: SGDConfig, sp_cfg: SparsityConfig, *,
         return w, v, comp
 
     def upd(name, w, g, v, prev):
-        site = bdwp.pregen_site(name, tuple(w.shape), sp_cfg)
-        if site and sp_cfg.method in ("srste", "bdwp"):
+        site = pregen and bdwp.pregen_site(name, tuple(w.shape), sp_cfg)
+        if (site and sp_cfg.method in ("srste", "bdwp")
+                and sp_cfg.granularity == "element"
+                and not sp_cfg.transposable):
+            # the kernel derives one-sided element masks: shared and
+            # transposable sites stay on the elementwise path
             return fused_site(w, g, v)
         return elementwise_upd(name, w, g, v, prev, site)
 
     # two passes: the elementwise leaves and the list of fused sites,
     # then one fused_update_sites over all sites, then their PregenOps
-    prev = prev_compute if prev_compute is not None else state["master"]
+    prev = (prev_compute if pregen and prev_compute is not None
+            else state["master"])
     outs = tree_map(upd, state["master"], grads, state["momentum"], prev)
     done = ops.fused_update_sites(
         fused, lr, opt_cfg.momentum, opt_cfg.weight_decay, sp_cfg.lam, n, m,

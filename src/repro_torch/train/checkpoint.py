@@ -12,10 +12,12 @@ What differs: the files are the port's own (``torch.save`` of each
 tensor leaf, dtype kept, bfloat16 included), not ``.npy``; the state is
 the port's tree of dicts, per-layer lists, ``PregenOp`` leaves (their
 ``bp``, ``ff``, ``vals``, ``idx`` and ``mask`` tensors, absent ones as
-None) and Python ints (``step``); the snapshot is a copy on the host,
-because the port's update changes master, momentum and the EF residual
-in place; ``restore`` loads onto a device, the card unless the caller
-names another, instead of resharding onto a mesh.
+None, so a transposable bp-only operand too) and Python ints (``step``),
+with or without a compute tree (the legacy dataflow keeps none); the
+snapshot is a copy on the host, because the port's update changes
+master, momentum and the EF residual in place; ``restore`` loads onto
+a device, the card unless the caller names another, instead of
+resharding onto a mesh.
 """
 
 from __future__ import annotations

@@ -1,16 +1,30 @@
 """Train and serve steps of the LM, and the training step of the paper's
 image models.
 
-Counterpart of ``src/repro/train/step.py``: the pre-generating training
-step (``lm_train_step`` with ``pregen=True``, with or without the
-compressed cross-pod gradient sync), ``init_train_state``,
-``state_core``, and the serving steps (``lm_prefill_step`` with
-``last_index``, ``lm_decode_step`` with ``per_slot=True``).
-``init_image_train_state`` and ``image_train_step`` are the same
-pre-generating step for ``models.convnets`` (ResNet9, VGG19, ViT), which
-the reference composes inline (``sgd.pregen_tree``, ``convnets.*_apply``,
-the loss of ``examples/paper_loss_curves.py``, ``sgd.update(pregen=True,
-pack=True, use_pallas=True)``).
+Counterpart of ``src/repro/train/step.py``: the training step
+(``lm_train_step``, with or without the compressed cross-pod gradient
+sync), ``init_train_state``, ``state_core``, and the serving steps
+(``lm_prefill_step`` with ``last_index``, ``lm_decode_step`` with
+``per_slot=True``).  ``init_image_train_state`` and ``image_train_step``
+are the same step for ``models.convnets`` (ResNet9/18/50, VGG19, ViT),
+which the reference composes inline (``sgd.pregen_tree``,
+``convnets.*_apply``, the loss of ``examples/paper_loss_curves.py``,
+``sgd.update``).
+
+Both dataflows of the reference:
+  * ``pregen=True``: FF and BP read the operands the previous update
+    wrote (``state["compute"]``); gradients are taken on its float
+    leaves (each ``PregenOp``'s ``bp`` carries the dense WU gradient);
+  * ``pregen=False``, the legacy dataflow: the state keeps no compute
+    tree and every matmul or conv re-derives its masks inside the model
+    (a plain weight becomes a ``MaskedOp``).  The LM runs on the bf16
+    cast of the master and its gradients are those of the bf16 leaves,
+    cast to fp32 where the sync needs them (the bits of the reference's
+    cast's gradient); an image model gets the fp32 master itself, as
+    ``examples/paper_loss_curves.py`` passes it, so masks score fp32
+    and the cast comes after masking.  This is the only dataflow on
+    which ResNet18/50 train (their ``fc/w`` would become a
+    ``PregenOp``).
 
 With ``compress=True`` the step is the reference's pod-split step with
 every pod on this device: the batch is cut into ``n_pods`` contiguous
@@ -24,12 +38,12 @@ feedback residual ``state["err"]`` before ``sgd.update``.
 What differs: no mesh, activation sharding or modality prefix; no step
 builder (``functools.partial`` of ``lm_train_step`` is the step
 function); decode is per-slot only (``pos`` is a (B,) vector of
-per-request positions); the legacy ``pregen=False`` dataflow is not
-ported.  Gradients are taken with ``torch.autograd.grad`` on the
-compute tree's float leaves, so nothing accumulates in ``.grad``
-between steps.  The step's parts are profiler ranges ``train/forward``,
-``train/backward`` (which includes the blocks' recompute),
-``train/sync`` (compressed steps only) and ``train/update``.
+per-request positions).  Gradients are taken with
+``torch.autograd.grad`` on the float leaves the model reads, so nothing
+accumulates in ``.grad`` between steps.  The step's parts are profiler
+ranges ``train/forward``, ``train/backward`` (which includes the blocks'
+recompute), ``train/sync`` (compressed steps only) and
+``train/update``.
 """
 
 from __future__ import annotations
@@ -44,28 +58,32 @@ from repro_torch.optim import sgd
 
 
 def init_train_state(cfg, sp_cfg, *, seed: int = 0, device=None,
-                     pregen_pack: bool = True, compress: bool = False,
-                     n_pods: int = 1):
+                     pregen: bool = True, pregen_pack: bool = True,
+                     compress: bool = False, n_pods: int = 1):
     """Random fp32 params from ``seed`` on ``device`` (the card unless
-    another is named), the optimizer state, and the pre-generated
-    compute tree of their masks (``sp_cfg``; packed with
+    another is named), the optimizer state, and with ``pregen`` the
+    pre-generated compute tree of their masks (``sp_cfg``; packed with
     ``pregen_pack``).  ``compress`` adds the zero error-feedback
     residual ``err`` of ``n_pods`` pods, (n_pods, err_state_elems)
     fp32."""
     params = T.init(cfg, seed=seed, device=device, dtype=torch.float32)
-    return train_state_from_params(params, sp_cfg, pregen_pack=pregen_pack,
+    return train_state_from_params(params, sp_cfg, pregen=pregen,
+                                   pregen_pack=pregen_pack,
                                    compress=compress, n_pods=n_pods)
 
 
-def train_state_from_params(params, sp_cfg, *, pregen_pack: bool = True,
+def train_state_from_params(params, sp_cfg, *, pregen: bool = True,
+                            pregen_pack: bool = True,
                             compress: bool = False, n_pods: int = 1):
     """The train state of ``params``, on their device; fp32 params are
-    taken over as the master."""
+    taken over as the master.  Without ``pregen`` it holds no compute
+    tree."""
     state = sgd.init_state(params)
     if compress:
         state["err"] = C.init_err(state["master"], n_pods, sp_cfg.m)
-    state["compute"] = sgd.pregen_tree(state["master"], sp_cfg,
-                                       pack=pregen_pack)
+    if pregen:
+        state["compute"] = sgd.pregen_tree(state["master"], sp_cfg,
+                                           pack=pregen_pack)
     return state
 
 
@@ -73,19 +91,29 @@ def state_core(state):
     return {k: state[k] for k in ("master", "momentum", "step")}
 
 
+def _bf16_cast(master):
+    """The legacy dataflow's compute tree: the bf16 cast of the master."""
+    return sgd.tree_map(lambda _, w: w.to(torch.bfloat16)
+                        if w.is_floating_point() else w, master)
+
+
 def lm_train_step(state, batch, *, cfg, sp_cfg, opt_cfg,
-                  pregen_pack: bool = True, compress: bool = False,
-                  n_pods: int = 1):
-    """One BDWP training step on ``state["compute"]``: FF on the
-    pre-generated (packed) operands, BP on ``bp``, the dense WU gradient
-    on ``bp``'s gradient, then ``sgd.update``, which writes the next
-    compute tree.  With ``compress`` the gradient is the compressed pod
-    mean of ``n_pods`` pods (``sp_cfg``'s n:m, the reference's buckets)
-    and the loss the mean of the pod losses.  Returns (new_state,
-    {"loss", "lr"}); consumes ``state`` (see ``sgd.update``,
-    ``cross_pod_sync``).
+                  pregen: bool = True, pregen_pack: bool = True,
+                  compress: bool = False, n_pods: int = 1):
+    """One training step.  With ``pregen``: FF on the pre-generated
+    (packed) operands of ``state["compute"]``, BP on ``bp``, the dense WU
+    gradient on ``bp``'s gradient, then ``sgd.update``, which writes the
+    next compute tree.  Without it: the model on the bf16 cast of the
+    master, each matmul a ``MaskedOp`` that re-derives its masks, the
+    gradients of the bf16 leaves, then ``sgd.update(pregen=False)``; the
+    state keeps no compute tree.  With ``compress`` the gradient is the
+    compressed pod mean of ``n_pods`` pods (``sp_cfg``'s n:m, the
+    reference's buckets; fp32 gradients on the legacy dataflow, as the
+    reference's master gives) and the loss the mean of the pod losses.
+    Returns (new_state, {"loss", "lr"}); consumes ``state`` (see
+    ``sgd.update``, ``cross_pod_sync``).
     """
-    compute = state["compute"]
+    compute = state["compute"] if pregen else _bf16_cast(state["master"])
     roots = sgd.diff_leaves(compute)
     pods = n_pods if compress else 1
     rows = batch["tokens"].shape[0]
@@ -111,7 +139,10 @@ def lm_train_step(state, batch, *, cfg, sp_cfg, opt_cfg,
             losses.append(loss.detach())
             if compress:   # pod p's row of the pod-stacked gradients
                 if stacked is None:
-                    stacked = [g.new_empty((pods, *g.shape)) for g in grads]
+                    stacked = [g.new_empty(
+                        (pods, *g.shape),
+                        dtype=g.dtype if pregen else torch.float32)
+                        for g in grads]
                 for s, g in zip(stacked, grads):
                     s[p].copy_(g)
                 del grads
@@ -128,45 +159,54 @@ def lm_train_step(state, batch, *, cfg, sp_cfg, opt_cfg,
         loss = torch.stack(losses).mean()
     else:
         grads = sgd.pregen_grads(compute, grads)
+    del compute, roots
     new_state, metrics = _update(state, grads, loss, opt_cfg=opt_cfg,
-                                 sp_cfg=sp_cfg, pregen_pack=pregen_pack)
+                                 sp_cfg=sp_cfg, pregen=pregen,
+                                 pregen_pack=pregen_pack)
     if new_err is not None:
         new_state["err"] = new_err
     return new_state, metrics
 
 
-def _update(state, grads, loss, *, opt_cfg, sp_cfg, pregen_pack):
+def _update(state, grads, loss, *, opt_cfg, sp_cfg, pregen, pregen_pack):
     """``sgd.update`` of ``state`` with master-shaped ``grads`` (range
-    ``train/update``): the new state with the next compute tree, and the
-    step's {"loss", "lr"}."""
+    ``train/update``): the new state, with the next compute tree if
+    ``pregen``, and the step's {"loss", "lr"}."""
     with torch.no_grad(), record_function("train/update"):
         new_state, new_compute = sgd.update(
             state_core(state), grads, opt_cfg, sp_cfg,
-            prev_compute=state["compute"], pack=pregen_pack)
-    new_state["compute"] = new_compute
+            prev_compute=state.get("compute"), pregen=pregen,
+            pack=pregen_pack)
+    if pregen:
+        new_state["compute"] = new_compute
     return new_state, {"loss": loss.detach(),
                        "lr": sgd.lr_schedule(opt_cfg, state["step"])}
 
 
 def init_image_train_state(model: CN.ImageModel, sp_cfg, *, seed: int = 0,
-                           device=None, pregen_pack: bool = True):
+                           device=None, pregen: bool = True,
+                           pregen_pack: bool = True):
     """``init_train_state`` for one of the paper's image models: random
     fp32 params of ``model`` from ``seed`` on ``device`` (the card unless
-    another is named), the optimizer state and the pre-generated compute
-    tree."""
+    another is named), the optimizer state and, with ``pregen``, the
+    pre-generated compute tree."""
     return train_state_from_params(CN.init(model, seed=seed, device=device),
-                                   sp_cfg, pregen_pack=pregen_pack)
+                                   sp_cfg, pregen=pregen,
+                                   pregen_pack=pregen_pack)
 
 
 def image_train_step(state, batch, *, model: CN.ImageModel, sp_cfg, opt_cfg,
-                     pregen_pack: bool = True):
-    """One BDWP step of an image model on ``state["compute"]`` and
-    ``batch`` ({"images" (B, H, W, 3), "labels" (B,)}): the forward on
-    the bf16 images, the mean cross-entropy (``convnets.image_loss``),
-    gradients of ``sgd.diff_leaves`` mapped to the master's shape, then
-    ``sgd.update``, which writes the next compute tree.  Returns
-    (new_state, {"loss", "lr"}); consumes ``state``."""
-    compute = state["compute"]
+                     pregen: bool = True, pregen_pack: bool = True):
+    """One step of an image model on ``batch`` ({"images" (B, H, W, 3),
+    "labels" (B,)}): the forward on the bf16 images, the mean
+    cross-entropy (``convnets.image_loss``), gradients of
+    ``sgd.diff_leaves`` mapped to the master's shape, then
+    ``sgd.update``.  With ``pregen`` the model reads
+    ``state["compute"]`` and the update writes the next one; without it
+    the model gets the fp32 master and re-derives its masks (the
+    reference's ``examples/paper_loss_curves.py``).  Returns (new_state,
+    {"loss", "lr"}); consumes ``state``."""
+    compute = state["compute"] if pregen else state["master"]
     roots = sgd.diff_leaves(compute)
     for r in roots:
         r.requires_grad_(True)
@@ -182,7 +222,8 @@ def image_train_step(state, batch, *, model: CN.ImageModel, sp_cfg, opt_cfg,
         for r in roots:
             r.requires_grad_(False)
     return _update(state, sgd.pregen_grads(compute, grads), loss,
-                   opt_cfg=opt_cfg, sp_cfg=sp_cfg, pregen_pack=pregen_pack)
+                   opt_cfg=opt_cfg, sp_cfg=sp_cfg, pregen=pregen,
+                   pregen_pack=pregen_pack)
 
 
 def lm_prefill_step(params, batch, *, cfg, sp_cfg, last_index=None,

@@ -9,8 +9,10 @@ after a resume is fast-forwarded, and the final save is skipped when the
 last periodic save already covered it.
 
 What differs: the step function is a plain callable (``functools.
-partial`` of ``train.step.lm_train_step`` or ``image_train_step``), not
-a step bundle; the card is synchronised by reading the loss.
+partial`` of ``train.step.lm_train_step`` or ``image_train_step``, on
+either dataflow: a legacy state without a compute tree loops and
+checkpoints the same way), not a step bundle; the card is synchronised
+by reading the loss.
 """
 
 from __future__ import annotations

@@ -45,6 +45,14 @@ gradients on the compute tree, then ``sgd.update(pregen=True, pack=True,
 use_pallas=True)`` (interpret-mode Pallas ``fused_update``), jitted;
 the initial state and the losses.
 
+The NAME ``legacy`` gives three steps of the legacy dataflow as
+``examples/paper_loss_curves.py`` composes it (jitted loss and
+gradients on the fp32 master, then ``sgd.update`` with ``pregen=False``,
+jitted), at ``TRAIN_OPT``: ResNet9 (width 16, 4 images of 16 x 16) under
+each of ``METHODS`` and ResNet18 (width 16, 2 images of 32 x 32) under
+2:8 bdwp; the state before each step and after the last, and the
+losses.
+
 Everything comes back pickled as numpy trees (``PregenOp`` leaves keep
 their class).
 """
@@ -230,8 +238,50 @@ def train():
     return out
 
 
+METHODS = ("dense", "srste", "sdgp", "sdwp", "bdwp")
+# (model, method) -> (init, apply, num_classes, batch, image) of the
+# legacy runs
+LEGACY = {
+    **{("resnet9", meth): (
+        lambda k: JC.resnet9_init(k, 10, 16),
+        lambda p, x, sp: JC.resnet9_apply(p, x, sp), 10, 4, 16)
+       for meth in METHODS},
+    ("resnet18", "bdwp"): (
+        lambda k: JC.resnet_init(k, 18, 16, 16),
+        lambda p, x, sp: JC.resnet_apply(p, x, 18, sp, 16), 16, 2, 32),
+}
+
+
+def legacy():
+    out = {}
+    for (name, method), (init, apply, classes, batch, image) in \
+            LEGACY.items():
+        sp = SparsityConfig(n=2, m=8, method=method)
+        state = JSGD.init_state(jax.jit(init)(jax.random.PRNGKey(0)))
+        run = {"states": [host(state)], "losses": []}
+
+        @jax.jit
+        def step(state, x, y, apply=apply, sp=sp):
+            def f(master):
+                return loss_of(apply(master, x.astype(jnp.bfloat16), sp), y)
+            loss, g = jax.value_and_grad(f)(state["master"])
+            new, _ = JSGD.update(state, g, TRAIN_OPT, sp)
+            return new, loss
+
+        icfg = JD.ImageTaskConfig(image=image, num_classes=classes,
+                                  batch=batch)
+        for i in range(TRAIN_STEPS):
+            x, y = JD.image_batch(icfg, i)
+            state, loss = step(state, jnp.asarray(x), jnp.asarray(y))
+            run["states"].append(host(state))
+            run["losses"].append(float(loss))
+        out[f"{name}/{method}"] = run
+    return out
+
+
 if __name__ == "__main__":
     dst, names = sys.argv[1], sys.argv[2:]
-    result = {n: train() if n == "train" else model(n) for n in names}
+    runs = {"train": train, "legacy": legacy}
+    result = {n: runs[n]() if n in runs else model(n) for n in names}
     with open(dst, "wb") as f:
         pickle.dump(result, f)

@@ -43,10 +43,8 @@ both.
 5. In the port, the packed FF (through ``ops.nm_spmm``) and the
    unpacked FF give the same losses: on the CPU both are fp32 products
    of the same bf16 values, rounded once, so within 1e-6.
-6. Shared-granularity and transposable configs are refused, not trained
-   with element-wise masks: ``sgd.update`` raises before it touches a
-   leaf, and ``convert.train_state_from_jax`` raises on a reference
-   state whose compute tree holds such operands.
+Shared-granularity and transposable masks and the legacy dataflow are
+held in ``test_torch_dataflow.py``.
 """
 
 import functools
@@ -296,42 +294,3 @@ def test_packed_and_unpacked_ff_agree(jstate):
     packed = _port_run(jstate, True, 2)
     unpacked = _port_run(jstate, False, 2)
     np.testing.assert_allclose(packed, unpacked, rtol=0, atol=1e-6)
-
-
-UNPORTED_MASKS = {"shared": dict(granularity="shared"),
-                  "transposable": dict(transposable=True)}
-
-
-@pytest.mark.parametrize("kind", sorted(UNPORTED_MASKS))
-def test_update_refuses_unported_masks(kind):
-    rng = np.random.default_rng(3)
-    master = {"blocks": [{"ffn": {"w_gate": {"w": torch.from_numpy(
-        rng.standard_normal((32, 128)).astype(np.float32))}}}],
-        "final_norm": {"scale": torch.ones(32)}}
-    state = TSGD.init_state(master)
-    grads = TSGD.tree_map(lambda _, w: torch.ones_like(w), master)
-    before = [w.clone() for w in TSGD.tree_leaves(state["master"])]
-    with pytest.raises(NotImplementedError, match="element-granularity"):
-        TSGD.update(state, grads, T_OPT,
-                    SparsityConfig(n=2, m=8, **UNPORTED_MASKS[kind]))
-    for a, b in zip(TSGD.tree_leaves(state["master"]), before):
-        assert torch.equal(a, b)
-    # with no pre-generated site in the tree the config is not refused
-    dense = {"final_norm": {"scale": torch.ones(32)}}
-    TSGD.update(TSGD.init_state(dense), {"final_norm": {
-        "scale": torch.ones(32)}}, T_OPT,
-        SparsityConfig(n=2, m=8, **UNPORTED_MASKS[kind]))
-
-
-@pytest.mark.parametrize("kind", sorted(UNPORTED_MASKS))
-def test_train_state_from_jax_refuses_unported_masks(kind):
-    rng = np.random.default_rng(4)
-    master = {"blocks": {"ffn": {"w_gate": {"w": jnp.asarray(
-        rng.standard_normal((1, 32, 128)).astype(np.float32))}}},
-        "final_norm": {"scale": jnp.ones((32,), jnp.float32)}}
-    compute = JSGD.pregen_tree(master, JSparsity(n=2, m=8,
-                                                 **UNPORTED_MASKS[kind]))
-    state = {"master": _np(master), "momentum": _np(master),
-             "compute": _np(compute), "step": np.int32(0)}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 2"):
-        convert.train_state_from_jax(state, device="cpu")
