@@ -183,14 +183,22 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 and not) and the legacy compressed step (2 pods): step-0
                 compute trees bitwise, losses within SMALL_LOSS_ATOL,
                 one fused_update launch a step for element srste/bdwp
-                pre-generation and none for the others;
+                pre-generation and none for the others; then on the
+                legacy dataflow under each of the five methods phase
+                19's small ResNet9, three steps each from a copy of the
+                CPU run's state (loss within PAPER_SMALL_LOSS_ATOL, the
+                update given the CPU's gradients bitwise), and phase
+                19's ResNet18 logits, gradients (but for sdgp, whose
+                backward selects on the gradient: one flip parts the
+                rest) and its 20 convs one by one, card vs CPU;
  22. train transposable  qwen3-8b TRAIN, 2:8 bdwp with transposable
                 masks, packed: five timed steps with exactly 2 x 7 x 8
                 nm_spmm launches and no fused_update launch a step (the
                 reference keeps transposable sites off the fused kernel),
                 a profiled sixth; layer 0's operands against
-                nm_mask_transposable of its new master; the mask
-                selection's time over the 56 sites;
+                nm_mask_transposable of a CPU copy of its new master
+                (a leading 512 x 2048 block of each projection); the
+                mask selection's time over the 56 sites;
  23. train shared  the same with shared-granularity masks (tile 128),
                 pre-generated and unpacked: no nm_spmm or fused_update
                 launch; then pack_tree_shared on the trained master and
@@ -2387,6 +2395,41 @@ def _grads_close(a, b, rtol):
     return worst <= rtol, worst
 
 
+def _resnet18_card_vs_cpu(dev, seed, sp, label, whole_grads=True):
+    """ResNet18 (width 8) on the MaskedOp path, from the fp32 master at
+    init on 4 images of 32 px: logits and the gradients of every float
+    leaf on the card against the CPU (printed and not held without
+    ``whole_grads``)."""
+    from repro_torch.data import synthetic as D
+    from repro_torch.models import convnets as CN
+    from repro_torch.optim import sgd
+
+    model = CN.ImageModel("resnet18", 16, 8)
+    master = sgd.init_state(CN.init(model, seed=seed, device="cpu"))["master"]
+    images, labels = D.image_batch(D.ImageTaskConfig(
+        image=32, num_classes=16, batch=4, seed=seed), 0, device="cpu")
+    out = {}
+    for d in ("cpu", dev):
+        tree = sgd.tree_map(lambda _, t: t.to(d, copy=True), master)
+        leaves = [t.requires_grad_(True) for t in sgd.tree_leaves(tree)
+                  if t.is_floating_point()]
+        logits = CN.apply(model, tree, images.to(d, torch.bfloat16), sp)
+        grads = torch.autograd.grad(CN.image_loss(logits, labels.to(d)),
+                                    leaves, allow_unused=True,
+                                    materialize_grads=True)
+        out[d] = (logits.detach(), list(grads))
+    ok_l, err_l = _grads_close([out[dev][0]], [out["cpu"][0]],
+                               PAPER_LOGIT_RTOL)
+    ok_g, err_g = _grads_close(out[dev][1], out["cpu"][1], PAPER_GRAD_RTOL)
+    print(f"  {label}: logits {err_l:.3e} of their largest (tol "
+          f"{PAPER_LOGIT_RTOL}), gradients worst leaf {err_g:.3e} ("
+          + (f"tol {PAPER_GRAD_RTOL}" if whole_grads else "not held")
+          + "), card vs CPU")
+    check(ok_l and (ok_g or not whole_grads),
+          f"small {label}: card and CPU disagree")
+    return master
+
+
 def phase_paper_small(dev, seed):
     """ResNet9 (width 16) and a 2-block ViT: three steps on the card and
     on the CPU from the same params and batches; ResNet18/50 (width 8)
@@ -2430,27 +2473,9 @@ def phase_paper_small(dev, seed):
             check(math.isfinite(loss[dev]), f"small {model.name}: non-finite")
             check(diff <= PAPER_SMALL_LOSS_ATOL[i],
                   f"small {model.name}: step {i} losses disagree")
-    model = CN.ImageModel("resnet18", 16, 8)
-    master = sgd.init_state(CN.init(model, seed=seed, device="cpu"))["master"]
-    images, labels = D.image_batch(D.ImageTaskConfig(
+    _resnet18_card_vs_cpu(dev, seed, sp, "resnet18 (MaskedOp)")
+    images, _ = D.image_batch(D.ImageTaskConfig(
         image=32, num_classes=16, batch=4, seed=seed), 0, device="cpu")
-    out = {}
-    for d in ("cpu", dev):
-        tree = sgd.tree_map(lambda _, t: t.to(d, copy=True), master)
-        leaves = [t.requires_grad_(True) for t in sgd.tree_leaves(tree)
-                  if t.is_floating_point()]
-        logits = CN.apply(model, tree, images.to(d, torch.bfloat16), sp)
-        grads = torch.autograd.grad(CN.image_loss(logits, labels.to(d)),
-                                    leaves, allow_unused=True,
-                                    materialize_grads=True)
-        out[d] = (logits.detach(), list(grads))
-    ok_l, err_l = _grads_close([out[dev][0]], [out["cpu"][0]],
-                               PAPER_LOGIT_RTOL)
-    ok_g, err_g = _grads_close(out[dev][1], out["cpu"][1], PAPER_GRAD_RTOL)
-    print(f"  resnet18 (MaskedOp): logits {err_l:.3e} of their largest (tol "
-          f"{PAPER_LOGIT_RTOL}), gradients worst leaf {err_g:.3e} (tol "
-          f"{PAPER_GRAD_RTOL}), card vs CPU")
-    check(ok_l and ok_g, "small resnet18: card and CPU disagree")
     # ResNet50's 53 convs one by one, on the inputs of its CPU forward:
     # the whole model at this width and batch is chaotic (50 batch
     # norms), card and CPU logits differ by about 2.5%
@@ -2458,6 +2483,26 @@ def phase_paper_small(dev, seed):
     master = sgd.init_state(CN.init(model, seed=seed, device="cpu"))["master"]
     calls = _conv_calls(model, master, images.to(torch.bfloat16), sp)
     gen = torch.Generator().manual_seed(seed)
+    worst, kinds = _convs_card_vs_cpu(dev, calls, sp, gen)
+    pool_in = torch.randn((4, 17, 16, 8), generator=gen).to(torch.bfloat16)
+    pooled = {d: CN._max_pool(pool_in.to(d), 3, 2, "SAME") for d in
+              ("cpu", dev)}
+    print(f"  resnet50 (MaskedOp): {len(calls)} convs (kernel, stride) "
+          f"{sorted(kinds)}, card vs CPU y/dx/dw worst {worst:.3e} of the "
+          f"largest (tol {2.0 ** -7:.3e}); SAME 3x3/2 max-pool of a 17x16 "
+          f"input bitwise: {bits_equal(pooled[dev].cpu(), pooled['cpu'])}")
+    check(len(calls) == 53 and worst <= 2.0 ** -7,
+          "small resnet50: a conv differs between card and CPU")
+    check(bits_equal(pooled[dev].cpu(), pooled["cpu"]),
+          "small: SAME max-pool differs between card and CPU")
+
+
+def _convs_card_vs_cpu(dev, calls, sp, gen):
+    """Each conv of ``calls`` alone on the card and on the CPU, its
+    output cotangent drawn from ``gen``: the worst |y|, |dx| or |dw|
+    difference over its largest, and the (kernel, stride) kinds seen."""
+    from repro_torch.models import convnets as CN
+
     worst, kinds = 0.0, set()
     for name, w, x, stride in calls:
         g = None
@@ -2474,17 +2519,7 @@ def phase_paper_small(dev, seed):
                 b.float().abs().max())
             worst = max(worst, err)
         kinds.add((w.shape[0], stride))
-    pool_in = torch.randn((4, 17, 16, 8), generator=gen).to(torch.bfloat16)
-    pooled = {d: CN._max_pool(pool_in.to(d), 3, 2, "SAME") for d in
-              ("cpu", dev)}
-    print(f"  resnet50 (MaskedOp): {len(calls)} convs (kernel, stride) "
-          f"{sorted(kinds)}, card vs CPU y/dx/dw worst {worst:.3e} of the "
-          f"largest (tol {2.0 ** -7:.3e}); SAME 3x3/2 max-pool of a 17x16 "
-          f"input bitwise: {bits_equal(pooled[dev].cpu(), pooled['cpu'])}")
-    check(len(calls) == 53 and worst <= 2.0 ** -7,
-          "small resnet50: a conv differs between card and CPU")
-    check(bits_equal(pooled[dev].cpu(), pooled["cpu"]),
-          "small: SAME max-pool differs between card and CPU")
+    return worst, kinds
 
 
 def _conv_calls(model, tree, images, sp):
@@ -2623,6 +2658,9 @@ MASK_KINDS = {None: {}, "shared": dict(granularity="shared"),
 TRAIN_FLOWS = {"transposable": ("transposable", True, True),
                "shared": ("shared", True, False),
                "legacy": (None, False, True)}
+# phases 22-23: layer 0's transposable operands are checked on this
+# leading block (rows, columns) of each projection
+CHECK_BLOCK = (512, 2048)
 # phase 25: (model, method) on the legacy dataflow at Table I's batch
 PAPER_LEGACY = ([("resnet9", m) for m in ("dense", "srste", "sdgp", "sdwp",
                                           "bdwp")]
@@ -2715,7 +2753,105 @@ def phase_dataflow_small(dev, seed):
               f"dataflow {label}: non-finite loss")
         check(all(x <= t for x, t in zip(diffs, SMALL_LOSS_ATOL)),
               f"dataflow {label}: losses disagree")
+    _paper_legacy_small(dev, seed)
     return worst, sync
+
+
+def _paper_legacy_small(dev, seed):
+    """Phase 21's image part, the legacy dataflow (the fp32 master into
+    masked_conv, the conv decay masks re-derived in the update) under
+    each of Fig. 4's five methods.  Phase 19's small ResNet9, three
+    steps, each on the card from a copy of the CPU run's state before
+    it: the card's whole step runs (no nm_spmm or fused_update launch,
+    no compute tree), its loss within PAPER_SMALL_LOSS_ATOL of the CPU's,
+    and the update of that state given the CPU's gradients bitwise the
+    CPU's update.  (Free-running, this ResNet9 does not hold a
+    trajectory: a 1e-6 relative nudge of its initial weights moves the
+    srste step-2 loss on the CPU by 2.9e-2; PERF.md, PR 20.)  Then phase
+    19's ResNet18 check under each method: logits, the gradients (not
+    held for SDGP) and each of its 20 convs alone."""
+    import functools
+
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.data import synthetic as D
+    from repro_torch.kernels import fused_update as KF
+    from repro_torch.kernels import nm_spmm as KS
+    from repro_torch.models import convnets as CN
+    from repro_torch.optim import sgd
+    from repro_torch.train import step as ST
+
+    model = CN.ImageModel("resnet9", 10, 16)
+    opt = sgd.SGDConfig(lr=0.02, warmup_steps=2, total_steps=50)
+    params = CN.init(model, seed=seed, device="cpu")
+    icfg = D.ImageTaskConfig(image=32, num_classes=10,
+                             batch=PAPER_SMALL_ROWS, seed=seed)
+
+    def to(state, d):
+        return {"master": sgd.tree_map(lambda _, t: t.to(d, copy=True),
+                                       state["master"]),
+                "momentum": sgd.tree_map(lambda _, t: t.to(d, copy=True),
+                                         state["momentum"]),
+                "step": state["step"]}
+
+    methods = ("dense", "srste", "sdgp", "sdwp", "bdwp")
+    for meth in methods:
+        sp = SparsityConfig(n=2, m=8, method=meth)
+        label = f"resnet9 {meth} legacy"
+        cpu = ST.train_state_from_params(
+            sgd.tree_map(lambda _, t: t.clone(), params), sp, pregen=False)
+        step = functools.partial(ST.image_train_step, model=model,
+                                 sp_cfg=sp, opt_cfg=opt, pregen=False)
+        diffs, losses = [], []
+        for i in range(3):
+            images, labels = D.image_batch(icfg, i, device="cpu")
+            batch = {"images": images, "labels": labels}
+            c0 = (KS.launches, KF.launches)
+            card, met = step(to(cpu, dev), {k: v.to(dev)
+                                            for k, v in batch.items()})
+            check((KS.launches, KF.launches) == c0,
+                  f"{label}: nm_spmm or fused_update launched")
+            check(_on_device(card, dev) and "compute" not in card,
+                  f"{label}: the card state moved or holds a compute tree")
+            loss, grads = ST.image_loss_and_grads(cpu["master"], batch,
+                                                  model=model, sp_cfg=sp)
+            same = to(cpu, dev)
+            g_dev = sgd.tree_map(lambda _, t: t.to(dev, copy=True), grads)
+            upd, _ = sgd.update(same, g_dev, opt, sp, pregen=False)
+            cpu, _ = sgd.update(cpu, grads, opt, sp, pregen=False)
+            check(all(bits_equal(a.cpu(), b) for a, b in zip(
+                sgd.tree_leaves({k: upd[k] for k in ("master", "momentum")}),
+                sgd.tree_leaves({k: cpu[k] for k in ("master", "momentum")})
+            )), f"{label}: step {i}'s update given the same gradients "
+                "differs on the card")
+            losses.append(float(met["loss"]))
+            diffs.append(abs(losses[-1] - float(loss)))
+        print(f"  {label:26s} losses card "
+              + " ".join(f"{x:.5f}" for x in losses) + "  |d| "
+              + " ".join(f"{x:.2e}" for x in diffs)
+              + f" (tol {PAPER_SMALL_LOSS_ATOL}, each step from the CPU's "
+              "state); the update given the CPU's gradients bitwise")
+        check(all(math.isfinite(x) for x in losses),
+              f"{label}: non-finite loss")
+        check(all(x <= t for x, t in zip(diffs, PAPER_SMALL_LOSS_ATOL)),
+              f"{label}: losses disagree")
+    images, _ = D.image_batch(D.ImageTaskConfig(
+        image=32, num_classes=16, batch=4, seed=seed), 0, device="cpu")
+    for meth in methods:
+        sp = SparsityConfig(n=2, m=8, method=meth)
+        # SDGP's backward selects on the gradient itself: a one-ulp
+        # difference flips a selection, and the model's gradients part
+        # upstream of it (PERF.md, PR 20); its convs are held one by one
+        master = _resnet18_card_vs_cpu(dev, seed, sp,
+                                       f"resnet18 {meth} legacy",
+                                       whole_grads=not sp.prunes_bp_grads())
+        calls = _conv_calls(CN.ImageModel("resnet18", 16, 8), master,
+                            images.to(torch.bfloat16), sp)
+        worst, _ = _convs_card_vs_cpu(dev, calls, sp,
+                                      torch.Generator().manual_seed(seed))
+        print(f"    its {len(calls)} convs one by one: y/dx/dw worst "
+              f"{worst:.3e} of the largest (tol {2.0 ** -7:.3e})")
+        check(worst <= 2.0 ** -7,
+              f"resnet18 {meth} legacy: a conv differs between card and CPU")
 
 
 def _time_transposable_masks(master, sp):
@@ -2732,34 +2868,50 @@ def _time_transposable_masks(master, sp):
     return 1e3 * (time.perf_counter() - t0), len(views)
 
 
-def _check_layer0(state, sp, kind, label):
-    """Layer 0's stored operands against the masks of its new master."""
+def _check_layer0(state, sp, kind, label, dev):
+    """Layer 0's stored operands, written on the card, against the masks
+    that the plain selection gives on a CPU copy of its new master.  A
+    transposable mask is checked on the leading CHECK_BLOCK rows and
+    columns of each projection (its m x m tiles are independent, and the
+    CPU selection takes about 0.4 us an element)."""
     from repro_torch.core import sparsity as S
 
     layer = state["compute"]["blocks"][0]
     master = state["master"]["blocks"][0]
     for part, name in PROJ_PATHS:
         op, w = layer[part][name]["w"], master[part][name]["w"]
+        check(op.bp.device == w.device == torch.device(dev),
+              f"{label}: layer 0's state left the card")
+        rows, cols = (CHECK_BLOCK if kind == "transposable"
+                      else tuple(w.shape))
+        packed = rows * sp.n // sp.m
+
+        def cpu(t, r=rows):
+            return None if t is None else t[:r, :cols].cpu()
+
+        w, bp16, mask = cpu(w), cpu(op.bp), cpu(op.mask)
         if kind == "transposable":
             tm = S.nm_mask_transposable(w, sp.n, sp.m)
             bp = torch.where(tm, w, 0.0).to(torch.bfloat16)
-            ok = torch.equal(op.mask, tm) and bits_equal(op.bp, bp) \
+            ok = torch.equal(mask, tm) and bits_equal(bp16, bp) \
                 and op.ff is None
             if op.is_packed:
                 vals, idx = S.nm_pack_from_mask(bp, tm, sp.n, sp.m, axis=0)
-                ok = ok and bits_equal(op.vals, vals) and torch.equal(
-                    op.idx, idx)
+                ok = ok and bits_equal(cpu(op.vals, packed), vals) \
+                    and torch.equal(cpu(op.idx, packed), idx)
         else:
             ffm = S.nm_mask_shared(w, sp.n, sp.m, 0, 1, sp.tile)
             bpm = S.nm_mask_shared(w, sp.n, sp.m, 1, 0, sp.tile)
-            ok = (torch.equal(op.mask, ffm) and bits_equal(
-                op.ff, torch.where(ffm, w, 0.0).to(torch.bfloat16))
-                and bits_equal(op.bp, torch.where(bpm, w, 0.0).to(
+            ok = (torch.equal(mask, ffm) and bits_equal(
+                cpu(op.ff), torch.where(ffm, w, 0.0).to(torch.bfloat16))
+                and bits_equal(bp16, torch.where(bpm, w, 0.0).to(
                     torch.bfloat16)) and not op.is_packed)
-        check(ok, f"{label}: layer 0 {name}'s operands != the masks of its "
-              "new master")
+        check(ok, f"{label}: layer 0 {name}'s operands != the masks of a "
+              "CPU copy of its new master")
     print(f"  layer 0: every projection's stored operands == the {kind} "
-          "masks of its new fp32 master")
+          "masks of a CPU copy of its new fp32 master"
+          + (" (leading {} x {} block)".format(*CHECK_BLOCK)
+             if kind == "transposable" else ""))
 
 
 def _shared_pack_kept_mass(state, sp, dev):
@@ -2871,7 +3023,7 @@ def phase_train_flow(dev, seed, flow):
            "launches_per_step": per_step, "max_memory_allocated": peak,
            "profile": prof}
     if pregen:
-        _check_layer0(state, sp, kind, f"train {flow}")
+        _check_layer0(state, sp, kind, f"train {flow}", dev)
     if kind == "transposable":
         mask_ms, sites = _time_transposable_masks(state["master"], sp)
         upd = prof["parts"].get("train/update", {})
@@ -3080,7 +3232,8 @@ def main(argv=None) -> int:
     paper = phase_paper_train(dev, SEED)
     torch.cuda.empty_cache()
     print("[21] SMOKE-size training, every method on both dataflows, shared "
-          "and transposable masks, the legacy compressed step: card vs CPU")
+          "and transposable masks, the legacy compressed step; legacy "
+          "ResNet9: card vs CPU")
     _, legacy_sync = phase_dataflow_small(dev, SEED)
     flows = {}
     for num, flow in ((22, "transposable"), (23, "shared"), (24, "legacy")):

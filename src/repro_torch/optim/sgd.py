@@ -17,8 +17,10 @@ becomes its bf16 copy.  With ``pregen=False`` (the legacy dataflow,
 whose FF and BP re-derive their masks inside the model) every leaf takes
 the elementwise path, the decay mask is ``nm_mask`` of the pre-update
 master along the FF axis (the BP axis for sdwp) whatever the
-granularity, as in the reference, and the returned tree is the plain
-bf16 cast of the new master.
+granularity, as in the reference, and no compute tree is returned: the
+reference's is the plain bf16 cast of the new master, which its step
+drops and the next step casts again (``train.step`` casts once, at the
+step that reads it).
 
 The fused path: the element-granularity srste/bdwp sites of a
 pre-generating step are updated together by
@@ -245,9 +247,10 @@ def update(state, grads, opt_cfg: SGDConfig, sp_cfg: SparsityConfig, *,
     SR-STE decay uses the mask stored in ``prev_compute`` (the one FF/BP
     just consumed; re-derived from master where there is none) and the
     compute tree is the next step's pre-generated operands; without it
-    the decay mask is re-derived from master and the compute tree is the
-    bf16 cast of the new master.  Master and momentum, and the fp32
-    gradients of non-site leaves, are updated in place.
+    the decay mask is re-derived from master and the compute tree is
+    None (the reference's would be the bf16 cast of the new master).
+    Master and momentum, and the fp32 gradients of non-site leaves, are
+    updated in place.
     """
     lr = float(lr_schedule(opt_cfg, state["step"]))
     n, m = sp_cfg.n, sp_cfg.m
@@ -297,6 +300,8 @@ def update(state, grads, opt_cfg: SGDConfig, sp_cfg: SparsityConfig, *,
             g.add_(torch.where(mask, 0.0, w) * sp_cfg.lam)
         v.mul_(opt_cfg.momentum).add_(g)
         w.sub_(v * lr)
+        if not pregen:
+            return w, v, None
         comp = _pregen_leaf(w, sp_cfg, pack) if site else w.to(torch.bfloat16)
         return w, v, comp
 
@@ -323,4 +328,4 @@ def update(state, grads, opt_cfg: SGDConfig, sp_cfg: SparsityConfig, *,
     master, momentum, compute = (tree_map(lambda _, o, i=i: o[i], outs)
                                  for i in range(3))
     return ({"master": master, "momentum": momentum,
-             "step": state["step"] + 1}, compute)
+             "step": state["step"] + 1}, compute if pregen else None)

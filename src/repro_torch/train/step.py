@@ -9,7 +9,8 @@ sync), ``init_train_state``, ``state_core``, and the serving steps
 are the same step for ``models.convnets`` (ResNet9/18/50, VGG19, ViT),
 which the reference composes inline (``sgd.pregen_tree``,
 ``convnets.*_apply``, the loss of ``examples/paper_loss_curves.py``,
-``sgd.update``).
+``sgd.update``); ``image_loss_and_grads`` is its forward and backward
+alone.
 
 Both dataflows of the reference:
   * ``pregen=True``: FF and BP read the operands the previous update
@@ -206,14 +207,24 @@ def image_train_step(state, batch, *, model: CN.ImageModel, sp_cfg, opt_cfg,
     the model gets the fp32 master and re-derives its masks (the
     reference's ``examples/paper_loss_curves.py``).  Returns (new_state,
     {"loss", "lr"}); consumes ``state``."""
-    compute = state["compute"] if pregen else state["master"]
-    roots = sgd.diff_leaves(compute)
+    loss, grads = image_loss_and_grads(
+        state["compute"] if pregen else state["master"], batch, model=model,
+        sp_cfg=sp_cfg)
+    return _update(state, grads, loss, opt_cfg=opt_cfg, sp_cfg=sp_cfg,
+                   pregen=pregen, pregen_pack=pregen_pack)
+
+
+def image_loss_and_grads(tree, batch, *, model: CN.ImageModel, sp_cfg):
+    """The forward and backward of ``image_train_step`` on ``tree`` (a
+    compute tree, or the fp32 master on the legacy dataflow): (loss,
+    master-shaped gradients of ``sgd.diff_leaves(tree)``)."""
+    roots = sgd.diff_leaves(tree)
     for r in roots:
         r.requires_grad_(True)
     try:
         with record_function("train/forward"):
-            logits = CN.apply(model, compute,
-                             batch["images"].to(torch.bfloat16), sp_cfg)
+            logits = CN.apply(model, tree,
+                              batch["images"].to(torch.bfloat16), sp_cfg)
             loss = CN.image_loss(logits, batch["labels"])
         with record_function("train/backward"):
             grads = torch.autograd.grad(loss, roots, allow_unused=True,
@@ -221,9 +232,7 @@ def image_train_step(state, batch, *, model: CN.ImageModel, sp_cfg, opt_cfg,
     finally:
         for r in roots:
             r.requires_grad_(False)
-    return _update(state, sgd.pregen_grads(compute, grads), loss,
-                   opt_cfg=opt_cfg, sp_cfg=sp_cfg, pregen=pregen,
-                   pregen_pack=pregen_pack)
+    return loss.detach(), sgd.pregen_grads(tree, grads)
 
 
 def lm_prefill_step(params, batch, *, cfg, sp_cfg, last_index=None,

@@ -50,8 +50,8 @@ The NAME ``legacy`` gives three steps of the legacy dataflow as
 gradients on the fp32 master, then ``sgd.update`` with ``pregen=False``,
 jitted), at ``TRAIN_OPT``: ResNet9 (width 16, 4 images of 16 x 16) under
 each of ``METHODS`` and ResNet18 (width 16, 2 images of 32 x 32) under
-2:8 bdwp; the state before each step and after the last, and the
-losses.
+2:8 bdwp; the state before each step and after the last, the losses,
+and each step's master-shaped gradients.
 
 Everything comes back pickled as numpy trees (``PregenOp`` leaves keep
 their class).
@@ -258,7 +258,7 @@ def legacy():
             LEGACY.items():
         sp = SparsityConfig(n=2, m=8, method=method)
         state = JSGD.init_state(jax.jit(init)(jax.random.PRNGKey(0)))
-        run = {"states": [host(state)], "losses": []}
+        run = {"states": [host(state)], "losses": [], "grads": []}
 
         @jax.jit
         def step(state, x, y, apply=apply, sp=sp):
@@ -266,15 +266,16 @@ def legacy():
                 return loss_of(apply(master, x.astype(jnp.bfloat16), sp), y)
             loss, g = jax.value_and_grad(f)(state["master"])
             new, _ = JSGD.update(state, g, TRAIN_OPT, sp)
-            return new, loss
+            return new, loss, g
 
         icfg = JD.ImageTaskConfig(image=image, num_classes=classes,
                                   batch=batch)
         for i in range(TRAIN_STEPS):
             x, y = JD.image_batch(icfg, i)
-            state, loss = step(state, jnp.asarray(x), jnp.asarray(y))
+            state, loss, g = step(state, jnp.asarray(x), jnp.asarray(y))
             run["states"].append(host(state))
             run["losses"].append(float(loss))
+            run["grads"].append(host(g))
         out[f"{name}/{method}"] = run
     return out
 

@@ -12,7 +12,7 @@ through ``convert``.
    ``layernorm_apply`` is within one bf16 ulp (2^-8 relative) of the
    largest output: both sum fp32 statistics in other orders and round
    once.
-3. The conv Functions (masked bdwp and sdgp, pregen, packed pregen) at
+3. The conv Functions (masked bdwp, sdgp and sdwp, pregen, packed pregen) at
    strides 1 and 2, odd and even sizes, kernels 1, 3 and 7: forward,
    dgrad and wgrad within 2^-7 of the largest magnitude, as the linear
    cores in ``test_torch_train.py`` (an fp32 sum rounded once to bf16,
@@ -174,6 +174,7 @@ def test_layernorm_matches_reference(dtype):
 # a stride-1 and a stride-2 case
 CONV_CASES = [("masked", 3, 1, 7), ("masked", 3, 2, 9), ("masked", 3, 2, 8),
               ("masked", 1, 2, 8), ("masked", 7, 2, 11), ("sdgp", 3, 2, 8),
+              ("sdwp", 3, 2, 8),
               ("pregen", 3, 1, 7), ("pregen", 7, 2, 11), ("packed", 3, 1, 7),
               ("packed", 3, 2, 8)]
 
@@ -188,9 +189,9 @@ def test_conv_functions_match_reference(core, kh, stride, size):
          * (kh * kh * cin) ** -0.5).astype(np.float32)
     jx = jnp.asarray(x, jnp.bfloat16)
     tx = _t(jx).requires_grad_()
-    if core in ("masked", "sdgp"):
+    if core in ("masked", "sdgp", "sdwp"):
         jcfg = J_SP if core == "masked" else JSparsity(n=2, m=8,
-                                                      method="sdgp")
+                                                      method=core)
         tcfg = SparsityConfig(n=2, m=8, method=jcfg.method)
         jw = jnp.asarray(w)
 
