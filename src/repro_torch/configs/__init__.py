@@ -1,2 +1,59 @@
-"""Model configs of the port (own copies of ``src/repro/configs/``:
-qwen3-8b and the paper's Table I models so far)."""
+"""Architecture registry of the port: ``--arch <id>`` -> ArchSpec.
+
+The port's own copy of ``src/repro/configs/__init__.py``.  ``ARCHS``
+has the reference's ten arch ids as keys.  The five dense LMs map to
+their ``ArchSpec``; an arch whose model is not ported yet maps to an
+``Unported`` entry that names the ROADMAP queue 1 item porting it, and
+``get_arch`` raises ``NotImplementedError`` for it (never a stand-in).
+``all_cells`` yields the (arch, shape) cells of the ported archs.
+The paper's Table I image models are in ``paper_models``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.configs import (gemma3_12b, glm4_9b, internvl2_26b,
+                                 qwen2_5_32b, qwen3_8b)
+from repro_torch.configs.base import SHAPES, ArchSpec, Shape
+
+
+@dataclasses.dataclass(frozen=True)
+class Unported:
+    arch_id: str
+    item: str        # the ROADMAP queue 1 item that ports it
+
+
+ARCHS = {
+    **{a.ARCH.arch_id: a.ARCH for a in (qwen3_8b, qwen2_5_32b, glm4_9b,
+                                         gemma3_12b, internvl2_26b)},
+    "whisper-large-v3": Unported("whisper-large-v3",
+                                 "item 6 (encoder-decoder)"),
+    "granite-moe-1b-a400m": Unported("granite-moe-1b-a400m", "item 3 (MoE)"),
+    "deepseek-v2-lite-16b": Unported("deepseek-v2-lite-16b",
+                                     "items 3-4 (MoE, MLA)"),
+    "mamba2-370m": Unported("mamba2-370m", "item 5 (SSM)"),
+    "hymba-1.5b": Unported("hymba-1.5b", "item 5 (hybrid SSM)"),
+}
+
+
+def get_arch(arch_id: str) -> ArchSpec:
+    if arch_id not in ARCHS:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}")
+    arch = ARCHS[arch_id]
+    if isinstance(arch, Unported):
+        raise NotImplementedError(
+            f"{arch_id} is not ported yet: ROADMAP queue 1, {arch.item}")
+    return arch
+
+
+def all_cells():
+    """Every (arch, shape) pair of the ported archs."""
+    for arch in ARCHS.values():
+        if isinstance(arch, ArchSpec):
+            for shape in SHAPES.values():
+                yield arch, shape
+
+
+__all__ = ["ARCHS", "SHAPES", "ArchSpec", "Shape", "Unported", "get_arch",
+           "all_cells"]

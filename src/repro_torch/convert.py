@@ -14,6 +14,11 @@ needs neither JAX nor ``repro``:
     do HWIO conv weights and their pre-generated operands (a
     transposable one may hold ``bp`` alone, or ``bp`` and the packed
     pair);
+  * a QKV bias (``{"w", "b"}`` leaf-dicts, the bias stacked (L, F))
+    becomes each layer's (F,) bias; a tied tree (no ``lm_head``) stays
+    tied; the layer ``pattern`` of a config does not enter the tree
+    (every block has the same leaves), so gemma3's stacked blocks
+    convert as any other;
   * integer leaves (ResNet's ``_meta``) keep their dtype;
   * a packed operand (the reference's ``PackedOp``, recognised by its
     ``vals``, ``idx``, ``idx_bits`` and ``cfg`` attributes) becomes the

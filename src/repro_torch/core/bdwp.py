@@ -7,7 +7,9 @@ and shared-pattern serving packing (``shared_ff_pack``,
 ``pack_tree_shared``), with the same rules.  Not ported: the bare-array
 MoE expert sites (``bare_nm_leaf``; MoE is not ported, so every site is
 a ``.../w`` leaf), sharding specs, and the deprecated ``nm_linear`` /
-``packed_shared_apply`` shims.
+``packed_shared_apply`` shims.  A bias (``.../b``, 1-D) is never pruned,
+packed or a site; a tied head has no ``lm_head`` leaf, and its table is
+``embed``'s, excluded by name.
 """
 
 from __future__ import annotations

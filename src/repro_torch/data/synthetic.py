@@ -12,8 +12,8 @@ torch indexing wants; images fp32 NHWC) on an explicit device, the card
 unless the caller names another; the class prototypes are drawn once
 per task and cached (the same bits); ``image_stream`` is the image
 counterpart of ``lm_stream`` (the reference's image callers loop over
-``image_batch`` themselves); the modality prefix and the
-encoder-decoder stream are not ported.
+``image_batch`` themselves); the encoder-decoder stream is not
+ported.
 """
 
 from __future__ import annotations
@@ -52,19 +52,31 @@ def token_batch(cfg: TokenTaskConfig, step: int):
 
 
 def lm_stream(vocab: int, batch: int, seq: int, *, device=None,
-              seed: int = 0, start: int = 0):
+              seed: int = 0, start: int = 0, prefix: int = 0,
+              d_model: int = 0):
     """An iterator of (step, {"tokens", "labels"}) with (batch, seq)
-    int64 tensors on ``device`` (the card unless another is named)."""
+    int64 tensors on ``device`` (the card unless another is named).
+    ``prefix`` > 0 adds "prefix_embeds", (batch, prefix, d_model) bf16
+    stub-frontend embeddings: normals from ``PCG64([seed + 7, step])``
+    rounded to bf16, the reference's bits."""
     device = resolve_device(device)
     cfg = TokenTaskConfig(vocab=vocab, seq=seq, batch=batch, seed=seed)
-    return _stream(cfg, device, start)
+    return _stream(cfg, device, start, prefix, d_model)
 
 
-def _stream(cfg: TokenTaskConfig, device, step: int):
+def _stream(cfg: TokenTaskConfig, device, step: int, prefix: int,
+            d_model: int):
     while True:
         tokens, labels = token_batch(cfg, step)
-        yield step, {"tokens": torch.from_numpy(tokens).long().to(device),
-                     "labels": torch.from_numpy(labels).long().to(device)}
+        out = {"tokens": torch.from_numpy(tokens).long().to(device),
+               "labels": torch.from_numpy(labels).long().to(device)}
+        if prefix:
+            rng = np.random.default_rng(np.random.PCG64([cfg.seed + 7,
+                                                         step]))
+            emb = rng.normal(size=(cfg.batch, prefix, d_model))
+            out["prefix_embeds"] = torch.from_numpy(
+                emb.astype(np.float32)).to(torch.bfloat16).to(device)
+        yield step, out
         step += 1
 
 

@@ -1,8 +1,13 @@
-"""GQA attention with RoPE and qk-norm: prefill and per-slot decode.
+"""GQA attention with RoPE, qk-norm, QKV bias and sliding windows:
+prefill, per-slot and shared-cursor decode.
 
 Counterpart of the GQA path of ``src/repro/models/attention.py``:
-``AttnConfig``, ``attn_init``, ``chunked_attention`` (online softmax over
-KV chunks), ``decode_attention``, ``attn_apply`` and ``init_cache``.
+``AttnConfig``, ``attn_init`` (QKV bias), ``chunked_attention`` (online
+softmax over KV chunks), ``banded_attention`` (sliding-window prefill:
+query chunks of ``chunk_q`` against a KV band padded to whole chunks,
+the exact window mask, O(S*W)), ``decode_attention`` (per-slot
+positions with a window mask, or one shared position with the last
+``window`` positions sliced), ``attn_apply`` and ``init_cache``.
 The arithmetic mirrors the reference: logits as an einsum of bf16 values
 accumulated in fp32, fp32 softmax, ``-1e30`` masks, probabilities cast
 to the value dtype before the PV product.  No fused attention operator
@@ -10,10 +15,11 @@ is used, so the CPU comparison with the reference stays exact in
 structure.
 
 What differs:
-  * sliding-window (banded) attention and MLA are not ported;
-  * decode is per-slot only (every row at its own position, the serve
-    engine's mode); the reference's synchronized shared-cursor decode is
-    not ported;
+  * MLA is not ported (ROADMAP queue 1, item 4);
+  * decode defaults to per-slot (``per_slot=True``, the serve engine's
+    mode), where the reference's ``attn_apply`` defaults to the shared
+    cursor;
+  * the chunk loops are Python loops, not scans;
   * caches are updated in place (``index_put_``/slice assignment) where
     the reference returns new arrays, which saves a cache copy per
     layer and step; ``attn_apply`` still returns the cache it wrote.
@@ -23,6 +29,7 @@ Layouts are the reference's: q/k/v (B, S, H, D), caches (B, S, Hkv, D).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -39,6 +46,8 @@ class AttnConfig:
     head_dim: int
     rope_theta: float = 10000.0
     qk_norm: bool = False
+    qkv_bias: bool = False
+    chunk_q: int = 1024
     chunk_kv: int = 1024
 
 
@@ -48,7 +57,8 @@ def attn_init(gen: torch.Generator, cfg: AttnConfig, *, device,
     p = {}
     for name, dout in (("q_proj", h * hd), ("k_proj", kv * hd),
                        ("v_proj", kv * hd)):
-        p[name] = L.dense_init(gen, d, dout, device=device, dtype=dtype)
+        p[name] = L.dense_init(gen, d, dout, device=device, dtype=dtype,
+                               bias=cfg.qkv_bias)
     p["o_proj"] = L.dense_init(gen, h * hd, d, device=device, dtype=dtype)
     if cfg.qk_norm:
         p["q_norm"] = L.rmsnorm_init(hd, device=device, dtype=dtype)
@@ -74,6 +84,18 @@ def _pv(p: torch.Tensor, v: torch.Tensor, spec: str) -> torch.Tensor:
     """Probabilities cast to v's dtype, then an fp32-accumulated product."""
     return torch.einsum(spec, p.to(v.dtype).to(torch.float32),
                         v.to(torch.float32))
+
+
+def _softmax(logits: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis.  On the CPU as ``jax.nn.softmax``
+    computes it, exp of the max-shifted logits divided by their sum
+    (``torch.softmax`` there multiplies by the sum's reciprocal, an ulp
+    away from the reference); on the card ``torch.softmax``, one kernel
+    where the spelled-out form takes five a call."""
+    if logits.is_cuda:
+        return torch.softmax(logits, -1)
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    return e / e.sum(-1, keepdim=True)
 
 
 def chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
@@ -115,19 +137,72 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     return out.to(q.dtype)
 
 
-def decode_attention(q1, k_cache, v_cache, cur_pos: torch.Tensor):
-    """Single-step decode: q1 (B,1,H,D) vs cache (B,Smax,Hkv,D); cur_pos
-    (B,) per-request positions (keys at k_pos <= cur_pos attend)."""
+def banded_attention(q, k, v, *, window: int, chunk_q: int = 1024):
+    """Sliding-window causal attention in O(S*W): query i attends to keys
+    j with i - window < j <= i.
+
+    Query chunks of ``chunk_q`` (the largest divisor of S not above it)
+    each read a KV band of ``w_pad + chunk_q`` positions, ``w_pad`` the
+    window rounded up to whole chunks, from K and V padded at the front
+    with ``w_pad`` zeros (masked); softmax over the band, as the
+    reference's scan step does.
+    """
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    chunk_q = _largest_divisor(s, chunk_q)
+    w_pad = -(-window // chunk_q) * chunk_q
+    span = w_pad + chunk_q
+    scale = d ** -0.5
+    kp = torch.nn.functional.pad(k, (0, 0, 0, 0, w_pad, 0))
+    vp = torch.nn.functional.pad(v, (0, 0, 0, 0, w_pad, 0))
+    ar_q = torch.arange(chunk_q, device=q.device)
+    ar_k = torch.arange(span, device=q.device)
+    outs = []
+    for q0 in range(0, s, chunk_q):
+        qg = q[:, q0:q0 + chunk_q].reshape(b, chunk_q, hkv, g, d)
+        logits = _gqa_logits(qg, kp[:, q0:q0 + span]) * scale
+        q_pos = (q0 + ar_q)[:, None]
+        k_pos = (q0 - w_pad + ar_k)[None, :]
+        mask = (q_pos >= k_pos) & (q_pos - k_pos < window) & (k_pos >= 0)
+        logits = torch.where(mask, logits, NEG_INF)
+        out = _pv(_softmax(logits), vp[:, q0:q0 + span],
+                  "bhgqk,bkhd->bqhgd")
+        outs.append(out.reshape(b, chunk_q, h, d))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def decode_attention(q1, k_cache, v_cache, cur_pos, *,
+                     window: Optional[int] = None):
+    """Single-step decode: q1 (B,1,H,D) vs cache (B,Smax,Hkv,D).
+
+    ``cur_pos`` is a (B,) tensor of per-request positions (each row
+    attends to keys at k_pos <= its position, and with a window to the
+    last ``window`` of them, by mask) or an int, the whole batch's one
+    position; then a window smaller than the cache slices the last
+    ``window`` positions, clipped into the cache, so the work is O(W).
+    """
     b, _, h, d = q1.shape
     smax, hkv = k_cache.shape[1], k_cache.shape[2]
     g = h // hkv
     scale = d ** -0.5
-    k_pos = torch.arange(smax, device=q1.device)
+    per_slot = isinstance(cur_pos, torch.Tensor) and cur_pos.ndim > 0
+    start = 0
+    if window is not None and window < smax and not per_slot:
+        start = min(max(int(cur_pos) + 1 - window, 0), smax - window)
+        k_cache = k_cache[:, start:start + window]
+        v_cache = v_cache[:, start:start + window]
+    k_pos = start + torch.arange(k_cache.shape[1], device=q1.device)
     qg = q1.reshape(b, 1, hkv, g, d)
     logits = _gqa_logits(qg, k_cache) * scale            # (B,Hkv,G,1,S)
-    mask = k_pos[None, :] <= cur_pos[:, None]            # (B,S)
+    if per_slot:
+        mask = k_pos[None, :] <= cur_pos[:, None]        # (B,S)
+        if window is not None:
+            mask &= (cur_pos[:, None] - k_pos[None, :]) < window
+    else:
+        mask = (k_pos <= int(cur_pos))[None, :]
     logits = torch.where(mask[:, None, None, None, :], logits, NEG_INF)
-    attn = torch.softmax(logits, dim=-1)
+    attn = _softmax(logits)
     out = _pv(attn, v_cache, "bhgqk,bkhd->bqhgd")
     return out.reshape(b, 1, h, d).to(q1.dtype)
 
@@ -137,15 +212,21 @@ def _split_heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
 
 
 def attn_apply(p, x: torch.Tensor, cfg: AttnConfig, sp_cfg, *,
-               positions: torch.Tensor, cache=None, decode: bool = False):
-    """Returns (out, cache).
+               positions: torch.Tensor, cache=None,
+               layer_window: Optional[int] = None, decode: bool = False,
+               per_slot: bool = True):
+    """Returns (out, cache).  ``layer_window`` is this layer's sliding
+    window (None: global attention).
 
-    Prefill (``decode=False``): causal attention over x's S tokens; with a
-    cache, k/v are written into positions [0, S) and ``cache["pos"]`` set
-    to S.  Decode: x is (B, 1, d) and row i writes its k/v at
-    ``clip(positions[i, -1], 0, max_len - 1)`` — free slots too, whose
-    garbage stays masked — then attends to keys at or before its own
-    position.
+    Prefill (``decode=False``): causal attention over x's S tokens,
+    banded when the layer has a window; with a cache, k/v are written
+    into positions [0, S) and ``cache["pos"]`` set to S.  Decode: x is
+    (B, 1, d); per slot, row i writes its k/v at ``clip(positions[i,
+    -1], 0, max_len - 1)`` (free slots too, whose garbage stays masked)
+    and attends to keys at or before its own position; with the shared
+    cursor (``per_slot=False``) every row writes at ``cache["pos"]``
+    (clipped in the same way) and attends to keys at or before it.
+    Either way ``cache["pos"]`` then moves on by one.
     """
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     q = _split_heads(L.dense_apply(p["q_proj"], x, "attn/q_proj", sp_cfg),
@@ -163,17 +244,28 @@ def attn_apply(p, x: torch.Tensor, cfg: AttnConfig, sp_cfg, *,
     if decode:
         if cache is None:
             raise ValueError("decode needs a cache")
-        b = x.shape[0]
-        cur = positions[:, -1]
-        wpos = torch.clamp(cur, 0, cache["k"].shape[1] - 1)
-        rows = torch.arange(b, device=x.device)
-        cache["k"][rows, wpos] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][rows, wpos] = v[:, 0].to(cache["v"].dtype)
+        smax = cache["k"].shape[1]
+        if per_slot:
+            cur = positions[:, -1]
+            wpos = torch.clamp(cur, 0, smax - 1)
+            rows = torch.arange(x.shape[0], device=x.device)
+            cache["k"][rows, wpos] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][rows, wpos] = v[:, 0].to(cache["v"].dtype)
+        else:
+            cur = int(cache["pos"])
+            wpos = min(max(cur, 0), smax - 1)
+            cache["k"][:, wpos] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][:, wpos] = v[:, 0].to(cache["v"].dtype)
         cache["pos"] = cache["pos"] + 1
-        out = decode_attention(q, cache["k"], cache["v"], cur)
+        out = decode_attention(q, cache["k"], cache["v"], cur,
+                               window=layer_window)
     else:
-        out = chunked_attention(q, k, v, causal=True, q_offset=0,
-                                chunk_kv=cfg.chunk_kv)
+        if layer_window is not None:
+            out = banded_attention(q, k, v, window=layer_window,
+                                   chunk_q=cfg.chunk_q)
+        else:
+            out = chunked_attention(q, k, v, causal=True, q_offset=0,
+                                    chunk_kv=cfg.chunk_kv)
         if cache is not None:
             s = k.shape[1]
             cache["k"][:, :s] = k.to(cache["k"].dtype)

@@ -1,7 +1,8 @@
 """Shared layer primitives on plain parameter dicts.
 
-Counterpart of ``src/repro/models/layers.py``: ``dense_init``,
-``dense_apply``, ``rmsnorm_init``/``rmsnorm_apply``,
+Counterpart of ``src/repro/models/layers.py``: ``dense_init`` (with an
+optional zero bias), ``dense_apply`` (the bias added after ``nm_apply``,
+in the output's dtype), ``rmsnorm_init``/``rmsnorm_apply``,
 ``layernorm_init``/``layernorm_apply``, ``embed_init``/``embed_apply``,
 ``rope_freqs``, ``apply_rope``, ``swiglu`` and ``gelu_tanh`` (the
 reference's ``jax.nn.gelu``), with the reference's arithmetic: the
@@ -26,11 +27,15 @@ from repro_torch.core.sparsity import SparsityConfig
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, device,
-               dtype=torch.float32):
-    """{"w": (d_in, d_out)} ~ N(0, 1) * d_in**-0.5, drawn in fp32."""
+               dtype=torch.float32, bias: bool = False):
+    """{"w": (d_in, d_out)} ~ N(0, 1) * d_in**-0.5, drawn in fp32; with
+    ``bias`` also {"b": (d_out,)} zeros (no draw)."""
     w = torch.randn((d_in, d_out), generator=gen, device=device,
                     dtype=torch.float32) * d_in ** -0.5
-    return {"w": w.to(dtype)}
+    p = {"w": w.to(dtype)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
 
 
 def dense_apply(p, x: torch.Tensor, name: str, cfg: SparsityConfig,
@@ -39,9 +44,13 @@ def dense_apply(p, x: torch.Tensor, name: str, cfg: SparsityConfig,
     ``p["w"]`` is a weight tensor (masked per ``bdwp.pick_cfg``) or an
     operand such as a ``PackedOp`` or a ``SharedOp``; a ``p`` without
     ``"w"`` is itself a flat packed ``{"vals", "idx"}`` dict (the
-    shared-packed layout of older packers)."""
+    shared-packed layout of older packers).  A bias ``p["b"]`` (never
+    pruned or packed) is added after the product, in its dtype."""
     op = O.as_operand(p["w"] if "w" in p else p, name, cfg)
-    return O.nm_apply(op, x.to(compute_dtype))
+    y = O.nm_apply(op, x.to(compute_dtype))
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
 
 
 def rmsnorm_init(d: int, *, device, dtype=torch.float32):

@@ -1,20 +1,26 @@
-"""Decoder LM (dense GQA family): config, init, forward, logits, cache.
+"""Decoder LM (the dense family): config, init, forward, logits, cache.
 
 Counterpart of ``src/repro/models/transformer_lm.py``: ``LMConfig``,
 ``ffn_init``/``ffn_apply``, the block, ``init``, ``forward`` (with
-per-block rematerialization when training), ``logits_from_hidden``,
-``lm_loss`` and ``init_lm_cache``, with the reference's arithmetic (bf16
-residual stream, fp32-accumulated logits with the padded vocab columns
-set to ``-1e30``).
+per-block rematerialization when training, and a modality prefix),
+``logits_from_hidden`` (an untied lm_head, or the embedding table when
+``tie_embed``), ``lm_loss`` and ``init_lm_cache``, with the
+reference's arithmetic (bf16 residual stream, fp32-accumulated logits
+with the padded vocab columns set to ``-1e30``).  It covers the dense
+family: qwen3 (qk_norm), qwen2.5 (QKV bias), glm4, gemma3 (the 5:1
+pattern of sliding-window and global layers, a tied head) and
+internvl2's LM (a stub-frontend prefix).
 
 What differs:
-  * ``LMConfig`` is the port's own copy, cut to the fields of the dense
-    GQA family with an untied lm_head (qwen3): no MoE, MLA, SWA, SSM or
-    encoder prefix, and so no aux loss — ``forward`` returns
-    ``(hidden, cache)``;
+  * ``LMConfig`` is the port's own copy, cut to the dense family's
+    fields: layer kinds "attn" and "swa" only (MoE, MLA, SSM and hybrid
+    layers are ROADMAP queue 1 items 3-5), and so no aux loss —
+    ``forward`` returns ``(hidden, cache)``;
   * parameters are a Python list of per-layer dicts under ``"blocks"``
-    and ``forward`` loops over it, where the reference stacks leaves
-    along a layer axis and scans; caches likewise are a list of
+    and ``forward`` loops over it, choosing each layer's window from
+    ``layer_kinds()`` in Python, where the reference stacks leaves
+    along a layer axis, scans, and picks local or global attention with
+    ``lax.cond`` on a per-layer flag; caches likewise are a list of
     per-layer ``{"k", "v", "pos"}`` dicts, updated in place;
   * ``init`` draws from a ``torch.Generator`` seeded with ``seed`` on an
     explicit device (the card unless ``device`` says otherwise);
@@ -26,6 +32,7 @@ What differs:
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -48,6 +55,13 @@ class LMConfig:
     d_ff: int = 0
     rope_theta: float = 1e4
     qk_norm: bool = False
+    qkv_bias: bool = False
+    # layer pattern, cycled over depth: "attn" (global) | "swa" (window)
+    pattern: tuple = ("attn",)
+    window: Optional[int] = None
+    # the logits read the embedding table (no lm_head), as the
+    # reference's default; the untied configs say tie_embed=False
+    tie_embed: bool = True
     # the embedding and lm_head tables are padded up to a multiple of
     # this; padded logit columns are masked to -1e30
     pad_vocab_to: int = 256
@@ -55,15 +69,33 @@ class LMConfig:
     # keeping its activations
     remat: bool = True
 
+    def __post_init__(self):
+        unported = set(self.pattern) - {"attn", "swa"}
+        if unported:
+            raise NotImplementedError(
+                f"{self.name}: layer kinds {sorted(unported)} are not ported "
+                "(ROADMAP queue 1, items 3-5)")
+        if "swa" in self.pattern and not self.window:
+            raise ValueError(f"{self.name}: swa layers need a window")
+
     @property
     def padded_vocab(self) -> int:
         return -(-self.vocab // self.pad_vocab_to) * self.pad_vocab_to
+
+    def layer_kinds(self) -> list:
+        """Each layer's kind, the pattern cycled over depth."""
+        pat = self.pattern
+        return [pat[i % len(pat)] for i in range(self.n_layers)]
+
+    def layer_window(self, kind: str) -> Optional[int]:
+        """The sliding window of a layer of ``kind`` (None: global)."""
+        return self.window if kind == "swa" else None
 
     def attn_cfg(self) -> A.AttnConfig:
         return A.AttnConfig(
             d_model=self.d_model, n_heads=self.n_heads, n_kv=self.n_kv,
             head_dim=self.head_dim, rope_theta=self.rope_theta,
-            qk_norm=self.qk_norm)
+            qk_norm=self.qk_norm, qkv_bias=self.qkv_bias)
 
 
 def ffn_init(gen, d: int, d_ff: int, *, device, dtype=torch.float32):
@@ -88,8 +120,10 @@ def block_init(gen, cfg: LMConfig, *, device, dtype=torch.float32):
 
 
 def block_apply(p, x: torch.Tensor, cfg: LMConfig, sp_cfg, *, positions,
-                cache=None, decode: bool = False):
-    """Returns (x, cache).
+                window=None, cache=None, decode: bool = False,
+                per_slot: bool = True):
+    """Returns (x, cache); ``window`` is the layer's sliding window
+    (None: global attention).
 
     ln2 normalizes the fp32 sum x + mix, not its bf16 rounding: the
     compiled reference fuses the residual add into the norm and keeps
@@ -98,7 +132,8 @@ def block_apply(p, x: torch.Tensor, cfg: LMConfig, sp_cfg, *, positions,
     h = L.rmsnorm_apply(p["ln1"], x)
     mix, cache = A.attn_apply(p["attn"], h, cfg.attn_cfg(), sp_cfg,
                               positions=positions, cache=cache,
-                              decode=decode)
+                              layer_window=window, decode=decode,
+                              per_slot=per_slot)
     h2 = L.rmsnorm_apply(p["ln2"], x.to(torch.float32) + mix,
                          out_dtype=x.dtype)
     x = x + mix
@@ -107,13 +142,16 @@ def block_apply(p, x: torch.Tensor, cfg: LMConfig, sp_cfg, *, positions,
 
 def init_shell(cfg: LMConfig, gen: torch.Generator, *, device,
                dtype=torch.float32):
-    """Everything but the blocks: embed, final norm, lm_head."""
-    return {"embed": L.embed_init(gen, cfg.padded_vocab, cfg.d_model,
-                                  device=device, dtype=dtype),
-            "final_norm": L.rmsnorm_init(cfg.d_model, device=device,
-                                         dtype=dtype),
-            "lm_head": L.dense_init(gen, cfg.d_model, cfg.padded_vocab,
-                                    device=device, dtype=dtype)}
+    """Everything but the blocks: embed, final norm and, untied,
+    lm_head."""
+    shell = {"embed": L.embed_init(gen, cfg.padded_vocab, cfg.d_model,
+                                   device=device, dtype=dtype),
+             "final_norm": L.rmsnorm_init(cfg.d_model, device=device,
+                                          dtype=dtype)}
+    if not cfg.tie_embed:
+        shell["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.padded_vocab,
+                                        device=device, dtype=dtype)
+    return shell
 
 
 def iter_blocks(cfg: LMConfig, gen: torch.Generator, *, device,
@@ -139,10 +177,16 @@ def init(cfg: LMConfig, *, seed: int = 0, device=None, dtype=torch.float32):
 
 
 def forward(params, tokens: torch.Tensor, cfg: LMConfig,
-            sp_cfg: SparsityConfig = DENSE, *, cache=None,
-            decode: bool = False, positions=None):
-    """Returns (hidden (B, S, d), cache); decode is per-slot (positions
-    (B, 1) gives each row its own position).
+            sp_cfg: SparsityConfig = DENSE, *, prefix_embeds=None,
+            cache=None, decode: bool = False, positions=None,
+            per_slot: bool = True):
+    """Returns (hidden (B, S, d), cache).
+
+    ``prefix_embeds`` (B, S_pre, d): stub-frontend embeddings put before
+    the token embeddings (internvl2's vision prefix), cast to their
+    dtype.  Decode is per-slot (positions (B, 1) gives each row its own
+    position) unless ``per_slot=False``, where every row writes at the
+    cache's shared cursor.
 
     With ``cfg.remat``, a forward without a cache under autograd (a
     training step) runs each block under ``torch.utils.checkpoint``: only
@@ -151,31 +195,39 @@ def forward(params, tokens: torch.Tensor, cfg: LMConfig,
     ``nothing_saveable`` does.
     """
     x = L.embed_apply(params["embed"], tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     b, s = x.shape[0], x.shape[1]
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
     layer_caches = cache["layers"] if cache is not None else None
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
-    for i, bp in enumerate(params["blocks"]):
+    for i, (bp, kind) in enumerate(zip(params["blocks"], cfg.layer_kinds())):
+        window = cfg.layer_window(kind)
         if remat:
-            x = checkpoint(_block_out, bp, x, cfg, sp_cfg, positions,
+            x = checkpoint(_block_out, bp, x, cfg, sp_cfg, positions, window,
                            use_reentrant=False)
             continue
         lc = layer_caches[i] if layer_caches is not None else None
         x, _ = block_apply(bp, x, cfg, sp_cfg, positions=positions,
-                           cache=lc, decode=decode)
+                           window=window, cache=lc, decode=decode,
+                           per_slot=per_slot)
     x = L.rmsnorm_apply(params["final_norm"], x)
     return x, cache
 
 
-def _block_out(p, x, cfg, sp_cfg, positions):
-    return block_apply(p, x, cfg, sp_cfg, positions=positions)[0]
+def _block_out(p, x, cfg, sp_cfg, positions, window):
+    return block_apply(p, x, cfg, sp_cfg, positions=positions,
+                       window=window)[0]
 
 
 def logits_from_hidden(params, hidden: torch.Tensor,
                        cfg: LMConfig) -> torch.Tensor:
-    """hidden @ lm_head with fp32 accumulation; padded columns -1e30."""
-    w = params["lm_head"]["w"]
+    """hidden @ lm_head (tied: @ the embedding table's transpose) with
+    fp32 accumulation; padded columns -1e30.  A tied table gets its
+    gradient from both uses."""
+    w = (params["embed"]["embed_table"].t() if cfg.tie_embed
+         else params["lm_head"]["w"])
     logits = L.head_product(hidden.reshape(-1, hidden.shape[-1]), w)
     logits = logits.reshape(*hidden.shape[:-1], w.shape[-1])
     if cfg.padded_vocab != cfg.vocab:

@@ -13,7 +13,10 @@ masks of the fp32 master: one selection for element masks
 granularity, one ``nm_mask_transposable`` for a transposable config,
 whose one mask serves FF, BP and the decay (its operand keeps ``bp``
 and, with ``pack``, the packed pair; no ``ff``).  Every other leaf
-becomes its bf16 copy.  With ``pregen=False`` (the legacy dataflow,
+becomes its bf16 copy: the norms, a QKV projection's 1-D bias (never a
+site) and the embedding table, which a tied head reads as its logits
+weight too (``embed`` is excluded), so its gradient sums both uses.
+With ``pregen=False`` (the legacy dataflow,
 whose FF and BP re-derive their masks inside the model) every leaf takes
 the elementwise path, the decay mask is ``nm_mask`` of the pre-update
 master along the FF axis (the BP axis for sdwp) whatever the

@@ -11,7 +11,8 @@ at once, so a queued request joins on the next step.
 What differs: the engine runs on an explicit device — the card unless
 the caller passes ``device="cpu"`` — and raises when there is none; it
 takes either a dense param tree (packed here when ``serve_cfg.packed``)
-or a ready ``PackedParamStore``; no mesh, and no fleet router hooks
+or a ready ``PackedParamStore``; any arch of ``repro_torch.configs``
+(sliding-window layers take their window in the per-slot decode's mask); no mesh, and no fleet router hooks
 (``utilization``, ``prefix_match_depth``) until the fleet is ported.
 """
 

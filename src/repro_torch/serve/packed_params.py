@@ -3,7 +3,8 @@
 Counterpart of ``src/repro/serve/packed_params.py``: ``default_idx_bits``,
 ``pack_tree_element`` and ``PackedParamStore`` with ``report()``.  Each
 weight that training FF-prunes and serving may pack becomes
-``{"w": PackedOp(vals, idx)}``, SORE-packed along its contraction axis:
+``{"w": PackedOp(vals, idx)}`` (a bias stays dense beside it, as do
+the embedding table, a tied head's included, and the norms), SORE-packed along its contraction axis:
 vals (K·N/M, F) and idx uint8 (K·N/M, F), or the u4 plane
 (ceil(K·N/M / 2), F) — the default whenever M <= 16.  Byte counts equal
 the reference's for the same tree.
@@ -104,7 +105,11 @@ def _pack(params, cfg, idx_bits, device, names=None):
             stats["packed_bytes"] += _leaf_bytes(vals) + _leaf_bytes(idx)
             stats["packed_bytes_4bit"] += (
                 _leaf_bytes(vals) + vals.numel() * acct_bits // 8)
-            return {"w": O.PackedOp(vals, idx, cfg, idx_bits)}
+            out = {"w": O.PackedOp(vals, idx, cfg, idx_bits)}
+            if "b" in node:   # a bias is served dense beside the pair
+                out["b"] = node["b"].to(device)
+                stats["other_bytes"] += _leaf_bytes(out["b"])
+            return out
         if isinstance(node, dict):
             return {k: walk(v, path + (k,)) for k, v in node.items()}
         if isinstance(node, list):

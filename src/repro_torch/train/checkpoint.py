@@ -10,7 +10,8 @@ thread (one in flight at a time, ``wait()`` joins it); only the newest
 
 What differs: the files are the port's own (``torch.save`` of each
 tensor leaf, dtype kept, bfloat16 included), not ``.npy``; the state is
-the port's tree of dicts, per-layer lists, ``PregenOp`` leaves (their
+the port's tree of dicts (biases and a tied table among them: plain
+tensor leaves), per-layer lists, ``PregenOp`` leaves (their
 ``bp``, ``ff``, ``vals``, ``idx`` and ``mask`` tensors, absent ones as
 None, so a transposable bp-only operand too) and Python ints (``step``),
 with or without a compute tree (the legacy dataflow keeps none); the

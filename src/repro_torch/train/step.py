@@ -36,10 +36,17 @@ gradients are stacked (P, *shape), and ``optim.compress.cross_pod_sync``
 gives their mean through packed N:M payloads and updates the error
 feedback residual ``state["err"]`` before ``sgd.update``.
 
-What differs: no mesh, activation sharding or modality prefix; no step
-builder (``functools.partial`` of ``lm_train_step`` is the step
-function); decode is per-slot only (``pos`` is a (B,) vector of
-per-request positions).  Gradients are taken with
+A batch may carry ``prefix_embeds`` (B, S_pre, d), the stub frontend's
+embeddings (internvl2): the model reads them before the tokens, the
+loss is taken on the text positions only (``lm_train_step``), and
+``lm_prefill_step`` builds its cache over prefix and text.
+
+What differs: no mesh or activation sharding; no step builder
+(``functools.partial`` of ``lm_train_step`` is the step function);
+``lm_decode_step`` defaults to per-slot decode (``pos`` a (B,) vector
+of per-request positions, the serve engine's mode), where the
+reference defaults to the shared cursor (``per_slot=False``, ``pos``
+one position for the batch).  Gradients are taken with
 ``torch.autograd.grad`` on the float leaves the model reads, so nothing
 accumulates in ``.grad`` between steps.  The step's parts are profiler
 ranges ``train/forward``, ``train/backward`` (which includes the blocks'
@@ -128,9 +135,13 @@ def lm_train_step(state, batch, *, cfg, sp_cfg, opt_cfg,
     try:
         for p in range(pods):
             rows_p = slice(p * per, (p + 1) * per)
+            prefix = batch.get("prefix_embeds")
             with record_function("train/forward"):
-                hidden, _ = T.forward(compute, batch["tokens"][rows_p], cfg,
-                                      sp_cfg)
+                hidden, _ = T.forward(
+                    compute, batch["tokens"][rows_p], cfg, sp_cfg,
+                    prefix_embeds=None if prefix is None else prefix[rows_p])
+                if prefix is not None:   # the loss reads the text only
+                    hidden = hidden[:, prefix.shape[1]:]
                 loss = T.lm_loss(compute, hidden, batch["labels"][rows_p],
                                  cfg)
             with record_function("train/backward"):
@@ -241,12 +252,18 @@ def lm_prefill_step(params, batch, *, cfg, sp_cfg, last_index=None,
 
     last_index: optional (B,) indices of each request's last real token;
     right-padded prompts read their logits there instead of at s-1.
+    With ``batch["prefix_embeds"]`` (B, S_pre, d) the cache covers the
+    S_pre + S positions of prefix and text, and ``last_index`` counts
+    from the prefix's first position.
     """
     tokens = batch["tokens"]
+    prefix = batch.get("prefix_embeds")
     b, s = tokens.shape
-    cache = T.init_lm_cache(cfg, b, s, device=tokens.device,
+    s_tot = s + (prefix.shape[1] if prefix is not None else 0)
+    cache = T.init_lm_cache(cfg, b, s_tot, device=tokens.device,
                             dtype=cache_dtype)
-    hidden, cache = T.forward(params, tokens, cfg, sp_cfg, cache=cache)
+    hidden, cache = T.forward(params, tokens, cfg, sp_cfg,
+                              prefix_embeds=prefix, cache=cache)
     if last_index is None:
         h_last = hidden[:, -1:]
     else:
@@ -255,12 +272,19 @@ def lm_prefill_step(params, batch, *, cfg, sp_cfg, last_index=None,
     return T.logits_from_hidden(params, h_last, cfg), cache
 
 
-def lm_decode_step(params, cache, token, pos, *, cfg, sp_cfg):
-    """One per-slot decode step: token (B, 1), pos (B,) — row i writes
-    its KV at pos[i] and attends to positions <= pos[i].  The cache is
-    updated in place and returned."""
+def lm_decode_step(params, cache, token, pos, *, cfg, sp_cfg,
+                   per_slot: bool = True):
+    """One decode step on token (B, 1).  Per slot: pos (B,), row i writes
+    its KV at pos[i] and attends to positions <= pos[i].  With
+    ``per_slot=False`` (the synchronized batch): pos is one position,
+    the rows' RoPE position, and every row writes at the cache's shared
+    cursor ``pos`` entry and attends to the positions up to it.  The
+    cache is updated in place and returned."""
     b = token.shape[0]
-    positions = torch.as_tensor(pos, device=token.device).reshape(b, 1)
+    pos = torch.as_tensor(pos, device=token.device)
+    positions = (pos.reshape(b, 1) if per_slot
+                 else pos.reshape(1, 1).expand(b, 1))
     hidden, cache = T.forward(params, token, cfg, sp_cfg, cache=cache,
-                              decode=True, positions=positions)
+                              decode=True, positions=positions,
+                              per_slot=per_slot)
     return T.logits_from_hidden(params, hidden, cfg), cache

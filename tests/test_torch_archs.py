@@ -1,0 +1,545 @@
+"""Port parity for the rest of the dense LM family at SMOKE size:
+qwen2.5-32b (QKV bias), glm4-9b (two KV heads at FULL, one at SMOKE),
+gemma3-12b (the 5:1 sliding-window / global pattern, window 16 at
+SMOKE, a tied head) and internvl2-26b (a stub-frontend prefix), with
+qwen3-8b where a case is shared.
+
+The reference's params and train states (``transformer_lm.init``,
+``step.init_train_state``) are loaded into the port with
+``convert.params_from_jax`` / ``train_state_from_jax``; the same
+numpy-seeded batches feed both packages (the port's ``lm_stream`` gives
+the reference's tokens and prefix embeddings bit for bit).  The
+reference's steps are jitted; its train step is built on a mesh of
+``AxisType.Auto`` axes (ROADMAP queue 3: ``make_host_mesh`` under the
+installed jax makes Explicit axes).
+
+Tolerances, as in ``test_torch_model.py`` / ``test_torch_train.py``:
+logits within ``ATOL`` = 2e-2, or ``ATOL_DEEP`` where the reference
+itself moves further under a one-ulp nudge (gemma3 6e-2, internvl2
+4e-2) (the port mirrors the bf16 arithmetic op
+for op; the two frameworks' fp32 matmul sums round in other orders, so
+now and then a bf16 activation lands one ulp away; such flips move
+SMOKE logits by under 1e-2); compute trees, masks, the synthetic
+stream and the update given the same gradients bitwise; the losses of
+three BDWP packed pre-generating steps within ``LOSS_ATOL`` = (1e-3,
+1e-3, 3e-2) (lr is 0 at step 0; step 2 carries the gradients' ulp
+differences through an update at lr 0.05).  Decode runs more steps than
+gemma3's SMOKE window, so that its band (prefill) and window (decode)
+both bite, per slot and with the shared cursor.
+"""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import AxisType
+
+from repro.configs import ARCHS as J_ARCHS
+from repro.configs import SHAPES as J_SHAPES
+from repro.configs import all_cells as j_all_cells
+from repro.configs import get_arch as j_get_arch
+from repro.core.sparsity import SparsityConfig as JSparsity
+from repro.data import synthetic as JD
+from repro.models import attention as JA
+from repro.models import transformer_lm as JT
+from repro.optim import sgd as JSGD
+from repro.serve import ServeConfig as JServeConfig
+from repro.serve import ServeEngine as JServeEngine
+from repro.train import step as JST
+from repro.train import trainer as JTR
+from repro_torch import convert
+from repro_torch.configs import ARCHS, SHAPES, Unported, all_cells, get_arch
+from repro_torch.configs import (gemma3_12b, glm4_9b, internvl2_26b,
+                                 qwen2_5_32b, qwen3_8b)
+from repro_torch.core.operand import PackedOp, PregenOp
+from repro_torch.core.sparsity import SparsityConfig
+from repro_torch.data.synthetic import lm_stream
+from repro_torch.models import attention as TA
+from repro_torch.models import transformer_lm as TT
+from repro_torch.optim import sgd as TSGD
+from repro_torch.serve.engine import ServeConfig, ServeEngine
+from repro_torch.serve.packed_params import pack_tree_element
+from repro_torch.train import step as TST
+from repro_torch.train import trainer as TTR
+from repro_torch.train.checkpoint import CheckpointManager
+
+jax.config.update("jax_platform_name", "cpu")
+
+NEW = ["qwen2.5-32b", "glm4-9b", "gemma3-12b", "internvl2-26b"]
+DENSE = ["qwen3-8b"] + NEW
+MODULES = {"qwen3-8b": qwen3_8b, "qwen2.5-32b": qwen2_5_32b,
+           "glm4-9b": glm4_9b, "gemma3-12b": gemma3_12b,
+           "internvl2-26b": internvl2_26b}
+J_SP = JSparsity(n=2, m=8, method="bdwp")
+T_SP = SparsityConfig(n=2, m=8, method="bdwp")
+J_OPT = JSGD.SGDConfig(lr=0.1, warmup_steps=2, total_steps=50)
+T_OPT = TSGD.SGDConfig(lr=0.1, warmup_steps=2, total_steps=50)
+ATOL = 2e-2
+# gemma3's SMOKE has 6 layers, not 2: its compiled reference lands a
+# bf16 activation of a sliding-window layer one ulp away from the
+# port's about once in 4096 (layer 0 and the banded attention alone are
+# bitwise; an all-global gemma3 is bitwise through 6 layers), and 6
+# layers amplify such flips to 3.3e-2 in the logits.  The reference
+# itself moves its logits by 5.4e-2 when one element of layer 1's ln1
+# scale moves by one bf16 ulp, so the logits are held at 6e-2.
+# internvl2's SMOKE has no qk_norm; a flip at one position reaches every
+# later one through attention (2.85e-2 measured with the prefix, 2.04e-2
+# on text alone), and the reference's own logits move by 3.0e-2 under
+# the same one-ulp nudge: held at 4e-2.
+ATOL_DEEP = {"gemma3-12b": 6e-2, "internvl2-26b": 4e-2}
+LOSS_ATOL = (1e-3, 1e-3, 3e-2)
+BATCH, SEQ, PREFIX = 2, 32, 8          # SMOKE prefix rows (internvl2)
+DECODE_STEPS = 20                      # > gemma3's SMOKE window of 16
+CFG_FIELDS = ("name", "vocab", "d_model", "n_layers", "n_heads", "n_kv",
+              "head_dim", "d_ff", "rope_theta", "qk_norm", "qkv_bias",
+              "pattern", "window", "tie_embed", "pad_vocab_to",
+              "padded_vocab", "remat")
+
+
+def _cfgs(arch_id):
+    return j_get_arch(arch_id).smoke, get_arch(arch_id).smoke
+
+
+def _atol(arch_id):
+    return ATOL_DEEP.get(arch_id, ATOL)
+
+
+def _prefix(arch_id):
+    return PREFIX if get_arch(arch_id).prefix_len else 0
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _bits(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        if a.dtype == torch.bfloat16:
+            return a.view(torch.int16).numpy().view(np.uint16)
+        return a.numpy()
+    a = np.asarray(a)
+    return a.view(np.uint16) if a.dtype.name == "bfloat16" else a
+
+
+def _pairs(jtree, ttree, path=""):
+    if isinstance(ttree, dict):
+        assert sorted(ttree) == sorted(jtree), path
+        for k in ttree:
+            yield from _pairs(jtree[k], ttree[k], f"{path}/{k}")
+    elif isinstance(ttree, list):
+        for i, t in enumerate(ttree):
+            yield from _pairs(jax.tree.map(lambda a, i=i: a[i], jtree), t,
+                              f"{path}[{i}]")
+    else:
+        yield path, jtree, ttree
+
+
+def _assert_tree_bitwise(jtree, ttree):
+    n = 0
+    for name, j, t in _pairs(jtree, ttree):
+        if isinstance(t, PregenOp):
+            for f in ("bp", "ff", "vals", "idx", "mask"):
+                jf, tf = getattr(j, f), getattr(t, f)
+                assert (jf is None) == (tf is None), f"{name}.{f}"
+                if tf is not None:
+                    assert np.array_equal(_bits(jf), _bits(tf)), f"{name}.{f}"
+                    n += 1
+        else:
+            assert np.array_equal(_bits(j), _bits(t)), name
+            n += 1
+    assert n > 0
+
+
+@functools.lru_cache(maxsize=None)
+def _jparams(arch_id):
+    p, _ = JT.init(jax.random.PRNGKey(0), _cfgs(arch_id)[0])
+    return jax.tree.map(lambda w: w.astype(jnp.bfloat16), p)
+
+
+@functools.lru_cache(maxsize=None)
+def _jstate(arch_id):
+    return JST.init_train_state(jax.random.PRNGKey(0), _cfgs(arch_id)[0],
+                                sp_cfg=J_SP, pregen=True, pregen_pack=True)
+
+
+def _tparams(arch_id):
+    return convert.params_from_jax(_np(_jparams(arch_id)), device="cpu")
+
+
+def _batch(arch_id, step=0, seed=0):
+    """The same step of the reference's and the port's streams."""
+    jcfg, tcfg = _cfgs(arch_id)
+    pre = _prefix(arch_id)
+    js = JD.lm_stream(jcfg.vocab, BATCH, SEQ, seed=seed, start=step,
+                      prefix=pre, d_model=jcfg.d_model)
+    ts = lm_stream(tcfg.vocab, BATCH, SEQ, seed=seed, start=step,
+                   prefix=pre, d_model=tcfg.d_model, device="cpu")
+    return next(js)[1], next(ts)[1]
+
+
+# -- the registry -----------------------------------------------------------
+
+
+def test_registry_keys_match_reference():
+    assert sorted(ARCHS) == sorted(J_ARCHS)
+    assert sorted(a for a, s in ARCHS.items()
+                  if not isinstance(s, Unported)) == sorted(DENSE)
+
+
+@pytest.mark.parametrize("arch_id", sorted(
+    a for a, s in ARCHS.items() if isinstance(s, Unported)))
+def test_unported_arch_raises(arch_id):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        get_arch(arch_id)
+
+
+def test_shapes_match_reference():
+    assert {k: dataclasses.astuple(v) for k, v in SHAPES.items()} == {
+        k: dataclasses.astuple(v) for k, v in J_SHAPES.items()}
+
+
+def test_cells_are_the_references_of_ported_archs():
+    ported = [(a.arch_id, s.shape_id) for a, s in j_all_cells()
+              if a.arch_id in DENSE]
+    assert [(a.arch_id, s.shape_id) for a, s in all_cells()] == ported
+
+
+@pytest.mark.parametrize("shape_id", sorted(J_SHAPES))
+@pytest.mark.parametrize("arch_id", DENSE)
+def test_cell_support_matches_reference(arch_id, shape_id):
+    j, t = j_get_arch(arch_id), get_arch(arch_id)
+    assert t.supports(shape_id) == j.supports(shape_id)
+    assert t.skip_reason(shape_id) == j.skip_reason(shape_id)
+
+
+@pytest.mark.parametrize("arch_id", DENSE)
+def test_config_matches_reference(arch_id):
+    j, t = j_get_arch(arch_id), get_arch(arch_id)
+    for field in ("arch_id", "family", "kind", "source", "sub_quadratic",
+                  "prefix_len"):
+        assert getattr(t, field) == getattr(j, field), field
+    for jc, tc in ((j.full, t.full), (j.smoke, t.smoke)):
+        for field in CFG_FIELDS:
+            assert getattr(tc, field) == getattr(jc, field), (jc.name, field)
+        assert tc.layer_kinds() == jc.layer_kinds()
+    # depth is the only cut of the full-width training configs
+    train = MODULES[arch_id].TRAIN
+    assert train.n_layers < t.full.n_layers
+    for field in CFG_FIELDS:
+        if field not in ("n_layers",):
+            assert getattr(train, field) == getattr(t.full, field), field
+
+
+def test_prefix_stream_matches_reference():
+    jb, tb = _batch("internvl2-26b", step=3, seed=2)
+    assert tb["prefix_embeds"].dtype == torch.bfloat16
+    assert tuple(tb["prefix_embeds"].shape) == (BATCH, PREFIX, 64)
+    for key in ("tokens", "labels", "prefix_embeds"):
+        assert np.array_equal(_bits(jb[key]).astype(np.int64)
+                              if key != "prefix_embeds" else _bits(jb[key]),
+                              _bits(tb[key])), key
+
+
+# -- the model --------------------------------------------------------------
+
+
+def _j_forward_logits(arch_id, params, tokens, prefix):
+    jcfg = _cfgs(arch_id)[0]
+    hidden, _, _ = JT.forward(params, tokens, jcfg, J_SP,
+                              prefix_embeds=prefix)
+    return JT.logits_from_hidden(params, hidden, jcfg)
+
+
+@pytest.mark.parametrize("arch_id", NEW)
+def test_forward_logits_match_reference(arch_id):
+    jcfg, tcfg = _cfgs(arch_id)
+    jb, tb = _batch(arch_id)
+    jp, tp = _jparams(arch_id), _tparams(arch_id)
+    # the converted tree has the reference's leaves: biases, no lm_head
+    # under a tied head
+    assert ("lm_head" in tp) == (not tcfg.tie_embed)
+    assert ("b" in tp["blocks"][0]["attn"]["q_proj"]) == tcfg.qkv_bias
+    ref = jax.jit(functools.partial(_j_forward_logits, arch_id))(
+        jp, jb["tokens"], jb.get("prefix_embeds"))
+    hidden, _ = TT.forward(tp, tb["tokens"], tcfg, T_SP,
+                           prefix_embeds=tb.get("prefix_embeds"))
+    got = TT.logits_from_hidden(tp, hidden, tcfg)
+    assert tuple(got.shape) == (BATCH, SEQ + _prefix(arch_id),
+                                tcfg.padded_vocab)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                               atol=_atol(arch_id), rtol=0)
+
+
+@pytest.mark.parametrize("s,window,chunk_q", [(45, 10, 16), (45, 20, 16),
+                                              (37, 16, 1024), (64, 16, 16)])
+def test_banded_attention(s, window, chunk_q):
+    """Banded attention equals full causal attention under the window
+    mask, and the reference's banded attention, at lengths that are not
+    a multiple of ``chunk_q``."""
+    rng = np.random.default_rng(s + window)
+    b, h, hkv, d = 2, 4, 2, 16
+    q, k, v = (rng.standard_normal((b, s, n, d)).astype(np.float32)
+               for n in (h, hkv, hkv))
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    tq, tk, tv = (convert.tensor_from_numpy(np.asarray(a), "cpu")
+                  for a in (jq, jk, jv))
+    got = TA.banded_attention(tq, tk, tv, window=window, chunk_q=chunk_q)
+    # full causal attention with the window mask, in fp32
+    g = h // hkv
+    qf = tq.float().reshape(b, s, hkv, g, d)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, tk.float()) * d ** -0.5
+    i = torch.arange(s)
+    mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+    p = torch.softmax(torch.where(mask, logits, -1e30), dim=-1)
+    full = torch.einsum("bhgqk,bkhd->bqhgd", p, tv.float()).reshape(
+        b, s, h, d)
+    np.testing.assert_allclose(got.float().numpy(), full.numpy(),
+                               atol=2e-2, rtol=0)
+    ref = JA.banded_attention(jq, jk, jv, window=window, chunk_q=chunk_q)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref, np.float32), atol=1e-2,
+                               rtol=0)
+
+
+# -- training ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch_id", NEW)
+def test_three_step_losses_match_reference(arch_id):
+    """The step-0 compute tree bitwise, then three BDWP packed
+    pre-generating steps (the reference's step built on an Auto mesh,
+    its update through the interpret-mode Pallas ``fused_update``)."""
+    jcfg, tcfg = _cfgs(arch_id)
+    jstate = _jstate(arch_id)
+    master = convert.params_from_jax(_np(jstate["master"]), device="cpu")
+    _assert_tree_bitwise(jstate["compute"],
+                         TSGD.pregen_tree(master, T_SP, pack=True))
+    mesh = jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+    bundle = JST.build_lm_train(jcfg, mesh, J_SP, J_OPT, donate=False,
+                                pregen=True, pregen_pack=True,
+                                use_pallas=True)
+    pre = _prefix(arch_id)
+    _, hist = JTR.train_steps(bundle, jstate, JD.lm_stream(
+        jcfg.vocab, BATCH, SEQ, prefix=pre, d_model=jcfg.d_model), 3)
+    ref = np.array([float(h["loss"]) for h in hist])
+    state = convert.train_state_from_jax(_np(jstate), device="cpu")
+    fn = functools.partial(TST.lm_train_step, cfg=tcfg, sp_cfg=T_SP,
+                           opt_cfg=T_OPT)
+    _, thist = TTR.train_steps(fn, state, lm_stream(
+        tcfg.vocab, BATCH, SEQ, prefix=pre, d_model=tcfg.d_model,
+        device="cpu"), 3)
+    port = np.array([float(h["loss"]) for h in thist])
+    assert np.all(np.isfinite(port))
+    assert np.all(np.abs(port - ref) <= np.array(LOSS_ATOL)), (port, ref)
+
+
+def _ref_grads(arch_id, state, batch):
+    jcfg = _cfgs(arch_id)[0]
+    diff, meta = JST.split_compute(state["compute"])
+
+    def loss_fn(d):
+        comp = JST.merge_compute(d, meta)
+        hidden, _, _ = JT.forward(comp, batch["tokens"], jcfg, J_SP,
+                                  prefix_embeds=batch.get("prefix_embeds"))
+        if "prefix_embeds" in batch:
+            hidden = hidden[:, batch["prefix_embeds"].shape[1]:]
+        return JT.lm_loss(comp, hidden, batch["labels"], jcfg)
+
+    g = jax.grad(loss_fn)(diff)
+    return JSGD.pregen_grads(JST.merge_compute(g, meta))
+
+
+@pytest.mark.parametrize("arch_id", NEW)
+def test_update_bitwise_with_reference_gradients(arch_id):
+    """Bias leaves (1-D, never sites) and a tied table (excluded
+    ``embed``) take the elementwise update beside the fused sites:
+    master, momentum and the next compute tree bitwise the reference's
+    eager update given its gradients."""
+    jstate = dict(_jstate(arch_id), step=jnp.int32(5))
+    jb, _ = _batch(arch_id, seed=1)
+    grads = jax.jit(functools.partial(_ref_grads, arch_id))(jstate, jb)
+    opt = dict(lr=0.1, warmup_steps=100)
+    jnew, jcomp = JSGD.update(JST.state_core(jstate), grads,
+                              JSGD.SGDConfig(**opt), J_SP,
+                              prev_compute=jstate["compute"], pregen=True,
+                              pack=True, use_pallas=False)
+    tstate = convert.train_state_from_jax(_np(jstate), device="cpu")
+    tgrads = convert.params_from_jax(_np(grads), device="cpu")
+    tnew, tcomp = TSGD.update(TST.state_core(tstate), tgrads,
+                              TSGD.SGDConfig(**opt), T_SP,
+                              prev_compute=tstate["compute"], pack=True)
+    _assert_tree_bitwise(jnew["master"], tnew["master"])
+    _assert_tree_bitwise(jnew["momentum"], tnew["momentum"])
+    _assert_tree_bitwise(jcomp, tcomp)
+    blocks = tcomp["blocks"][0]
+    if get_arch(arch_id).smoke.qkv_bias:
+        assert blocks["attn"]["q_proj"]["b"].dtype == torch.bfloat16
+    assert isinstance(blocks["attn"]["q_proj"]["w"], PregenOp)
+    assert not isinstance(tcomp["embed"]["embed_table"], PregenOp)
+
+
+# -- serving ----------------------------------------------------------------
+
+
+def _j_seat(dst, src):
+    if dst.ndim == 0 or dst.shape == src.shape:
+        return src.astype(dst.dtype)
+    return dst.at[tuple(slice(0, d) for d in src.shape)].set(
+        src.astype(dst.dtype))
+
+
+def _t_grow(cfg, cache, max_len):
+    out = TT.init_lm_cache(cfg, BATCH, max_len, device="cpu")
+    for dst, src in zip(out["layers"], cache["layers"]):
+        for key in ("k", "v"):
+            dst[key][:, :src[key].shape[1]] = src[key]
+        dst["pos"] = src["pos"]
+    return out
+
+
+def _prompts(arch_id, lens=(9, 12)):
+    rng = np.random.default_rng(7)
+    toks = np.zeros((len(lens), max(lens)), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(0, _cfgs(arch_id)[0].vocab, n)
+    return toks, np.asarray(lens) - 1
+
+
+def _prefill_decode(arch_id, mode, with_prefix=True):
+    """Prefill (with the arch's prefix unless told otherwise), then
+    DECODE_STEPS teacher-forced decode steps in ``mode``; the logits of
+    both packages at every step."""
+    jcfg, tcfg = _cfgs(arch_id)
+    jp, tp = _jparams(arch_id), _tparams(arch_id)
+    toks, last = _prompts(arch_id)
+    jbatch, tbatch = {"tokens": jnp.asarray(toks)}, {
+        "tokens": torch.from_numpy(toks.astype(np.int64))}
+    pre = _prefix(arch_id) if with_prefix else 0
+    if pre:
+        emb = np.random.default_rng(3).standard_normal(
+            (BATCH, pre, jcfg.d_model)).astype(np.float32)
+        jbatch["prefix_embeds"] = jnp.asarray(emb, jnp.bfloat16)
+        tbatch["prefix_embeds"] = convert.tensor_from_numpy(
+            np.asarray(jbatch["prefix_embeds"]), "cpu")
+    last = last + pre
+    lj, cj = jax.jit(lambda p, b, li: JST.lm_prefill_step(
+        p, b, cfg=jcfg, sp_cfg=J_SP, last_index=li))(jp, jbatch,
+                                                     jnp.asarray(last))
+    lt, ct = TST.lm_prefill_step(tp, tbatch, cfg=tcfg, sp_cfg=T_SP,
+                                 last_index=last)
+    s_tot = toks.shape[1] + pre
+    assert ct["layers"][0]["k"].shape[1] == s_tot == cj["layers"]["k"].shape[2]
+    out = [(np.asarray(lj), lt.numpy())]
+    max_len = s_tot + DECODE_STEPS + 1
+    cj = jax.tree.map(_j_seat, JT.init_lm_cache(jcfg, BATCH, max_len), cj)
+    ct = _t_grow(tcfg, ct, max_len)
+    per_slot = mode == "per_slot"
+    j_decode = jax.jit(lambda p, c, t, pos: JST.lm_decode_step(
+        p, c, t, pos, cfg=jcfg, sp_cfg=J_SP, per_slot=per_slot))
+    pos = last + 1 if per_slot else np.int32(s_tot)
+    for _ in range(DECODE_STEPS):
+        tok = np.argmax(out[-1][0][:, -1, :jcfg.vocab], -1)[:, None]
+        lj, cj = j_decode(jp, cj, jnp.asarray(tok, jnp.int32),
+                          jnp.asarray(pos, jnp.int32))
+        lt, ct = TST.lm_decode_step(tp, ct, torch.from_numpy(tok),
+                                    torch.as_tensor(pos), cfg=tcfg,
+                                    sp_cfg=T_SP, per_slot=per_slot)
+        out.append((np.asarray(lj), lt.numpy()))
+        pos = pos + 1
+    return out
+
+
+@pytest.mark.parametrize("mode", ["per_slot", "shared_cursor"])
+@pytest.mark.parametrize("arch_id", NEW)
+def test_prefill_and_decode_match_reference(arch_id, mode):
+    for step, (ref, got) in enumerate(_prefill_decode(arch_id, mode)):
+        assert got.shape == ref.shape, step
+        np.testing.assert_allclose(got, ref, atol=_atol(arch_id), rtol=0,
+                                   err_msg=f"step {step}")
+
+
+def test_prefill_without_prefix_matches_reference():
+    """internvl2's LM also runs on text alone."""
+    for step, (ref, got) in enumerate(_prefill_decode(
+            "internvl2-26b", "per_slot", with_prefix=False)[:3]):
+        np.testing.assert_allclose(got, ref, atol=_atol("internvl2-26b"),
+                                   rtol=0, err_msg=f"step {step}")
+
+
+def _mixed_run(engine, prompts, new):
+    """r0, r1 start together; r2 joins when r0's slot frees."""
+    r0 = engine.submit(prompts[0], max_new_tokens=new[0])
+    r1 = engine.submit(prompts[1], max_new_tokens=new[1])
+    r2 = None
+    while engine.n_running or engine.n_queued or r2 is None:
+        events = engine.step()
+        if r2 is None and r0 in events["finished"]:
+            r2 = engine.submit(prompts[2], max_new_tokens=new[2])
+    out = engine.harvest()
+    return [out[r0], out[r1], out[r2]]
+
+
+@pytest.mark.parametrize("arch_id", NEW)
+def test_engine_streams_match_reference(arch_id):
+    """The packed (u4) engines' greedy streams are equal, a request
+    joining mid-flight, past gemma3's SMOKE window."""
+    jcfg, tcfg = _cfgs(arch_id)
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, jcfg.vocab, n).astype(np.int32)
+               for n in (4, 12, 8)]
+    new = (6, 14, 10)
+    kw = dict(n_slots=2, max_len=32, prompt_bucket=12, packed=True,
+              idx_bits=4)
+    jeng = JServeEngine(_jparams(arch_id), jcfg, J_SP, JServeConfig(**kw))
+    teng = ServeEngine(_tparams(arch_id), tcfg, T_SP, ServeConfig(**kw),
+                       device="cpu")
+    want = _mixed_run(jeng, prompts, new)
+    assert _mixed_run(teng, prompts, new) == want
+    assert teng.hbm_report() == jeng.hbm_report()
+
+
+def test_packed_store_keeps_bias_and_tied_table():
+    tp = _tparams("qwen2.5-32b")
+    packed, _ = pack_tree_element(tp, T_SP, device="cpu")
+    q = packed["blocks"][0]["attn"]["q_proj"]
+    assert isinstance(q["w"], PackedOp)
+    assert torch.equal(q["b"], tp["blocks"][0]["attn"]["q_proj"]["b"])
+    tied, _ = pack_tree_element(_tparams("gemma3-12b"), T_SP, device="cpu")
+    assert "lm_head" not in tied
+    assert tied["embed"]["embed_table"].dtype == torch.bfloat16
+
+
+# -- conversion and checkpoints --------------------------------------------
+
+
+@pytest.mark.parametrize("arch_id", ["qwen2.5-32b", "gemma3-12b"])
+def test_checkpoint_round_trip(arch_id, tmp_path):
+    """A train state with bias leaves and a tied table, restored, equals
+    the saved one bitwise and trains on to the same loss."""
+    state = convert.train_state_from_jax(_np(_jstate(arch_id)), device="cpu")
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(0, state, blocking=True)
+    back = mgr.restore(state, device="cpu")
+    for key in ("master", "momentum", "compute"):
+        leaves_a = TSGD.tree_leaves(state[key])
+        leaves_b = TSGD.tree_leaves(back[key])
+        assert len(leaves_a) == len(leaves_b)
+        for a, b in zip(leaves_a, leaves_b):
+            if isinstance(a, PregenOp):
+                for f in ("bp", "vals", "idx", "mask"):
+                    assert np.array_equal(_bits(getattr(a, f)),
+                                          _bits(getattr(b, f))), f
+            else:
+                assert np.array_equal(_bits(a), _bits(b))
+    tcfg = _cfgs(arch_id)[1]
+    fn = functools.partial(TST.lm_train_step, cfg=tcfg, sp_cfg=T_SP,
+                           opt_cfg=T_OPT)
+    _, batch = _batch(arch_id)
+    _, m1 = fn(state, batch)
+    _, m2 = fn(back, batch)
+    assert float(m1["loss"]) == float(m2["loss"])

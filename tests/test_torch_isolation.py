@@ -1,7 +1,7 @@
 """The port stands alone: no JAX, nothing of ``repro``, no silent CPU.
 
-* An AST scan of every module of ``src/repro_torch/`` and of
-  ``chip_smoke.py`` finds no import of ``jax``, ``jaxlib`` or the
+* An AST scan of every module of ``src/repro_torch/``, of the port's
+  examples (``examples/torch_*.py``) and of ``chip_smoke.py`` finds no import of ``jax``, ``jaxlib`` or the
   reference package ``repro``.
 * The entry points (``ServeEngine``, ``init``, ``pack_tree_element``,
   ``pack_tree_shared``,
@@ -44,7 +44,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 def _sources():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return (files + sorted((ROOT / "examples").glob("torch_*.py"))
+            + [ROOT / "chip_smoke.py"])
 
 
 def _imported(tree):
@@ -127,6 +128,12 @@ def test_pack_tree_shared_refuses_to_fall_back_to_cpu(monkeypatch):
 def test_scan_sees_the_image_models():
     names = {p.name for p in _sources()}
     assert {"convnets.py", "paper_models.py", "step.py"} <= names
+
+
+def test_scan_sees_the_archs_and_examples():
+    names = {p.name for p in _sources()}
+    assert {"base.py", "qwen2_5_32b.py", "glm4_9b.py", "gemma3_12b.py",
+            "internvl2_26b.py", "torch_paper_loss_curves.py"} <= names
 
 
 @pytest.mark.parametrize("name", ["resnet9", "vgg19", "vit"])
