@@ -267,7 +267,43 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 logits against per-slot decode on the same
                 tokens; internvl2 through lm_prefill_step with a
                 1024-row prefix and 16 decode steps; ms, tok/s, idle
-                share, peak.
+                share, peak;
+ 31. moe kernels granite-moe-1b-a400m's expert stacks (E = 32) in one
+                stacked nm_spmm launch, u8: at the TRAIN step's 1280 rows
+                an expert (w_gate/w_up 1024 -> 512, w_down 512 -> 1024)
+                and at B = 8: within the phase-3 tolerance of the plain
+                version, every expert bitwise a 2-D launch on that expert,
+                row 0 bitwise the B = 1 result; timed (CUDA graph replay,
+                cold L2) beside 32 separate 2-D launches, torch.bmm on the
+                dense bf16 stacks and the plain version, against the
+                bound; one layer's 7 sites (4 attention, 3 (E*K, F)
+                expert views) in one grouped fused_update launch, bitwise
+                the plain version, timed against 21.75 B/element; the
+                four attention projections as phase 27 holds the dense
+                archs': nm_spmm at B = 4 (u4) and the TRAIN step's 4096
+                rows (u8), nm_compact of the four weights (vector and
+                scalar) bitwise;
+ 32. moe small  granite SMOKE, card vs CPU: forward logits (within
+                MOE_SMALL_ATOL) and aux; the routing tables of the same
+                probabilities bitwise; three BDWP packed pre-generating
+                steps (loss, aux, total within MOE_PACKED_STEP_ATOL;
+                step-0 compute trees bitwise) and three legacy steps
+                (within SMALL_LOSS_ATOL); prefill and 20 decode steps, u4
+                attention, masked experts (within MOE_SMALL_ATOL);
+ 33. moe train  granite TRAIN (every published width, all 24 layers, 4 x
+                1024 tokens: 8 routing groups of 512, capacity 160)
+                through phase 10's checks: five timed steps, exactly 336
+                nm_spmm (2 x (4 + 3) x 24, one launch per expert stack)
+                and one fused_update over 168 sites a step, a profiled
+                sixth with the moe/route, moe/dispatch, moe/experts and
+                moe/combine ranges, layer 0's operands (expert stacks
+                per expert), peak;
+ 34. moe serve  granite FULL (24 layers) through phase 6's engine run:
+                attention 2:8 u4-packed (4 x 24 nm_compact a pack, 4 x
+                24 nm_spmm an engine step), the expert stacks bf16 and
+                re-masked on every call as the reference serves them;
+                batched streams equal solo streams; the experts' mask
+                derivation's device ms a decode step.
 
 It prints a JSON line with every kernel's numbers, the card line, and as
 its last line {"ok": true, "device": {...}}.  With no card, or outside a
@@ -303,6 +339,7 @@ TRAIN_ROWS = (4, 512)           # sequences x tokens of a training step
 UPDATE_SCALARS = dict(lr=0.0123, mu=0.9, wd=5e-4, lam=2e-4)
 L2_BYTES = 50 * 2**20
 SEED = 0                        # weights, activations and prompts
+RANGES = ("train/", "sgd/", "moe/")  # the port's profiler ranges
 
 # qwen3-8b projection shapes (K, F), in the order one layer runs them
 PROJ = [("q_proj", 4096, 4096), ("k_proj", 4096, 1024), ("v_proj", 4096, 1024),
@@ -858,7 +895,7 @@ def profile_train_step(step_fn, state, batch):
     # not land under the train/backward range: its device time is the
     # busy time less forward and update
     for e in prof.key_averages():
-        if e.key.startswith(("train/", "sgd/")):
+        if e.key.startswith(RANGES):
             if not str(e.device_type).endswith("CUDA"):
                 parts[e.key] = {
                     "host_ms": e.cpu_time_total / 1e3,
@@ -900,6 +937,28 @@ def profile_train_step(step_fn, state, batch):
                         "top_kernels": [list(k) for k in kernels[:15]]}
 
 
+def proj_paths(cfg):
+    """The seven weight sites of one block as (sub-dict, name): attention
+    and the dense FFN, or an MoE block's three expert stacks."""
+    if cfg.moe is None:
+        return PROJ_PATHS
+    return PROJ_PATHS[:4] + tuple(("moe", n) for n in ("w_gate", "w_up",
+                                                        "w_down"))
+
+
+def _site(leaf):
+    """A block's weight site: the ``"w"`` of a leaf-dict, or a bare MoE
+    stack."""
+    return leaf["w"] if isinstance(leaf, dict) else leaf
+
+
+def packed_per_layer(cfg) -> int:
+    """Weights the element pack packs in one block: 7, or an MoE block's
+    4 attention projections (the expert stacks are served unpacked, as
+    the reference's element pack leaves them)."""
+    return 4 if cfg.moe is not None else 7
+
+
 def phase_train(dev, seed, cfg=None, rows=None, prefix=0):
     """A full-width depth-cut TRAIN config (qwen3-8b's unless ``cfg``
     names another): BDWP 2:8 packed pre-generation, ``rows`` (sequences,
@@ -931,7 +990,8 @@ def phase_train(dev, seed, cfg=None, rows=None, prefix=0):
                                 opt_cfg=opt)
     data = lm_stream(cfg.vocab, *rows, device=dev, seed=seed, prefix=prefix,
                      d_model=cfg.d_model)
-    # one grouped fused_update launch a step over the 7 x L sites
+    # one grouped fused_update launch a step over the 7 x L sites (an MoE
+    # layer: 4 attention projections and 3 expert stacks)
     want = (2 * 7 * cfg.n_layers, 1, 7 * cfg.n_layers)
     tokens = rows[0] * (prefix + rows[1])     # rows through the model
     KS.launches = KF.launches = KF.launched_sites = 0
@@ -966,21 +1026,23 @@ def phase_train(dev, seed, cfg=None, rows=None, prefix=0):
     peak = torch.cuda.max_memory_allocated()
     layer = state["compute"]["blocks"][0]
     master = state["master"]["blocks"][0]
-    for part, name in PROJ_PATHS:
-        op, w = layer[part][name]["w"], master[part][name]["w"]
-        vals, idx = S.nm_pack(w, 2, 8, axis=0)
+    for part, name in proj_paths(cfg):
+        op, w = _site(layer[part][name]), _site(master[part][name])
+        ff, bp_ax = w.ndim - 2, w.ndim - 1       # an expert stack: per expert
+        vals, idx = S.nm_pack(w, 2, 8, axis=ff)
         check(torch.equal(op.vals.view(torch.int16),
                           vals.to(torch.bfloat16).view(torch.int16))
               and torch.equal(op.idx, idx),
               f"train: layer 0 {name} packed operand != nm_pack(master)")
-        check(torch.equal(op.mask, S.nm_mask(w, 2, 8, axis=0)),
+        check(torch.equal(op.mask, S.nm_mask(w, 2, 8, axis=ff)),
               f"train: layer 0 {name} stored mask != nm_mask(master)")
-        bp = torch.where(S.nm_mask(w, 2, 8, axis=1), w, 0.0)
+        bp = torch.where(S.nm_mask(w, 2, 8, axis=bp_ax), w, 0.0)
         check(bits_equal(op.bp, bp.to(torch.bfloat16)),
               f"train: layer 0 {name} bp != the BP-axis mask's operand")
     print("  layer 0: packed vals/idx == nm_pack(new master), stored mask "
           "== nm_mask(new master), bp == bf16(where(nm_mask(new master, "
-          "axis=1), master, 0)), all 7 projections")
+          "BP axis), master, 0)), all 7 projections"
+          + (" (the expert stacks per expert)" if cfg.moe else ""))
     steady = sorted(times[1:])
     ms = steady[len(steady) // 2]
     print(f"  {cfg.name} x{cfg.n_layers} layers, {rows[0]} x ("
@@ -1589,6 +1651,8 @@ def profile_steps(step, steps: int, kernel_keys) -> dict:
     kernels, host = [], []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0)
+        if e.key.startswith(RANGES):
+            continue         # a profiler range's span on the card, no kernel
         if us > 0 and str(e.device_type).endswith("CUDA"):
             kernels.append((us / steps / 1e3, e.count // steps, e.key))
         elif e.self_cpu_time_total > 0:
@@ -1670,12 +1734,12 @@ def pack_full(dev, seed, cfg, sp):
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0 - draws[0]
     compact, compact_variants = KC.launches, dict(KC.variant_launches)
+    want = packed_per_layer(cfg) * cfg.n_layers
     print(f"  init {shell_s + draws[0]:.1f} s + pack {pack_s:.4f} s "
           f"({cfg.n_layers} layers, nm_compact launches {compact}, want "
-          f"{7 * cfg.n_layers}, by variant {compact_variants}), peak "
+          f"{want}, by variant {compact_variants}), peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    check(compact == 7 * cfg.n_layers, f"serve {cfg.name}: nm_compact "
-          "launch count")
+    check(compact == want, f"serve {cfg.name}: nm_compact launch count")
     check(compact_variants["vector"] == compact, f"serve {cfg.name}: an "
           "element-pack launch missed the vector variant")
     return store, compact, compact_variants, pack_s
@@ -1716,7 +1780,8 @@ def phase_serve(dev, seed, cfg=None, lens=SERVE_LENS, new=SERVE_NEW,
     wall = time.perf_counter() - t0
     launches = K.launches
     st = engine.stats()
-    want = 7 * cfg.n_layers * (st["prefill_steps"] + st["decode_steps"])
+    want = packed_per_layer(cfg) * cfg.n_layers * (st["prefill_steps"]
+                                                   + st["decode_steps"])
     print(f"  batched: {len(rids)} requests, {st['decoded_tokens']} tokens, "
           f"{st['prefill_steps']} prefills, {st['decode_steps']} decode "
           f"steps in {wall:.3f} s: {st['decoded_tokens'] / wall:.1f} tok/s, "
@@ -3451,74 +3516,86 @@ def arch_proj(cfg):
             ("w_down", ff, d)]
 
 
-def phase_arch_kernels(dev, gen):
-    """Each new arch's seven projection shapes: nm_spmm at decode rows
-    (B = 4, u4) and at its TRAIN step's rows (u8) within the phase-3
-    tolerance, deterministic, row 0 bitwise the B = 1 result, timed
-    beside dense torch.matmul; one layer's 7 sites in one grouped
-    fused_update launch, bitwise the per-site plain version (out of place
-    and in place); nm_compact of the seven weights as the element pack
-    reads them, u4, vector and scalar variants, bitwise."""
-    from repro_torch.configs import get_arch
+def proj_kernel_checks(dev, gen, label, proj, train_rows):
+    """nm_spmm and nm_compact at one arch's projection shapes ``proj``
+    [(name, K, F)]: nm_spmm at decode rows (B = 4, u4) and at
+    ``train_rows`` (u8) within the phase-3 tolerance, deterministic, row
+    0 bitwise the B = 1 result, timed beside dense torch.matmul; then
+    nm_compact of each weight as the element pack reads it, u4, vector
+    and scalar variants, bitwise.  Returns (rows, nm_spmm's max abs
+    err)."""
     from repro_torch.kernels import nm_spmm as K
     from repro_torch.kernels import ref
+
+    rows, worst = [], 0.0
+    for name, k, f in proj:
+        for b, bits in ((4, 4), (train_rows, 8)):
+            act, vals, idx = packed_case(gen, b, k, f, 2, 8, bits, dev)
+            kern = K.nm_spmm(act, vals, idx, 2, 8, idx_bits=bits)
+            again = K.nm_spmm(act, vals, idx, 2, 8, idx_bits=bits)
+            row0 = K.nm_spmm(act[:1].contiguous(), vals, idx, 2, 8,
+                             idx_bits=bits)
+            plain = ref.ref_nm_spmm(act, vals, idx, 2, 8, idx_bits=bits)
+            w = ref.decompress_nm(vals, idx, 2, 8, axis=0, idx_bits=bits)
+            err = (kern - plain).abs()
+            scale = act.float().abs() @ w.float().abs()
+            case = f"{label} {name} B={b} u{bits}"
+            check(float((err - TOL * scale).max()) <= 0,
+                  f"nm_spmm {case}: error above tolerance")
+            check(torch.equal(kern, again),
+                  f"nm_spmm {case}: not deterministic")
+            check(torch.equal(kern[:1], row0),
+                  f"nm_spmm {case}: row 0 depends on the batch")
+            worst = max(worst, float(err.max()))
+            wb = w.to(torch.bfloat16)
+            del plain, scale, err, w
+            t_k = time_ms(lambda i: K.nm_spmm(act, vals, idx, 2, 8, bits),
+                          1, iters=5)
+            t_l = time_ms(lambda i: torch.matmul(act, wb), 1, iters=5)
+            pl = K.plan(b, k, f, 2, 8)
+            rows.append({"proj": name, "B": b, "K": k, "F": f,
+                         "idx_bits": bits, "ms": t_k, "library_ms": t_l,
+                         "bound_ms": bound_ms(act, vals, idx, f)[0],
+                         "chunk_groups": pl.chunk_groups,
+                         "stage_groups": pl.gs, "config": pl.config,
+                         "splits": pl.splits})
+            del act, vals, idx, kern, again, row0, wb
+    for b in sorted({r["B"] for r in rows}):
+        rs = [r for r in rows if r["B"] == b]
+        print(f"  {label} nm_spmm B={b}: one layer's {len(proj)} "
+              f"projections kernel {sum(r['ms'] for r in rs):.4f} ms, dense "
+              f"torch.matmul {sum(r['library_ms'] for r in rs):.4f} ms,"
+              f" bound {sum(r['bound_ms'] for r in rs):.4f} ms; "
+              "chunk/stage groups "
+              + ", ".join(f"{r['proj']} {r['chunk_groups']}/"
+                          f"{r['stage_groups']}" for r in rs))
+    torch.cuda.empty_cache()
+    for name, k, f in proj:
+        w = torch.randn((k, f), generator=gen, device=dev).to(torch.bfloat16)
+        check_compact_view(w.t(), 2, 8, 4, ("vector", "scalar"),
+                           f"{label} {name} u4")
+        del w
+    return rows, worst
+
+
+def phase_arch_kernels(dev, gen):
+    """Each new arch's seven projection shapes through
+    ``proj_kernel_checks`` at its TRAIN step's rows; one layer's 7 sites
+    in one grouped fused_update launch, bitwise the per-site plain
+    version (out of place and in place)."""
+    from repro_torch.configs import get_arch
 
     out, worst = {}, {"nm_spmm": 0.0, "fused_update": 0.0}
     for arch_id in ARCH_IDS:
         cfg = get_arch(arch_id).full
         b_seq, text, prefix = ARCH_TRAIN_ROWS[arch_id]
-        rows, proj = [], arch_proj(cfg)
-        for name, k, f in proj:
-            for b, bits in ((4, 4), (b_seq * (text + prefix), 8)):
-                act, vals, idx = packed_case(gen, b, k, f, 2, 8, bits, dev)
-                kern = K.nm_spmm(act, vals, idx, 2, 8, idx_bits=bits)
-                again = K.nm_spmm(act, vals, idx, 2, 8, idx_bits=bits)
-                row0 = K.nm_spmm(act[:1].contiguous(), vals, idx, 2, 8,
-                                 idx_bits=bits)
-                plain = ref.ref_nm_spmm(act, vals, idx, 2, 8, idx_bits=bits)
-                w = ref.decompress_nm(vals, idx, 2, 8, axis=0, idx_bits=bits)
-                err = (kern - plain).abs()
-                scale = act.float().abs() @ w.float().abs()
-                label = f"{arch_id} {name} B={b} u{bits}"
-                check(float((err - TOL * scale).max()) <= 0,
-                      f"nm_spmm {label}: error above tolerance")
-                check(torch.equal(kern, again),
-                      f"nm_spmm {label}: not deterministic")
-                check(torch.equal(kern[:1], row0),
-                      f"nm_spmm {label}: row 0 depends on the batch")
-                worst["nm_spmm"] = max(worst["nm_spmm"], float(err.max()))
-                wb = w.to(torch.bfloat16)
-                del plain, scale, err, w
-                t_k = time_ms(lambda i: K.nm_spmm(act, vals, idx, 2, 8,
-                                                  bits), 1, iters=5)
-                t_l = time_ms(lambda i: torch.matmul(act, wb), 1, iters=5)
-                pl = K.plan(b, k, f, 2, 8)
-                rows.append({"proj": name, "B": b, "K": k, "F": f,
-                             "idx_bits": bits, "ms": t_k, "library_ms": t_l,
-                             "bound_ms": bound_ms(act, vals, idx, f)[0],
-                             "chunk_groups": pl.chunk_groups,
-                             "stage_groups": pl.gs, "config": pl.config,
-                             "splits": pl.splits})
-                del act, vals, idx, kern, again, row0, wb
-        for b in sorted({r["B"] for r in rows}):
-            rs = [r for r in rows if r["B"] == b]
-            print(f"  {arch_id} nm_spmm B={b}: one layer's 7 projections "
-                  f"kernel {sum(r['ms'] for r in rs):.4f} ms, dense "
-                  f"torch.matmul {sum(r['library_ms'] for r in rs):.4f} ms,"
-                  f" bound {sum(r['bound_ms'] for r in rs):.4f} ms; "
-                  "chunk/stage groups "
-                  + ", ".join(f"{r['proj']} {r['chunk_groups']}/"
-                              f"{r['stage_groups']}" for r in rs))
+        proj = arch_proj(cfg)
+        rows, err = proj_kernel_checks(dev, gen, arch_id, proj,
+                                       b_seq * (text + prefix))
+        worst["nm_spmm"] = max(worst["nm_spmm"], err)
         worst["fused_update"] = max(worst["fused_update"], grouped_update_check(
             gen, [(k, f) for _, k, f in proj], dev, UPDATE_SCALARS,
             f"{arch_id} layer"))
-        torch.cuda.empty_cache()
-        for name, k, f in proj:
-            w = torch.randn((k, f), generator=gen, device=dev).to(
-                torch.bfloat16)
-            check_compact_view(w.t(), 2, 8, 4, ("vector", "scalar"),
-                               f"{arch_id} {name} u4")
-            del w
         print(f"  {arch_id}: nm_spmm within tolerance, rows independent of "
               "B; one grouped fused_update over the 7 sites bitwise (in "
               "place too); nm_compact of the 7 weights bitwise (u4, vector "
@@ -3572,8 +3649,9 @@ def phase_arch_small(dev, seed):
             for d in streams:
                 p16 = sgd.tree_map(lambda _, t: t.to(d, torch.bfloat16),
                                    params)
-                h, _ = T.forward(p16, batch0[d]["tokens"], cfg, sp,
-                                 prefix_embeds=batch0[d].get("prefix_embeds"))
+                h, _, _ = T.forward(
+                    p16, batch0[d]["tokens"], cfg, sp,
+                    prefix_embeds=batch0[d].get("prefix_embeds"))
                 logits[d] = T.logits_from_hidden(p16, h, cfg)
         d_fwd = float((logits[dev].cpu() - logits["cpu"]).abs().max())
         check(d_fwd <= atol, f"{arch_id} small: forward logits disagree")
@@ -3908,6 +3986,289 @@ def phase_arch_serve(dev, seed, arch_id):
                        _shared_cursor_run(dev, cfg, sp, store, pr))
 
 
+# -- phases 31-34: granite-moe-1b-a400m -------------------------------------
+
+MOE_ARCH = "granite-moe-1b-a400m"
+MOE_TRAIN_ROWS = (4, 1024)      # 8 routing groups of 512, capacity 160
+# phase 31's stacked nm_spmm cases: (label, E, rows an expert, K, F):
+# the TRAIN step's 1280 rows an expert (8 groups x capacity 160) for
+# w_gate/w_up and w_down, and decode-like rows
+MOE_SPMM = [("w_gate/w_up", 32, 1280, 1024, 512),
+            ("w_down", 32, 1280, 512, 1024),
+            ("w_gate/w_up B=8", 32, 8, 1024, 512),
+            ("w_down B=8", 32, 8, 512, 1024)]
+# phase 32, card vs CPU at SMOKE (both run the port, so XLA's rounding
+# order, which sets the CPU tests' limits against the reference, plays no
+# part): the forward's logits and aux and the decode's logits (read on an
+# H100: 7.2e-7, 2.4e-7, 4.8e-7)
+MOE_SMALL_ATOL = 1e-4
+# the three pre-generated packed steps' (loss, aux, total), any step (read:
+# 1.8e-5, 5.1e-4, 2.3e-5); the legacy steps keep SMALL_LOSS_ATOL, a limit
+# per step: their routing flips moved the loss by 1.7e-2
+MOE_PACKED_STEP_ATOL = (1e-3, 5e-3, 1e-3)
+# phase 34's requests: phase 6's prompts asking for about half as many
+# tokens (each decode step re-masks the experts: ~160 ms a step)
+MOE_SERVE_NEW = (4, 12, 8, 6, 10, 5)
+
+
+def stacked_case(gen, e, b, k, f, dev):
+    """(act (E, B, K), vals (E, Kc, F), u8 idx, the dense bf16 stack)."""
+    from repro_torch.core import sparsity as S
+
+    w = torch.randn((e, k, f), generator=gen, device=dev).to(torch.bfloat16)
+    vals, idx = S.nm_pack(w, 2, 8, axis=1)
+    act = torch.randn((e, b, k), generator=gen, device=dev).to(
+        torch.bfloat16)
+    return act, vals, idx, S.nm_unpack_n(vals, idx, 2, 8, axis=1)
+
+
+def moe_layer_views(cfg):
+    """One granite layer's 7 fused_update sites as the optimizer views
+    them: the 4 attention (K, F) masters and the 3 expert stacks'
+    (E*K, F) views."""
+    e, d, dff = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_expert
+    attn = [(k, f) for name, k, f in arch_proj(cfg)[:4]]
+    return attn + [(e * d, dff), (e * d, dff), (e * dff, d)]
+
+
+def phase_moe_kernels(dev, gen):
+    """nm_spmm on granite's expert stacks in one launch: within the
+    phase-3 tolerance of the plain version, each expert bitwise a 2-D
+    launch on that expert, row 0 bitwise the B = 1 result,
+    deterministic; times (CUDA graph replay, cold L2) of the stacked
+    launch, 32 separate 2-D launches, torch.bmm on the dense bf16 stacks
+    and the plain version, against the bound; then one layer's 7 sites
+    (4 attention, 3 (E*K, F) expert views) in one grouped fused_update
+    launch, bitwise the plain version, timed against its byte bound;
+    then the four attention projections through ``proj_kernel_checks``
+    at decode rows and the TRAIN step's rows, as phase 27 holds the dense
+    archs'."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import fused_update as KF
+    from repro_torch.kernels import nm_spmm as K
+    from repro_torch.kernels import ref
+
+    rows, worst = [], 0.0
+    for label, e, b, k, f in MOE_SPMM:
+        act, vals, idx, dense = stacked_case(gen, e, b, k, f, dev)
+        kern = K.nm_spmm(act, vals, idx, 2, 8, 8)
+        again = K.nm_spmm(act, vals, idx, 2, 8, 8)
+        row0 = K.nm_spmm(act[:, :1].contiguous(), vals, idx, 2, 8, 8)
+        plain = ref.ref_nm_spmm(act, vals, idx, 2, 8, 8)
+        scale = torch.bmm(act.float().abs(), dense.float().abs())
+        err = (kern - plain).abs()
+        check(float((err - TOL * scale).max()) <= 0,
+              f"stacked nm_spmm {label}: error above tolerance")
+        check(torch.equal(kern, again), f"stacked nm_spmm {label}: not "
+              "deterministic")
+        check(torch.equal(kern[:, :1], row0), f"stacked nm_spmm {label}: "
+              "row 0 depends on the batch")
+        for j in range(e):
+            check(torch.equal(kern[j], K.nm_spmm(act[j], vals[j], idx[j], 2,
+                                                 8, 8)),
+                  f"stacked nm_spmm {label}: expert {j} != its 2-D launch")
+        worst = max(worst, float(err.max()))
+        del plain, scale, err, kern, again, row0
+        weight_bytes = vals.numel() * 3
+        copies = max(2, -(-2 * L2_BYTES // weight_bytes))
+        sets = [(vals, idx, dense)] + [stacked_case(gen, e, b, k, f, dev)[1:]
+                                       for _ in range(copies - 1)]
+        t_k = time_ms(lambda i: K.nm_spmm(act, sets[i][0], sets[i][1], 2, 8,
+                                          8), copies, iters=10)
+        t_s = time_ms(lambda i: [K.nm_spmm(act[j], sets[i][0][j],
+                                           sets[i][1][j], 2, 8, 8)
+                                 for j in range(e)], copies, iters=3)
+        t_l = time_ms(lambda i: torch.bmm(act, sets[i][2]), copies, iters=10)
+        t_p = time_ms(lambda i: ref.ref_nm_spmm(act, sets[i][0], sets[i][1],
+                                                2, 8, 8), copies, iters=2)
+        moved = (act.numel() * 2 + vals.numel() * 3 + e * b * f * 4)
+        ops = 2 * e * b * vals.shape[1] * f
+        t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+        t_b = max(t_bytes, t_ops) * 1e3
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        pl = K.plan(b, k, f, 2, 8, e)
+        rows.append({"case": label, "E": e, "B": b, "K": k, "F": f,
+                     "ms": t_k, "separate_ms": t_s, "library_ms": t_l,
+                     "plain_ms": t_p, "bound_ms": t_b, "bound_by": by,
+                     "config": pl.config, "splits": pl.splits,
+                     "dense_work_ms": 2 * e * b * k * f / BF16_OPS_PER_S
+                     * 1e3})
+        print(f"  E={e} B={b:4d} {label:16s} {k:4d}x{f:<4d} stacked "
+              f"{t_k:.4f} ms, {e} 2-D launches {t_s:.4f} ms, torch.bmm "
+              f"(dense bf16) {t_l:.4f} ms, bound {t_b:.4f} ms ({by}), plain "
+              f"{t_p:.3f} ms; config {pl.config}, split-K {pl.splits}")
+        del sets, act, vals, idx, dense
+        torch.cuda.empty_cache()
+    print(f"  stacked nm_spmm: within tolerance, every expert bitwise its "
+          f"2-D launch, rows independent of B; max abs err {worst:.3e}")
+    cfg = get_arch(MOE_ARCH).full
+    views = moe_layer_views(cfg)
+    upd_err = grouped_update_check(gen, views, dev, UPDATE_SCALARS,
+                                   "granite layer")
+    s = UPDATE_SCALARS
+    layer = [update_case(gen, k, f, dev) for k, f in views]
+    args = (s["lr"], s["mu"], s["wd"], s["lam"], 2, 8)
+    t_g = time_ms(lambda i: KF.fused_update_sites(layer, *args, "bdwp"), 1,
+                  iters=5)
+    t_p = time_ms(lambda i: [ref.ref_fused_update(
+        *site, n=2, m=8, axis=0, bp_mode="bdwp", **s) for site in layer], 1,
+        iters=1)
+    t_b = sum(update_bound_ms(k, f, 2, 8) for k, f in views)
+    upd = {"sites": len(views), "views": views, "ms": t_g, "plain_ms": t_p,
+           "bound_ms": t_b, "bound_by": "bytes", "library_ms": None}
+    print(f"  one granite layer's {len(views)} sites (4 attention, 3 (E*K, "
+          f"F) expert views) in one grouped fused_update launch: bitwise "
+          f"the plain version (in place too); {t_g:.4f} ms against a "
+          f"{t_b:.4f} ms bound (21.75 B/element; bound/kernel "
+          f"{t_b / t_g:.2f}), plain {t_p:.2f} ms")
+    del layer
+    torch.cuda.empty_cache()
+    attn_rows, attn_err = proj_kernel_checks(
+        dev, gen, "granite", arch_proj(cfg)[:4],
+        MOE_TRAIN_ROWS[0] * MOE_TRAIN_ROWS[1])
+    print("  granite attention: nm_spmm within tolerance, rows independent "
+          "of B; nm_compact of the 4 weights bitwise (u4, vector and "
+          "scalar)")
+    return worst, rows, upd_err, upd, attn_rows, attn_err
+
+
+def phase_moe_small(dev, seed):
+    """granite SMOKE, card vs CPU: forward logits and aux (bf16
+    weights); the routing tables given the same probabilities, bitwise;
+    three BDWP steps, pre-generated and packed, and three legacy steps:
+    loss, aux, total; prefill and 20 decode steps from u4-packed
+    attention (masked experts)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.data.synthetic import lm_stream
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer_lm as T
+    from repro_torch.optim import sgd
+    from repro_torch.serve.packed_params import pack_tree_element
+    from repro_torch.train import step as ST
+
+    cfg = get_arch(MOE_ARCH).smoke
+    sp = SparsityConfig(n=2, m=8, method="bdwp")
+    opt = sgd.SGDConfig(lr=0.1, warmup_steps=2, total_steps=50)
+    params = T.init(cfg, seed=seed, device="cpu")
+    streams = {d: lm_stream(cfg.vocab, 2, 32, device=d, seed=seed)
+               for d in ("cpu", dev)}
+    batch0 = {d: next(streams[d])[1] for d in streams}
+    out = {}
+    with torch.no_grad():
+        for d in streams:
+            p16 = sgd.tree_map(lambda _, t: t.to(d, torch.bfloat16), params)
+            h, _, aux = T.forward(p16, batch0[d]["tokens"], cfg, sp)
+            out[d] = (T.logits_from_hidden(p16, h, cfg), aux)
+    d_fwd = float((out[dev][0].cpu() - out["cpu"][0]).abs().max())
+    d_aux = abs(float(out[dev][1]) - float(out["cpu"][1]))
+    check(d_fwd <= MOE_SMALL_ATOL, "moe small: forward logits disagree")
+    check(d_aux <= MOE_SMALL_ATOL, "moe small: aux disagrees")
+    # the routing tables of the CPU's layer-0 probabilities, on both
+    xt = torch.randn((4, 16, cfg.d_model),
+                     generator=torch.Generator().manual_seed(seed)).to(
+                         torch.bfloat16)
+    w = params["blocks"][0]["moe"]["router"]["w"]
+    probs = M.router_probs(xt, w)
+    r_cpu, r_dev = M.route(probs, cfg.moe), M.route(probs.to(dev), cfg.moe)
+    for field in ("gate_idx", "gates", "pos", "keep", "slot_token"):
+        check(bits_equal(getattr(r_cpu, field),
+                         getattr(r_dev, field).cpu()),
+              f"moe small: routing {field} differs between card and CPU")
+    probs_dev = M.router_probs(xt.to(dev), w.to(dev))
+    d_probs = float((probs_dev.cpu() - probs).abs().max())
+    losses = {}
+    for flow, pregen in (("pregen packed", True), ("legacy", False)):
+        states = {d: ST.train_state_from_params(
+            sgd.tree_map(lambda _, t: t.to(d, copy=True), params), sp,
+            pregen=pregen, pregen_pack=pregen) for d in streams}
+        if pregen:
+            check(_compute_bitwise(states["cpu"]["compute"],
+                                   states[dev]["compute"]),
+                  "moe small: step-0 compute trees differ")
+        data = {d: lm_stream(cfg.vocab, 2, 32, device=d, seed=seed)
+                for d in streams}
+        hist = {d: [] for d in streams}
+        for _ in range(3):
+            for d in streams:
+                _, batch = next(data[d])
+                states[d], met = ST.lm_train_step(
+                    states[d], batch, cfg=cfg, sp_cfg=sp, opt_cfg=opt,
+                    pregen=pregen, pregen_pack=pregen)
+                hist[d].append([float(met[k])
+                                for k in ("loss", "aux", "total")])
+        diffs = np.abs(np.array(hist[dev]) - np.array(hist["cpu"]))
+        check(np.all(np.isfinite(hist[dev])), f"moe small {flow}: "
+              "non-finite metrics")
+        tol = (np.array(MOE_PACKED_STEP_ATOL)[None] if pregen
+               else np.array(SMALL_LOSS_ATOL)[:, None])
+        check(np.all(diffs <= tol),
+              f"moe small {flow}: loss, aux or total disagree")
+        losses[flow] = (hist[dev], diffs.tolist(),
+                        MOE_PACKED_STEP_ATOL if pregen else SMALL_LOSS_ATOL)
+    packed = {d: pack_tree_element(
+        sgd.tree_map(lambda _, t: t.to(torch.bfloat16), params), sp,
+        device=d)[0] for d in streams}
+    d_dec = _small_decode(dev, seed, cfg, sp, packed, 0, True)
+    check(d_dec <= MOE_SMALL_ATOL, "moe small: decode logits disagree")
+    print(f"  granite SMOKE: forward |dlogit| {d_fwd:.3e} (tol "
+          f"{MOE_SMALL_ATOL}), |daux| {d_aux:.3e}; router probabilities "
+          f"|d| {d_probs:.3e}, routing tables of the same probabilities "
+          "bitwise; step-0 compute trees bitwise")
+    for flow, (h, diffs, tol) in losses.items():
+        print(f"  {flow}: loss/aux/total card " + "; ".join(
+            " ".join(f"{x:.5f}" for x in step) for step in h)
+              + " |d| " + "; ".join(" ".join(f"{x:.2e}" for x in step)
+                                    for step in diffs)
+              + f" (tol {tol} per "
+              + ("metric" if tol is MOE_PACKED_STEP_ATOL else "step") + ")")
+    print(f"  prefill + {ARCH_DECODE_STEPS} decode steps per slot, u4 "
+          f"attention, masked experts: |dlogit| {d_dec:.3e} (tol "
+          f"{MOE_SMALL_ATOL})")
+    return {"forward": d_fwd, "aux": d_aux, "decode": d_dec,
+            "losses": losses}
+
+
+def _expert_mask_ms(store, cfg, sp):
+    """Device ms of the experts' FF mask derivation in one decode step:
+    every layer's three bf16 stacks re-masked along K, as ``MaskedOp``
+    does on each call."""
+    from repro_torch.core import operand as O
+
+    stacks = [b["moe"][n] for b in store.params["blocks"]
+              for n in ("w_gate", "w_up", "w_down")]
+    return time_ms(lambda i: [O._ff_weights(w, sp) for w in stacks], 1,
+                   iters=2)
+
+
+def phase_moe_serve(dev, seed):
+    """granite FULL (24 layers) through phase 6's engine run: attention
+    packed 2:8 u4 (4 x 24 nm_compact a pack, 4 x 24 nm_spmm an engine
+    step), the expert stacks bf16 and masked on every call, as the
+    reference serves them; then the experts' mask derivation's share of
+    a decode step."""
+    from repro_torch.configs import granite_moe_1b
+    from repro_torch.core.sparsity import SparsityConfig
+
+    cfg = granite_moe_1b.FULL
+    sp = SparsityConfig(n=2, m=8, method="bdwp")
+
+    def masks(store, _):
+        ms = _expert_mask_ms(store, cfg, sp)
+        print(f"  the experts' FF mask derivation (3 x {cfg.n_layers} "
+              f"stacks of {cfg.moe.n_experts} x {cfg.d_model} x "
+              f"{cfg.moe.d_expert}, on every call): {ms:.3f} ms of device "
+              "time a decode step")
+        return {"expert_mask_ms": ms}
+
+    out = phase_serve(dev, seed, cfg, new=MOE_SERVE_NEW, then=masks)
+    share = out["then"]["expert_mask_ms"] / out["ms_per_step"]
+    print(f"  mask derivation: {share:.3f} of an engine step's "
+          f"{out['ms_per_step']:.2f} ms")
+    out["then"]["share_of_step"] = share
+    return out
+
+
 def _leaf_at(tree, name):
     for key in name.split("/"):
         tree = tree[key]
@@ -3930,12 +4291,15 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
-    print("[1] card")
+    def head(title):   # a phase's title, with the run's seconds so far
+        print(f"{title}  (t = {time.perf_counter() - t_start:.1f} s)")
+
+    head("[1] card")
     card = card_line()
     print(f"  {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
-    print("[2] build")
+    head("[2] build")
     t0 = time.perf_counter()
     built = build.build_all()
     for name, info in built.items():
@@ -3951,99 +4315,119 @@ def main(argv=None) -> int:
                   f"{c['stores']}")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    print("[3] kernels vs plain versions")
+    head("[3] kernels vs plain versions")
     max_err = phase_kernels(dev, gen)
-    print("[4] timing (cold L2)")
+    head("[4] timing (cold L2)")
     rows = phase_timing(dev, gen)
-    print("[5] SMOKE size: card vs CPU")
+    head("[5] SMOKE size: card vs CPU")
     phase_small(dev, SEED)
-    print("[6] serve qwen3-8b FULL, packed 2:8 u4")
+    head("[6] serve qwen3-8b FULL, packed 2:8 u4")
     serve = phase_serve(dev, SEED)
     torch.cuda.empty_cache()
-    print("[7] fused_update vs plain, and timing (cold L2)")
+    head("[7] fused_update vs plain, and timing (cold L2)")
     upd_err, upd_rows, upd_layer = phase_update(dev, gen)
-    print(f"[8] nm_spmm at training rows (B = {TRAIN_ROWS[0]} x "
+    head(f"[8] nm_spmm at training rows (B = {TRAIN_ROWS[0]} x "
           f"{TRAIN_ROWS[1]}, and one pod's rows of [14]), u8")
     spmm_err, spmm_rows, spmm_pod_rows = phase_spmm_train(dev, gen)
-    print("[9] SMOKE-size training: card vs CPU")
+    head("[9] SMOKE-size training: card vs CPU")
     phase_train_small(dev, SEED)
-    print("[10] train qwen3-8b TRAIN (full width, 8 layers), 2:8 bdwp, "
+    head("[10] train qwen3-8b TRAIN (full width, 8 layers), 2:8 bdwp, "
           "packed")
     train = phase_train(dev, SEED)
     torch.cuda.empty_cache()
-    print("[11] grad_compress and grad_decompress_mean vs plain, and timing")
+    head("[11] grad_compress and grad_decompress_mean vs plain, and timing")
     sync_err, sync_rows = phase_sync_kernels(dev, gen)
     torch.cuda.empty_cache()
-    print("[12] cross_pod_sync alone at qwen3-8b TRAIN_SYNC leaf shapes, "
+    head("[12] cross_pod_sync alone at qwen3-8b TRAIN_SYNC leaf shapes, "
           "P = 2")
     sync_alone = phase_sync_alone(dev, SEED)
     torch.cuda.empty_cache()
-    print("[13] SMOKE compressed training (P = 2): card vs CPU")
+    head("[13] SMOKE compressed training (P = 2): card vs CPU")
     phase_train_sync_small(dev, SEED)
-    print("[14] train qwen3-8b TRAIN_SYNC (full width, 4 layers), 2 pods, "
+    head("[14] train qwen3-8b TRAIN_SYNC (full width, 4 layers), 2 pods, "
           "compressed sync, 2:8 bdwp, packed")
     train_sync = phase_train_sync(dev, SEED)
     torch.cuda.empty_cache()
-    print("[15] nm_compact and nm_spmm_shared vs plain, and timing (cold L2)")
+    head("[15] nm_compact and nm_spmm_shared vs plain, and timing (cold L2)")
     compact_err, compact_rows = phase_compact(dev, gen)
     shared_err, shared_rows = phase_shared(dev, gen)
     torch.cuda.empty_cache()
-    print("[16] SMOKE shared-pattern serving: card vs CPU")
+    head("[16] SMOKE shared-pattern serving: card vs CPU")
     phase_shared_small(dev, SEED)
-    print("[17] serve qwen3-8b FULL, shared-pattern 2:8 (reduced K)")
+    head("[17] serve qwen3-8b FULL, shared-pattern 2:8 (reduced K)")
     shared_serve = phase_shared_serve(dev, SEED)
     torch.cuda.empty_cache()
-    print("[18] paper models' kernels: nm_spmm at ViT rows, fused_update at "
+    head("[18] paper models' kernels: nm_spmm at ViT rows, fused_update at "
           "the sites' views")
     paper_spmm_err, paper_spmm_rows, paper_upd_err, paper_upd_rows = \
         phase_paper_kernels(dev, gen)
     torch.cuda.empty_cache()
-    print("[19] paper models, small: card vs CPU")
+    head("[19] paper models, small: card vs CPU")
     phase_paper_small(dev, SEED)
-    print("[20] train ResNet9, VGG19 and ViT at Table I's widths and batch, "
+    head("[20] train ResNet9, VGG19 and ViT at Table I's widths and batch, "
           "2:8 bdwp, packed")
     paper = phase_paper_train(dev, SEED)
     torch.cuda.empty_cache()
-    print("[21] SMOKE-size training, every method on both dataflows, shared "
+    head("[21] SMOKE-size training, every method on both dataflows, shared "
           "and transposable masks, the legacy compressed step; legacy "
           "ResNet9: card vs CPU")
     _, legacy_sync = phase_dataflow_small(dev, SEED)
     flows = {}
     for num, flow in ((22, "transposable"), (23, "shared"), (24, "legacy")):
         torch.cuda.empty_cache()
-        print(f"[{num}] train qwen3-8b TRAIN (full width, 8 layers), 2:8 "
+        head(f"[{num}] train qwen3-8b TRAIN (full width, 8 layers), 2:8 "
               f"bdwp, {flow}" + (", packed" if flow == "transposable" else "")
               + (", pre-generated, unpacked" if flow == "shared" else "")
               + (" (pregen=False)" if flow == "legacy" else ""))
         flows[flow] = phase_train_flow(dev, SEED, flow)
     torch.cuda.empty_cache()
-    print("[25] the paper's models on the legacy dataflow at Table I's "
+    head("[25] the paper's models on the legacy dataflow at Table I's "
           "widths and batch")
     paper_legacy = phase_paper_legacy(dev, SEED)
     torch.cuda.empty_cache()
-    print("[26] Fig. 4: ResNet9 x five methods x the reference's seeds, 120 "
+    head("[26] Fig. 4: ResNet9 x five methods x the reference's seeds, 120 "
           "steps, against its committed curves; Table I's lr")
     fig4 = phase_fig4(dev)
-    print("[27] the new archs' kernels: nm_spmm, fused_update and "
+    head("[27] the new archs' kernels: nm_spmm, fused_update and "
           "nm_compact at their projection shapes")
     arch_err, arch_rows = phase_arch_kernels(dev, gen)
-    print("[28] the new archs at SMOKE size: card vs CPU")
+    head("[28] the new archs at SMOKE size: card vs CPU")
     phase_arch_small(dev, SEED)
     arch_train, arch_serve = {}, {}
     for arch_id in ARCH_IDS:
         torch.cuda.empty_cache()
         b, text, prefix = ARCH_TRAIN_ROWS[arch_id]
         cfg = arch_module(arch_id).TRAIN
-        print(f"[29] train {arch_id} TRAIN (full width, {cfg.n_layers} of "
+        head(f"[29] train {arch_id} TRAIN (full width, {cfg.n_layers} of "
               f"{arch_module(arch_id).FULL.n_layers} layers), 2:8 bdwp, "
               f"packed, {b} x ({f'{prefix} prefix + ' if prefix else ''}"
               f"{text}) tokens")
         arch_train[arch_id] = phase_train(dev, SEED, cfg, (b, text), prefix)
     for arch_id in ARCH_IDS:
         torch.cuda.empty_cache()
-        print(f"[30] serve {arch_id} FULL ("
+        head(f"[30] serve {arch_id} FULL ("
               f"{arch_module(arch_id).FULL.n_layers} layers), packed 2:8 u4")
         arch_serve[arch_id] = phase_arch_serve(dev, SEED, arch_id)
+    torch.cuda.empty_cache()
+    head("[31] granite-moe kernels: nm_spmm on the 32-expert stacks in one "
+          "launch, one layer's grouped fused_update, nm_spmm and nm_compact "
+          "at the attention projections")
+    (moe_err, moe_rows, moe_upd_err, moe_upd, arch_rows[MOE_ARCH],
+     moe_attn_err) = phase_moe_kernels(dev, gen)
+    head("[32] granite-moe SMOKE: card vs CPU")
+    moe_small = phase_moe_small(dev, SEED)
+    torch.cuda.empty_cache()
+    from repro_torch.configs import granite_moe_1b
+
+    moe_cfg = granite_moe_1b.TRAIN
+    head(f"[33] train {MOE_ARCH} TRAIN (full width, {moe_cfg.n_layers} of "
+          f"{granite_moe_1b.FULL.n_layers} layers), 2:8 bdwp, packed, "
+          f"{MOE_TRAIN_ROWS[0]} x {MOE_TRAIN_ROWS[1]} tokens")
+    moe_train = phase_train(dev, SEED, moe_cfg, MOE_TRAIN_ROWS)
+    torch.cuda.empty_cache()
+    head(f"[34] serve {MOE_ARCH} FULL (24 layers), attention packed 2:8 u4, "
+          "experts masked")
+    moe_serve = phase_moe_serve(dev, SEED)
 
     def summed(rs, at, launches, by_path, err):
         return {"launches": launches, "launches_by_path": by_path,
@@ -4072,18 +4456,22 @@ def main(argv=None) -> int:
                      for a, r in arch_train.items()},
                   **{f"serve_{a}": r["launches"] + (
                       r["then"]["launches"] if r.get("then") else 0)
-                     for a, r in arch_serve.items()}}
+                     for a, r in arch_serve.items()},
+                  "train_granite": moe_train["launches"]["nm_spmm"],
+                  "serve_granite": moe_serve["launches"]}
     upd_paths, upd_sites = ({
         "train": train["launches"][key],
         "train_sync": train_sync["launches"][key],
         "paper_train": sum(r["launches"][key] for r in paper.values()),
-        **{f"train_{a}": r["launches"][key] for a, r in arch_train.items()}}
+        **{f"train_{a}": r["launches"][key] for a, r in arch_train.items()},
+        "train_granite": moe_train["launches"][key]}
         for key in ("fused_update", "fused_update_sites"))
     upd_paths.update({k: v["fused_update"] for k, v in flow_paths.items()})
     compact_paths = {"serve": serve["compact_launches"],
                      "shared_serve": shared_serve["compact_launches"],
                      **{f"serve_{a}": r["compact_launches"]
-                        for a, r in arch_serve.items()}}
+                        for a, r in arch_serve.items()},
+                     "serve_granite": moe_serve["compact_launches"]}
     shared_decode = [r for r in shared_rows if r["B"] == 4]
     shared_prefill = [r for r in shared_rows if r["B"] != 4]
     sync_at = {(r["leaf"], r["dtype"]): r for r in sync_rows}
@@ -4110,7 +4498,7 @@ def main(argv=None) -> int:
         **summed(decode, "one decode layer: the 7 projections at B=4, 2:8 "
                  "u4, summed", sum(spmm_paths.values()), spmm_paths,
                  max(max_err, spmm_err, paper_spmm_err,
-                     arch_err["nm_spmm"])),
+                     arch_err["nm_spmm"], moe_attn_err)),
         arch_layers={a: {str(b): {key: sum(r[key] for r in rs
                                            if r["B"] == b)
                                   for key in ("ms", "library_ms", "bound_ms")}
@@ -4124,13 +4512,28 @@ def main(argv=None) -> int:
                         f"I's batch: the 6 linears at B={paper_spmm_rows[0]['B']}"
                         ", 2:8 u8, summed", spmm_paths["paper_train"],
                         {"paper_train": spmm_paths["paper_train"]},
-                        paper_spmm_err)),
+                        paper_spmm_err),
+        expert_rows=dict(summed(
+            moe_rows[:2], "one granite layer's three expert stacks in the "
+            "forward: E=32 x 1280 rows, w_gate and w_up (1024 -> 512) and "
+            "w_down (512 -> 1024), one stacked launch each, 2:8 u8 "
+            "(w_gate/w_up counted twice); library: torch.bmm on the dense "
+            "bf16 stacks", spmm_paths["train_granite"],
+            {"train_granite": spmm_paths["train_granite"]}, moe_err),
+            ms=2 * moe_rows[0]["ms"] + moe_rows[1]["ms"],
+            plain_ms=2 * moe_rows[0]["plain_ms"] + moe_rows[1]["plain_ms"],
+            bound_ms=2 * moe_rows[0]["bound_ms"] + moe_rows[1]["bound_ms"],
+            library_ms=2 * moe_rows[0]["library_ms"]
+            + moe_rows[1]["library_ms"],
+            separate_ms=2 * moe_rows[0]["separate_ms"]
+            + moe_rows[1]["separate_ms"], cases=moe_rows)),
         dict(name="fused_update", route="cuda",
              source="src/repro_torch/kernels/csrc/fused_update.cu",
              replaces="src/repro/kernels/fused_update.py:73",
              launches=sum(upd_paths.values()), launches_by_path=upd_paths,
              sites_by_path=upd_sites,
-             max_abs_err=max(upd_err, paper_upd_err, arch_err["fused_update"]),
+             max_abs_err=max(upd_err, paper_upd_err, arch_err["fused_update"],
+                             moe_upd_err),
              ms=upd_layer["ms"], plain_ms=upd_layer["plain_ms"],
              bound_ms=upd_layer["bound_ms"], bound_by="bytes",
              library_ms=None, singles_ms=upd_layer["singles_ms"],
@@ -4145,7 +4548,11 @@ def main(argv=None) -> int:
                  ms=r["ms"], singles_ms=r["singles_ms"],
                  plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                  bound_by="bytes", library_ms=None)
-                 for name, r in paper_upd_rows.items()}),
+                 for name, r in paper_upd_rows.items()},
+             granite_layer=dict(
+                 moe_upd, at="one granite layer's 7 sites (4 attention, 3 "
+                 "expert stacks' (E*K, F) views) in one grouped launch, 2:8 "
+                 "bdwp", launches=moe_train["launches"]["fused_update"])),
         sync_row("grad_compress", "one leaf, as the sync launches it: a "
                  "layer's w_gate, (2, 50331648) bf16 gradient rows + fp32 "
                  "residual columns, 2:8, vector variant"),
@@ -4164,7 +4571,8 @@ def main(argv=None) -> int:
                  "serve": serve["compact_variants"],
                  "shared_serve": shared_serve["compact_variants"],
                  **{f"serve_{a}": r["compact_variants"]
-                    for a, r in arch_serve.items()}},
+                    for a, r in arch_serve.items()},
+                 "serve_granite": moe_serve["compact_variants"]},
              **{key: sum(r[key] for r in compact_rows)
                 for key in ("scalar_ms", "u8_ms", "u8_bound_ms")}),
         dict(name="nm_spmm_shared", route="cuda",
@@ -4197,6 +4605,9 @@ def main(argv=None) -> int:
                        "paper_legacy": paper_legacy, "fig4": fig4,
                        "arch_kernel_timing": arch_rows,
                        "arch_train": arch_train, "arch_serve": arch_serve,
+                       "moe_kernel_timing": moe_rows, "moe_update": moe_upd,
+                       "moe_small": moe_small, "moe_train": moe_train,
+                       "moe_serve": moe_serve,
                        "seconds": time.perf_counter() - t_start}, fh,
                       indent=1, default=str)
     print(f"done in {time.perf_counter() - t_start:.1f} s")

@@ -1,8 +1,8 @@
 """Architecture registry of the port: ``--arch <id>`` -> ArchSpec.
 
 The port's own copy of ``src/repro/configs/__init__.py``.  ``ARCHS``
-has the reference's ten arch ids as keys.  The five dense LMs map to
-their ``ArchSpec``; an arch whose model is not ported yet maps to an
+has the reference's ten arch ids as keys.  The five dense LMs and
+granite-moe map to their ``ArchSpec``; an arch whose model is not ported yet maps to an
 ``Unported`` entry that names the ROADMAP queue 1 item porting it, and
 ``get_arch`` raises ``NotImplementedError`` for it (never a stand-in).
 ``all_cells`` yields the (arch, shape) cells of the ported archs.
@@ -13,8 +13,8 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import (gemma3_12b, glm4_9b, internvl2_26b,
-                                 qwen2_5_32b, qwen3_8b)
+from repro_torch.configs import (gemma3_12b, glm4_9b, granite_moe_1b,
+                                 internvl2_26b, qwen2_5_32b, qwen3_8b)
 from repro_torch.configs.base import SHAPES, ArchSpec, Shape
 
 
@@ -24,16 +24,20 @@ class Unported:
     item: str        # the ROADMAP queue 1 item that ports it
 
 
+# the reference's ids in the reference's order
 ARCHS = {
-    **{a.ARCH.arch_id: a.ARCH for a in (qwen3_8b, qwen2_5_32b, glm4_9b,
-                                         gemma3_12b, internvl2_26b)},
+    "qwen3-8b": qwen3_8b.ARCH,
+    "qwen2.5-32b": qwen2_5_32b.ARCH,
+    "glm4-9b": glm4_9b.ARCH,
+    "gemma3-12b": gemma3_12b.ARCH,
     "whisper-large-v3": Unported("whisper-large-v3",
                                  "item 6 (encoder-decoder)"),
-    "granite-moe-1b-a400m": Unported("granite-moe-1b-a400m", "item 3 (MoE)"),
+    "granite-moe-1b-a400m": granite_moe_1b.ARCH,
     "deepseek-v2-lite-16b": Unported("deepseek-v2-lite-16b",
-                                     "items 3-4 (MoE, MLA)"),
+                                     "item 4 (MLA, dense prelude)"),
     "mamba2-370m": Unported("mamba2-370m", "item 5 (SSM)"),
     "hymba-1.5b": Unported("hymba-1.5b", "item 5 (hybrid SSM)"),
+    "internvl2-26b": internvl2_26b.ARCH,
 }
 
 

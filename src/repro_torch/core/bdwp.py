@@ -2,14 +2,18 @@
 
 Counterpart of ``src/repro/core/bdwp.py``: the policy (``serve_packable``,
 ``ff_group_axis``, ``bp_group_axis``, ``should_prune``, ``pick_cfg``),
-the pre-generation sites (``decays``, ``pregen_site``, ``is_pregen``)
-and shared-pattern serving packing (``shared_ff_pack``,
-``pack_tree_shared``), with the same rules.  Not ported: the bare-array
-MoE expert sites (``bare_nm_leaf``; MoE is not ported, so every site is
-a ``.../w`` leaf), sharding specs, and the deprecated ``nm_linear`` /
-``packed_shared_apply`` shims.  A bias (``.../b``, 1-D) is never pruned,
-packed or a site; a tied head has no ``lm_head`` leaf, and its table is
-``embed``'s, excluded by name.
+the pre-generation sites (``bare_nm_leaf``, ``decays``, ``pregen_site``,
+``is_pregen``) and shared-pattern serving packing (``shared_ff_pack``,
+``pack_tree_shared``), with the same rules.  Not ported: sharding specs,
+the deprecated ``nm_linear`` / ``packed_shared_apply`` shims, and
+``pregen_site``'s ``bare=False`` (the reference's recognition of
+checkpoints written before MoE pre-generation, which the port never
+wrote).  A bias (``.../b``, 1-D) is never pruned, packed or a site; a
+tied head has no ``lm_head`` leaf, and its table is ``embed``'s,
+excluded by name.  The port's trees are per layer, so an MoE expert
+stack is (E, K, F): ``ff_group_axis`` gives K and ``bp_group_axis`` F,
+the axes the reference's stacked (L, E, K, F) leaf groups along once
+its layer axis is dropped.
 """
 
 from __future__ import annotations
@@ -128,10 +132,24 @@ def decays(name: str, lshape, cfg: SparsityConfig) -> bool:
     return should_prune(name, lshape, cfg)
 
 
+# Bare-array prunable leaves: weights stored as tensors rather than
+# ``{"w": ...}`` leaf-dicts, the MoE expert stacks (E, K, F) and the
+# shared-expert matrices of ``models.moe``, whose consumer
+# (``moe._nm_mm``) takes a pre-generated operand in their place.  The
+# FFN leaves of the same names are dict sites (".../w_gate/w").
+_BARE_NM_BASENAMES = ("w_gate", "w_up", "w_down")
+
+
+def bare_nm_leaf(name: str) -> bool:
+    """Is this the tree name of a bare-array N:M-consumed weight leaf?"""
+    return name.rsplit("/", 1)[-1] in _BARE_NM_BASENAMES
+
+
 def pregen_site(name: str, lshape, cfg: SparsityConfig) -> bool:
-    """Is this master leaf (tree name ending in ``/w``) replaced by a
+    """Is this master leaf (a ``{"w": ...}`` weight, tree name ending in
+    ``/w``, or a bare MoE leaf, ``bare_nm_leaf``) replaced by a
     pre-generated operand (``core.operand.PregenOp``)?"""
-    if not name.endswith("/w"):
+    if not (name.endswith("/w") or bare_nm_leaf(name)):
         return False
     if cfg.is_dense or not (cfg.prunes_ff_weights()
                             or cfg.prunes_bp_weights()):

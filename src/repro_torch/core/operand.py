@@ -22,7 +22,10 @@ What differs:
     through ``kernels.ops.nm_spmm`` (a ``SharedOp`` through
     ``kernels.ops.nm_spmm_shared``), whose input's device picks the
     kernel or the plain version; the port's parameters are per layer,
-    so a packed pair is always 2-D (K·N/M, F);
+    so a weight's rank says what it is: a packed pair is 2-D (K·N/M, F),
+    or an (E, K·N/M, F) expert stack, which ``nm_spmm`` takes in one
+    launch where the reference vmaps its kernel over the experts
+    (``_spmm_stacked``), and needs no ``stacked`` flag;
   * ``padding`` is "SAME" or "VALID" (the reference also takes explicit
     pads; no caller passes them).  SAME is XLA's: an odd total goes to
     the high side (``same_padding``), which torch's symmetric
@@ -150,38 +153,56 @@ def as_operand(leaf, name: str, cfg: SparsityConfig) -> SparseOperand:
 
 
 def matmul_once(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
-    """a @ b of 2-D operands: products and sums in fp32, rounded once to
-    ``out_dtype``, as the reference's dot with fp32 accumulation
-    computes.  On the card one cuBLAS product of the 16-bit operands with
-    fp32 output; on the CPU an fp32 matmul (PyTorch's own CPU bf16
-    matmul rounds differently now and then)."""
+    """a @ b of 2-D operands, or of 3-D stacks (one product per leading
+    index): products and sums in fp32, rounded once to ``out_dtype``, as
+    the reference's dot with fp32 accumulation computes.  On the card one
+    cuBLAS product of the 16-bit operands with fp32 output; on the CPU an
+    fp32 matmul (PyTorch's own CPU bf16 matmul rounds differently now and
+    then)."""
+    mm = torch.bmm if a.ndim == 3 else torch.mm
     if a.is_cuda and a.dtype != torch.float32:
-        y = torch.mm(a, b, out_dtype=torch.float32)
+        y = mm(a, b, out_dtype=torch.float32)
     else:
-        y = torch.mm(a.to(torch.float32), b.to(torch.float32))
+        y = mm(a.to(torch.float32), b.to(torch.float32))
     return y.to(out_dtype)
 
 
+def _rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x as the 2-D (tokens, K) operand of a (K, F) weight, or as the
+    (E, tokens, K) stack of an (E, K, F) one (x (E, ..., K))."""
+    stack = w.ndim - 2
+    return x.reshape(*x.shape[:stack], -1, x.shape[-1])
+
+
 def _linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (..., K) @ w (K, F) -> (..., F) in x's dtype."""
-    y = matmul_once(x.reshape(-1, x.shape[-1]), w.to(x.dtype), x.dtype)
+    """x (..., K) @ w (K, F) -> (..., F) in x's dtype; a stacked w
+    (E, K, F) multiplies each x[e] (E, ..., K) by its w[e]."""
+    y = matmul_once(_rows(x, w), w.to(x.dtype), x.dtype)
     return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
-def _weight_grad(x: torch.Tensor, gc: torch.Tensor, dtype) -> torch.Tensor:
-    """WU: dW = x^T @ g over all tokens, fp32-accumulated, cast to dtype."""
-    return matmul_once(x.reshape(-1, x.shape[-1]).t(),
-               gc.reshape(-1, gc.shape[-1]), dtype)
+def _weight_grad(x: torch.Tensor, gc: torch.Tensor, dtype,
+                 stack: int = 0) -> torch.Tensor:
+    """WU: dW = x^T @ g over all tokens (per expert of a stack),
+    fp32-accumulated, cast to dtype."""
+    x2 = x.reshape(*x.shape[:stack], -1, x.shape[-1])
+    g2 = gc.reshape(*gc.shape[:stack], -1, gc.shape[-1])
+    return matmul_once(x2.transpose(-1, -2), g2, dtype)
 
 
 def _ff_weights(w: torch.Tensor, cfg: SparsityConfig) -> torch.Tensor:
-    """FF-pruned weights: N:M groups along the contraction axis."""
-    return sparsify(w, cfg, axis=0) if cfg.prunes_ff_weights() else w
+    """FF-pruned weights: N:M groups along the contraction axis (per
+    expert of a stack)."""
+    if not cfg.prunes_ff_weights():
+        return w
+    return sparsify(w, cfg, axis=w.ndim - 2, share_axis=w.ndim - 1)
 
 
 def _bp_weights(w: torch.Tensor, cfg: SparsityConfig) -> torch.Tensor:
     """BP-pruned weights: N:M groups along the output axis."""
-    return sparsify(w, cfg, axis=1) if cfg.prunes_bp_weights() else w
+    if not cfg.prunes_bp_weights():
+        return w
+    return sparsify(w, cfg, axis=w.ndim - 1, share_axis=w.ndim - 2)
 
 
 class _MaskedLinear(torch.autograd.Function):
@@ -198,10 +219,10 @@ class _MaskedLinear(torch.autograd.Function):
         # BP/WU run in the compute dtype: the cotangent is cast down
         gc = g.to(x.dtype)
         if cfg.prunes_bp_grads():   # SDGP prunes the output gradients
-            dx = _linear(sparsify(gc, cfg, axis=-1), w.t())
+            dx = _linear(sparsify(gc, cfg, axis=-1), w.transpose(-1, -2))
         else:
-            dx = _linear(gc, _bp_weights(w, cfg).t())
-        return dx, _weight_grad(x, gc, w.dtype), None
+            dx = _linear(gc, _bp_weights(w, cfg).transpose(-1, -2))
+        return dx, _weight_grad(x, gc, w.dtype, w.ndim - 2), None
 
 
 class _PregenLinear(torch.autograd.Function):
@@ -214,7 +235,8 @@ class _PregenLinear(torch.autograd.Function):
     def backward(ctx, g):
         x, bp = ctx.saved_tensors
         gc = g.to(x.dtype)
-        return _linear(gc, bp.t()), None, _weight_grad(x, gc, bp.dtype)
+        return (_linear(gc, bp.transpose(-1, -2)), None,
+                _weight_grad(x, gc, bp.dtype, bp.ndim - 2))
 
 
 class _PackedPregenLinear(torch.autograd.Function):
@@ -222,8 +244,8 @@ class _PackedPregenLinear(torch.autograd.Function):
     def forward(ctx, x, vals, idx, bp, n, m, idx_bits, transposable):
         ctx.nm = (n, m, idx_bits, transposable)
         ctx.save_for_backward(x, bp, vals, idx)
-        x2 = x.reshape(-1, x.shape[-1]).contiguous()
-        y = ops.nm_spmm(x2, vals, idx, n, m, idx_bits)
+        y = ops.nm_spmm(_rows(x, vals).contiguous(), vals, idx, n, m,
+                        idx_bits)
         return y.reshape(*x.shape[:-1], vals.shape[-1]).to(x.dtype)
 
     @staticmethod
@@ -234,8 +256,9 @@ class _PackedPregenLinear(torch.autograd.Function):
         # a transposable pair is N:M along F too: dgrad reads it, not bp
         w_bp = (decompress_nm(vals, idx, n, m, axis=-2, idx_bits=idx_bits)
                 if transposable else bp)
-        return (_linear(gc, w_bp.t()), None, None,
-                _weight_grad(x, gc, bp.dtype), None, None, None, None)
+        return (_linear(gc, w_bp.transpose(-1, -2)), None, None,
+                _weight_grad(x, gc, bp.dtype, bp.ndim - 2), None, None,
+                None, None)
 
 
 def masked_linear(x: torch.Tensor, w: torch.Tensor,
@@ -443,8 +466,11 @@ def _pregen_ff_dense(op: PregenOp) -> torch.Tensor:
 def nm_apply(op: SparseOperand, x: torch.Tensor, *, stride: int = 1,
              padding: str = "SAME") -> torch.Tensor:
     """Apply one operand to activations: x (..., K) -> (..., F) for a
-    2-D weight; the conv view (NHWC x HWIO, ``stride``, ``padding``) for
-    a rank-4 one."""
+    2-D weight; an (E, K, F) stack (MoE experts, the reference's
+    ``stacked=True``) on x (E, ..., K), each expert's rows by its own
+    weight, N:M groups within the expert (a packed stack in one
+    ``nm_spmm`` launch); the conv view (NHWC x HWIO, ``stride``,
+    ``padding``) for a rank-4 one."""
     if isinstance(op, DenseOp):
         op = MaskedOp(op.w, DENSE)
     if isinstance(op, MaskedOp):

@@ -6,6 +6,16 @@
 //   one uint8 per value (Kc, F) or the u4 plane (ceil(Kc/2), F) with entry
 //   kc in nibble (kc & 1) of byte idx[kc/2, f], low nibble first.
 //
+// Stacked operands (MoE expert stacks) run in the same launch: act
+// (E, B, K), vals and idx (E, ·, F), out (E, B, F), expert e's rows by
+// expert e's weight.  This replaces the reference's jax.vmap of the
+// pallas_call over the expert axis (src/repro/core/operand.py:
+// _spmm_stacked): the expert is folded into the grid's z (expert x
+// split), every TMA map has the expert as its outer (plane) dimension,
+// so no box crosses from one expert into the next, and each expert
+// runs exactly the chains the 2-D launch would, so its slab is bitwise
+// the 2-D kernel's result on that expert alone.
+//
 // Replaces the TPU kernel src/repro/kernels/nm_spmm.py:_spmm_kernel
 // (nm_spmm_pallas), which decompresses a (TK, TF) tile in VMEM and feeds
 // the MXU a dense tile product.  This kernel does the same on the SM:
@@ -68,10 +78,10 @@ struct Params {
   const bf16* act;
   const bf16* vals;
   const uint8_t* idx;
-  float* out;          // (B, F), or scratch [n_chunks][B][F] when split
-  int B, K, F, Kc, n, m, idx_bits;
+  float* out;          // (E, B, F), or scratch [n_chunks][E][B][F] when split
+  int E, B, K, F, Kc, n, m, idx_bits;
   int gs, sk, tk, cr;  // groups, dense columns, tile width, compact rows
-  int n_stages, chunk_stages, chunks_per_split, split;
+  int n_stages, chunk_stages, chunks_per_split, split, splits;
   int tma;             // stages come by TMA (else per-thread loads)
   uint32_t tx_bytes;   // TMA bytes per stage
 };
@@ -114,37 +124,41 @@ __device__ __forceinline__ float add_rn(float acc, float v) {
   return __bfloat162float(__float2bfloat16_rn(acc + v));
 }
 
-// Stage st into `buf` with per-thread loads by the PT producer threads
-// (shapes TMA cannot take): the act panel in the swizzled K-major layout
-// (nm_mma.cuh), zero past sk and K; the compact rows [cr][BM]; the
-// offsets expanded to one byte per row.
+// Stage st of expert e into `buf` with per-thread loads by the PT
+// producer threads (shapes TMA cannot take): the act panel in the
+// swizzled K-major layout (nm_mma.cuh), zero past sk and K; the compact
+// rows [cr][BM]; the offsets expanded to one byte per row.
 template <int BM, int BN, int PT>
 __device__ __forceinline__ void load_plain(const Params& p, char* buf, int st,
-                                           int f0, int b0, int pt) {
+                                           int f0, int b0, int e, int pt) {
   const Layout L(BM, BN, p.tk, p.cr);
+  const bf16* act = p.act + (size_t)e * p.B * p.K;
+  const bf16* vals = p.vals + (size_t)e * p.Kc * p.F;
+  const uint8_t* idx =
+      p.idx + (size_t)e * (p.idx_bits == 4 ? (p.Kc + 1) / 2 : p.Kc) * p.F;
   char* act_s = buf;
   bf16* vals_s = reinterpret_cast<bf16*>(buf + L.act_bytes);
   uint8_t* idx_s = reinterpret_cast<uint8_t*>(buf + L.act_bytes +
                                               L.vals_bytes);
   const int k0 = st * p.sk, kc0 = st * p.cr;
-  for (int e = pt; e < BN * p.tk; e += PT) {
-    const int r = e / p.tk, c = e - r * p.tk;
+  for (int i = pt; i < BN * p.tk; i += PT) {
+    const int r = i / p.tk, c = i - r * p.tk;
     const int b = b0 + r, k = k0 + c;
     *reinterpret_cast<bf16*>(act_s + sw128(r, c, BN)) =
-        b < p.B && c < p.sk && k < p.K ? p.act[(size_t)b * p.K + k]
+        b < p.B && c < p.sk && k < p.K ? act[(size_t)b * p.K + k]
                                        : __float2bfloat16_rn(0.f);
   }
-  for (int e = pt; e < p.cr * BM; e += PT) {
-    const int r = e / BM, c = e - r * BM;
+  for (int i = pt; i < p.cr * BM; i += PT) {
+    const int r = i / BM, c = i - r * BM;
     const int kc = kc0 + r, f = f0 + c;
     const bool ok = kc < p.Kc && f < p.F;
     vals_s[r * BM + c] =
-        ok ? p.vals[(size_t)kc * p.F + f] : __float2bfloat16_rn(0.f);
+        ok ? vals[(size_t)kc * p.F + f] : __float2bfloat16_rn(0.f);
     uint8_t v = 0;
     if (ok)
       v = p.idx_bits == 4
-              ? (p.idx[(size_t)(kc >> 1) * p.F + f] >> ((kc & 1) * 4)) & 0xF
-              : p.idx[(size_t)kc * p.F + f];
+              ? (idx[(size_t)(kc >> 1) * p.F + f] >> ((kc & 1) * 4)) & 0xF
+              : idx[(size_t)kc * p.F + f];
     idx_s[r * BM + c] = v;
   }
 }
@@ -259,7 +273,7 @@ __device__ __forceinline__ void expand(const Params& p, const bf16* vals_s,
   }
 }
 
-// Grid (ceil(F/BM), ceil(B/N), splits).  Warp-specialised: the first PWG
+// Grid (ceil(F/BM), ceil(B/N), E * splits).  Warp-specialised: the first PWG
 // warpgroups produce (TMA issue, then the expand of each stage into an A
 // slot), the next CWG warpgroups consume (wgmma of their 64 rows of the A
 // slot against the stage's act tile, N rows); BM = 64*CWG.  mbarriers
@@ -280,8 +294,9 @@ nm_spmm_wgmma(const __grid_constant__ CUtensorMap map_act,
   uint64_t* afull = empty + L.S;
   uint64_t* aempty = afull + L.SA;
   const int f0 = blockIdx.x * BM, b0 = blockIdx.y * BN;
+  const int e = blockIdx.z / p.splits;     // the expert (0 unstacked)
   const bool raw4 = p.tma && p.idx_bits == 4;
-  const int c_lo = blockIdx.z * p.chunks_per_split;
+  const int c_lo = (blockIdx.z - e * p.splits) * p.chunks_per_split;
   const int st_lo = c_lo * p.chunk_stages;
   const int nst = min(p.n_stages, (c_lo + p.chunks_per_split) *
                                       p.chunk_stages) - st_lo;
@@ -322,10 +337,10 @@ nm_spmm_wgmma(const __grid_constant__ CUtensorMap map_act,
       mbar_expect(bar, p.tx_bytes);
       for (int a = 0; a < p.tk / 64; ++a)
         tma_3d(buf + a * BN * 128, &map_act, bar, gst * p.sk + 64 * a, b0,
-               0);
-      tma_3d(buf + L.act_bytes, &map_vals, bar, f0, gst * p.cr, 0);
+               e);
+      tma_3d(buf + L.act_bytes, &map_vals, bar, f0, gst * p.cr, e);
       tma_3d(buf + L.act_bytes + L.vals_bytes, &map_idx, bar, f0,
-             p.idx_bits == 4 ? gst * p.cr / 2 : gst * p.cr, 0);
+             p.idx_bits == 4 ? gst * p.cr / 2 : gst * p.cr, e);
     };
     if (p.tma && pt == 0)
       for (int s = 0; s < L.S && s < nst; ++s) tma(s);
@@ -336,7 +351,7 @@ nm_spmm_wgmma(const __grid_constant__ CUtensorMap map_act,
       } else {
         if (s >= L.S)
           mbar_wait(&empty[s % L.S], ((s / L.S) & 1) ^ 1);
-        load_plain<BM, BN, PT>(p, buf, st_lo + s, f0, b0, pt);
+        load_plain<BM, BN, PT>(p, buf, st_lo + s, f0, b0, e, pt);
         named_sync(1, PT);
       }
       if (s >= L.SA)
@@ -394,13 +409,15 @@ nm_spmm_wgmma(const __grid_constant__ CUtensorMap map_act,
       if ((gst + 1) % p.chunk_stages == 0 || gst + 1 == p.n_stages) {
         const int chunk = gst / p.chunk_stages;
         if (p.split)
-          store(acc, p.out + (size_t)chunk * p.B * p.F, p.F, f0 + c * 64, b0,
-                p.F, p.B);
+          store(acc, p.out + ((size_t)chunk * p.E + e) * p.B * p.F, p.F,
+                f0 + c * 64, b0, p.F, p.B);
         else
           fold(total, acc, chunk == 0);
       }
     }
-    if (!p.split) store(total, p.out, p.F, f0 + c * 64, b0, p.F, p.B);
+    if (!p.split)
+      store(total, p.out + (size_t)e * p.B * p.F, p.F, f0 + c * 64, b0, p.F,
+            p.B);
   }
 }
 
@@ -424,7 +441,7 @@ cudaError_t launch(const CUtensorMap* maps, const Params& p, int splits,
     if (err != cudaSuccess) return err;
     allowed = L.total;
   }
-  const dim3 grid((p.F + BM - 1) / BM, (p.B + N - 1) / N, splits);
+  const dim3 grid((p.F + BM - 1) / BM, (p.B + N - 1) / N, p.E * splits);
   kern<<<grid, 128 * (PWG + CWG), L.total, st>>>(maps[0], maps[1], maps[2],
                                                  p);
   return cudaGetLastError();
@@ -447,13 +464,14 @@ extern "C" int nm_spmm_smem_bytes(int bm, int bn, int tk, int cr) {
 // Launches the kernel on `stream` with the wrapper's plan (config 0..3;
 // stages of gs groups of m, tk the stage's tile width, n_stages of them,
 // chunk_stages to a chunk; splits blocks along K of chunks_per_split
-// chunks each).  With splits > 1 every chunk's partial goes to `part`
-// ([n_chunks][B][F] floats) and a second kernel folds them into `out`.
+// chunks each) over E stacked experts (E = 1: one 2-D product).  With
+// splits > 1 every chunk's partial goes to `part` ([n_chunks][E][B][F]
+// floats) and a second kernel folds them into `out`.
 // Returns cudaGetLastError() after the launches, or cudaErrorInvalidValue
 // if a TMA descriptor could not be made.
 extern "C" int nm_spmm_launch(const void* act, const void* vals,
-                              const void* idx, void* out, void* part, int B,
-                              int K, int F, int Kc, int n, int m,
+                              const void* idx, void* out, void* part, int E,
+                              int B, int K, int F, int Kc, int n, int m,
                               int idx_bits, int config, int gs, int tk,
                               int n_stages, int chunk_stages,
                               int chunks_per_split, int splits,
@@ -466,11 +484,12 @@ extern "C" int nm_spmm_launch(const void* act, const void* vals,
   p.vals = static_cast<const bf16*>(vals);
   p.idx = static_cast<const uint8_t*>(idx);
   p.out = static_cast<float*>(splits > 1 ? part : out);
-  p.B = B; p.K = K; p.F = F; p.Kc = Kc; p.n = n; p.m = m;
+  p.E = E; p.B = B; p.K = K; p.F = F; p.Kc = Kc; p.n = n; p.m = m;
   p.idx_bits = idx_bits;
   p.gs = gs; p.sk = gs * m; p.tk = tk; p.cr = gs * n;
   p.n_stages = n_stages; p.chunk_stages = chunk_stages;
   p.chunks_per_split = chunks_per_split; p.split = splits > 1;
+  p.splits = splits;
   const int idx_rows = idx_bits == 4 ? p.cr / 2 : p.cr;
   const auto aligned = [](const void* q) {
     return reinterpret_cast<uintptr_t>(q) % 16 == 0;
@@ -481,11 +500,12 @@ extern "C" int nm_spmm_launch(const void* act, const void* vals,
   CUtensorMap maps[3];
   memset(maps, 0, sizeof(maps));
   if (p.tma &&
-      !(make_sw128_map(&maps[0], act, B, K, BN) &&
+      !(make_sw128_map(&maps[0], act, B, K, BN, E) &&
         make_rows_map(&maps[1], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, vals,
-                      Kc, F, p.cr, BM) &&
+                      Kc, F, p.cr, BM, E) &&
         make_rows_map(&maps[2], CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, idx,
-                      idx_bits == 4 ? (Kc + 1) / 2 : Kc, F, idx_rows, BM)))
+                      idx_bits == 4 ? (Kc + 1) / 2 : Kc, F, idx_rows, BM,
+                      E)))
     return cudaErrorInvalidValue;
   cudaError_t err;
   switch (config) {
@@ -496,7 +516,7 @@ extern "C" int nm_spmm_launch(const void* act, const void* vals,
   }
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const int n_chunks = (n_stages + chunk_stages - 1) / chunk_stages;
-  const size_t count = (size_t)B * F;
+  const size_t count = (size_t)E * B * F;
   nm_spmm_fold<<<(unsigned)((count + 255) / 256), 256, 0, st>>>(
       static_cast<const float*>(part), static_cast<float*>(out), n_chunks,
       count);

@@ -2,7 +2,11 @@
 
 Counterpart of ``src/repro/kernels/nm_spmm.py:nm_spmm_pallas``: act
 (B, K) bf16 @ packed weights vals (Kc = K*n/m, F) bf16 with idx uint8
-(Kc, F) or the u4 plane (ceil(Kc/2), F) -> (B, F) fp32.
+(Kc, F) or the u4 plane (ceil(Kc/2), F) -> (B, F) fp32.  A stack of
+them (MoE experts: act (E, B, K), vals and idx (E, ·, F) -> (E, B, F))
+is one launch with the expert in the grid, where the reference vmaps
+its kernel over the experts (``core/operand.py:_spmm_stacked``); each
+expert's slab is bitwise the 2-D launch on that expert alone.
 
 The kernel decompresses staged compact tiles in shared memory and runs
 the product on the tensor cores (wgmma, the weight tile as the A
@@ -55,7 +59,7 @@ def _library():
     if _lib is None:
         lib = build.load("nm_spmm")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.nm_spmm_launch.argtypes = [p] * 5 + [i] * 14 + [p]
+        lib.nm_spmm_launch.argtypes = [p] * 5 + [i] * 15 + [p]
         lib.nm_spmm_launch.restype = ctypes.c_int
         lib.nm_spmm_smem_bytes.argtypes = [i] * 4
         lib.nm_spmm_smem_bytes.restype = ctypes.c_int
@@ -75,7 +79,8 @@ class Plan(NamedTuple):
     config: int            # index into CONFIGS (chosen by B)
     splits: int            # blocks along K
     chunks_per_split: int
-    scratch_floats: int    # per-chunk partials, 0 when not split
+    scratch_floats: int    # per-chunk partials of every expert, 0 when
+                           # not split
 
 
 def sparse_ok(n: int, m: int) -> bool:
@@ -123,9 +128,9 @@ def chunk_groups(k: int, m: int) -> int:
                       -(-groups // (MAX_CHUNKS * unit)))
 
 
-def pick_config(b: int, f: int) -> int:
-    """Tile configuration by batch rows (and F, at training rows).  Never
-    changes a result's bits."""
+def pick_config(b: int, f: int, stack: int = 1) -> int:
+    """Tile configuration by batch rows (and, at training rows, the grid
+    over F and the ``stack`` experts).  Never changes a result's bits."""
     if b <= 8:
         return 0
     if b <= 32:
@@ -134,7 +139,7 @@ def pick_config(b: int, f: int) -> int:
         return 2
     for config in (3, 2):
         bm, bn, _ = tile(config)
-        if -(-f // bm) * -(-b // bn) >= FULL_BLOCKS[config]:
+        if stack * -(-f // bm) * -(-b // bn) >= FULL_BLOCKS[config]:
             return config
     return 3
 
@@ -150,20 +155,22 @@ def split_k(config: int, blocks: int, n_chunks: int):
     return -(-n_chunks // cps), cps
 
 
-def plan(b: int, k: int, f: int, n: int, m: int) -> Plan:
-    """The launch plan of (B, K) @ packed (K, F) n:m.
+def plan(b: int, k: int, f: int, n: int, m: int, stack: int = 1) -> Plan:
+    """The launch plan of (B, K) @ packed (K, F) n:m, for each of
+    ``stack`` experts.
 
     The chunks (``chunk_groups``) depend on (K, m) only: each is one
     tensor-core accumulator chain and the chunks are folded in order, so
-    what B picks (the tile configuration, the stage width, whether the
-    chunks are split across blocks) never changes a result's bits.
+    what B and the stack pick (the tile configuration, the stage width,
+    whether the chunks are split across blocks) never changes a result's
+    bits.
     Where a configuration's stages would not fit in shared memory,
     narrower stages or a smaller configuration do.
     """
     groups = k // m
     cg = chunk_groups(k, m)
     n_chunks = -(-groups // cg)
-    config = pick_config(b, f)
+    config = pick_config(b, f, stack)
     while True:
         bm, bn, _ = tile(config)
         for width in (CONFIGS[config][3], 64):
@@ -171,11 +178,11 @@ def plan(b: int, k: int, f: int, n: int, m: int) -> Plan:
             sk = gs * m
             tk = -(-sk // 64) * 64
             if smem_bytes(config, tk, gs * n) <= MAX_SMEM:
-                splits, cps = split_k(config, -(-f // bm) * -(-b // bn),
-                                      n_chunks)
+                splits, cps = split_k(
+                    config, stack * -(-f // bm) * -(-b // bn), n_chunks)
                 return Plan(gs, sk, tk, gs * n, -(-groups // gs), cg,
                             cg // gs, n_chunks, config, splits, cps,
-                            n_chunks * b * f if splits > 1 else 0)
+                            n_chunks * stack * b * f if splits > 1 else 0)
         if config == 0:
             raise ValueError(f"nm_spmm: {n}:{m} stages do not fit in "
                              "shared memory")
@@ -185,7 +192,8 @@ def plan(b: int, k: int, f: int, n: int, m: int) -> Plan:
 def nm_spmm(act: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
             n: int, m: int, idx_bits: int = 8) -> torch.Tensor:
     """Launch the CUDA kernel; raises unless every operand is a
-    contiguous CUDA tensor of the kernel's dtype and shape."""
+    contiguous CUDA tensor of the kernel's dtype and shape: all 2-D, or
+    all 3-D stacks of the same number of experts."""
     global launches
     for name, t in (("act", act), ("vals", vals), ("idx", idx)):
         if not t.is_cuda:
@@ -193,9 +201,12 @@ def nm_spmm(act: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
         if t.device != act.device:
             raise ValueError(f"nm_spmm: {name} is on {t.device}, act on "
                              f"{act.device}")
-        if t.ndim != 2:
-            raise ValueError(f"nm_spmm: {name} must be 2-D, got "
-                             f"{tuple(t.shape)}")
+        if t.ndim not in (2, 3) or t.ndim != act.ndim:
+            raise ValueError(f"nm_spmm: {name} must be 2-D, or a 3-D stack "
+                             f"as act is, got {tuple(t.shape)}")
+        if t.shape[:-2] != act.shape[:-2]:
+            raise ValueError(f"nm_spmm: {name} stacks {tuple(t.shape)[:-2]},"
+                             f" act {tuple(act.shape)[:-2]}")
         if not t.is_contiguous():
             raise ValueError(f"nm_spmm: {name} must be contiguous")
     if act.dtype != torch.bfloat16 or vals.dtype != torch.bfloat16:
@@ -208,28 +219,34 @@ def nm_spmm(act: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
     if not 0 < n <= m or m > (16 if idx_bits == 4 else 128):
         raise ValueError(f"nm_spmm: unsupported {n}:{m} with "
                          f"{idx_bits}-bit indices")
-    b, k = act.shape
-    kc, f = vals.shape
+    e = act.shape[0] if act.ndim == 3 else 1
+    b, k = act.shape[-2:]
+    kc, f = vals.shape[-2:]
     if k % m or kc * m != k * n:
         raise ValueError(f"nm_spmm: K={k}, Kc={kc} do not match {n}:{m}")
     want = (kc, f) if idx_bits == 8 else ((kc + 1) // 2, f)
-    if tuple(idx.shape) != want:
+    if tuple(idx.shape[-2:]) != want:
         raise ValueError(f"nm_spmm: idx shape {tuple(idx.shape)}, "
                          f"want {want}")
-    if b == 0 or f == 0:
-        raise ValueError(f"nm_spmm: empty product ({b}, {k}) x ({k}, {f})")
+    if b == 0 or f == 0 or e == 0:
+        raise ValueError(f"nm_spmm: empty product {e} x ({b}, {k}) x "
+                         f"({k}, {f})")
     if b > 65535 * 8:
         raise ValueError(f"nm_spmm: {b} rows exceed the grid")
+    pl = plan(b, k, f, n, m, e)
+    if e * pl.splits > 65535:
+        raise ValueError(f"nm_spmm: {e} experts x {pl.splits} splits exceed "
+                         "the grid")
     lib = _library()
-    pl = plan(b, k, f, n, m)
-    out = torch.empty((b, f), dtype=torch.float32, device=act.device)
+    out = torch.empty((*act.shape[:-1], f), dtype=torch.float32,
+                      device=act.device)
     part = (torch.empty(pl.scratch_floats, dtype=torch.float32,
                         device=act.device) if pl.splits > 1 else out)
     stream = torch.cuda.current_stream(act.device).cuda_stream
     with torch.cuda.device(act.device):
         err = lib.nm_spmm_launch(
             act.data_ptr(), vals.data_ptr(), idx.data_ptr(), out.data_ptr(),
-            part.data_ptr(), b, k, f, kc, n, m, idx_bits, pl.config, pl.gs,
+            part.data_ptr(), e, b, k, f, kc, n, m, idx_bits, pl.config, pl.gs,
             pl.tk, pl.n_stages, pl.chunk_stages, pl.chunks_per_split,
             pl.splits, stream)
     if err != 0:

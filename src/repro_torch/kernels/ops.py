@@ -38,7 +38,8 @@ def nm_compact(x: torch.Tensor, n: int, m: int, idx_bits: int = 8, *,
 
 def nm_spmm(act: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
             n: int, m: int, idx_bits: int = 8) -> torch.Tensor:
-    """Element-mode sparse matmul: (B, K) @ packed (Kc, F) -> (B, F) fp32."""
+    """Element-mode sparse matmul: (B, K) @ packed (Kc, F) -> (B, F) fp32,
+    or an expert stack (E, B, K) @ (E, Kc, F) -> (E, B, F) in one launch."""
     if act.is_cuda:
         return _nm_spmm.nm_spmm(act, vals, idx, n, m, idx_bits)
     return ref.ref_nm_spmm(act, vals, idx, n, m, idx_bits)

@@ -85,8 +85,10 @@ def ref_nm_compact(x: torch.Tensor, n: int, m: int, idx_bits: int = 8):
 def ref_nm_spmm(act: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
                 n: int, m: int, idx_bits: int = 8) -> torch.Tensor:
     """Element-mode N:M sparse matmul: act (B, K) @ unpack(vals (Kc, F),
-    idx) -> (B, F) fp32, idx u8 (Kc, F) or the u4 plane (ceil(Kc/2), F)."""
-    w = decompress_nm(vals, idx, n, m, axis=0, idx_bits=idx_bits)
+    idx) -> (B, F) fp32, idx u8 (Kc, F) or the u4 plane (ceil(Kc/2), F);
+    stacked, act (E, B, K) and vals/idx (E, ·, F) -> (E, B, F), each
+    expert's rows by its own weight (the reference vmaps over E)."""
+    w = decompress_nm(vals, idx, n, m, axis=-2, idx_bits=idx_bits)
     return torch.matmul(act.to(torch.float32),
                         w.to(act.dtype).to(torch.float32))
 

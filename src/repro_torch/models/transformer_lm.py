@@ -1,21 +1,24 @@
-"""Decoder LM (the dense family): config, init, forward, logits, cache.
+"""Decoder LM (the dense and MoE families): config, init, forward,
+logits, cache.
 
-Counterpart of ``src/repro/models/transformer_lm.py``: ``LMConfig``,
-``ffn_init``/``ffn_apply``, the block, ``init``, ``forward`` (with
-per-block rematerialization when training, and a modality prefix),
+Counterpart of ``src/repro/models/transformer_lm.py``: ``LMConfig``
+(with ``n_params``/``n_active_params``), ``ffn_init``/``ffn_apply``,
+the block (a dense FFN or a mixture of experts, ``models.moe``),
+``init``, ``forward`` (with per-block rematerialization when training,
+a modality prefix, and the MoE aux loss summed over layers),
 ``logits_from_hidden`` (an untied lm_head, or the embedding table when
 ``tie_embed``), ``lm_loss`` and ``init_lm_cache``, with the
 reference's arithmetic (bf16 residual stream, fp32-accumulated logits
 with the padded vocab columns set to ``-1e30``).  It covers the dense
 family: qwen3 (qk_norm), qwen2.5 (QKV bias), glm4, gemma3 (the 5:1
 pattern of sliding-window and global layers, a tied head) and
-internvl2's LM (a stub-frontend prefix).
+internvl2's LM (a stub-frontend prefix); and granite-moe (every block's
+FFN a mixture of experts).
 
 What differs:
-  * ``LMConfig`` is the port's own copy, cut to the dense family's
-    fields: layer kinds "attn" and "swa" only (MoE, MLA, SSM and hybrid
-    layers are ROADMAP queue 1 items 3-5), and so no aux loss —
-    ``forward`` returns ``(hidden, cache)``;
+  * ``LMConfig`` is the port's own copy: layer kinds "attn" and "swa"
+    only (SSM and hybrid layers are ROADMAP queue 1 item 5), and no MLA
+    or dense first layer (item 4);
   * parameters are a Python list of per-layer dicts under ``"blocks"``
     and ``forward`` loops over it, choosing each layer's window from
     ``layer_kinds()`` in Python, where the reference stacks leaves
@@ -41,6 +44,7 @@ from repro_torch.core.sparsity import DENSE, SparsityConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +63,8 @@ class LMConfig:
     # layer pattern, cycled over depth: "attn" (global) | "swa" (window)
     pattern: tuple = ("attn",)
     window: Optional[int] = None
+    # MoE: every block's FFN is a mixture of experts
+    moe: Optional[M.MoEConfig] = None
     # the logits read the embedding table (no lm_head), as the
     # reference's default; the untied configs say tie_embed=False
     tie_embed: bool = True
@@ -74,7 +80,7 @@ class LMConfig:
         if unported:
             raise NotImplementedError(
                 f"{self.name}: layer kinds {sorted(unported)} are not ported "
-                "(ROADMAP queue 1, items 3-5)")
+                "(ROADMAP queue 1, item 5)")
         if "swa" in self.pattern and not self.window:
             raise ValueError(f"{self.name}: swa layers need a window")
 
@@ -90,6 +96,24 @@ class LMConfig:
     def layer_window(self, kind: str) -> Optional[int]:
         """The sliding window of a layer of ``kind`` (None: global)."""
         return self.window if kind == "swa" else None
+
+    def n_params(self) -> int:
+        """Total parameter count (shapes only: drawn on the meta
+        device)."""
+        shell = init_shell(self, None, device="meta")
+        block = block_init(None, self, device="meta")
+        count = sum(t.numel() for t in _leaves(shell))
+        return count + self.n_layers * sum(t.numel() for t in _leaves(block))
+
+    def n_active_params(self) -> int:
+        """Active parameters per token (MoE: top_k of the routed
+        experts)."""
+        total = self.n_params()
+        if self.moe is None:
+            return total
+        e, k = self.moe.n_experts, self.moe.top_k
+        expert_p = 3 * self.d_model * self.moe.d_expert
+        return total - self.n_layers * (e - k) * expert_p
 
     def attn_cfg(self) -> A.AttnConfig:
         return A.AttnConfig(
@@ -110,20 +134,34 @@ def ffn_apply(p, x: torch.Tensor, sp_cfg) -> torch.Tensor:
     return L.dense_apply(p["w_down"], h.to(x.dtype), "mlp/w_down", sp_cfg)
 
 
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
 def block_init(gen, cfg: LMConfig, *, device, dtype=torch.float32):
-    return {"ln1": L.rmsnorm_init(cfg.d_model, device=device, dtype=dtype),
-            "ln2": L.rmsnorm_init(cfg.d_model, device=device, dtype=dtype),
-            "attn": A.attn_init(gen, cfg.attn_cfg(), device=device,
-                                dtype=dtype),
-            "ffn": ffn_init(gen, cfg.d_model, cfg.d_ff, device=device,
-                            dtype=dtype)}
+    """A block's params: norms, attention and a dense FFN ("ffn") or,
+    with ``cfg.moe``, a mixture of experts ("moe")."""
+    p = {"ln1": L.rmsnorm_init(cfg.d_model, device=device, dtype=dtype),
+         "ln2": L.rmsnorm_init(cfg.d_model, device=device, dtype=dtype),
+         "attn": A.attn_init(gen, cfg.attn_cfg(), device=device,
+                             dtype=dtype)}
+    if cfg.moe is not None:
+        p["moe"] = M.moe_init(gen, cfg.d_model, cfg.moe, device=device,
+                              dtype=dtype)
+    else:
+        p["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff, device=device,
+                            dtype=dtype)
+    return p
 
 
 def block_apply(p, x: torch.Tensor, cfg: LMConfig, sp_cfg, *, positions,
                 window=None, cache=None, decode: bool = False,
                 per_slot: bool = True):
-    """Returns (x, cache); ``window`` is the layer's sliding window
-    (None: global attention).
+    """Returns (x, cache, aux); ``window`` is the layer's sliding window
+    (None: global attention); ``aux`` is the MoE load-balance loss (None
+    for a dense FFN).
 
     ln2 normalizes the fp32 sum x + mix, not its bf16 rounding: the
     compiled reference fuses the residual add into the norm and keeps
@@ -137,7 +175,11 @@ def block_apply(p, x: torch.Tensor, cfg: LMConfig, sp_cfg, *, positions,
     h2 = L.rmsnorm_apply(p["ln2"], x.to(torch.float32) + mix,
                          out_dtype=x.dtype)
     x = x + mix
-    return x + ffn_apply(p["ffn"], h2, sp_cfg), cache
+    if "moe" in p:
+        y, aux = M.moe_apply(p["moe"], h2, cfg.moe, sp_cfg)
+    else:
+        y, aux = ffn_apply(p["ffn"], h2, sp_cfg), None
+    return x + y, cache, aux
 
 
 def init_shell(cfg: LMConfig, gen: torch.Generator, *, device,
@@ -180,7 +222,8 @@ def forward(params, tokens: torch.Tensor, cfg: LMConfig,
             sp_cfg: SparsityConfig = DENSE, *, prefix_embeds=None,
             cache=None, decode: bool = False, positions=None,
             per_slot: bool = True):
-    """Returns (hidden (B, S, d), cache).
+    """Returns (hidden (B, S, d), cache, aux): ``aux`` is the MoE
+    load-balance loss summed over layers (fp32, 0 for a dense model).
 
     ``prefix_embeds`` (B, S_pre, d): stub-frontend embeddings put before
     the token embeddings (internvl2's vision prefix), cast to their
@@ -202,23 +245,29 @@ def forward(params, tokens: torch.Tensor, cfg: LMConfig,
         positions = torch.arange(s, device=x.device).expand(b, s)
     layer_caches = cache["layers"] if cache is not None else None
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
+    aux = None
     for i, (bp, kind) in enumerate(zip(params["blocks"], cfg.layer_kinds())):
         window = cfg.layer_window(kind)
         if remat:
-            x = checkpoint(_block_out, bp, x, cfg, sp_cfg, positions, window,
-                           use_reentrant=False)
-            continue
-        lc = layer_caches[i] if layer_caches is not None else None
-        x, _ = block_apply(bp, x, cfg, sp_cfg, positions=positions,
-                           window=window, cache=lc, decode=decode,
-                           per_slot=per_slot)
+            x, a = checkpoint(_block_out, bp, x, cfg, sp_cfg, positions,
+                              window, use_reentrant=False)
+        else:
+            lc = layer_caches[i] if layer_caches is not None else None
+            x, _, a = block_apply(bp, x, cfg, sp_cfg, positions=positions,
+                                  window=window, cache=lc, decode=decode,
+                                  per_slot=per_slot)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = L.rmsnorm_apply(params["final_norm"], x)
-    return x, cache
+    return x, cache, aux
 
 
 def _block_out(p, x, cfg, sp_cfg, positions, window):
-    return block_apply(p, x, cfg, sp_cfg, positions=positions,
-                       window=window)[0]
+    x, _, aux = block_apply(p, x, cfg, sp_cfg, positions=positions,
+                            window=window)
+    return x, aux
 
 
 def logits_from_hidden(params, hidden: torch.Tensor,

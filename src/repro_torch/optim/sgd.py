@@ -39,7 +39,11 @@ masks), and take the elementwise path with the rest.
 
 A conv master (H, W, I, O) takes the same kernel on its (H*W*I, O) view:
 its m-groups of rows are the reference's groups along I, which is what
-``pallas_upd`` builds by moving I last.
+``pallas_upd`` builds by moving I last.  An MoE expert stack (E, K, F),
+a bare-array site (``bdwp.bare_nm_leaf``), takes it on its (E*K, F)
+view: K is a multiple of m, so no m-group straddles two experts, and
+its masks are per expert along K and F (axes 1 and 2), as the
+reference's along the last two axes of its (L, E, K, F) leaf.
 
 What differs:
   * trees are the port's per-layer trees (``"blocks"`` is a list), and
@@ -56,8 +60,7 @@ What differs:
   * ``update`` reads each leaf's stored decay mask from the same
     position of ``prev_compute`` (the trees are per layer, so the
     reference's name -> mask dict, ``stored_decay_masks``, would need a
-    layer index);
-  * no bare-array MoE sites.
+    layer index).
 """
 
 from __future__ import annotations

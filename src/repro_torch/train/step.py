@@ -64,6 +64,8 @@ from repro_torch.models import transformer_lm as T
 from repro_torch.optim import compress as C
 from repro_torch.optim import sgd
 
+AUX_COEF = 0.01     # weight of the MoE load-balance loss in the total
+
 
 def init_train_state(cfg, sp_cfg, *, seed: int = 0, device=None,
                      pregen: bool = True, pregen_pack: bool = True,
@@ -118,9 +120,15 @@ def lm_train_step(state, batch, *, cfg, sp_cfg, opt_cfg,
     compressed pod mean of ``n_pods`` pods (``sp_cfg``'s n:m, the
     reference's buckets; fp32 gradients on the legacy dataflow, as the
     reference's master gives) and the loss the mean of the pod losses.
-    Returns (new_state, {"loss", "lr"}); consumes ``state`` (see
+    The gradient is that of ``loss + AUX_COEF * aux``, aux the MoE
+    load-balance loss summed over layers (0 for a dense model).  Returns
+    (new_state, {"loss", "aux", "total", "lr"}); consumes ``state`` (see
     ``sgd.update``, ``cross_pod_sync``).
     """
+    if compress and getattr(cfg, "moe", None) is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE training under the compressed sync is not "
+            "ported (ROADMAP queue 1, item 3b)")
     compute = state["compute"] if pregen else _bf16_cast(state["master"])
     roots = sgd.diff_leaves(compute)
     pods = n_pods if compress else 1
@@ -129,7 +137,7 @@ def lm_train_step(state, batch, *, cfg, sp_cfg, opt_cfg,
         raise ValueError(f"global batch {rows} not divisible by "
                          f"n_pods={pods}")
     per = rows // pods
-    losses, stacked = [], None
+    losses, auxes, totals, stacked = [], [], [], None
     for r in roots:
         r.requires_grad_(True)
     try:
@@ -137,18 +145,21 @@ def lm_train_step(state, batch, *, cfg, sp_cfg, opt_cfg,
             rows_p = slice(p * per, (p + 1) * per)
             prefix = batch.get("prefix_embeds")
             with record_function("train/forward"):
-                hidden, _ = T.forward(
+                hidden, _, aux = T.forward(
                     compute, batch["tokens"][rows_p], cfg, sp_cfg,
                     prefix_embeds=None if prefix is None else prefix[rows_p])
                 if prefix is not None:   # the loss reads the text only
                     hidden = hidden[:, prefix.shape[1]:]
                 loss = T.lm_loss(compute, hidden, batch["labels"][rows_p],
                                  cfg)
+                total = loss + AUX_COEF * aux
             with record_function("train/backward"):
-                grads = torch.autograd.grad(loss, roots, allow_unused=True,
+                grads = torch.autograd.grad(total, roots, allow_unused=True,
                                             materialize_grads=True)
             del hidden
             losses.append(loss.detach())
+            auxes.append(aux.detach())
+            totals.append(total.detach())
             if compress:   # pod p's row of the pod-stacked gradients
                 if stacked is None:
                     stacked = [g.new_empty(
@@ -168,13 +179,15 @@ def lm_train_step(state, batch, *, cfg, sp_cfg, opt_cfg,
             grads, new_err = C.cross_pod_sync(
                 sgd.pregen_grads(compute, stacked), state["err"], gc_cfg)
             del stacked
-        loss = torch.stack(losses).mean()
     else:
         grads = sgd.pregen_grads(compute, grads)
     del compute, roots
+    loss, aux, total = (torch.stack(v).mean() for v in (losses, auxes,
+                                                         totals))
     new_state, metrics = _update(state, grads, loss, opt_cfg=opt_cfg,
                                  sp_cfg=sp_cfg, pregen=pregen,
                                  pregen_pack=pregen_pack)
+    metrics.update(aux=aux, total=total)
     if new_err is not None:
         new_state["err"] = new_err
     return new_state, metrics
@@ -262,8 +275,8 @@ def lm_prefill_step(params, batch, *, cfg, sp_cfg, last_index=None,
     s_tot = s + (prefix.shape[1] if prefix is not None else 0)
     cache = T.init_lm_cache(cfg, b, s_tot, device=tokens.device,
                             dtype=cache_dtype)
-    hidden, cache = T.forward(params, tokens, cfg, sp_cfg,
-                              prefix_embeds=prefix, cache=cache)
+    hidden, cache, _ = T.forward(params, tokens, cfg, sp_cfg,
+                                 prefix_embeds=prefix, cache=cache)
     if last_index is None:
         h_last = hidden[:, -1:]
     else:
@@ -284,7 +297,7 @@ def lm_decode_step(params, cache, token, pos, *, cfg, sp_cfg,
     pos = torch.as_tensor(pos, device=token.device)
     positions = (pos.reshape(b, 1) if per_slot
                  else pos.reshape(1, 1).expand(b, 1))
-    hidden, cache = T.forward(params, token, cfg, sp_cfg, cache=cache,
-                              decode=True, positions=positions,
-                              per_slot=per_slot)
+    hidden, cache, _ = T.forward(params, token, cfg, sp_cfg, cache=cache,
+                                 decode=True, positions=positions,
+                                 per_slot=per_slot)
     return T.logits_from_hidden(params, hidden, cfg), cache

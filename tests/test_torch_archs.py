@@ -71,6 +71,7 @@ jax.config.update("jax_platform_name", "cpu")
 
 NEW = ["qwen2.5-32b", "glm4-9b", "gemma3-12b", "internvl2-26b"]
 DENSE = ["qwen3-8b"] + NEW
+PORTED = DENSE + ["granite-moe-1b-a400m"]   # MoE: tests/test_torch_moe*.py
 MODULES = {"qwen3-8b": qwen3_8b, "qwen2.5-32b": qwen2_5_32b,
            "glm4-9b": glm4_9b, "gemma3-12b": gemma3_12b,
            "internvl2-26b": internvl2_26b}
@@ -187,7 +188,7 @@ def _batch(arch_id, step=0, seed=0):
 def test_registry_keys_match_reference():
     assert sorted(ARCHS) == sorted(J_ARCHS)
     assert sorted(a for a, s in ARCHS.items()
-                  if not isinstance(s, Unported)) == sorted(DENSE)
+                  if not isinstance(s, Unported)) == sorted(PORTED)
 
 
 @pytest.mark.parametrize("arch_id", sorted(
@@ -204,7 +205,7 @@ def test_shapes_match_reference():
 
 def test_cells_are_the_references_of_ported_archs():
     ported = [(a.arch_id, s.shape_id) for a, s in j_all_cells()
-              if a.arch_id in DENSE]
+              if a.arch_id in PORTED]
     assert [(a.arch_id, s.shape_id) for a, s in all_cells()] == ported
 
 
@@ -265,8 +266,8 @@ def test_forward_logits_match_reference(arch_id):
     assert ("b" in tp["blocks"][0]["attn"]["q_proj"]) == tcfg.qkv_bias
     ref = jax.jit(functools.partial(_j_forward_logits, arch_id))(
         jp, jb["tokens"], jb.get("prefix_embeds"))
-    hidden, _ = TT.forward(tp, tb["tokens"], tcfg, T_SP,
-                           prefix_embeds=tb.get("prefix_embeds"))
+    hidden, _, _ = TT.forward(tp, tb["tokens"], tcfg, T_SP,
+                              prefix_embeds=tb.get("prefix_embeds"))
     got = TT.logits_from_hidden(tp, hidden, tcfg)
     assert tuple(got.shape) == (BATCH, SEQ + _prefix(arch_id),
                                 tcfg.padded_vocab)

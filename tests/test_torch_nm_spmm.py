@@ -264,3 +264,32 @@ def test_cuda_plan_layout_matches_source():
         for tk, cr in [(64, 16), (128, 32), (128, 22), (128, 128)]:
             assert lib.nm_spmm_smem_bytes(bm, bn, tk, cr) == \
                 K.smem_bytes(config, tk, cr)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e,b,k,f,n,m,idx_bits", [
+    (32, 1280, 1024, 512, 2, 8, 8),    # granite's expert stacks (TMA)
+    (4, 8, 4096, 512, 2, 8, 4),        # decode rows: split-K, u4
+    (3, 37, 56, 20, 1, 8, 4),          # odd Kc u4, F % 16: plain loads
+    (5, 300, 768, 200, 3, 8, 8)])      # 3:8, ragged F: plain loads
+def test_cuda_stacked_launch_is_each_experts_2d_launch(e, b, k, f, n, m,
+                                                       idx_bits):
+    """One launch over an (E, B, K) x (E, Kc, F) stack: every expert's
+    slab bitwise the 2-D launch on that expert (the TMA and the
+    plain-load paths, split and unsplit), and within the summation-order
+    bound of the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    packs = [_packed(k, f, n, m, idx_bits, seed=j)[:2] for j in range(e)]
+    vals = torch.stack([v for v, _ in packs]).cuda()
+    idx = torch.stack([i for _, i in packs]).cuda()
+    act = torch.stack([_act(b, k, seed=j + 1)[0] for j in range(e)]).cuda()
+    got = K.nm_spmm(act, vals, idx, n, m, idx_bits=idx_bits)
+    assert got.shape == (e, b, f)
+    for j in range(e):
+        assert torch.equal(got[j], K.nm_spmm(act[j], vals[j], idx[j], n, m,
+                                             idx_bits=idx_bits)), j
+    want = TR.ref_nm_spmm(act, vals, idx, n, m, idx_bits=idx_bits)
+    dense = TR.decompress_nm(vals, idx, n, m, axis=-2, idx_bits=idx_bits)
+    scale = torch.bmm(act.float().abs(), dense.float().abs())
+    assert bool(((got - want).abs() <= 1e-5 * scale).all())

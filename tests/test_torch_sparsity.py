@@ -173,7 +173,7 @@ def test_policy_matches_reference(name, shape):
     assert TB.pick_cfg(name, shape, cfg_t).is_dense == \
         JB.pick_cfg(name, shape, cfg_j).is_dense
     assert TB.decays(name, shape, cfg_t) == JB.decays(name, shape, cfg_j)
-    # the port has no bare-array (MoE) sites: the reference's bare=False
+    # bare-array (MoE) sites too: the reference's default bare=True
     for leaf in (name, name + "/w"):
         assert TB.pregen_site(leaf, shape, cfg_t) == \
-            JB.pregen_site(leaf, shape, cfg_j, bare=False)
+            JB.pregen_site(leaf, shape, cfg_j)

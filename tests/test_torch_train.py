@@ -235,7 +235,7 @@ def test_step_gradients_match_reference(jstate):
         r.requires_grad_(True)
     tokens, labels = (torch.from_numpy(np.array(batch[k])).long()
                       for k in ("tokens", "labels"))
-    hidden, _ = TT.forward(state["compute"], tokens, T_CFG, T_SP)
+    hidden, _, _ = TT.forward(state["compute"], tokens, T_CFG, T_SP)
     loss = TT.lm_loss(state["compute"], hidden, labels, T_CFG)
     grads = TSGD.pregen_grads(state["compute"],
                               torch.autograd.grad(loss, roots))
