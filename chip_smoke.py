@@ -303,7 +303,39 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 24 nm_spmm an engine step), the expert stacks bf16 and
                 re-masked on every call as the reference serves them;
                 batched streams equal solo streams; the experts' mask
-                derivation's device ms a decode step.
+                derivation's device ms a decode step;
+ 35. deepseek kernels  deepseek-v2-lite-16b's shapes: nm_spmm on the
+                64-expert stacks in one launch at the TRAIN step's 480
+                rows an expert (w_gate/w_up 2048 -> 1408, w_down 1408 ->
+                2048, u8) as phase 31 holds granite's (64 separate 2-D
+                launches); one MoE layer's 11 sites (5 MLA projections,
+                3 (E*K, F) expert views, 3 shared-expert matrices) in one
+                grouped fused_update launch, bitwise, timed against
+                21.75 B/element; the 2-D shapes (q_proj 2048 -> 3072,
+                kv_down 2048 -> 576, k_up/v_up 512 -> 2048, o_proj, the
+                prelude's 2048 -> 10944 and 10944 -> 2048, the shared
+                experts' 2048 -> 2816 and 2816 -> 2048) as phase 27
+                holds the dense archs', nm_compact of each bitwise;
+ 36. deepseek small  deepseek SMOKE (MLA, the prelude, 2 shared experts)
+                card vs CPU as phase 32 (the packed steps within
+                DS_PACKED_STEP_ATOL, a limit a step), plus 20
+                shared-cursor decode steps of the absorbed MLA decode;
+ 37. deepseek train  deepseek TRAIN (every published width, the prelude
+                and 5 of 26 MoE layers, 4 x 1024 tokens: 480 rows an
+                expert) through phase 10's checks: five timed steps,
+                exactly 118 nm_spmm (8 prelude sites once, 11 sites of
+                each MoE layer twice) and one fused_update over 63
+                sites (3.00 G elements, past 2^31) a step, a profiled
+                sixth with the moe/* ranges, the operands of layer 0,
+                the prelude and the last layer, peak;
+ 38. deepseek serve  deepseek FULL (27 layers, 15.50 B parameters)
+                through phase 6's engine run with 4 prompts: MLA's
+                q_proj, kv_down and o_proj and the prelude packed 2:8 u4
+                (84 nm_compact a pack, 84 nm_spmm a forward), k_up/v_up
+                read raw by the absorbed decode, the experts and shared
+                experts bf16 and re-masked on every call; batched streams
+                equal solo streams (cap = t at 4 slots); the experts'
+                mask derivation's device ms a decode step.
 
 It prints a JSON line with every kernel's numbers, the card line, and as
 its last line {"ok": true, "device": {...}}.  With no card, or outside a
@@ -937,13 +969,36 @@ def profile_train_step(step_fn, state, batch):
                         "top_kernels": [list(k) for k in kernels[:15]]}
 
 
+MLA_PATHS = tuple(("attn", n) for n in ("q_proj", "kv_down", "k_up", "v_up",
+                                         "o_proj"))
+FFN_NAMES = ("w_gate", "w_up", "w_down")
+
+
 def proj_paths(cfg):
-    """The seven weight sites of one block as (sub-dict, name): attention
-    and the dense FFN, or an MoE block's three expert stacks."""
+    """The weight sites of one block as key paths: attention (GQA's four
+    projections or MLA's five) and the dense FFN, or an MoE block's three
+    expert stacks and its shared experts' three matrices."""
+    attn = MLA_PATHS if cfg.kv_lora is not None else PROJ_PATHS[:4]
     if cfg.moe is None:
-        return PROJ_PATHS
-    return PROJ_PATHS[:4] + tuple(("moe", n) for n in ("w_gate", "w_up",
-                                                        "w_down"))
+        return attn + PROJ_PATHS[4:]
+    shared = (tuple(("moe", "shared", n) for n in FFN_NAMES)
+              if cfg.moe.n_shared else ())
+    return attn + tuple(("moe", n) for n in FFN_NAMES) + shared
+
+
+def prelude_paths(cfg):
+    """The prelude's weight sites (none without one): attention and its
+    dense FFN."""
+    if not cfg.uses_scan_prelude:
+        return ()
+    attn = MLA_PATHS if cfg.kv_lora is not None else PROJ_PATHS[:4]
+    return attn + PROJ_PATHS[4:]
+
+
+def _at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
 
 
 def _site(leaf):
@@ -952,11 +1007,30 @@ def _site(leaf):
     return leaf["w"] if isinstance(leaf, dict) else leaf
 
 
-def packed_per_layer(cfg) -> int:
-    """Weights the element pack packs in one block: 7, or an MoE block's
-    4 attention projections (the expert stacks are served unpacked, as
-    the reference's element pack leaves them)."""
-    return 4 if cfg.moe is not None else 7
+def _packed_paths(paths):
+    """The sites the element pack packs: leaf-dict weights but MLA's
+    k_up/v_up (read raw by the absorbed decode); bare MoE leaves (the
+    expert stacks, the shared experts) are served unpacked, as the
+    reference's element pack leaves them."""
+    return [p for p in paths if p[0] != "moe" and p[-1] not in ("k_up",
+                                                               "v_up")]
+
+
+def packed_per_forward(cfg) -> int:
+    """Weights the element pack packs in a model, so nm_spmm launches a
+    serving forward: 7 a dense block, an MoE block's attention
+    projections, and the prelude's."""
+    return (len(_packed_paths(prelude_paths(cfg)))
+            + cfg.n_blocks * len(_packed_paths(proj_paths(cfg))))
+
+
+def train_launches(cfg):
+    """(nm_spmm launches, fused_update sites) of one packed BDWP step:
+    every site's FF once in the forward, the blocks' again in their
+    recompute (the prelude is not recomputed); one grouped fused_update
+    over every site."""
+    pre, blk = len(prelude_paths(cfg)), len(proj_paths(cfg))
+    return pre + 2 * blk * cfg.n_blocks, pre + blk * cfg.n_blocks
 
 
 def phase_train(dev, seed, cfg=None, rows=None, prefix=0):
@@ -991,8 +1065,11 @@ def phase_train(dev, seed, cfg=None, rows=None, prefix=0):
     data = lm_stream(cfg.vocab, *rows, device=dev, seed=seed, prefix=prefix,
                      d_model=cfg.d_model)
     # one grouped fused_update launch a step over the 7 x L sites (an MoE
-    # layer: 4 attention projections and 3 expert stacks)
-    want = (2 * 7 * cfg.n_layers, 1, 7 * cfg.n_layers)
+    # layer: 4 attention projections and 3 expert stacks; deepseek: 8
+    # prelude sites, then 5 MLA projections, 3 expert stacks and 3 shared
+    # experts a block)
+    spmm, sites = train_launches(cfg)
+    want = (spmm, 1, sites)
     tokens = rows[0] * (prefix + rows[1])     # rows through the model
     KS.launches = KF.launches = KF.launched_sites = 0
     losses, times, per_step = [], [], []
@@ -1024,25 +1101,42 @@ def phase_train(dev, seed, cfg=None, rows=None, prefix=0):
     check(prof["argmax_kernels"] == 0,
           "train: an argmax reduce (a plain N:M selection) is left")
     peak = torch.cuda.max_memory_allocated()
-    layer = state["compute"]["blocks"][0]
-    master = state["master"]["blocks"][0]
-    for part, name in proj_paths(cfg):
-        op, w = _site(layer[part][name]), _site(master[part][name])
-        ff, bp_ax = w.ndim - 2, w.ndim - 1       # an expert stack: per expert
-        vals, idx = S.nm_pack(w, 2, 8, axis=ff)
-        check(torch.equal(op.vals.view(torch.int16),
-                          vals.to(torch.bfloat16).view(torch.int16))
-              and torch.equal(op.idx, idx),
-              f"train: layer 0 {name} packed operand != nm_pack(master)")
-        check(torch.equal(op.mask, S.nm_mask(w, 2, 8, axis=ff)),
-              f"train: layer 0 {name} stored mask != nm_mask(master)")
-        bp = torch.where(S.nm_mask(w, 2, 8, axis=bp_ax), w, 0.0)
-        check(bits_equal(op.bp, bp.to(torch.bfloat16)),
-              f"train: layer 0 {name} bp != the BP-axis mask's operand")
-    print("  layer 0: packed vals/idx == nm_pack(new master), stored mask "
-          "== nm_mask(new master), bp == bf16(where(nm_mask(new master, "
-          "BP axis), master, 0)), all 7 projections"
-          + (" (the expert stacks per expert)" if cfg.moe else ""))
+    # layer 0, the prelude, and where the step's one grouped launch runs
+    # past 2^31 elements the last layer, whose sites lie beyond it
+    checked = [("layer 0", ("blocks", 0), proj_paths(cfg))]
+    if cfg.uses_scan_prelude:
+        checked.append(("prelude", ("prelude",), prelude_paths(cfg)))
+    site_elems = sum(_site(_at(state["master"], (*at, *path))).numel()
+                     for at in [("prelude",)] * cfg.uses_scan_prelude
+                     + [("blocks", i) for i in range(cfg.n_blocks)]
+                     for path in (prelude_paths(cfg) if at == ("prelude",)
+                                  else proj_paths(cfg)))
+    if site_elems >= 2 ** 31:
+        checked.append((f"layer {cfg.n_blocks - 1}",
+                        ("blocks", cfg.n_blocks - 1), proj_paths(cfg)))
+    for label, at, paths in checked:
+        for path in paths:
+            name = "/".join(path)
+            op = _site(_at(state["compute"], (*at, *path)))
+            w = _site(_at(state["master"], (*at, *path)))
+            ff, bp_ax = w.ndim - 2, w.ndim - 1   # an expert stack: per expert
+            vals, idx = S.nm_pack(w, 2, 8, axis=ff)
+            check(torch.equal(op.vals.view(torch.int16),
+                              vals.to(torch.bfloat16).view(torch.int16))
+                  and torch.equal(op.idx, idx),
+                  f"train: {label} {name} packed operand != nm_pack(master)")
+            check(torch.equal(op.mask, S.nm_mask(w, 2, 8, axis=ff)),
+                  f"train: {label} {name} stored mask != nm_mask(master)")
+            bp = torch.where(S.nm_mask(w, 2, 8, axis=bp_ax), w, 0.0)
+            check(bits_equal(op.bp, bp.to(torch.bfloat16)),
+                  f"train: {label} {name} bp != the BP-axis mask's operand")
+            del vals, idx, bp
+    print("  " + ", ".join(c[0] for c in checked) + ": packed vals/idx == "
+          "nm_pack(new master), stored mask == nm_mask(new master), bp == "
+          "bf16(where(nm_mask(new master, BP axis), master, 0)), all "
+          f"{len(proj_paths(cfg))} sites"
+          + (" (the expert stacks per expert)" if cfg.moe else "")
+          + f"; the step's grouped launch covers {site_elems} elements")
     steady = sorted(times[1:])
     ms = steady[len(steady) // 2]
     print(f"  {cfg.name} x{cfg.n_layers} layers, {rows[0]} x ("
@@ -1734,7 +1828,7 @@ def pack_full(dev, seed, cfg, sp):
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0 - draws[0]
     compact, compact_variants = KC.launches, dict(KC.variant_launches)
-    want = packed_per_layer(cfg) * cfg.n_layers
+    want = packed_per_forward(cfg)
     print(f"  init {shell_s + draws[0]:.1f} s + pack {pack_s:.4f} s "
           f"({cfg.n_layers} layers, nm_compact launches {compact}, want "
           f"{want}, by variant {compact_variants}), peak "
@@ -1780,8 +1874,8 @@ def phase_serve(dev, seed, cfg=None, lens=SERVE_LENS, new=SERVE_NEW,
     wall = time.perf_counter() - t0
     launches = K.launches
     st = engine.stats()
-    want = packed_per_layer(cfg) * cfg.n_layers * (st["prefill_steps"]
-                                                   + st["decode_steps"])
+    want = packed_per_forward(cfg) * (st["prefill_steps"]
+                                      + st["decode_steps"])
     print(f"  batched: {len(rids)} requests, {st['decoded_tokens']} tokens, "
           f"{st['prefill_steps']} prefills, {st['decode_steps']} decode "
           f"steps in {wall:.3f} s: {st['decoded_tokens'] / wall:.1f} tok/s, "
@@ -3606,15 +3700,22 @@ def phase_arch_kernels(dev, gen):
 
 
 def _grow_cache(cfg, cache, max_len, dev):
-    """A prefill cache copied into a deeper one (its positions first)."""
+    """A prefill cache copied into a deeper one (its positions first):
+    every tensor of each layer's cache (k/v, or MLA's ckv/kpe), the
+    prelude's too."""
     from repro_torch.models import transformer_lm as T
 
-    b = cache["layers"][0]["k"].shape[0]
+    b = next(iter(cache["layers"][0].values())).shape[0]
     out = T.init_lm_cache(cfg, b, max_len, device=dev)
-    for dst, src in zip(out["layers"], cache["layers"]):
-        for key in ("k", "v"):
-            dst[key][:, :src[key].shape[1]] = src[key]
-        dst["pos"] = src["pos"]
+    pairs = list(zip(out["layers"], cache["layers"]))
+    if "prelude" in cache:
+        pairs.append((out["prelude"], cache["prelude"]))
+    for dst, src in pairs:
+        for key, t in src.items():
+            if isinstance(t, torch.Tensor):
+                dst[key][:, :t.shape[1]] = t
+            else:
+                dst[key] = t
     return out
 
 
@@ -4031,25 +4132,19 @@ def moe_layer_views(cfg):
     return attn + [(e * d, dff), (e * d, dff), (e * dff, d)]
 
 
-def phase_moe_kernels(dev, gen):
-    """nm_spmm on granite's expert stacks in one launch: within the
-    phase-3 tolerance of the plain version, each expert bitwise a 2-D
-    launch on that expert, row 0 bitwise the B = 1 result,
-    deterministic; times (CUDA graph replay, cold L2) of the stacked
-    launch, 32 separate 2-D launches, torch.bmm on the dense bf16 stacks
-    and the plain version, against the bound; then one layer's 7 sites
-    (4 attention, 3 (E*K, F) expert views) in one grouped fused_update
-    launch, bitwise the plain version, timed against its byte bound;
-    then the four attention projections through ``proj_kernel_checks``
-    at decode rows and the TRAIN step's rows, as phase 27 holds the dense
-    archs'."""
-    from repro_torch.configs import get_arch
-    from repro_torch.kernels import fused_update as KF
+def stacked_kernel_checks(dev, gen, cases, label):
+    """nm_spmm on expert stacks in one launch, u8, at ``cases`` [(case,
+    E, rows an expert, K, F)]: within the phase-3 tolerance of the plain
+    version, each expert bitwise a 2-D launch on that expert, row 0
+    bitwise the B = 1 result, deterministic; times (CUDA graph replay,
+    cold L2) of the stacked launch, E separate 2-D launches, torch.bmm
+    on the dense bf16 stacks and the plain version, against the bound.
+    Returns (rows, max abs err)."""
     from repro_torch.kernels import nm_spmm as K
     from repro_torch.kernels import ref
 
     rows, worst = [], 0.0
-    for label, e, b, k, f in MOE_SPMM:
+    for case, e, b, k, f in cases:
         act, vals, idx, dense = stacked_case(gen, e, b, k, f, dev)
         kern = K.nm_spmm(act, vals, idx, 2, 8, 8)
         again = K.nm_spmm(act, vals, idx, 2, 8, 8)
@@ -4058,15 +4153,16 @@ def phase_moe_kernels(dev, gen):
         scale = torch.bmm(act.float().abs(), dense.float().abs())
         err = (kern - plain).abs()
         check(float((err - TOL * scale).max()) <= 0,
-              f"stacked nm_spmm {label}: error above tolerance")
-        check(torch.equal(kern, again), f"stacked nm_spmm {label}: not "
-              "deterministic")
-        check(torch.equal(kern[:, :1], row0), f"stacked nm_spmm {label}: "
-              "row 0 depends on the batch")
+              f"{label} stacked nm_spmm {case}: error above tolerance")
+        check(torch.equal(kern, again), f"{label} stacked nm_spmm {case}: "
+              "not deterministic")
+        check(torch.equal(kern[:, :1], row0), f"{label} stacked nm_spmm "
+              f"{case}: row 0 depends on the batch")
         for j in range(e):
             check(torch.equal(kern[j], K.nm_spmm(act[j], vals[j], idx[j], 2,
                                                  8, 8)),
-                  f"stacked nm_spmm {label}: expert {j} != its 2-D launch")
+                  f"{label} stacked nm_spmm {case}: expert {j} != its 2-D "
+                  "launch")
         worst = max(worst, float(err.max()))
         del plain, scale, err, kern, again, row0
         weight_bytes = vals.numel() * 3
@@ -4087,24 +4183,35 @@ def phase_moe_kernels(dev, gen):
         t_b = max(t_bytes, t_ops) * 1e3
         by = "bytes" if t_bytes >= t_ops else "operations"
         pl = K.plan(b, k, f, 2, 8, e)
-        rows.append({"case": label, "E": e, "B": b, "K": k, "F": f,
+        rows.append({"case": case, "E": e, "B": b, "K": k, "F": f,
                      "ms": t_k, "separate_ms": t_s, "library_ms": t_l,
                      "plain_ms": t_p, "bound_ms": t_b, "bound_by": by,
                      "config": pl.config, "splits": pl.splits,
                      "dense_work_ms": 2 * e * b * k * f / BF16_OPS_PER_S
                      * 1e3})
-        print(f"  E={e} B={b:4d} {label:16s} {k:4d}x{f:<4d} stacked "
+        print(f"  E={e} B={b:4d} {case:16s} {k:4d}x{f:<4d} stacked "
               f"{t_k:.4f} ms, {e} 2-D launches {t_s:.4f} ms, torch.bmm "
               f"(dense bf16) {t_l:.4f} ms, bound {t_b:.4f} ms ({by}), plain "
               f"{t_p:.3f} ms; config {pl.config}, split-K {pl.splits}")
         del sets, act, vals, idx, dense
         torch.cuda.empty_cache()
-    print(f"  stacked nm_spmm: within tolerance, every expert bitwise its "
-          f"2-D launch, rows independent of B; max abs err {worst:.3e}")
-    cfg = get_arch(MOE_ARCH).full
-    views = moe_layer_views(cfg)
+    print(f"  {label} stacked nm_spmm: within tolerance, every expert "
+          f"bitwise its 2-D launch, rows independent of B; max abs err "
+          f"{worst:.3e}")
+    return rows, worst
+
+
+def layer_update_check(gen, views, dev, label):
+    """One layer's sites, the (K, F) ``views``, in one grouped
+    fused_update launch: bitwise the plain version (in place too), then
+    timed against its byte bound (21.75 B/element) and the plain
+    version.  Returns (max abs err, the timing row)."""
+    from repro_torch.kernels import fused_update as KF
+    from repro_torch.kernels import ref
+
     upd_err = grouped_update_check(gen, views, dev, UPDATE_SCALARS,
-                                   "granite layer")
+                                   f"{label} layer")
+    torch.cuda.empty_cache()
     s = UPDATE_SCALARS
     layer = [update_case(gen, k, f, dev) for k, f in views]
     args = (s["lr"], s["mu"], s["wd"], s["lam"], 2, 8)
@@ -4114,15 +4221,32 @@ def phase_moe_kernels(dev, gen):
         *site, n=2, m=8, axis=0, bp_mode="bdwp", **s) for site in layer], 1,
         iters=1)
     t_b = sum(update_bound_ms(k, f, 2, 8) for k, f in views)
-    upd = {"sites": len(views), "views": views, "ms": t_g, "plain_ms": t_p,
-           "bound_ms": t_b, "bound_by": "bytes", "library_ms": None}
-    print(f"  one granite layer's {len(views)} sites (4 attention, 3 (E*K, "
-          f"F) expert views) in one grouped fused_update launch: bitwise "
-          f"the plain version (in place too); {t_g:.4f} ms against a "
-          f"{t_b:.4f} ms bound (21.75 B/element; bound/kernel "
-          f"{t_b / t_g:.2f}), plain {t_p:.2f} ms")
+    elems = sum(k * f for k, f in views)
+    upd = {"sites": len(views), "views": views, "elements": elems,
+           "ms": t_g, "plain_ms": t_p, "bound_ms": t_b, "bound_by": "bytes",
+           "library_ms": None}
+    print(f"  one {label} layer's {len(views)} sites ({elems} elements) in "
+          f"one grouped fused_update launch: bitwise the plain version (in "
+          f"place too); {t_g:.4f} ms against a {t_b:.4f} ms bound (21.75 "
+          f"B/element; bound/kernel {t_b / t_g:.2f}), plain {t_p:.2f} ms")
     del layer
     torch.cuda.empty_cache()
+    return upd_err, upd
+
+
+def phase_moe_kernels(dev, gen):
+    """nm_spmm on granite's expert stacks in one launch
+    (``stacked_kernel_checks``); then one layer's 7 sites (4 attention,
+    3 (E*K, F) expert views) in one grouped fused_update launch, bitwise
+    the plain version, timed against its byte bound; then the four
+    attention projections through ``proj_kernel_checks`` at decode rows
+    and the TRAIN step's rows, as phase 27 holds the dense archs'."""
+    from repro_torch.configs import get_arch
+
+    rows, worst = stacked_kernel_checks(dev, gen, MOE_SPMM, "granite")
+    cfg = get_arch(MOE_ARCH).full
+    upd_err, upd = layer_update_check(gen, moe_layer_views(cfg), dev,
+                                      "granite")
     attn_rows, attn_err = proj_kernel_checks(
         dev, gen, "granite", arch_proj(cfg)[:4],
         MOE_TRAIN_ROWS[0] * MOE_TRAIN_ROWS[1])
@@ -4132,12 +4256,17 @@ def phase_moe_kernels(dev, gen):
     return worst, rows, upd_err, upd, attn_rows, attn_err
 
 
-def phase_moe_small(dev, seed):
-    """granite SMOKE, card vs CPU: forward logits and aux (bf16
-    weights); the routing tables given the same probabilities, bitwise;
-    three BDWP steps, pre-generated and packed, and three legacy steps:
-    loss, aux, total; prefill and 20 decode steps from u4-packed
-    attention (masked experts)."""
+def phase_moe_small(dev, seed, arch_id=MOE_ARCH, small_atol=MOE_SMALL_ATOL,
+                    step_atol=MOE_PACKED_STEP_ATOL, cursor=False):
+    """An MoE arch's SMOKE (granite's unless ``arch_id`` names another),
+    card vs CPU: forward logits and aux (bf16 weights); the routing
+    tables given the same probabilities, bitwise; three BDWP steps,
+    pre-generated and packed, and three legacy steps: loss, aux, total;
+    prefill and 20 decode steps from u4-packed attention (masked
+    experts), per slot and, with ``cursor``, with the shared cursor.
+    ``small_atol`` holds the forward, aux and decode, ``step_atol`` the
+    packed steps' (loss, aux, total): one limit a metric, or a (step,
+    metric) table."""
     from repro_torch.configs import get_arch
     from repro_torch.core.sparsity import SparsityConfig
     from repro_torch.data.synthetic import lm_stream
@@ -4147,7 +4276,8 @@ def phase_moe_small(dev, seed):
     from repro_torch.serve.packed_params import pack_tree_element
     from repro_torch.train import step as ST
 
-    cfg = get_arch(MOE_ARCH).smoke
+    cfg = get_arch(arch_id).smoke
+    name = arch_id.split("-")[0]
     sp = SparsityConfig(n=2, m=8, method="bdwp")
     opt = sgd.SGDConfig(lr=0.1, warmup_steps=2, total_steps=50)
     params = T.init(cfg, seed=seed, device="cpu")
@@ -4162,8 +4292,10 @@ def phase_moe_small(dev, seed):
             out[d] = (T.logits_from_hidden(p16, h, cfg), aux)
     d_fwd = float((out[dev][0].cpu() - out["cpu"][0]).abs().max())
     d_aux = abs(float(out[dev][1]) - float(out["cpu"][1]))
-    check(d_fwd <= MOE_SMALL_ATOL, "moe small: forward logits disagree")
-    check(d_aux <= MOE_SMALL_ATOL, "moe small: aux disagrees")
+    print(f"  {name} SMOKE: forward |dlogit| {d_fwd:.3e}, |daux| "
+          f"{d_aux:.3e} (tol {small_atol})")
+    check(d_fwd <= small_atol, f"{name} small: forward logits disagree")
+    check(d_aux <= small_atol, f"{name} small: aux disagrees")
     # the routing tables of the CPU's layer-0 probabilities, on both
     xt = torch.randn((4, 16, cfg.d_model),
                      generator=torch.Generator().manual_seed(seed)).to(
@@ -4174,7 +4306,8 @@ def phase_moe_small(dev, seed):
     for field in ("gate_idx", "gates", "pos", "keep", "slot_token"):
         check(bits_equal(getattr(r_cpu, field),
                          getattr(r_dev, field).cpu()),
-              f"moe small: routing {field} differs between card and CPU")
+              f"{name} small: routing {field} differs between card and "
+              "CPU")
     probs_dev = M.router_probs(xt.to(dev), w.to(dev))
     d_probs = float((probs_dev.cpu() - probs).abs().max())
     losses = {}
@@ -4185,7 +4318,7 @@ def phase_moe_small(dev, seed):
         if pregen:
             check(_compute_bitwise(states["cpu"]["compute"],
                                    states[dev]["compute"]),
-                  "moe small: step-0 compute trees differ")
+                  f"{name} small: step-0 compute trees differ")
         data = {d: lm_stream(cfg.vocab, 2, 32, device=d, seed=seed)
                 for d in streams}
         hist = {d: [] for d in streams}
@@ -4198,21 +4331,30 @@ def phase_moe_small(dev, seed):
                 hist[d].append([float(met[k])
                                 for k in ("loss", "aux", "total")])
         diffs = np.abs(np.array(hist[dev]) - np.array(hist["cpu"]))
-        check(np.all(np.isfinite(hist[dev])), f"moe small {flow}: "
+        print(f"  {flow}: |d| loss/aux/total " + "; ".join(
+            " ".join(f"{x:.2e}" for x in step) for step in diffs.tolist()))
+        check(np.all(np.isfinite(hist[dev])), f"{name} small {flow}: "
               "non-finite metrics")
-        tol = (np.array(MOE_PACKED_STEP_ATOL)[None] if pregen
+        tol = (np.broadcast_to(np.asarray(step_atol), (3, 3)) if pregen
                else np.array(SMALL_LOSS_ATOL)[:, None])
         check(np.all(diffs <= tol),
-              f"moe small {flow}: loss, aux or total disagree")
+              f"{name} small {flow}: loss, aux or total disagree")
         losses[flow] = (hist[dev], diffs.tolist(),
-                        MOE_PACKED_STEP_ATOL if pregen else SMALL_LOSS_ATOL)
+                        step_atol if pregen else SMALL_LOSS_ATOL)
     packed = {d: pack_tree_element(
         sgd.tree_map(lambda _, t: t.to(torch.bfloat16), params), sp,
         device=d)[0] for d in streams}
     d_dec = _small_decode(dev, seed, cfg, sp, packed, 0, True)
-    check(d_dec <= MOE_SMALL_ATOL, "moe small: decode logits disagree")
-    print(f"  granite SMOKE: forward |dlogit| {d_fwd:.3e} (tol "
-          f"{MOE_SMALL_ATOL}), |daux| {d_aux:.3e}; router probabilities "
+    d_cur = (_small_decode(dev, seed, cfg, sp, packed, 0, False) if cursor
+             else None)
+    print(f"  prefill + {ARCH_DECODE_STEPS} decode steps, card vs CPU: per "
+          f"slot |dlogit| {d_dec:.3e}"
+          + (f", shared cursor {d_cur:.3e}" if cursor else ""))
+    check(d_dec <= small_atol, f"{name} small: decode logits disagree")
+    check(d_cur is None or d_cur <= small_atol,
+          f"{name} small: shared-cursor decode logits disagree")
+    print(f"  {name} SMOKE: forward |dlogit| {d_fwd:.3e} (tol "
+          f"{small_atol}), |daux| {d_aux:.3e}; router probabilities "
           f"|d| {d_probs:.3e}, routing tables of the same probabilities "
           "bitwise; step-0 compute trees bitwise")
     for flow, (h, diffs, tol) in losses.items():
@@ -4221,52 +4363,175 @@ def phase_moe_small(dev, seed):
               + " |d| " + "; ".join(" ".join(f"{x:.2e}" for x in step)
                                     for step in diffs)
               + f" (tol {tol} per "
-              + ("metric" if tol is MOE_PACKED_STEP_ATOL else "step") + ")")
-    print(f"  prefill + {ARCH_DECODE_STEPS} decode steps per slot, u4 "
-          f"attention, masked experts: |dlogit| {d_dec:.3e} (tol "
-          f"{MOE_SMALL_ATOL})")
+              + ("step" if tol is SMALL_LOSS_ATOL
+                 or np.ndim(tol) == 2 else "metric") + ")")
+    print(f"  prefill + {ARCH_DECODE_STEPS} decode steps per slot"
+          + (" and with the shared cursor" if cursor else "") + ", u4 "
+          f"attention, masked experts: |dlogit| {d_dec:.3e}"
+          + (f", {d_cur:.3e}" if cursor else "") + f" (tol {small_atol})")
     return {"forward": d_fwd, "aux": d_aux, "decode": d_dec,
-            "losses": losses}
+            "decode_shared_cursor": d_cur, "losses": losses}
 
 
 def _expert_mask_ms(store, cfg, sp):
     """Device ms of the experts' FF mask derivation in one decode step:
-    every layer's three bf16 stacks re-masked along K, as ``MaskedOp``
-    does on each call."""
+    every layer's three bf16 stacks (and shared experts) re-masked along
+    K, as ``MaskedOp`` does on each call."""
     from repro_torch.core import operand as O
 
     stacks = [b["moe"][n] for b in store.params["blocks"]
               for n in ("w_gate", "w_up", "w_down")]
+    stacks += [b["moe"]["shared"][n] for b in store.params["blocks"]
+               if "shared" in b["moe"] for n in ("w_gate", "w_up", "w_down")]
     return time_ms(lambda i: [O._ff_weights(w, sp) for w in stacks], 1,
                    iters=2)
 
 
-def phase_moe_serve(dev, seed):
-    """granite FULL (24 layers) through phase 6's engine run: attention
+def phase_moe_serve(dev, seed, cfg=None, lens=SERVE_LENS, new=MOE_SERVE_NEW):
+    """An MoE FULL config (granite's 24 layers unless ``cfg`` names
+    another) through phase 6's engine run: attention (and a prelude)
     packed 2:8 u4 (4 x 24 nm_compact a pack, 4 x 24 nm_spmm an engine
-    step), the expert stacks bf16 and masked on every call, as the
-    reference serves them; then the experts' mask derivation's share of
-    a decode step."""
+    step for granite), the expert stacks and shared experts bf16 and
+    masked on every call, as the reference serves them; then the
+    experts' mask derivation's share of a decode step."""
     from repro_torch.configs import granite_moe_1b
     from repro_torch.core.sparsity import SparsityConfig
 
-    cfg = granite_moe_1b.FULL
+    cfg = cfg or granite_moe_1b.FULL
     sp = SparsityConfig(n=2, m=8, method="bdwp")
 
     def masks(store, _):
         ms = _expert_mask_ms(store, cfg, sp)
-        print(f"  the experts' FF mask derivation (3 x {cfg.n_layers} "
+        shared = (f" and {cfg.moe.n_shared} shared experts of {cfg.d_model} "
+                  f"x {cfg.moe.n_shared * cfg.moe.d_expert}"
+                  if cfg.moe.n_shared else "")
+        print(f"  the experts' FF mask derivation (3 x {cfg.n_blocks} "
               f"stacks of {cfg.moe.n_experts} x {cfg.d_model} x "
-              f"{cfg.moe.d_expert}, on every call): {ms:.3f} ms of device "
-              "time a decode step")
+              f"{cfg.moe.d_expert}{shared}, on every call): {ms:.3f} ms of "
+              "device time a decode step")
         return {"expert_mask_ms": ms}
 
-    out = phase_serve(dev, seed, cfg, new=MOE_SERVE_NEW, then=masks)
+    out = phase_serve(dev, seed, cfg, lens=lens, new=new, then=masks)
     share = out["then"]["expert_mask_ms"] / out["ms_per_step"]
     print(f"  mask derivation: {share:.3f} of an engine step's "
           f"{out['ms_per_step']:.2f} ms")
     out["then"]["share_of_step"] = share
     return out
+
+
+# -- phases 35-38: deepseek-v2-lite-16b -------------------------------------
+
+DS_ARCH = "deepseek-v2-lite-16b"
+DS_TRAIN_ROWS = (4, 1024)       # 8 routing groups of 512, capacity 60
+# phase 35's stacked nm_spmm cases (label, E, rows an expert, K, F): the
+# TRAIN step's 480 rows an expert (8 groups x capacity 60)
+DS_SPMM = [("w_gate/w_up", 64, 480, 2048, 1408),
+           ("w_down", 64, 480, 1408, 2048)]
+# phase 36, card vs CPU at SMOKE: the forward, aux and decode at
+# granite's limit (read on an H100: 7.2e-7, 2.4e-7); the packed steps'
+# (loss, aux, total) a step: steps 0-1 read <= 4.8e-7, step 2 (the first
+# after an update at lr 0.05) 2.5e-3 / 3.2e-2 / 2.8e-3, a routing or
+# selection flip of the ulp-apart updated weights, as granite's legacy
+# step 2 (1.7e-2)
+DS_SMALL_ATOL = MOE_SMALL_ATOL
+DS_PACKED_STEP_ATOL = ((1e-4, 1e-4, 1e-4), (1e-4, 1e-4, 1e-4),
+                       (1e-2, 5e-2, 1e-2))
+# phase 38's requests: 4 prompts (every slot busy) asking for few tokens:
+# each forward re-masks 14.8 G expert weights
+DS_SERVE_LENS, DS_SERVE_NEW = (5, 32, 17, 9), (2, 4, 3, 2)
+
+
+def ds_proj(cfg):
+    """deepseek's distinct 2-D weight shapes (name, K, F): the five MLA
+    projections, the prelude's FFN and the shared experts."""
+    h, d = cfg.n_heads, cfg.d_model
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    ff, sh = cfg.first_dense_ff, cfg.moe.n_shared * cfg.moe.d_expert
+    return [("q_proj", d, h * (dn + dr)), ("kv_down", d, cfg.kv_lora + dr),
+            ("k_up", cfg.kv_lora, h * dn), ("v_up", cfg.kv_lora, h * dv),
+            ("o_proj", h * dv, d), ("prelude w_gate/w_up", d, ff),
+            ("prelude w_down", ff, d), ("shared w_gate/w_up", d, sh),
+            ("shared w_down", sh, d)]
+
+
+def ds_layer_views(cfg):
+    """One deepseek MoE layer's 11 fused_update sites as the optimizer
+    views them: the 5 MLA (K, F) masters, the 3 expert stacks' (E*K, F)
+    views and the 3 shared-expert matrices."""
+    e, d, dff = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_expert
+    proj = {name: (k, f) for name, k, f in ds_proj(cfg)}
+    attn = [proj[n] for n in ("q_proj", "kv_down", "k_up", "v_up", "o_proj")]
+    shared = [proj["shared w_gate/w_up"]] * 2 + [proj["shared w_down"]]
+    return attn + [(e * d, dff), (e * d, dff), (e * dff, d)] + shared
+
+
+def ds_pack_timing(dev, gen, cfg):
+    """nm_compact (vector variant, u4) at the element pack's six weight
+    shapes (the prelude's q_proj, kv_down, o_proj and FFN; every MoE
+    layer's q_proj, kv_down and o_proj), timed with cold L2 beside the
+    plain version and the byte bound, and the whole model's pack (84
+    weights) summed from them.  Returns (rows, totals)."""
+    from repro_torch.kernels import ref
+
+    proj = {name: (k, f) for name, k, f in ds_proj(cfg)}
+    shapes = [("q_proj", *proj["q_proj"]), ("kv_down", *proj["kv_down"]),
+              ("o_proj", *proj["o_proj"]),
+              ("prelude w_gate/w_up", *proj["prelude w_gate/w_up"]),
+              ("prelude w_down", *proj["prelude w_down"])]
+    # weights of each shape in one pack: the attention three in every
+    # layer, the prelude's FFN once (w_gate and w_up)
+    count = {"q_proj": cfg.n_layers, "kv_down": cfg.n_layers,
+             "o_proj": cfg.n_layers, "prelude w_gate/w_up": 2,
+             "prelude w_down": 1}
+    rows = []
+    for name, k, f in shapes:
+        copies = max(2, -(-2 * L2_BYTES // (k * f * 2)))
+        ws = [torch.randn((k, f), generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(copies)]
+        t_k = time_ms(lambda i: compact_view(ws[i].t(), 2, 8, 4, "vector"),
+                      copies)
+        t_p = time_ms(lambda i: ref.ref_nm_compact(ws[i].t(), 2, 8, 4),
+                      copies, iters=3)
+        t_b = compact_bound_ms(f, k, 2, 8, 4, 2)
+        rows.append({"proj": name, "K": k, "F": f, "count": count[name],
+                     "ms": t_k, "plain_ms": t_p, "bound_ms": t_b,
+                     "bound_by": "bytes", "library_ms": None})
+        print(f"  pack {name:19s} {k:5d}x{f:<5d} bf16 u4 vector {t_k:.4f} "
+              f"ms, bound {t_b:.4f} ms (bytes), plain {t_p:.4f} ms; "
+              f"{count[name]} in a pack")
+        del ws
+    tot = {key: sum(r[key] * r["count"] for r in rows)
+           for key in ("ms", "plain_ms", "bound_ms")}
+    print(f"  the FULL element pack's {sum(r['count'] for r in rows)} "
+          f"weights: {tot['ms']:.3f} ms of nm_compact = "
+          f"{tot['bound_ms'] / tot['ms']:.2f} of its {tot['bound_ms']:.3f} ms "
+          f"bound; plain {tot['plain_ms']:.2f} ms")
+    return rows, tot
+
+
+def phase_deepseek_kernels(dev, gen):
+    """deepseek's shapes through the ported kernels: the 64-expert stacks
+    in one stacked nm_spmm launch at the TRAIN step's 480 rows an expert
+    (``stacked_kernel_checks``); one MoE layer's 11 sites in one grouped
+    fused_update launch (``layer_update_check``); the 2-D shapes (MLA,
+    the prelude's FFN, the shared experts) through
+    ``proj_kernel_checks`` at decode rows (u4) and the TRAIN step's 4096
+    rows (u8), and nm_compact of each (vector and scalar) bitwise: the
+    element pack's 84 weights take six of these shapes."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(DS_ARCH).full
+    rows, worst = stacked_kernel_checks(dev, gen, DS_SPMM, "deepseek")
+    upd_err, upd = layer_update_check(gen, ds_layer_views(cfg), dev,
+                                      "deepseek")
+    proj_rows, proj_err = proj_kernel_checks(
+        dev, gen, "deepseek", ds_proj(cfg),
+        DS_TRAIN_ROWS[0] * DS_TRAIN_ROWS[1])
+    print(f"  deepseek 2-D shapes: nm_spmm within tolerance, rows "
+          f"independent of B; nm_compact of the {len(ds_proj(cfg))} shapes "
+          "bitwise (u4, vector and scalar)")
+    pack_rows, pack = ds_pack_timing(dev, gen, cfg)
+    return worst, rows, upd_err, upd, proj_rows, proj_err, pack_rows, pack
 
 
 def _leaf_at(tree, name):
@@ -4291,8 +4556,12 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
+    starts = []     # (phase, its start in the run's seconds), for --out
+
     def head(title):   # a phase's title, with the run's seconds so far
-        print(f"{title}  (t = {time.perf_counter() - t_start:.1f} s)")
+        t = time.perf_counter() - t_start
+        starts.append((title.split("]")[0] + "]", t))
+        print(f"{title}  (t = {t:.1f} s)")
 
     head("[1] card")
     card = card_line()
@@ -4428,6 +4697,30 @@ def main(argv=None) -> int:
     head(f"[34] serve {MOE_ARCH} FULL (24 layers), attention packed 2:8 u4, "
           "experts masked")
     moe_serve = phase_moe_serve(dev, SEED)
+    torch.cuda.empty_cache()
+    head("[35] deepseek-v2-lite kernels: nm_spmm on the 64-expert stacks and "
+          "the MLA, prelude and shared-expert shapes, one MoE layer's "
+          "grouped fused_update, nm_compact")
+    (ds_err, ds_rows, ds_upd_err, ds_upd, arch_rows[DS_ARCH],
+     ds_proj_err, ds_pack_rows, ds_pack) = phase_deepseek_kernels(dev, gen)
+    torch.cuda.empty_cache()
+    head("[36] deepseek-v2-lite SMOKE: card vs CPU")
+    ds_small = phase_moe_small(dev, SEED, DS_ARCH, DS_SMALL_ATOL,
+                               DS_PACKED_STEP_ATOL, cursor=True)
+    torch.cuda.empty_cache()
+    from repro_torch.configs import deepseek_v2_lite
+
+    ds_cfg = deepseek_v2_lite.TRAIN
+    head(f"[37] train {DS_ARCH} TRAIN (full width, the prelude and "
+          f"{ds_cfg.n_blocks} of {deepseek_v2_lite.FULL.n_blocks} MoE "
+          f"layers), 2:8 bdwp, packed, {DS_TRAIN_ROWS[0]} x "
+          f"{DS_TRAIN_ROWS[1]} tokens")
+    ds_train = phase_train(dev, SEED, ds_cfg, DS_TRAIN_ROWS)
+    torch.cuda.empty_cache()
+    head(f"[38] serve {DS_ARCH} FULL (27 layers), MLA and the prelude packed "
+          "2:8 u4, experts masked")
+    ds_serve = phase_moe_serve(dev, SEED, deepseek_v2_lite.FULL,
+                               DS_SERVE_LENS, DS_SERVE_NEW)
 
     def summed(rs, at, launches, by_path, err):
         return {"launches": launches, "launches_by_path": by_path,
@@ -4458,20 +4751,24 @@ def main(argv=None) -> int:
                       r["then"]["launches"] if r.get("then") else 0)
                      for a, r in arch_serve.items()},
                   "train_granite": moe_train["launches"]["nm_spmm"],
-                  "serve_granite": moe_serve["launches"]}
+                  "serve_granite": moe_serve["launches"],
+                  "train_deepseek": ds_train["launches"]["nm_spmm"],
+                  "serve_deepseek": ds_serve["launches"]}
     upd_paths, upd_sites = ({
         "train": train["launches"][key],
         "train_sync": train_sync["launches"][key],
         "paper_train": sum(r["launches"][key] for r in paper.values()),
         **{f"train_{a}": r["launches"][key] for a, r in arch_train.items()},
-        "train_granite": moe_train["launches"][key]}
+        "train_granite": moe_train["launches"][key],
+        "train_deepseek": ds_train["launches"][key]}
         for key in ("fused_update", "fused_update_sites"))
     upd_paths.update({k: v["fused_update"] for k, v in flow_paths.items()})
     compact_paths = {"serve": serve["compact_launches"],
                      "shared_serve": shared_serve["compact_launches"],
                      **{f"serve_{a}": r["compact_launches"]
                         for a, r in arch_serve.items()},
-                     "serve_granite": moe_serve["compact_launches"]}
+                     "serve_granite": moe_serve["compact_launches"],
+                     "serve_deepseek": ds_serve["compact_launches"]}
     shared_decode = [r for r in shared_rows if r["B"] == 4]
     shared_prefill = [r for r in shared_rows if r["B"] != 4]
     sync_at = {(r["leaf"], r["dtype"]): r for r in sync_rows}
@@ -4498,7 +4795,8 @@ def main(argv=None) -> int:
         **summed(decode, "one decode layer: the 7 projections at B=4, 2:8 "
                  "u4, summed", sum(spmm_paths.values()), spmm_paths,
                  max(max_err, spmm_err, paper_spmm_err,
-                     arch_err["nm_spmm"], moe_attn_err)),
+                     arch_err["nm_spmm"], moe_attn_err, ds_err,
+                     ds_proj_err)),
         arch_layers={a: {str(b): {key: sum(r[key] for r in rs
                                            if r["B"] == b)
                                   for key in ("ms", "library_ms", "bound_ms")}
@@ -4526,14 +4824,24 @@ def main(argv=None) -> int:
             library_ms=2 * moe_rows[0]["library_ms"]
             + moe_rows[1]["library_ms"],
             separate_ms=2 * moe_rows[0]["separate_ms"]
-            + moe_rows[1]["separate_ms"], cases=moe_rows)),
+            + moe_rows[1]["separate_ms"], cases=moe_rows),
+        deepseek_expert_rows=dict(summed(
+            ds_rows, "one deepseek MoE layer's three expert stacks in the "
+            "forward: E=64 x 480 rows, w_gate and w_up (2048 -> 1408) and "
+            "w_down (1408 -> 2048), one stacked launch each, 2:8 u8 "
+            "(w_gate/w_up counted twice); library: torch.bmm on the dense "
+            "bf16 stacks", spmm_paths["train_deepseek"],
+            {"train_deepseek": spmm_paths["train_deepseek"]}, ds_err),
+            **{key: 2 * ds_rows[0][key] + ds_rows[1][key]
+               for key in ("ms", "plain_ms", "bound_ms", "library_ms",
+                           "separate_ms")}, cases=ds_rows)),
         dict(name="fused_update", route="cuda",
              source="src/repro_torch/kernels/csrc/fused_update.cu",
              replaces="src/repro/kernels/fused_update.py:73",
              launches=sum(upd_paths.values()), launches_by_path=upd_paths,
              sites_by_path=upd_sites,
              max_abs_err=max(upd_err, paper_upd_err, arch_err["fused_update"],
-                             moe_upd_err),
+                             moe_upd_err, ds_upd_err),
              ms=upd_layer["ms"], plain_ms=upd_layer["plain_ms"],
              bound_ms=upd_layer["bound_ms"], bound_by="bytes",
              library_ms=None, singles_ms=upd_layer["singles_ms"],
@@ -4552,7 +4860,12 @@ def main(argv=None) -> int:
              granite_layer=dict(
                  moe_upd, at="one granite layer's 7 sites (4 attention, 3 "
                  "expert stacks' (E*K, F) views) in one grouped launch, 2:8 "
-                 "bdwp", launches=moe_train["launches"]["fused_update"])),
+                 "bdwp", launches=moe_train["launches"]["fused_update"]),
+             deepseek_layer=dict(
+                 ds_upd, at="one deepseek MoE layer's 11 sites (5 MLA "
+                 "projections, 3 expert stacks' (E*K, F) views, 3 shared-"
+                 "expert matrices) in one grouped launch, 2:8 bdwp",
+                 launches=ds_train["launches"]["fused_update"])),
         sync_row("grad_compress", "one leaf, as the sync launches it: a "
                  "layer's w_gate, (2, 50331648) bf16 gradient rows + fp32 "
                  "residual columns, 2:8, vector variant"),
@@ -4572,9 +4885,16 @@ def main(argv=None) -> int:
                  "shared_serve": shared_serve["compact_variants"],
                  **{f"serve_{a}": r["compact_variants"]
                     for a, r in arch_serve.items()},
-                 "serve_granite": moe_serve["compact_variants"]},
+                 "serve_granite": moe_serve["compact_variants"],
+                 "serve_deepseek": ds_serve["compact_variants"]},
              **{key: sum(r[key] for r in compact_rows)
-                for key in ("scalar_ms", "u8_ms", "u8_bound_ms")}),
+                for key in ("scalar_ms", "u8_ms", "u8_bound_ms")},
+             deepseek_pack=dict(
+                 ds_pack, at="deepseek FULL's element pack: 84 bf16 (K, F) "
+                 "weights read as (F, K) views, 2:8 u4, vector variant, "
+                 "summed from the six shapes", bound_by="bytes",
+                 library_ms=None,
+                 launches=ds_serve["compact_launches"], cases=ds_pack_rows)),
         dict(name="nm_spmm_shared", route="cuda",
              source="src/repro_torch/kernels/csrc/nm_spmm_shared.cu",
              replaces="src/repro/kernels/nm_spmm_shared.py:104",
@@ -4608,6 +4928,12 @@ def main(argv=None) -> int:
                        "moe_kernel_timing": moe_rows, "moe_update": moe_upd,
                        "moe_small": moe_small, "moe_train": moe_train,
                        "moe_serve": moe_serve,
+                       "deepseek_kernel_timing": ds_rows,
+                       "deepseek_update": ds_upd,
+                       "deepseek_small": ds_small,
+                       "deepseek_train": ds_train,
+                       "deepseek_serve": ds_serve,
+                       "phase_starts": starts,
                        "seconds": time.perf_counter() - t_start}, fh,
                       indent=1, default=str)
     print(f"done in {time.perf_counter() - t_start:.1f} s")

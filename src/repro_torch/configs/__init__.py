@@ -1,8 +1,8 @@
 """Architecture registry of the port: ``--arch <id>`` -> ArchSpec.
 
 The port's own copy of ``src/repro/configs/__init__.py``.  ``ARCHS``
-has the reference's ten arch ids as keys.  The five dense LMs and
-granite-moe map to their ``ArchSpec``; an arch whose model is not ported yet maps to an
+has the reference's ten arch ids as keys.  The five dense LMs,
+granite-moe and deepseek-v2-lite map to their ``ArchSpec``; an arch whose model is not ported yet maps to an
 ``Unported`` entry that names the ROADMAP queue 1 item porting it, and
 ``get_arch`` raises ``NotImplementedError`` for it (never a stand-in).
 ``all_cells`` yields the (arch, shape) cells of the ported archs.
@@ -13,8 +13,9 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import (gemma3_12b, glm4_9b, granite_moe_1b,
-                                 internvl2_26b, qwen2_5_32b, qwen3_8b)
+from repro_torch.configs import (deepseek_v2_lite, gemma3_12b, glm4_9b,
+                                 granite_moe_1b, internvl2_26b, qwen2_5_32b,
+                                 qwen3_8b)
 from repro_torch.configs.base import SHAPES, ArchSpec, Shape
 
 
@@ -33,8 +34,7 @@ ARCHS = {
     "whisper-large-v3": Unported("whisper-large-v3",
                                  "item 6 (encoder-decoder)"),
     "granite-moe-1b-a400m": granite_moe_1b.ARCH,
-    "deepseek-v2-lite-16b": Unported("deepseek-v2-lite-16b",
-                                     "item 4 (MLA, dense prelude)"),
+    "deepseek-v2-lite-16b": deepseek_v2_lite.ARCH,
     "mamba2-370m": Unported("mamba2-370m", "item 5 (SSM)"),
     "hymba-1.5b": Unported("hymba-1.5b", "item 5 (hybrid SSM)"),
     "internvl2-26b": internvl2_26b.ARCH,

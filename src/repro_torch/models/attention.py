@@ -1,13 +1,17 @@
-"""GQA attention with RoPE, qk-norm, QKV bias and sliding windows:
-prefill, per-slot and shared-cursor decode.
+"""GQA attention with RoPE, qk-norm, QKV bias and sliding windows, and
+DeepSeek-V2's multi-head latent attention (MLA): prefill, per-slot and
+shared-cursor decode.
 
-Counterpart of the GQA path of ``src/repro/models/attention.py``:
+Counterpart of ``src/repro/models/attention.py``:
 ``AttnConfig``, ``attn_init`` (QKV bias), ``chunked_attention`` (online
 softmax over KV chunks), ``banded_attention`` (sliding-window prefill:
 query chunks of ``chunk_q`` against a KV band padded to whole chunks,
 the exact window mask, O(S*W)), ``decode_attention`` (per-slot
 positions with a window mask, or one shared position with the last
-``window`` positions sliced), ``attn_apply`` and ``init_cache``.
+``window`` positions sliced), ``attn_apply``, ``_mla_apply`` (MLA:
+a compressed ``(ckv, kpe)`` cache; prefill expands it through
+``k_up``/``v_up``, decode attends in the ``kv_lora``-wide latent space
+through the absorbed matrices) and ``init_cache``.
 The arithmetic mirrors the reference: logits as an einsum of bf16 values
 accumulated in fp32, fp32 softmax, ``-1e30`` masks, probabilities cast
 to the value dtype before the PV product.  No fused attention operator
@@ -15,7 +19,6 @@ is used, so the CPU comparison with the reference stays exact in
 structure.
 
 What differs:
-  * MLA is not ported (ROADMAP queue 1, item 4);
   * decode defaults to per-slot (``per_slot=True``, the serve engine's
     mode), where the reference's ``attn_apply`` defaults to the shared
     cursor;
@@ -23,11 +26,22 @@ What differs:
   * caches are updated in place (``index_put_``/slice assignment) where
     the reference returns new arrays, which saves a cache copy per
     layer and step; ``attn_apply`` still returns the cache it wrote.
-Layouts are the reference's: q/k/v (B, S, H, D), caches (B, S, Hkv, D).
+  * the absorbed MLA decode's fp32 products run at full fp32 precision
+    on the card (TF32 off for their span), as the reference's fp32
+    einsums;
+Layouts are the reference's: q/k/v (B, S, H, D), caches (B, S, Hkv, D),
+an MLA cache ``ckv`` (B, S, kv_lora) and ``kpe`` (B, S, qk_rope_dim).
+
+The absorbed decode reads ``k_up``/``v_up``'s raw weights, as the
+reference does (its ``attention.py:364,377``): serving never packs or
+masks them, so a sparse model decodes through dense latent
+up-projections while its prefill masks them (ROADMAP queue 3, the
+reference hazard).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -47,6 +61,12 @@ class AttnConfig:
     rope_theta: float = 10000.0
     qk_norm: bool = False
     qkv_bias: bool = False
+    # MLA (deepseek-v2): with kv_lora set, the layer keeps a compressed
+    # KV cache of kv_lora + qk_rope_dim values a position
+    kv_lora: Optional[int] = None
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: Optional[int] = None
     chunk_q: int = 1024
     chunk_kv: int = 1024
 
@@ -55,6 +75,19 @@ def attn_init(gen: torch.Generator, cfg: AttnConfig, *, device,
               dtype=torch.float32):
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
     p = {}
+    if cfg.kv_lora is not None:
+        # the reference's order: q_proj, kv_down, k_up, v_up, o_proj
+        dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+        dv = cfg.v_head_dim or dn
+        for name, din, dout in (("q_proj", d, h * (dn + dr)),
+                                ("kv_down", d, cfg.kv_lora + dr),
+                                ("k_up", cfg.kv_lora, h * dn),
+                                ("v_up", cfg.kv_lora, h * dv),
+                                ("o_proj", h * dv, d)):
+            p[name] = L.dense_init(gen, din, dout, device=device, dtype=dtype)
+        p["ckv_norm"] = L.rmsnorm_init(cfg.kv_lora, device=device,
+                                       dtype=dtype)
+        return p
     for name, dout in (("q_proj", h * hd), ("k_proj", kv * hd),
                        ("v_proj", kv * hd)):
         p[name] = L.dense_init(gen, d, dout, device=device, dtype=dtype,
@@ -226,8 +259,12 @@ def attn_apply(p, x: torch.Tensor, cfg: AttnConfig, sp_cfg, *,
     and attends to keys at or before its own position; with the shared
     cursor (``per_slot=False``) every row writes at ``cache["pos"]``
     (clipped in the same way) and attends to keys at or before it.
-    Either way ``cache["pos"]`` then moves on by one.
+    Either way ``cache["pos"]`` then moves on by one.  An MLA config
+    (``cfg.kv_lora``) takes ``_mla_apply``.
     """
+    if cfg.kv_lora is not None:
+        return _mla_apply(p, x, cfg, sp_cfg, positions=positions,
+                          cache=cache, decode=decode, per_slot=per_slot)
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     q = _split_heads(L.dense_apply(p["q_proj"], x, "attn/q_proj", sp_cfg),
                      h, hd)
@@ -275,8 +312,115 @@ def attn_apply(p, x: torch.Tensor, cfg: AttnConfig, sp_cfg, *,
     return L.dense_apply(p["o_proj"], out, "attn/o_proj", sp_cfg), cache
 
 
+@contextlib.contextmanager
+def _full_fp32_matmuls():
+    """fp32 matmuls at full precision (no TF32) inside the block."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def _raw_weight(p, name: str) -> torch.Tensor:
+    w = p[name]["w"]
+    if not isinstance(w, torch.Tensor):
+        raise TypeError(f"the absorbed MLA decode reads {name} as a plain "
+                        f"weight, got {type(w).__name__}")
+    return w
+
+
+def _mla_apply(p, x: torch.Tensor, cfg: AttnConfig, sp_cfg, *, positions,
+               cache, decode: bool, per_slot: bool = True):
+    """DeepSeek-V2 multi-head latent attention: returns (out, cache).
+
+    q_proj gives each head a (qk_nope_dim + qk_rope_dim) query; kv_down
+    gives the kv_lora-wide latent ``ckv`` (RMS-normed by ``ckv_norm``)
+    and one shared rope key ``k_pe``; the cache keeps (ckv, k_pe).
+    Prefill expands ckv through k_up and v_up (masked like any weight)
+    and runs ``chunked_attention`` on (B, S, H, dn + dr) queries and keys
+    (k_pe broadcast over the heads) and (B, S, H, dv) values.  Decode
+    writes the new position as ``attn_apply`` does (per slot, or at the
+    shared cursor) and attends in the latent space in fp32: q_nope
+    absorbed into k_up's raw weight, scores against ckv plus the rope
+    scores, the (dn + dr) ** -0.5 scale, the context mapped out through
+    v_up's raw weight.
+    """
+    h = cfg.n_heads
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    dv = cfg.v_head_dim or dn
+    lora = cfg.kv_lora
+    b = x.shape[0]
+
+    qall = L.dense_apply(p["q_proj"], x, "attn/q_proj", sp_cfg)
+    qall = qall.reshape(*x.shape[:-1], h, dn + dr)
+    q_nope, q_pe = qall[..., :dn], qall[..., dn:]
+    q_pe = L.apply_rope(q_pe, positions, cfg.rope_theta)
+
+    down = L.dense_apply(p["kv_down"], x, "attn/kv_down", sp_cfg)
+    ckv = L.rmsnorm_apply(p["ckv_norm"], down[..., :lora])
+    k_pe = L.apply_rope(down[..., None, lora:], positions,
+                        cfg.rope_theta)[..., 0, :]
+
+    if decode:
+        if cache is None:
+            raise ValueError("decode needs a cache")
+        smax = cache["ckv"].shape[1]
+        if per_slot:
+            cur = positions[:, -1]
+            wpos = torch.clamp(cur, 0, smax - 1)
+            rows = torch.arange(b, device=x.device)
+            cache["ckv"][rows, wpos] = ckv[:, 0].to(cache["ckv"].dtype)
+            cache["kpe"][rows, wpos] = k_pe[:, 0].to(cache["kpe"].dtype)
+        else:
+            cur = int(cache["pos"])
+            wpos = min(max(cur, 0), smax - 1)
+            cache["ckv"][:, wpos] = ckv[:, 0].to(cache["ckv"].dtype)
+            cache["kpe"][:, wpos] = k_pe[:, 0].to(cache["kpe"].dtype)
+            cur = torch.full((b,), cur, device=x.device)
+        cache["pos"] = cache["pos"] + 1
+        f32 = torch.float32
+        ckv_c = cache["ckv"].to(f32)
+        with _full_fp32_matmuls():
+            wk = _raw_weight(p, "k_up").reshape(lora, h, dn).to(f32)
+            q_abs = torch.einsum("bqhd,lhd->bqhl", q_nope.to(f32), wk)
+            scores = torch.einsum("bqhl,bsl->bhqs", q_abs, ckv_c)
+            scores = scores + torch.einsum("bqhd,bsd->bhqs", q_pe.to(f32),
+                                           cache["kpe"].to(f32))
+            scores = scores * (dn + dr) ** -0.5
+            mask = torch.arange(smax, device=x.device)[None, :] <= cur[:, None]
+            scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
+            ctx_c = torch.einsum("bhqs,bsl->bqhl", _softmax(scores), ckv_c)
+            wv = _raw_weight(p, "v_up").reshape(lora, h, dv).to(f32)
+            ctx = torch.einsum("bqhl,lhv->bqhv", ctx_c, wv)
+    else:
+        k_nope = L.dense_apply(p["k_up"], ckv, "attn/k_up", sp_cfg)
+        k_nope = k_nope.reshape(*x.shape[:-1], h, dn)
+        val = L.dense_apply(p["v_up"], ckv, "attn/v_up", sp_cfg)
+        val = val.reshape(*x.shape[:-1], h, dv)
+        q = torch.cat([q_nope, q_pe], dim=-1)
+        k = torch.cat([k_nope, k_pe[..., None, :].expand(
+            *k_pe.shape[:-1], h, dr)], dim=-1)
+        ctx = chunked_attention(q, k, val, causal=True, q_offset=0,
+                                chunk_kv=cfg.chunk_kv)
+        if cache is not None:
+            s = x.shape[1]
+            cache["ckv"][:, :s] = ckv.to(cache["ckv"].dtype)
+            cache["kpe"][:, :s] = k_pe.to(cache["kpe"].dtype)
+            cache["pos"] = s
+    ctx = ctx.reshape(*x.shape[:-1], h * dv).to(x.dtype)
+    return L.dense_apply(p["o_proj"], ctx, "attn/o_proj", sp_cfg), cache
+
+
 def init_cache(cfg: AttnConfig, batch: int, max_len: int, *, device,
                dtype=torch.bfloat16):
+    if cfg.kv_lora is not None:
+        return {"ckv": torch.zeros((batch, max_len, cfg.kv_lora),
+                                   dtype=dtype, device=device),
+                "kpe": torch.zeros((batch, max_len, cfg.qk_rope_dim),
+                                   dtype=dtype, device=device),
+                "pos": 0}
     shape = (batch, max_len, cfg.n_kv, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),

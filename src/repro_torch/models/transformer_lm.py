@@ -12,19 +12,24 @@ reference's arithmetic (bf16 residual stream, fp32-accumulated logits
 with the padded vocab columns set to ``-1e30``).  It covers the dense
 family: qwen3 (qk_norm), qwen2.5 (QKV bias), glm4, gemma3 (the 5:1
 pattern of sliding-window and global layers, a tied head) and
-internvl2's LM (a stub-frontend prefix); and granite-moe (every block's
-FFN a mixture of experts).
+internvl2's LM (a stub-frontend prefix); granite-moe (every block's
+FFN a mixture of experts); and deepseek-v2-lite (multi-head latent
+attention, a mixture of experts with shared experts, and a dense first
+layer, the "prelude", outside the stack of blocks).
 
 What differs:
   * ``LMConfig`` is the port's own copy: layer kinds "attn" and "swa"
-    only (SSM and hybrid layers are ROADMAP queue 1 item 5), and no MLA
-    or dense first layer (item 4);
+    only (SSM and hybrid layers are ROADMAP queue 1 item 5);
   * parameters are a Python list of per-layer dicts under ``"blocks"``
     and ``forward`` loops over it, choosing each layer's window from
     ``layer_kinds()`` in Python, where the reference stacks leaves
     along a layer axis, scans, and picks local or global attention with
     ``lax.cond`` on a per-layer flag; caches likewise are a list of
-    per-layer ``{"k", "v", "pos"}`` dicts, updated in place;
+    per-layer ``{"k", "v", "pos"}`` (MLA: ``{"ckv", "kpe", "pos"}``)
+    dicts, updated in place; the prelude (``params["prelude"]``,
+    ``cache["prelude"]``) is a separate subtree beside them, as in the
+    reference, and runs through ``block_apply`` as a block with a dense
+    FFN of width ``first_dense_ff``;
   * ``init`` draws from a ``torch.Generator`` seeded with ``seed`` on an
     explicit device (the card unless ``device`` says otherwise);
     ``init_shell``/``iter_blocks`` give the same draws one layer at a
@@ -65,6 +70,12 @@ class LMConfig:
     window: Optional[int] = None
     # MoE: every block's FFN is a mixture of experts
     moe: Optional[M.MoEConfig] = None
+    first_dense_ff: Optional[int] = None  # deepseek: dense FFN in layer 0
+    # MLA (deepseek-v2): compressed KV of width kv_lora
+    kv_lora: Optional[int] = None
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: Optional[int] = None
     # the logits read the embedding table (no lm_head), as the
     # reference's default; the untied configs say tie_embed=False
     tie_embed: bool = True
@@ -93,17 +104,31 @@ class LMConfig:
         pat = self.pattern
         return [pat[i % len(pat)] for i in range(self.n_layers)]
 
+    @property
+    def uses_scan_prelude(self) -> bool:
+        """Is layer 0 a dense prelude outside the stack of blocks?"""
+        return self.first_dense_ff is not None
+
+    @property
+    def n_blocks(self) -> int:
+        """Layers in ``params["blocks"]``: all but the prelude."""
+        return self.n_layers - (1 if self.uses_scan_prelude else 0)
+
+    def block_kinds(self) -> list:
+        """The kinds of the layers in ``params["blocks"]``."""
+        return self.layer_kinds()[self.n_layers - self.n_blocks:]
+
     def layer_window(self, kind: str) -> Optional[int]:
         """The sliding window of a layer of ``kind`` (None: global)."""
         return self.window if kind == "swa" else None
 
     def n_params(self) -> int:
         """Total parameter count (shapes only: drawn on the meta
-        device)."""
+        device); the shell holds the prelude."""
         shell = init_shell(self, None, device="meta")
         block = block_init(None, self, device="meta")
         count = sum(t.numel() for t in _leaves(shell))
-        return count + self.n_layers * sum(t.numel() for t in _leaves(block))
+        return count + self.n_blocks * sum(t.numel() for t in _leaves(block))
 
     def n_active_params(self) -> int:
         """Active parameters per token (MoE: top_k of the routed
@@ -113,13 +138,15 @@ class LMConfig:
             return total
         e, k = self.moe.n_experts, self.moe.top_k
         expert_p = 3 * self.d_model * self.moe.d_expert
-        return total - self.n_layers * (e - k) * expert_p
+        return total - self.n_blocks * (e - k) * expert_p
 
     def attn_cfg(self) -> A.AttnConfig:
         return A.AttnConfig(
             d_model=self.d_model, n_heads=self.n_heads, n_kv=self.n_kv,
             head_dim=self.head_dim, rope_theta=self.rope_theta,
-            qk_norm=self.qk_norm, qkv_bias=self.qkv_bias)
+            qk_norm=self.qk_norm, qkv_bias=self.qkv_bias,
+            kv_lora=self.kv_lora, qk_nope_dim=self.qk_nope_dim,
+            qk_rope_dim=self.qk_rope_dim, v_head_dim=self.v_head_dim)
 
 
 def ffn_init(gen, d: int, d_ff: int, *, device, dtype=torch.float32):
@@ -184,12 +211,16 @@ def block_apply(p, x: torch.Tensor, cfg: LMConfig, sp_cfg, *, positions,
 
 def init_shell(cfg: LMConfig, gen: torch.Generator, *, device,
                dtype=torch.float32):
-    """Everything but the blocks: embed, final norm and, untied,
-    lm_head."""
+    """Everything but the blocks: embed, the prelude (a config with
+    ``first_dense_ff``), final norm and, untied, lm_head."""
     shell = {"embed": L.embed_init(gen, cfg.padded_vocab, cfg.d_model,
-                                   device=device, dtype=dtype),
-             "final_norm": L.rmsnorm_init(cfg.d_model, device=device,
-                                          dtype=dtype)}
+                                   device=device, dtype=dtype)}
+    if cfg.uses_scan_prelude:   # a block with a dense FFN of that width
+        shell["prelude"] = block_init(
+            gen, dataclasses.replace(cfg, moe=None, d_ff=cfg.first_dense_ff),
+            device=device, dtype=dtype)
+    shell["final_norm"] = L.rmsnorm_init(cfg.d_model, device=device,
+                                         dtype=dtype)
     if not cfg.tie_embed:
         shell["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.padded_vocab,
                                         device=device, dtype=dtype)
@@ -199,7 +230,7 @@ def init_shell(cfg: LMConfig, gen: torch.Generator, *, device,
 def iter_blocks(cfg: LMConfig, gen: torch.Generator, *, device,
                 dtype=torch.float32):
     """The per-layer block params, drawn one layer at a time."""
-    for _ in range(cfg.n_layers):
+    for _ in range(cfg.n_blocks):
         yield block_init(gen, cfg, device=device, dtype=dtype)
 
 
@@ -235,7 +266,8 @@ def forward(params, tokens: torch.Tensor, cfg: LMConfig,
     training step) runs each block under ``torch.utils.checkpoint``: only
     the block's input is kept, and the block runs again in the backward
     pass, as the reference's ``jax.checkpoint`` with
-    ``nothing_saveable`` does.
+    ``nothing_saveable`` does.  A prelude runs first, with its own cache
+    (``cache["prelude"]``), and is never recomputed, as in the reference.
     """
     x = L.embed_apply(params["embed"], tokens)
     if prefix_embeds is not None:
@@ -246,7 +278,14 @@ def forward(params, tokens: torch.Tensor, cfg: LMConfig,
     layer_caches = cache["layers"] if cache is not None else None
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
     aux = None
-    for i, (bp, kind) in enumerate(zip(params["blocks"], cfg.layer_kinds())):
+    if cfg.uses_scan_prelude:
+        x, _, _ = block_apply(params["prelude"], x, cfg, sp_cfg,
+                              positions=positions,
+                              cache=None if cache is None
+                              else cache["prelude"],
+                              decode=decode, per_slot=per_slot)
+    for i, (bp, kind) in enumerate(zip(params["blocks"],
+                                       cfg.block_kinds())):
         window = cfg.layer_window(kind)
         if remat:
             x, a = checkpoint(_block_out, bp, x, cfg, sp_cfg, positions,
@@ -306,6 +345,13 @@ def lm_loss(params, hidden: torch.Tensor, labels: torch.Tensor,
 
 def init_lm_cache(cfg: LMConfig, batch: int, max_len: int, *, device,
                   dtype=torch.bfloat16):
-    return {"layers": [A.init_cache(cfg.attn_cfg(), batch, max_len,
-                                    device=device, dtype=dtype)
-                       for _ in range(cfg.n_layers)]}
+    """``{"layers": [one cache a block]}``, and with a prelude its cache
+    under ``"prelude"``."""
+    def one():
+        return A.init_cache(cfg.attn_cfg(), batch, max_len, device=device,
+                            dtype=dtype)
+
+    cache = {"layers": [one() for _ in range(cfg.n_blocks)]}
+    if cfg.uses_scan_prelude:
+        cache["prelude"] = one()
+    return cache

@@ -10,9 +10,10 @@ their outputs ignored); prompts are right-padded to ``prompt_bucket``.
 
 What differs: PyTorch runs eagerly, so there is nothing to compile;
 the cache is a list of per-layer ``{"k", "v", "pos"}`` dicts of
-(n_slots, max_len, Hkv, D) tensors, and seating, decode writes and
-lane export work on it in place (the reference donates its cache to
-the jitted steps); no mesh or shardings.
+(n_slots, max_len, Hkv, D) tensors (MLA: ``{"ckv", "kpe", "pos"}``),
+beside a prelude's cache where the model has one, and seating, decode
+writes and lane export work on it in place (the reference donates its
+cache to the jitted steps); no mesh or shardings.
 """
 
 from __future__ import annotations
@@ -30,21 +31,35 @@ from repro_torch.train import step as ST
 
 def seat_cache(cache, pre_cache, slot: int):
     """Write a batch-1 prefill cache into lane ``slot`` of the slot-paged
-    cache, in place (the lane's first ``S_pre`` positions); returns it."""
-    for dst, src in zip(cache["layers"], pre_cache["layers"]):
-        for key in ("k", "v"):
-            dst[key][slot:slot + 1, :src[key].shape[1]] = src[key]
+    cache, in place (the lane's first ``S_pre`` positions of every tensor
+    a layer cache holds: k/v, or MLA's ckv/kpe; the prelude's too);
+    returns it.  The ``pos`` cursors stay."""
+    pairs = list(zip(cache["layers"], pre_cache["layers"]))
+    if "prelude" in cache:
+        pairs.append((cache["prelude"], pre_cache["prelude"]))
+    for dst, src in pairs:
+        for key, t in src.items():
+            if isinstance(t, torch.Tensor):
+                dst[key][slot:slot + 1, :t.shape[1]] = t
     return cache
 
 
 def extract_lane_cache(cache, slot: int, n_slots: int):
-    """Copy lane ``slot`` of a slot-paged cache out as a batch-1 cache;
-    ``seat_cache(cache, extract_lane_cache(cache, s), s)`` is exact."""
+    """Copy lane ``slot`` of a slot-paged cache out as a batch-1 cache
+    (every block's and the prelude's tensors; the ``pos`` cursors as
+    they are); ``seat_cache(cache, extract_lane_cache(cache, s), s)`` is
+    exact."""
     if not 0 <= slot < n_slots:
         raise ValueError(f"slot {slot} out of range")
-    return {"layers": [{"k": lc["k"][slot:slot + 1].clone(),
-                        "v": lc["v"][slot:slot + 1].clone(),
-                        "pos": lc["pos"]} for lc in cache["layers"]]}
+
+    def lane(lc):
+        return {k: t[slot:slot + 1].clone() if isinstance(t, torch.Tensor)
+                else t for k, t in lc.items()}
+
+    out = {"layers": [lane(lc) for lc in cache["layers"]]}
+    if "prelude" in cache:
+        out["prelude"] = lane(cache["prelude"])
+    return out
 
 
 class SlotKVCache:

@@ -71,7 +71,8 @@ jax.config.update("jax_platform_name", "cpu")
 
 NEW = ["qwen2.5-32b", "glm4-9b", "gemma3-12b", "internvl2-26b"]
 DENSE = ["qwen3-8b"] + NEW
-PORTED = DENSE + ["granite-moe-1b-a400m"]   # MoE: tests/test_torch_moe*.py
+# MoE: tests/test_torch_moe*.py, tests/test_torch_deepseek*.py
+PORTED = DENSE + ["granite-moe-1b-a400m", "deepseek-v2-lite-16b"]
 MODULES = {"qwen3-8b": qwen3_8b, "qwen2.5-32b": qwen2_5_32b,
            "glm4-9b": glm4_9b, "gemma3-12b": gemma3_12b,
            "internvl2-26b": internvl2_26b}
@@ -196,6 +197,18 @@ def test_registry_keys_match_reference():
 def test_unported_arch_raises(arch_id):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         get_arch(arch_id)
+
+
+def test_unported_archs_name_their_items():
+    """The four archs still unported raise, each naming its ROADMAP
+    queue 1 item."""
+    items = {"whisper-large-v3": "item 6", "mamba2-370m": "item 5",
+             "hymba-1.5b": "item 5"}
+    assert sorted(a for a, s in ARCHS.items()
+                  if isinstance(s, Unported)) == sorted(items)
+    for arch_id, item in items.items():
+        with pytest.raises(NotImplementedError, match=item):
+            get_arch(arch_id)
 
 
 def test_shapes_match_reference():

@@ -3,7 +3,8 @@
 * An AST scan of every module of ``src/repro_torch/``, of the port's
   examples (``examples/torch_*.py``) and of ``chip_smoke.py`` finds no import of ``jax``, ``jaxlib`` or the
   reference package ``repro``.
-* The entry points (``ServeEngine``, ``init``, ``pack_tree_element``,
+* The entry points (``ServeEngine``, ``init``, ``pack_tree_element``
+  (for deepseek-v2-lite's MLA and prelude too),
   ``pack_tree_shared``,
   ``params_from_jax``, ``init_train_state`` with and without the
   compressed sync's residual (and so the state that ``lm_train_step``
@@ -133,7 +134,36 @@ def test_scan_sees_the_image_models():
 def test_scan_sees_the_archs_and_examples():
     names = {p.name for p in _sources()}
     assert {"base.py", "qwen2_5_32b.py", "glm4_9b.py", "gemma3_12b.py",
-            "internvl2_26b.py", "torch_paper_loss_curves.py"} <= names
+            "internvl2_26b.py", "torch_paper_loss_curves.py",
+            "granite_moe_1b.py", "moe.py", "deepseek_v2_lite.py",
+            "attention.py", "transformer_lm.py", "batcher.py"} <= names
+
+
+def test_deepseek_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+    """deepseek-v2-lite (MLA, a prelude, shared experts): init, the
+    layer-by-layer draws, the train state, the element pack and the
+    engine run on the card unless a device is named, and raise without
+    one; with ``device="cpu"`` the prelude and its cache are there."""
+    from repro_torch.configs import deepseek_v2_lite as D
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg, sp = D.SMOKE, SparsityConfig(n=2, m=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.init(cfg, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ST.init_train_state(cfg, sp)
+    params = T.init(cfg, seed=0, device="cpu", dtype=torch.bfloat16)
+    assert params["prelude"]["attn"]["kv_down"]["w"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pack_tree_element(params, sp)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(params, cfg, sp, ServeConfig(packed=True))
+    eng = ServeEngine(params, cfg, sp, ServeConfig(packed=True, max_len=16,
+                                                   prompt_bucket=8),
+                      device="cpu")
+    assert eng.device.type == "cpu"
+    cache = T.init_lm_cache(cfg, 2, 8, device="cpu")
+    assert cache["prelude"]["ckv"].device.type == "cpu"
 
 
 @pytest.mark.parametrize("name", ["resnet9", "vgg19", "vit"])

@@ -4,7 +4,8 @@ against the JAX reference, on the CPU.
 The routing rig is the reference's own MoE A/B config
 (``tests/test_pregen.py``: 8 experts, top 2, a shared expert, capacity
 factor 0.6 over groups of 16, so tokens really drop; 2:4 bdwp), beside
-granite's SMOKE MoE (8 experts, top 2, factor 1.25, 2:8).
+granite's SMOKE MoE (8 experts, top 2, factor 1.25, 2:8) and
+deepseek-v2-lite's (the same with 2 shared experts).
 
 What is held bitwise: given the same fp32 probabilities, the routing
 tables (top-k experts and values, each slot's token, each assignment's
@@ -23,6 +24,8 @@ within 2^-7 of the largest |output| (bf16 roundings of fp32 sums in
 other orders, as ``test_torch_train.py``).
 """
 
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -56,8 +59,10 @@ jax.config.update("jax_platform_name", "cpu")
 RIG = dict(n_experts=8, top_k=2, d_expert=16, n_shared=1,
            capacity_factor=0.6, group_size=16)
 GRANITE = dict(n_experts=8, top_k=2, d_expert=32)
+DEEPSEEK = dict(n_experts=8, top_k=2, d_expert=32, n_shared=2)
 CASES = {"drops+shared 2:4": (RIG, 32, (2, 4)),
-         "granite smoke 2:8": (GRANITE, 64, (2, 8))}
+         "granite smoke 2:8": (GRANITE, 64, (2, 8)),
+         "deepseek smoke 2:8": (DEEPSEEK, 64, (2, 8))}
 RIG_LM = dict(name="moe-pregen-smoke", vocab=256, d_model=32, n_layers=2,
               n_heads=2, n_kv=1, head_dim=16, d_ff=0, tie_embed=True)
 GRAD_RTOL = 2e-2
@@ -158,9 +163,12 @@ def test_granite_config_matches_reference():
 
 
 def test_deepseek_waits_on_item_4():
+    """Item 4 is ported: the registry gives deepseek's ArchSpec, whose
+    MoE (shared experts) is the "deepseek smoke" case here."""
     assert "deepseek-v2-lite-16b" in ARCHS
-    with pytest.raises(NotImplementedError, match="item 4"):
-        get_arch("deepseek-v2-lite-16b")
+    moe = get_arch("deepseek-v2-lite-16b").smoke.moe
+    assert dataclasses.asdict(moe) == dict(
+        DEEPSEEK, capacity_factor=1.25, group_size=512)
 
 
 @pytest.mark.parametrize("name,shape", [
