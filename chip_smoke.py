@@ -198,14 +198,15 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 the two runs' selections differ, their near-ties in
                 ulps, and where in the backward they first differ, are
                 printed);
- 22. train transposable  qwen3-8b TRAIN, 2:8 bdwp with transposable
-                masks, packed: five timed steps with exactly 2 x 7 x 8
+ 22. train transposable  qwen3-8b TRAIN at 4 of its 8 layers (every
+                width), 2:8 bdwp with transposable
+                masks, packed: five timed steps with exactly 2 x 7 x 4
                 nm_spmm launches and no fused_update launch a step (the
                 reference keeps transposable sites off the fused kernel),
                 a profiled sixth; layer 0's operands against
                 nm_mask_transposable of a CPU copy of its new master
                 (a leading 512 x 2048 block of each projection); the
-                mask selection's time over the 56 sites;
+                mask selection's time over the 28 sites;
  23. train shared  the same with shared-granularity masks (tile 128),
                 pre-generated and unpacked: no nm_spmm or fused_update
                 launch; then pack_tree_shared on the trained master and
@@ -255,7 +256,10 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 phase 10's checks: five timed steps, 2 x 7 x L nm_spmm
                 and one fused_update over 7 x L sites a step, a
                 profiled sixth, layer 0's operands, peak under 80 GB;
- 30. arch serve each one's FULL (nothing cut), drawn and 2:8 u4-packed
+ 30. arch serve each one's FULL at every published width and a
+                quarter of its depth (qwen2.5 16 of 64 layers, glm4 10
+                of 40, gemma3 12 of 48: two 5:1 periods, internvl2 12
+                of 48), drawn and 2:8 u4-packed
                 layer by layer (7 x L nm_compact, all vector): qwen2.5,
                 glm4 and gemma3 through phase 6's engine run (gemma3
                 with prompts of 1100-1200 tokens in a bucket of 1280, so
@@ -328,14 +332,47 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 sites (3.00 G elements, past 2^31) a step, a profiled
                 sixth with the moe/* ranges, the operands of layer 0,
                 the prelude and the last layer, peak;
- 38. deepseek serve  deepseek FULL (27 layers, 15.50 B parameters)
+ 38. deepseek serve  deepseek FULL's widths at the prelude and 8 of
+                its 26 MoE layers (9 of 27)
                 through phase 6's engine run with 4 prompts: MLA's
                 q_proj, kv_down and o_proj and the prelude packed 2:8 u4
-                (84 nm_compact a pack, 84 nm_spmm a forward), k_up/v_up
+                (30 nm_compact a pack, 30 nm_spmm a forward), k_up/v_up
                 read raw by the absorbed decode, the experts and shared
                 experts bf16 and re-masked on every call; batched streams
                 equal solo streams (cap = t at 4 slots); the experts'
-                mask derivation's device ms a decode step.
+                mask derivation's device ms a decode step;
+ 39. ssm kernels  mamba2-370m's and hymba-1.5b's sites (mamba2: in_proj
+                1024 -> 4384, out_proj 2048 -> 1024; hymba: its
+                attention and FFN projections and out_proj 3200 -> 1600;
+                its in_proj 1600 -> 6482 is no site) as phase 27 holds
+                the dense archs': nm_spmm at B = 4 (u4) and the TRAIN
+                step's 8192 rows (u8), the plain version timed at
+                both; one layer's sites in one grouped fused_update
+                launch, bitwise, timed against 21.75 B/element;
+                nm_compact of each weight bitwise and each FULL element
+                pack (96 / 256 weights) timed shape by shape;
+ 40. ssm small  both SMOKE configs, card vs CPU: forward logits, prefill
+                with a cache (logits within 1e-4 of the forward's last
+                position on each side; the fp32 SSM state and conv window
+                within SSM_STATE_ATOL), prefill and 20 decode steps per
+                slot and with the shared cursor from u4-packed weights
+                (hymba's window of 16 crossed), the reference hazard of the
+                right-padded prefill (same logits, another state and
+                first decode step) on both sides, three packed
+                pre-generated steps (step-0 compute trees bitwise) and
+                one legacy step (losses within SMALL_LOSS_ATOL);
+ 41. ssm train  each one's TRAIN (every published width, all 48 / 32
+                layers, 4 x 2048 tokens: hymba's attention banded past
+                its 1024 window, 16 SSD chunks) through phase 10's
+                checks: five timed steps, exactly 192 / 512 nm_spmm and
+                one fused_update over 96 / 256 sites a step, a profiled
+                sixth with the ssm/conv, ssm/scan and ssm/out ranges,
+                layer 0's operands equal to the pack of the new master,
+                peak;
+ 42. ssm serve  each one's FULL through phase 6's engine run, 2:8
+                u4-packed (96 / 256 nm_compact a pack, all vector; 96 /
+                256 nm_spmm a forward; hymba's in_proj dense): batched
+                streams equal solo streams; ms, tok/s, decode idle share.
 
 It prints a JSON line with every kernel's numbers, the card line, and as
 its last line {"ok": true, "device": {...}}.  With no card, or outside a
@@ -371,7 +408,7 @@ TRAIN_ROWS = (4, 512)           # sequences x tokens of a training step
 UPDATE_SCALARS = dict(lr=0.0123, mu=0.9, wd=5e-4, lam=2e-4)
 L2_BYTES = 50 * 2**20
 SEED = 0                        # weights, activations and prompts
-RANGES = ("train/", "sgd/", "moe/")  # the port's profiler ranges
+RANGES = ("train/", "sgd/", "moe/", "ssm/")  # the port's profiler ranges
 
 # qwen3-8b projection shapes (K, F), in the order one layer runs them
 PROJ = [("q_proj", 4096, 4096), ("k_proj", 4096, 1024), ("v_proj", 4096, 1024),
@@ -972,15 +1009,34 @@ def profile_train_step(step_fn, state, batch):
 MLA_PATHS = tuple(("attn", n) for n in ("q_proj", "kv_down", "k_up", "v_up",
                                          "o_proj"))
 FFN_NAMES = ("w_gate", "w_up", "w_down")
+SSM_PATHS = (("ssm", "in_proj"), ("ssm", "out_proj"))
+
+
+def ssm_site_paths(cfg):
+    """An SSD block's weight sites: out_proj, and in_proj where BDWP 2:8
+    prunes it (its F a multiple of 8: mamba2, not hymba's 6482)."""
+    from repro_torch.core import bdwp
+    from repro_torch.core.sparsity import SparsityConfig
+
+    if not cfg.has_ssm:
+        return ()
+    sc, sp = cfg.ssm_cfg(), SparsityConfig(n=2, m=8, method="bdwp")
+    shape = {"in_proj": (cfg.d_model, sc.d_in_proj),
+             "out_proj": (sc.d_inner, cfg.d_model)}
+    return tuple(p for p in SSM_PATHS if bdwp.pregen_site(
+        f"blocks/ssm/{p[1]}/w", shape[p[1]], sp))
 
 
 def proj_paths(cfg):
     """The weight sites of one block as key paths: attention (GQA's four
     projections or MLA's five) and the dense FFN, or an MoE block's three
-    expert stacks and its shared experts' three matrices."""
+    expert stacks and its shared experts' three matrices; an SSD block's
+    sites after them (a mamba block has no others)."""
+    if not cfg.has_attn:
+        return ssm_site_paths(cfg)
     attn = MLA_PATHS if cfg.kv_lora is not None else PROJ_PATHS[:4]
     if cfg.moe is None:
-        return attn + PROJ_PATHS[4:]
+        return attn + PROJ_PATHS[4:] + ssm_site_paths(cfg)
     shared = (tuple(("moe", "shared", n) for n in FFN_NAMES)
               if cfg.moe.n_shared else ())
     return attn + tuple(("moe", n) for n in FFN_NAMES) + shared
@@ -3033,6 +3089,10 @@ MASK_KINDS = {None: {}, "shared": dict(granularity="shared"),
 TRAIN_FLOWS = {"transposable": ("transposable", True, True),
                "shared": ("shared", True, False),
                "legacy": (None, False, True)}
+# their depth: every published width, 4 of qwen3-8b TRAIN's 8 layers
+# (the whole run's time; the selections' cost a layer does not depend
+# on depth)
+FLOW_LAYERS = 4
 # phases 22-23: layer 0's transposable operands are checked on this
 # leading block (rows, columns) of each projection
 CHECK_BLOCK = (512, 2048)
@@ -3332,7 +3392,8 @@ def _shared_pack_kept_mass(state, sp, dev):
 
 
 def phase_train_flow(dev, seed, flow):
-    """qwen3-8b TRAIN, 2:8 bdwp on one of TRAIN_FLOWS: five timed steps
+    """qwen3-8b TRAIN at FLOW_LAYERS layers, 2:8 bdwp on one of
+    TRAIN_FLOWS: five timed steps
     with exact launches (nm_spmm 2 x 7 x L a step for the packed
     transposable FF, else 0; fused_update 0: these sites stay off it, as
     in the reference), a profiled sixth, peak memory, and layer 0's
@@ -3348,7 +3409,7 @@ def phase_train_flow(dev, seed, flow):
     from repro_torch.train import step as ST
 
     kind, pregen, pack = TRAIN_FLOWS[flow]
-    cfg = C.TRAIN
+    cfg = dataclasses.replace(C.TRAIN, n_layers=FLOW_LAYERS)
     sp = SparsityConfig(n=2, m=8, method="bdwp", **MASK_KINDS[kind])
     opt = sgd.SGDConfig(lr=0.004, warmup_steps=2, total_steps=100)
     torch.cuda.empty_cache()
@@ -3547,6 +3608,11 @@ CURSOR_RTOL = 5e-2
 # and 6.7e-4)
 CURSOR_ATTN_MAX_RTOL, CURSOR_ATTN_MEAN_RTOL = 2 ** -7, 2 ** -14
 VLM_ROWS = (2, 64, 1024)        # internvl2 FULL: prompts, text, prefix
+# phase 30's serving depth: every published width, a quarter of the
+# layers (gemma3: two 5:1 periods); at full depth the engine runs' solo
+# reruns took most of the whole run's time
+ARCH_SERVE_LAYERS = {"qwen2.5-32b": 16, "glm4-9b": 10, "gemma3-12b": 12,
+                     "internvl2-26b": 12}
 
 
 def phase_fig4(dev):
@@ -3995,9 +4061,10 @@ def _shared_cursor_run(dev, cfg, sp, store, prompts):
 
 
 def phase_vlm_serve(dev, seed, cfg):
-    """internvl2 FULL (48 layers, nothing cut), 2:8 u4-packed layer by
-    layer: VLM_ROWS prompts of stub-frontend prefix rows and text
-    prefilled through lm_prefill_step, then 16 per-slot decode steps;
+    """internvl2 FULL (every width; phase 30 cuts its depth), 2:8
+    u4-packed layer by layer: VLM_ROWS prompts of stub-frontend prefix
+    rows and text prefilled through lm_prefill_step, then 16 per-slot
+    decode steps;
     exact nm_spmm launches (7 x L a forward), ms and tok/s, five decode
     steps under torch.profiler."""
     from repro_torch.core.sparsity import SparsityConfig
@@ -4069,15 +4136,18 @@ def phase_vlm_serve(dev, seed, cfg):
 
 
 def phase_arch_serve(dev, seed, arch_id):
-    """``arch_id``'s FULL config served from 2:8 u4-packed weights: an
-    arch with a stub-frontend prefix (internvl2) through lm_prefill_step
-    with its 1024-row prefix; one with a window (gemma3) through phase
-    6's engine run with prompts past the window, then the shared-cursor
-    decode; the others (qwen2.5, glm4) through phase 6's engine run."""
+    """``arch_id``'s FULL config (its depth cut to ARCH_SERVE_LAYERS where
+    it names one) served from 2:8 u4-packed weights: an arch with a
+    stub-frontend prefix (internvl2) through lm_prefill_step with its
+    1024-row prefix; one with a window (gemma3) through phase 6's engine
+    run with prompts past the window, then the shared-cursor decode; the
+    others (qwen2.5, glm4) through phase 6's engine run."""
     from repro_torch.configs import get_arch
     from repro_torch.core.sparsity import SparsityConfig
 
     cfg = arch_module(arch_id).FULL
+    if arch_id in ARCH_SERVE_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=ARCH_SERVE_LAYERS[arch_id])
     if get_arch(arch_id).prefix_len:
         return phase_vlm_serve(dev, seed, cfg)
     if cfg.window is None:
@@ -4439,6 +4509,9 @@ DS_PACKED_STEP_ATOL = ((1e-4, 1e-4, 1e-4), (1e-4, 1e-4, 1e-4),
 # phase 38's requests: 4 prompts (every slot busy) asking for few tokens:
 # each forward re-masks 14.8 G expert weights
 DS_SERVE_LENS, DS_SERVE_NEW = (5, 32, 17, 9), (2, 4, 3, 2)
+# phase 38's depth: every published width, the prelude and 8 of the 26
+# MoE layers (the whole run's time: every forward re-masks the experts)
+DS_SERVE_LAYERS = 9
 
 
 def ds_proj(cfg):
@@ -4466,47 +4539,18 @@ def ds_layer_views(cfg):
 
 
 def ds_pack_timing(dev, gen, cfg):
-    """nm_compact (vector variant, u4) at the element pack's six weight
-    shapes (the prelude's q_proj, kv_down, o_proj and FFN; every MoE
-    layer's q_proj, kv_down and o_proj), timed with cold L2 beside the
-    plain version and the byte bound, and the whole model's pack (84
-    weights) summed from them.  Returns (rows, totals)."""
-    from repro_torch.kernels import ref
-
+    """``pack_timing`` at deepseek's element pack: its six weight shapes
+    (the prelude's q_proj, kv_down, o_proj and FFN; every MoE layer's
+    q_proj, kv_down and o_proj), 84 weights."""
     proj = {name: (k, f) for name, k, f in ds_proj(cfg)}
-    shapes = [("q_proj", *proj["q_proj"]), ("kv_down", *proj["kv_down"]),
-              ("o_proj", *proj["o_proj"]),
-              ("prelude w_gate/w_up", *proj["prelude w_gate/w_up"]),
-              ("prelude w_down", *proj["prelude w_down"])]
     # weights of each shape in one pack: the attention three in every
     # layer, the prelude's FFN once (w_gate and w_up)
-    count = {"q_proj": cfg.n_layers, "kv_down": cfg.n_layers,
-             "o_proj": cfg.n_layers, "prelude w_gate/w_up": 2,
-             "prelude w_down": 1}
-    rows = []
-    for name, k, f in shapes:
-        copies = max(2, -(-2 * L2_BYTES // (k * f * 2)))
-        ws = [torch.randn((k, f), generator=gen, device=dev).to(
-            torch.bfloat16) for _ in range(copies)]
-        t_k = time_ms(lambda i: compact_view(ws[i].t(), 2, 8, 4, "vector"),
-                      copies)
-        t_p = time_ms(lambda i: ref.ref_nm_compact(ws[i].t(), 2, 8, 4),
-                      copies, iters=3)
-        t_b = compact_bound_ms(f, k, 2, 8, 4, 2)
-        rows.append({"proj": name, "K": k, "F": f, "count": count[name],
-                     "ms": t_k, "plain_ms": t_p, "bound_ms": t_b,
-                     "bound_by": "bytes", "library_ms": None})
-        print(f"  pack {name:19s} {k:5d}x{f:<5d} bf16 u4 vector {t_k:.4f} "
-              f"ms, bound {t_b:.4f} ms (bytes), plain {t_p:.4f} ms; "
-              f"{count[name]} in a pack")
-        del ws
-    tot = {key: sum(r[key] * r["count"] for r in rows)
-           for key in ("ms", "plain_ms", "bound_ms")}
-    print(f"  the FULL element pack's {sum(r['count'] for r in rows)} "
-          f"weights: {tot['ms']:.3f} ms of nm_compact = "
-          f"{tot['bound_ms'] / tot['ms']:.2f} of its {tot['bound_ms']:.3f} ms "
-          f"bound; plain {tot['plain_ms']:.2f} ms")
-    return rows, tot
+    shapes = [("q_proj", *proj["q_proj"], cfg.n_layers),
+              ("kv_down", *proj["kv_down"], cfg.n_layers),
+              ("o_proj", *proj["o_proj"], cfg.n_layers),
+              ("prelude w_gate/w_up", *proj["prelude w_gate/w_up"], 2),
+              ("prelude w_down", *proj["prelude w_down"], 1)]
+    return pack_timing(dev, gen, shapes, "the deepseek")
 
 
 def phase_deepseek_kernels(dev, gen):
@@ -4532,6 +4576,262 @@ def phase_deepseek_kernels(dev, gen):
           "bitwise (u4, vector and scalar)")
     pack_rows, pack = ds_pack_timing(dev, gen, cfg)
     return worst, rows, upd_err, upd, proj_rows, proj_err, pack_rows, pack
+
+
+# -- phases 39-42: mamba2-370m and hymba-1.5b (SSM and hybrid layers) ------
+
+SSM_ARCHS = ("mamba2-370m", "hymba-1.5b")
+# the TRAIN step of both: 4 x 2048 tokens, so hymba's training attention
+# runs banded past its 1024 window and the SSD scan passes its state
+# across 16 chunks of 128
+SSM_TRAIN_ROWS = (4, 2048)
+# phase 40, card vs CPU at SMOKE: the SSM state and conv window after a
+# prefill (fp32, from bf16 inputs an ulp apart now and then); the padded
+# prefill's logits against the unpadded one's on the card (another
+# sequence length: cuBLAS's head product may sum otherwise)
+SSM_STATE_ATOL = 2e-3
+SSM_PREFILL_ATOL = 1e-4         # prefill vs the forward, on one side
+SSM_HAZARD = dict(prompt=5, bucket=16)
+
+
+def ssm_proj(cfg):
+    """The 2-D weight sites (name, K, F) of one layer of an SSM or hybrid
+    config: the attention and FFN projections, then the SSD block's
+    (in_proj only where it is a site)."""
+    sc = cfg.ssm_cfg()
+    shape = {"in_proj": (cfg.d_model, sc.d_in_proj),
+             "out_proj": (sc.d_inner, cfg.d_model)}
+    attn = arch_proj(cfg) if cfg.has_attn else []
+    return attn + [(name, *shape[name]) for _, name in ssm_site_paths(cfg)]
+
+
+def pack_timing(dev, gen, shapes, label):
+    """nm_compact (vector variant, u4) at the element pack's weight
+    ``shapes`` [(name, K, F, weights of that shape in a pack)], timed
+    with cold L2 beside the plain version and the byte bound, and the
+    whole pack summed from them.  Returns (rows, totals)."""
+    from repro_torch.kernels import ref
+
+    rows = []
+    for name, k, f, count in shapes:
+        copies = max(2, -(-2 * L2_BYTES // (k * f * 2)))
+        ws = [torch.randn((k, f), generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(copies)]
+        t_k = time_ms(lambda i: compact_view(ws[i].t(), 2, 8, 4, "vector"),
+                      copies)
+        t_p = time_ms(lambda i: ref.ref_nm_compact(ws[i].t(), 2, 8, 4),
+                      copies, iters=3)
+        t_b = compact_bound_ms(f, k, 2, 8, 4, 2)
+        rows.append({"proj": name, "K": k, "F": f, "count": count,
+                     "ms": t_k, "plain_ms": t_p, "bound_ms": t_b,
+                     "bound_by": "bytes", "library_ms": None})
+        print(f"  pack {name:19s} {k:5d}x{f:<5d} bf16 u4 vector {t_k:.4f} "
+              f"ms, bound {t_b:.4f} ms (bytes), plain {t_p:.4f} ms; "
+              f"{count} in a pack")
+        del ws
+    tot = {key: sum(r[key] * r["count"] for r in rows)
+           for key in ("ms", "plain_ms", "bound_ms")}
+    print(f"  {label} FULL element pack's {sum(r['count'] for r in rows)} "
+          f"weights: {tot['ms']:.3f} ms of nm_compact = "
+          f"{tot['bound_ms'] / tot['ms']:.2f} of its {tot['bound_ms']:.3f} ms "
+          f"bound; plain {tot['plain_ms']:.2f} ms")
+    return rows, tot
+
+
+def phase_ssm_kernels(dev, gen):
+    """mamba2's and hymba's sites through the ported kernels: nm_spmm at
+    decode rows (B = 4, u4) and the TRAIN step's 8192 rows (u8) within
+    the phase-3 tolerance, row 0 bitwise the B = 1 result, timed beside
+    dense torch.matmul (``proj_kernel_checks``; mamba2's in_proj F = 4384
+    is 34 whole 128-column tiles and one of 32), and its plain version's
+    time at both; one layer's sites in one grouped
+    fused_update launch, bitwise the per-site plain calls, timed against
+    21.75 B/element (``layer_update_check``); nm_compact of each weight
+    (vector and scalar) bitwise, and the FULL element pack's launches
+    timed shape by shape (``pack_timing``).  Returns {arch: rows} and the
+    worst errors."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ref
+
+    out, worst = {}, {"nm_spmm": 0.0, "fused_update": 0.0}
+    b_train = SSM_TRAIN_ROWS[0] * SSM_TRAIN_ROWS[1]
+    for arch_id in SSM_ARCHS:
+        cfg = get_arch(arch_id).full
+        proj = ssm_proj(cfg)
+        rows, err = proj_kernel_checks(dev, gen, arch_id, proj, b_train)
+        worst["nm_spmm"] = max(worst["nm_spmm"], err)
+        for r in rows:
+            act, vals, idx = packed_case(gen, r["B"], r["K"], r["F"], 2, 8,
+                                         r["idx_bits"], dev)
+            r["plain_ms"] = time_ms(lambda i: ref.ref_nm_spmm(
+                act, vals, idx, 2, 8, idx_bits=r["idx_bits"]), 1, iters=1)
+            r["bound_by"] = bound_ms(act, vals, idx, r["F"])[1]
+            del act, vals, idx
+        upd_err, upd = layer_update_check(gen, [(k, f) for _, k, f in proj],
+                                          dev, arch_id)
+        worst["fused_update"] = max(worst["fused_update"], upd_err)
+        torch.cuda.empty_cache()
+        pack_rows, pack = pack_timing(
+            dev, gen, [(name, k, f, cfg.n_layers * (2 if name == "w_gate"
+                                                    else 1))
+                       for name, k, f in proj if name != "w_up"], arch_id)
+        plain = sum(r["plain_ms"] for r in rows if r["B"] == b_train)
+        print(f"  {arch_id}: nm_spmm within tolerance at its {len(proj)} "
+              f"sites, rows independent of B, plain version {plain:.3f} ms "
+              f"for a layer's sites at {b_train} rows; one grouped "
+              "fused_update over the layer's sites bitwise (in place too); "
+              "nm_compact of each weight bitwise (u4, vector and scalar)")
+        out[arch_id] = {"spmm": rows, "update": upd, "pack_rows": pack_rows,
+                        "pack": pack}
+        torch.cuda.empty_cache()
+    return worst, out
+
+
+def _ssm_hazard(dev, cfg, params, sp):
+    """The reference hazard on ``dev``: a prompt of SSM_HAZARD["prompt"]
+    tokens prefilled alone and right-padded to SSM_HAZARD["bucket"], as
+    the engine pads it: (|dlogit| of the two prefills, layer 0's state
+    gap, the first decode step's |dlogit|)."""
+    from repro_torch.train import step as ST
+
+    n, bucket = SSM_HAZARD["prompt"], SSM_HAZARD["bucket"]
+    prompt = torch.arange(1, n + 1, device=dev)[None] * 7 % cfg.vocab
+    padded = torch.zeros((1, bucket), dtype=prompt.dtype, device=dev)
+    padded[:, :n] = prompt
+    out = []
+    with torch.no_grad():
+        for toks in (prompt, padded):
+            lg, cache = ST.lm_prefill_step(params, {"tokens": toks}, cfg=cfg,
+                                           sp_cfg=sp, last_index=[n - 1])
+            state = cache["layers"][0]["state"].clone()
+            cache = _grow_cache(cfg, cache, bucket + 2, dev)
+            step, _ = ST.lm_decode_step(
+                params, cache, prompt[:, -1:], torch.tensor([n], device=dev),
+                cfg=cfg, sp_cfg=sp)
+            out.append((lg, state, step))
+    (l1, s1, d1), (l2, s2, d2) = out
+    return (float((l1 - l2).abs().max()), float((s1 - s2).abs().max()),
+            float((d1 - d2)[..., :cfg.vocab].abs().max()))
+
+
+def phase_ssm_small(dev, seed):
+    """mamba2 and hymba at SMOKE size, card vs CPU: forward logits;
+    prefill with a cache (its logits, the fp32 SSM state and conv
+    window; on each side the forward's last position's logits within
+    SSM_PREFILL_ATOL); prefill
+    and ARCH_DECODE_STEPS decode steps per slot and with the shared
+    cursor from u4-packed weights (hymba's windowed attention past its
+    16); the padded-prefill hazard on the card as on the CPU; three
+    packed pre-generated BDWP steps (step-0 compute trees bitwise) and
+    one legacy step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.data.synthetic import lm_stream
+    from repro_torch.models import transformer_lm as T
+    from repro_torch.optim import sgd
+    from repro_torch.serve.packed_params import pack_tree_element
+    from repro_torch.train import step as ST
+
+    sp = SparsityConfig(n=2, m=8, method="bdwp")
+    dense = SparsityConfig(n=2, m=8, method="dense")
+    opt = sgd.SGDConfig(lr=0.1, warmup_steps=2, total_steps=50)
+    result = {}
+    for arch_id in SSM_ARCHS:
+        cfg = get_arch(arch_id).smoke
+        name = arch_id.split("-")[0]
+        params = T.init(cfg, seed=seed, device="cpu")
+        devs = ("cpu", dev)
+        batch0 = {d: next(lm_stream(cfg.vocab, 2, 32, device=d,
+                                    seed=seed))[1] for d in devs}
+        fwd, pre, p16 = {}, {}, {}
+        with torch.no_grad():
+            for d in devs:
+                p16[d] = sgd.tree_map(lambda _, t: t.to(d, torch.bfloat16),
+                                      params)
+                h, _, _ = T.forward(p16[d], batch0[d]["tokens"], cfg, sp)
+                fwd[d] = T.logits_from_hidden(p16[d], h, cfg)
+                pre[d] = ST.lm_prefill_step(p16[d], {"tokens": batch0[d][
+                    "tokens"]}, cfg=cfg, sp_cfg=sp)
+        # the same hidden states; the head's product over 2 rows, not 64,
+        # may sum in another order
+        d_self = max(float((pre[d][0][:, 0] - fwd[d][:, -1]).abs().max())
+                     for d in devs)
+        check(d_self <= SSM_PREFILL_ATOL, f"{name} small: prefill logits != "
+              "the forward's last position")
+        d_fwd = float((fwd[dev].cpu() - fwd["cpu"]).abs().max())
+        check(d_fwd <= SMALL_ATOL, f"{name} small: forward logits disagree")
+        d_state = max(float((a["state"].cpu() - b["state"]).abs().max())
+                      for a, b in zip(pre[dev][1]["layers"],
+                                      pre["cpu"][1]["layers"]))
+        d_conv = max(float((a["conv"].cpu() - b["conv"]).abs().max())
+                     for a, b in zip(pre[dev][1]["layers"],
+                                     pre["cpu"][1]["layers"]))
+        check(max(d_state, d_conv) <= SSM_STATE_ATOL,
+              f"{name} small: prefill SSM caches disagree")
+        packed = {d: pack_tree_element(
+            sgd.tree_map(lambda _, t: t.to(torch.bfloat16), params), sp,
+            device=d)[0] for d in devs}
+        dec = {}
+        for mode in ("per_slot", "shared"):
+            dec[mode] = _small_decode(dev, seed, cfg, sp, packed, 0,
+                                      mode == "per_slot")
+            check(dec[mode] <= SMALL_ATOL,
+                  f"{name} small: {mode} decode logits disagree")
+        hazard = {d: _ssm_hazard(d, cfg, p16[d], dense) for d in devs}
+        for d, (d_pre, gap_state, gap_dec) in hazard.items():
+            check(d_pre <= SMALL_ATOL and gap_state > 1e-2 and gap_dec > 1.0,
+                  f"{name} small: the padded-prefill hazard is not "
+                  f"reproduced on {d}")
+        check(abs(hazard[dev][2] - hazard["cpu"][2]) <= 0.25,
+              f"{name} small: the hazard's decode gaps disagree")
+        losses = {}
+        for flow, pregen, steps in (("pregen packed", True, 3),
+                                    ("legacy", False, 1)):
+            states = {d: ST.train_state_from_params(
+                sgd.tree_map(lambda _, t: t.to(d, copy=True), params), sp,
+                pregen=pregen, pregen_pack=pregen) for d in devs}
+            if pregen:
+                check(_compute_bitwise(states["cpu"]["compute"],
+                                       states[dev]["compute"]),
+                      f"{name} small: step-0 compute trees differ")
+            data = {d: lm_stream(cfg.vocab, 2, 32, device=d, seed=seed)
+                    for d in devs}
+            hist = {d: [] for d in devs}
+            for _ in range(steps):
+                for d in devs:
+                    _, batch = next(data[d])
+                    states[d], met = ST.lm_train_step(
+                        states[d], batch, cfg=cfg, sp_cfg=sp, opt_cfg=opt,
+                        pregen=pregen, pregen_pack=pregen)
+                    hist[d].append(float(met["loss"]))
+            diffs = [abs(a - b) for a, b in zip(hist[dev], hist["cpu"])]
+            check(all(math.isfinite(x) for x in hist[dev]),
+                  f"{name} small {flow}: non-finite loss")
+            check(all(x <= t for x, t in zip(diffs, SMALL_LOSS_ATOL)),
+                  f"{name} small {flow}: losses disagree")
+            losses[flow] = (hist[dev], diffs)
+        print(f"  {name} SMOKE: forward |dlogit| {d_fwd:.3e} (tol "
+              f"{SMALL_ATOL}); prefill vs the forward's last position "
+              f"{d_self:.2e} (tol {SSM_PREFILL_ATOL}); prefill caches "
+              f"|dstate| {d_state:.3e}, "
+              f"|dconv| {d_conv:.3e} (tol {SSM_STATE_ATOL}); prefill + "
+              f"{ARCH_DECODE_STEPS} decode steps per slot "
+              f"{dec['per_slot']:.3e}, shared cursor {dec['shared']:.3e}")
+        print(f"  {name} padded-prefill hazard (prefill |dlogit|, layer-0 "
+              "state gap, first decode step's |dlogit|): card "
+              + " ".join(f"{x:.3e}" for x in hazard[dev]) + ", CPU "
+              + " ".join(f"{x:.3e}" for x in hazard["cpu"]))
+        for flow, (h, diffs) in losses.items():
+            print(f"  {name} {flow}: losses card "
+                  + " ".join(f"{x:.5f}" for x in h) + " |d| "
+                  + " ".join(f"{x:.2e}" for x in diffs)
+                  + f" (tol {SMALL_LOSS_ATOL[:len(h)]})")
+        result[arch_id] = {"forward": d_fwd, "state": d_state,
+                           "conv": d_conv, "decode": dec,
+                           "hazard": {"card": hazard[dev],
+                                      "cpu": hazard["cpu"]},
+                           "losses": losses}
+    return result
 
 
 def _leaf_at(tree, name):
@@ -4644,7 +4944,8 @@ def main(argv=None) -> int:
     flows = {}
     for num, flow in ((22, "transposable"), (23, "shared"), (24, "legacy")):
         torch.cuda.empty_cache()
-        head(f"[{num}] train qwen3-8b TRAIN (full width, 8 layers), 2:8 "
+        head(f"[{num}] train qwen3-8b TRAIN (full width, {FLOW_LAYERS} "
+              "layers), 2:8 "
               f"bdwp, {flow}" + (", packed" if flow == "transposable" else "")
               + (", pre-generated, unpacked" if flow == "shared" else "")
               + (" (pregen=False)" if flow == "legacy" else ""))
@@ -4674,8 +4975,10 @@ def main(argv=None) -> int:
         arch_train[arch_id] = phase_train(dev, SEED, cfg, (b, text), prefix)
     for arch_id in ARCH_IDS:
         torch.cuda.empty_cache()
-        head(f"[30] serve {arch_id} FULL ("
-              f"{arch_module(arch_id).FULL.n_layers} layers), packed 2:8 u4")
+        full = arch_module(arch_id).FULL.n_layers
+        head(f"[30] serve {arch_id} FULL widths ("
+              f"{ARCH_SERVE_LAYERS.get(arch_id, full)} of {full} layers), "
+              "packed 2:8 u4")
         arch_serve[arch_id] = phase_arch_serve(dev, SEED, arch_id)
     torch.cuda.empty_cache()
     head("[31] granite-moe kernels: nm_spmm on the 32-expert stacks in one "
@@ -4717,10 +5020,36 @@ def main(argv=None) -> int:
           f"{DS_TRAIN_ROWS[1]} tokens")
     ds_train = phase_train(dev, SEED, ds_cfg, DS_TRAIN_ROWS)
     torch.cuda.empty_cache()
-    head(f"[38] serve {DS_ARCH} FULL (27 layers), MLA and the prelude packed "
+    head(f"[38] serve {DS_ARCH} FULL widths ({DS_SERVE_LAYERS} of 27 "
+          "layers), MLA and the prelude packed "
           "2:8 u4, experts masked")
-    ds_serve = phase_moe_serve(dev, SEED, deepseek_v2_lite.FULL,
-                               DS_SERVE_LENS, DS_SERVE_NEW)
+    ds_serve = phase_moe_serve(dev, SEED, dataclasses.replace(
+        deepseek_v2_lite.FULL, n_layers=DS_SERVE_LAYERS), DS_SERVE_LENS,
+        DS_SERVE_NEW)
+    torch.cuda.empty_cache()
+    head("[39] mamba2-370m and hymba-1.5b kernels: nm_spmm at their sites "
+          "(decode and training rows), one layer's grouped fused_update, "
+          "nm_compact and the FULL element packs")
+    ssm_err, ssm_rows = phase_ssm_kernels(dev, gen)
+    for arch_id in SSM_ARCHS:
+        arch_rows[arch_id] = ssm_rows[arch_id]["spmm"]
+    torch.cuda.empty_cache()
+    head("[40] mamba2 and hymba SMOKE: card vs CPU")
+    ssm_small = phase_ssm_small(dev, SEED)
+    ssm_train, ssm_serve = {}, {}
+    for arch_id in SSM_ARCHS:
+        torch.cuda.empty_cache()
+        cfg = arch_module(arch_id).TRAIN
+        head(f"[41] train {arch_id} TRAIN (full width, all {cfg.n_layers} "
+              f"layers), 2:8 bdwp, packed, {SSM_TRAIN_ROWS[0]} x "
+              f"{SSM_TRAIN_ROWS[1]} tokens")
+        ssm_train[arch_id] = phase_train(dev, SEED, cfg, SSM_TRAIN_ROWS)
+    for arch_id in SSM_ARCHS:
+        torch.cuda.empty_cache()
+        cfg = arch_module(arch_id).FULL
+        head(f"[42] serve {arch_id} FULL ({cfg.n_layers} layers), packed "
+              "2:8 u4")
+        ssm_serve[arch_id] = phase_serve(dev, SEED, cfg)
 
     def summed(rs, at, launches, by_path, err):
         return {"launches": launches, "launches_by_path": by_path,
@@ -4753,14 +5082,20 @@ def main(argv=None) -> int:
                   "train_granite": moe_train["launches"]["nm_spmm"],
                   "serve_granite": moe_serve["launches"],
                   "train_deepseek": ds_train["launches"]["nm_spmm"],
-                  "serve_deepseek": ds_serve["launches"]}
+                  "serve_deepseek": ds_serve["launches"],
+                  **{f"train_{a.split('-')[0]}": r["launches"]["nm_spmm"]
+                     for a, r in ssm_train.items()},
+                  **{f"serve_{a.split('-')[0]}": r["launches"]
+                     for a, r in ssm_serve.items()}}
     upd_paths, upd_sites = ({
         "train": train["launches"][key],
         "train_sync": train_sync["launches"][key],
         "paper_train": sum(r["launches"][key] for r in paper.values()),
         **{f"train_{a}": r["launches"][key] for a, r in arch_train.items()},
         "train_granite": moe_train["launches"][key],
-        "train_deepseek": ds_train["launches"][key]}
+        "train_deepseek": ds_train["launches"][key],
+        **{f"train_{a.split('-')[0]}": r["launches"][key]
+           for a, r in ssm_train.items()}}
         for key in ("fused_update", "fused_update_sites"))
     upd_paths.update({k: v["fused_update"] for k, v in flow_paths.items()})
     compact_paths = {"serve": serve["compact_launches"],
@@ -4768,7 +5103,9 @@ def main(argv=None) -> int:
                      **{f"serve_{a}": r["compact_launches"]
                         for a, r in arch_serve.items()},
                      "serve_granite": moe_serve["compact_launches"],
-                     "serve_deepseek": ds_serve["compact_launches"]}
+                     "serve_deepseek": ds_serve["compact_launches"],
+                     **{f"serve_{a.split('-')[0]}": r["compact_launches"]
+                        for a, r in ssm_serve.items()}}
     shared_decode = [r for r in shared_rows if r["B"] == 4]
     shared_prefill = [r for r in shared_rows if r["B"] != 4]
     sync_at = {(r["leaf"], r["dtype"]): r for r in sync_rows}
@@ -4796,12 +5133,21 @@ def main(argv=None) -> int:
                  "u4, summed", sum(spmm_paths.values()), spmm_paths,
                  max(max_err, spmm_err, paper_spmm_err,
                      arch_err["nm_spmm"], moe_attn_err, ds_err,
-                     ds_proj_err)),
+                     ds_proj_err, ssm_err["nm_spmm"])),
         arch_layers={a: {str(b): {key: sum(r[key] for r in rs
                                            if r["B"] == b)
                                   for key in ("ms", "library_ms", "bound_ms")}
                          for b in sorted({r["B"] for r in rs})}
                      for a, rs in arch_rows.items()},
+        ssm_train_rows={a: dict(summed(
+            [r for r in ssm_rows[a]["spmm"] if r["B"] != 4],
+            f"one {a} layer's {len(ssm_rows[a]['spmm']) // 2} sites at "
+            f"B={SSM_TRAIN_ROWS[0] * SSM_TRAIN_ROWS[1]}, 2:8 u8, summed; "
+            "library: torch.matmul on the dense bf16 weights",
+            spmm_paths[f"train_{a.split('-')[0]}"],
+            {f"train_{a.split('-')[0]}":
+             spmm_paths[f"train_{a.split('-')[0]}"]}, ssm_err["nm_spmm"]))
+            for a in SSM_ARCHS},
         train_rows=summed(spmm_rows, "one training layer's forward: the 7 "
                           "projections at B=2048, 2:8 u8, summed",
                           spmm_paths["train"], {"train": spmm_paths["train"]},
@@ -4841,7 +5187,8 @@ def main(argv=None) -> int:
              launches=sum(upd_paths.values()), launches_by_path=upd_paths,
              sites_by_path=upd_sites,
              max_abs_err=max(upd_err, paper_upd_err, arch_err["fused_update"],
-                             moe_upd_err, ds_upd_err),
+                             moe_upd_err, ds_upd_err,
+                             ssm_err["fused_update"]),
              ms=upd_layer["ms"], plain_ms=upd_layer["plain_ms"],
              bound_ms=upd_layer["bound_ms"], bound_by="bytes",
              library_ms=None, singles_ms=upd_layer["singles_ms"],
@@ -4865,7 +5212,13 @@ def main(argv=None) -> int:
                  ds_upd, at="one deepseek MoE layer's 11 sites (5 MLA "
                  "projections, 3 expert stacks' (E*K, F) views, 3 shared-"
                  "expert matrices) in one grouped launch, 2:8 bdwp",
-                 launches=ds_train["launches"]["fused_update"])),
+                 launches=ds_train["launches"]["fused_update"]),
+             ssm_layers={a: dict(
+                 ssm_rows[a]["update"], at=f"one {a} layer's "
+                 f"{ssm_rows[a]['update']['sites']} sites in one grouped "
+                 "launch, 2:8 bdwp",
+                 launches=ssm_train[a]["launches"]["fused_update"])
+                 for a in SSM_ARCHS}),
         sync_row("grad_compress", "one leaf, as the sync launches it: a "
                  "layer's w_gate, (2, 50331648) bf16 gradient rows + fp32 "
                  "residual columns, 2:8, vector variant"),
@@ -4886,15 +5239,24 @@ def main(argv=None) -> int:
                  **{f"serve_{a}": r["compact_variants"]
                     for a, r in arch_serve.items()},
                  "serve_granite": moe_serve["compact_variants"],
-                 "serve_deepseek": ds_serve["compact_variants"]},
+                 "serve_deepseek": ds_serve["compact_variants"],
+                 **{f"serve_{a.split('-')[0]}": r["compact_variants"]
+                    for a, r in ssm_serve.items()}},
              **{key: sum(r[key] for r in compact_rows)
                 for key in ("scalar_ms", "u8_ms", "u8_bound_ms")},
              deepseek_pack=dict(
-                 ds_pack, at="deepseek FULL's element pack: 84 bf16 (K, F) "
-                 "weights read as (F, K) views, 2:8 u4, vector variant, "
-                 "summed from the six shapes", bound_by="bytes",
+                 ds_pack, at="deepseek FULL's element pack (27 layers): 84 "
+                 "bf16 (K, F) weights read as (F, K) views, 2:8 u4, vector "
+                 "variant, summed from the six shapes; launches: phase "
+                 "38's pack at 9 layers", bound_by="bytes",
                  library_ms=None,
-                 launches=ds_serve["compact_launches"], cases=ds_pack_rows)),
+                 launches=ds_serve["compact_launches"], cases=ds_pack_rows),
+             ssm_packs={a: dict(
+                 ssm_rows[a]["pack"], at=f"{a} FULL's element pack, 2:8 "
+                 "u4, vector variant, summed from its shapes",
+                 bound_by="bytes", library_ms=None,
+                 launches=ssm_serve[a]["compact_launches"],
+                 cases=ssm_rows[a]["pack_rows"]) for a in SSM_ARCHS}),
         dict(name="nm_spmm_shared", route="cuda",
              source="src/repro_torch/kernels/csrc/nm_spmm_shared.cu",
              replaces="src/repro/kernels/nm_spmm_shared.py:104",
@@ -4933,6 +5295,8 @@ def main(argv=None) -> int:
                        "deepseek_small": ds_small,
                        "deepseek_train": ds_train,
                        "deepseek_serve": ds_serve,
+                       "ssm_kernels": ssm_rows, "ssm_small": ssm_small,
+                       "ssm_train": ssm_train, "ssm_serve": ssm_serve,
                        "phase_starts": starts,
                        "seconds": time.perf_counter() - t_start}, fh,
                       indent=1, default=str)

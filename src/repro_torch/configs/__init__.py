@@ -2,7 +2,8 @@
 
 The port's own copy of ``src/repro/configs/__init__.py``.  ``ARCHS``
 has the reference's ten arch ids as keys.  The five dense LMs,
-granite-moe and deepseek-v2-lite map to their ``ArchSpec``; an arch whose model is not ported yet maps to an
+granite-moe, deepseek-v2-lite, mamba2 and hymba map to their
+``ArchSpec``; an arch whose model is not ported yet (whisper) maps to an
 ``Unported`` entry that names the ROADMAP queue 1 item porting it, and
 ``get_arch`` raises ``NotImplementedError`` for it (never a stand-in).
 ``all_cells`` yields the (arch, shape) cells of the ported archs.
@@ -14,8 +15,8 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.configs import (deepseek_v2_lite, gemma3_12b, glm4_9b,
-                                 granite_moe_1b, internvl2_26b, qwen2_5_32b,
-                                 qwen3_8b)
+                                 granite_moe_1b, hymba_1_5b, internvl2_26b,
+                                 mamba2_370m, qwen2_5_32b, qwen3_8b)
 from repro_torch.configs.base import SHAPES, ArchSpec, Shape
 
 
@@ -35,8 +36,8 @@ ARCHS = {
                                  "item 6 (encoder-decoder)"),
     "granite-moe-1b-a400m": granite_moe_1b.ARCH,
     "deepseek-v2-lite-16b": deepseek_v2_lite.ARCH,
-    "mamba2-370m": Unported("mamba2-370m", "item 5 (SSM)"),
-    "hymba-1.5b": Unported("hymba-1.5b", "item 5 (hybrid SSM)"),
+    "mamba2-370m": mamba2_370m.ARCH,
+    "hymba-1.5b": hymba_1_5b.ARCH,
     "internvl2-26b": internvl2_26b.ARCH,
 }
 

@@ -4,8 +4,8 @@ Counterpart of ``src/repro/models/layers.py``: ``dense_init`` (with an
 optional zero bias), ``dense_apply`` (the bias added after ``nm_apply``,
 in the output's dtype), ``rmsnorm_init``/``rmsnorm_apply``,
 ``layernorm_init``/``layernorm_apply``, ``embed_init``/``embed_apply``,
-``rope_freqs``, ``apply_rope``, ``swiglu`` and ``gelu_tanh`` (the
-reference's ``jax.nn.gelu``), with the reference's arithmetic: the
+``rope_freqs``, ``apply_rope``, ``silu``, ``swiglu`` and ``gelu_tanh``
+(the reference's ``jax.nn.gelu``), with the reference's arithmetic: the
 norms in fp32 cast back to the input dtype,
 RoPE over the two halves of head_dim (not interleaved pairs) in fp32,
 SiLU and GELU as the reference computes them in bf16.
@@ -142,12 +142,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: x * sigmoid(x), the sigmoid spelled 1 / (1 +
+    exp(-x)) and every op rounded to x's dtype, as the compiled reference
+    expands it (a fused ``torch.sigmoid`` rounds once and disagrees in
+    ~30% of bf16 outputs)."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
-    """silu(gate) * up, with the sigmoid spelled 1 / (1 + exp(-x)) and
-    every op rounded to the activation dtype, as the compiled reference
-    expands ``jax.nn.silu`` (a fused ``torch.sigmoid`` rounds once and
-    disagrees in ~30% of bf16 outputs)."""
-    return gate * (1.0 / (1.0 + torch.exp(-gate))) * up
+    """silu(gate) * up, each op rounded to the activation dtype."""
+    return silu(gate) * up
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Decoder LM (the dense and MoE families): config, init, forward,
-logits, cache.
+"""Decoder LM (the dense, MoE, SSM and hybrid families): config, init,
+forward, logits, cache.
 
 Counterpart of ``src/repro/models/transformer_lm.py``: ``LMConfig``
 (with ``n_params``/``n_active_params``), ``ffn_init``/``ffn_apply``,
@@ -13,20 +13,24 @@ with the padded vocab columns set to ``-1e30``).  It covers the dense
 family: qwen3 (qk_norm), qwen2.5 (QKV bias), glm4, gemma3 (the 5:1
 pattern of sliding-window and global layers, a tied head) and
 internvl2's LM (a stub-frontend prefix); granite-moe (every block's
-FFN a mixture of experts); and deepseek-v2-lite (multi-head latent
+FFN a mixture of experts); deepseek-v2-lite (multi-head latent
 attention, a mixture of experts with shared experts, and a dense first
-layer, the "prelude", outside the stack of blocks).
+layer, the "prelude", outside the stack of blocks); mamba2 (every
+layer a Mamba-2 SSD block, ``models.ssm``, and no attention or FFN);
+and hymba (every layer runs sliding-window attention and an SSD block
+on the same input and takes their mean, then a dense FFN).
 
 What differs:
-  * ``LMConfig`` is the port's own copy: layer kinds "attn" and "swa"
-    only (SSM and hybrid layers are ROADMAP queue 1 item 5);
+  * ``LMConfig`` is the port's own copy, with the reference's layer
+    kinds "attn", "swa", "mamba" and "hybrid";
   * parameters are a Python list of per-layer dicts under ``"blocks"``
     and ``forward`` loops over it, choosing each layer's window from
     ``layer_kinds()`` in Python, where the reference stacks leaves
     along a layer axis, scans, and picks local or global attention with
     ``lax.cond`` on a per-layer flag; caches likewise are a list of
-    per-layer ``{"k", "v", "pos"}`` (MLA: ``{"ckv", "kpe", "pos"}``)
-    dicts, updated in place; the prelude (``params["prelude"]``,
+    per-layer ``{"k", "v", "pos"}`` (MLA: ``{"ckv", "kpe", "pos"}``;
+    mamba: the fp32 ``{"state", "conv"}``; hybrid: both) dicts, updated
+    in place; the prelude (``params["prelude"]``,
     ``cache["prelude"]``) is a separate subtree beside them, as in the
     reference, and runs through ``block_apply`` as a block with a dense
     FFN of width ``first_dense_ff``;
@@ -50,6 +54,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
+
+KINDS = ("attn", "swa", "mamba", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +73,8 @@ class LMConfig:
     qk_norm: bool = False
     qkv_bias: bool = False
     # layer pattern, cycled over depth: "attn" (global) | "swa" (window)
+    # | "mamba" (an SSD block alone) | "hybrid" (windowed attention and
+    # an SSD block on the same input, mean-combined)
     pattern: tuple = ("attn",)
     window: Optional[int] = None
     # MoE: every block's FFN is a mixture of experts
@@ -76,6 +85,10 @@ class LMConfig:
     qk_nope_dim: int = 128
     qk_rope_dim: int = 64
     v_head_dim: Optional[int] = None
+    # SSM (mamba2, hymba): state width, head width, SSD chunk length
+    ssm_state: int = 128
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 128
     # the logits read the embedding table (no lm_head), as the
     # reference's default; the untied configs say tie_embed=False
     tie_embed: bool = True
@@ -87,11 +100,10 @@ class LMConfig:
     remat: bool = True
 
     def __post_init__(self):
-        unported = set(self.pattern) - {"attn", "swa"}
-        if unported:
-            raise NotImplementedError(
-                f"{self.name}: layer kinds {sorted(unported)} are not ported "
-                "(ROADMAP queue 1, item 5)")
+        unknown = set(self.pattern) - set(KINDS)
+        if unknown:
+            raise ValueError(f"{self.name}: unknown layer kinds "
+                             f"{sorted(unknown)}; known: {list(KINDS)}")
         if "swa" in self.pattern and not self.window:
             raise ValueError(f"{self.name}: swa layers need a window")
 
@@ -119,8 +131,17 @@ class LMConfig:
         return self.layer_kinds()[self.n_layers - self.n_blocks:]
 
     def layer_window(self, kind: str) -> Optional[int]:
-        """The sliding window of a layer of ``kind`` (None: global)."""
-        return self.window if kind == "swa" else None
+        """The sliding window of a layer of ``kind`` (None: global); a
+        hybrid layer's attention takes ``window``, as the reference's."""
+        return self.window if kind in ("swa", "hybrid") else None
+
+    @property
+    def has_attn(self) -> bool:
+        return any(k in ("attn", "swa", "hybrid") for k in self.layer_kinds())
+
+    @property
+    def has_ssm(self) -> bool:
+        return any(k in ("mamba", "hybrid") for k in self.layer_kinds())
 
     def n_params(self) -> int:
         """Total parameter count (shapes only: drawn on the meta
@@ -148,6 +169,10 @@ class LMConfig:
             kv_lora=self.kv_lora, qk_nope_dim=self.qk_nope_dim,
             qk_rope_dim=self.qk_rope_dim, v_head_dim=self.v_head_dim)
 
+    def ssm_cfg(self) -> S.SSMConfig:
+        return S.SSMConfig(d_model=self.d_model, d_state=self.ssm_state,
+                           head_dim=self.ssm_head_dim, chunk=self.ssm_chunk)
+
 
 def ffn_init(gen, d: int, d_ff: int, *, device, dtype=torch.float32):
     return {"w_gate": L.dense_init(gen, d, d_ff, device=device, dtype=dtype),
@@ -168,37 +193,58 @@ def _leaves(tree):
 
 
 def block_init(gen, cfg: LMConfig, *, device, dtype=torch.float32):
-    """A block's params: norms, attention and a dense FFN ("ffn") or,
-    with ``cfg.moe``, a mixture of experts ("moe")."""
+    """A block's params: norms, attention (any attention or hybrid
+    layer in the config), an SSD block ("ssm": any mamba or hybrid
+    layer), and a dense FFN ("ffn", with ``d_ff``) or, with ``cfg.moe``,
+    a mixture of experts ("moe"); every block has the same leaves, as
+    the reference's stacked ones.  mamba2's blocks hold ln2 too, which
+    no op reads (the reference's)."""
     p = {"ln1": L.rmsnorm_init(cfg.d_model, device=device, dtype=dtype),
-         "ln2": L.rmsnorm_init(cfg.d_model, device=device, dtype=dtype),
-         "attn": A.attn_init(gen, cfg.attn_cfg(), device=device,
-                             dtype=dtype)}
+         "ln2": L.rmsnorm_init(cfg.d_model, device=device, dtype=dtype)}
+    if cfg.has_attn:
+        p["attn"] = A.attn_init(gen, cfg.attn_cfg(), device=device,
+                                dtype=dtype)
+    if cfg.has_ssm:
+        p["ssm"] = S.ssm_init(gen, cfg.ssm_cfg(), device=device, dtype=dtype)
     if cfg.moe is not None:
         p["moe"] = M.moe_init(gen, cfg.d_model, cfg.moe, device=device,
                               dtype=dtype)
-    else:
+    elif cfg.d_ff:
         p["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff, device=device,
                             dtype=dtype)
     return p
 
 
 def block_apply(p, x: torch.Tensor, cfg: LMConfig, sp_cfg, *, positions,
-                window=None, cache=None, decode: bool = False,
-                per_slot: bool = True):
-    """Returns (x, cache, aux); ``window`` is the layer's sliding window
-    (None: global attention); ``aux`` is the MoE load-balance loss (None
-    for a dense FFN).
+                kind: str = "attn", window=None, cache=None,
+                decode: bool = False, per_slot: bool = True):
+    """Returns (x, cache, aux) of a layer of ``kind``; ``window`` is the
+    layer's sliding window (None: global attention); ``aux`` is the MoE
+    load-balance loss (None for a dense FFN or none).
+
+    A mamba layer adds the SSD block's output to x and nothing else (the
+    reference adds zeros for its missing FFN; ln2 gets no gradient); a
+    hybrid layer runs attention and the SSD block on the same ln1 output,
+    each with its part of one cache dict ({"k", "v", "pos"} and
+    {"state", "conv"}), and takes mix = 0.5 (a + s).
 
     ln2 normalizes the fp32 sum x + mix, not its bf16 rounding: the
     compiled reference fuses the residual add into the norm and keeps
     the sum in fp32 there (the residual stream itself is rounded).
     """
     h = L.rmsnorm_apply(p["ln1"], x)
+    if kind == "mamba":
+        mix, cache = S.ssm_apply(p["ssm"], h, cfg.ssm_cfg(), sp_cfg,
+                                 cache=cache, decode=decode)
+        return x + mix, cache, None
     mix, cache = A.attn_apply(p["attn"], h, cfg.attn_cfg(), sp_cfg,
                               positions=positions, cache=cache,
                               layer_window=window, decode=decode,
                               per_slot=per_slot)
+    if kind == "hybrid":
+        s_out, cache = S.ssm_apply(p["ssm"], h, cfg.ssm_cfg(), sp_cfg,
+                                   cache=cache, decode=decode)
+        mix = 0.5 * (mix + s_out)
     h2 = L.rmsnorm_apply(p["ln2"], x.to(torch.float32) + mix,
                          out_dtype=x.dtype)
     x = x + mix
@@ -289,12 +335,12 @@ def forward(params, tokens: torch.Tensor, cfg: LMConfig,
         window = cfg.layer_window(kind)
         if remat:
             x, a = checkpoint(_block_out, bp, x, cfg, sp_cfg, positions,
-                              window, use_reentrant=False)
+                              kind, window, use_reentrant=False)
         else:
             lc = layer_caches[i] if layer_caches is not None else None
             x, _, a = block_apply(bp, x, cfg, sp_cfg, positions=positions,
-                                  window=window, cache=lc, decode=decode,
-                                  per_slot=per_slot)
+                                  kind=kind, window=window, cache=lc,
+                                  decode=decode, per_slot=per_slot)
         if a is not None:
             aux = a if aux is None else aux + a
     if aux is None:
@@ -303,9 +349,9 @@ def forward(params, tokens: torch.Tensor, cfg: LMConfig,
     return x, cache, aux
 
 
-def _block_out(p, x, cfg, sp_cfg, positions, window):
+def _block_out(p, x, cfg, sp_cfg, positions, kind, window):
     x, _, aux = block_apply(p, x, cfg, sp_cfg, positions=positions,
-                            window=window)
+                            kind=kind, window=window)
     return x, aux
 
 
@@ -346,12 +392,19 @@ def lm_loss(params, hidden: torch.Tensor, labels: torch.Tensor,
 def init_lm_cache(cfg: LMConfig, batch: int, max_len: int, *, device,
                   dtype=torch.bfloat16):
     """``{"layers": [one cache a block]}``, and with a prelude its cache
-    under ``"prelude"``."""
-    def one():
-        return A.init_cache(cfg.attn_cfg(), batch, max_len, device=device,
-                            dtype=dtype)
+    under ``"prelude"``.  An attention layer's cache is (k, v, pos) in
+    ``dtype`` (MLA: ckv, kpe, pos); a mamba layer's the fp32 SSM state
+    and conv window; a hybrid layer's both, in one dict."""
+    def one(kind="attn"):
+        c = {}
+        if kind in ("attn", "swa", "hybrid"):
+            c.update(A.init_cache(cfg.attn_cfg(), batch, max_len,
+                                  device=device, dtype=dtype))
+        if kind in ("mamba", "hybrid"):
+            c.update(S.init_ssm_cache(cfg.ssm_cfg(), batch, device=device))
+        return c
 
-    cache = {"layers": [one() for _ in range(cfg.n_blocks)]}
+    cache = {"layers": [one(k) for k in cfg.block_kinds()]}
     if cfg.uses_scan_prelude:
         cache["prelude"] = one()
     return cache

@@ -10,7 +10,8 @@ their outputs ignored); prompts are right-padded to ``prompt_bucket``.
 
 What differs: PyTorch runs eagerly, so there is nothing to compile;
 the cache is a list of per-layer ``{"k", "v", "pos"}`` dicts of
-(n_slots, max_len, Hkv, D) tensors (MLA: ``{"ckv", "kpe", "pos"}``),
+(n_slots, max_len, Hkv, D) tensors (MLA: ``{"ckv", "kpe", "pos"}``; an
+SSM layer's fp32 ``{"state", "conv"}``, a hybrid layer's both),
 beside a prelude's cache where the model has one, and seating, decode
 writes and lane export work on it in place (the reference donates its
 cache to the jitted steps); no mesh or shardings.
@@ -29,17 +30,30 @@ from repro_torch.serve.cache_store import Lane
 from repro_torch.train import step as ST
 
 
+# layer-cache entries whose axis 1 is not positions: the SSM's state
+# (B, H, N, P) and conv window (B, K-1, C), seated whole
+WHOLE_LANE = ("state", "conv")
+
+
 def seat_cache(cache, pre_cache, slot: int):
     """Write a batch-1 prefill cache into lane ``slot`` of the slot-paged
     cache, in place (the lane's first ``S_pre`` positions of every tensor
-    a layer cache holds: k/v, or MLA's ckv/kpe; the prelude's too);
-    returns it.  The ``pos`` cursors stay."""
+    a layer cache holds by position: k/v, or MLA's ckv/kpe; the prelude's
+    too; an SSM's state and conv window whole); returns it.  The ``pos``
+    cursors stay."""
     pairs = list(zip(cache["layers"], pre_cache["layers"]))
     if "prelude" in cache:
         pairs.append((cache["prelude"], pre_cache["prelude"]))
     for dst, src in pairs:
         for key, t in src.items():
-            if isinstance(t, torch.Tensor):
+            if not isinstance(t, torch.Tensor):
+                continue
+            if key in WHOLE_LANE:
+                if dst[key].shape[1:] != t.shape[1:]:
+                    raise ValueError(f"{key}: lane {tuple(t.shape)} does "
+                                     f"not fit {tuple(dst[key].shape)}")
+                dst[key][slot:slot + 1] = t
+            else:
                 dst[key][slot:slot + 1, :t.shape[1]] = t
     return cache
 

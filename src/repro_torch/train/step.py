@@ -125,10 +125,11 @@ def lm_train_step(state, batch, *, cfg, sp_cfg, opt_cfg,
     (new_state, {"loss", "aux", "total", "lr"}); consumes ``state`` (see
     ``sgd.update``, ``cross_pod_sync``).
     """
-    if compress and getattr(cfg, "moe", None) is not None:
+    if compress and (getattr(cfg, "moe", None) is not None
+                     or getattr(cfg, "has_ssm", False)):
         raise NotImplementedError(
-            f"{cfg.name}: MoE training under the compressed sync is not "
-            "ported (ROADMAP queue 1, item 3b)")
+            f"{cfg.name}: MoE and SSM training under the compressed sync "
+            "is not ported (ROADMAP queue 1, item 3b)")
     compute = state["compute"] if pregen else _bf16_cast(state["master"])
     roots = sgd.diff_leaves(compute)
     pods = n_pods if compress else 1

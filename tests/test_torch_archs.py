@@ -72,7 +72,8 @@ jax.config.update("jax_platform_name", "cpu")
 NEW = ["qwen2.5-32b", "glm4-9b", "gemma3-12b", "internvl2-26b"]
 DENSE = ["qwen3-8b"] + NEW
 # MoE: tests/test_torch_moe*.py, tests/test_torch_deepseek*.py
-PORTED = DENSE + ["granite-moe-1b-a400m", "deepseek-v2-lite-16b"]
+PORTED = DENSE + ["granite-moe-1b-a400m", "deepseek-v2-lite-16b",
+                  "mamba2-370m", "hymba-1.5b"]
 MODULES = {"qwen3-8b": qwen3_8b, "qwen2.5-32b": qwen2_5_32b,
            "glm4-9b": glm4_9b, "gemma3-12b": gemma3_12b,
            "internvl2-26b": internvl2_26b}
@@ -200,10 +201,9 @@ def test_unported_arch_raises(arch_id):
 
 
 def test_unported_archs_name_their_items():
-    """The four archs still unported raise, each naming its ROADMAP
-    queue 1 item."""
-    items = {"whisper-large-v3": "item 6", "mamba2-370m": "item 5",
-             "hymba-1.5b": "item 5"}
+    """The arch still unported raises, naming its ROADMAP queue 1
+    item."""
+    items = {"whisper-large-v3": "item 6"}
     assert sorted(a for a, s in ARCHS.items()
                   if isinstance(s, Unported)) == sorted(items)
     for arch_id, item in items.items():
@@ -223,7 +223,7 @@ def test_cells_are_the_references_of_ported_archs():
 
 
 @pytest.mark.parametrize("shape_id", sorted(J_SHAPES))
-@pytest.mark.parametrize("arch_id", DENSE)
+@pytest.mark.parametrize("arch_id", PORTED)
 def test_cell_support_matches_reference(arch_id, shape_id):
     j, t = j_get_arch(arch_id), get_arch(arch_id)
     assert t.supports(shape_id) == j.supports(shape_id)

@@ -4,7 +4,8 @@
   examples (``examples/torch_*.py``) and of ``chip_smoke.py`` finds no import of ``jax``, ``jaxlib`` or the
   reference package ``repro``.
 * The entry points (``ServeEngine``, ``init``, ``pack_tree_element``
-  (for deepseek-v2-lite's MLA and prelude too),
+  (for deepseek-v2-lite's MLA and prelude too, and for mamba2's and
+  hymba's SSD blocks and their fp32 caches),
   ``pack_tree_shared``,
   ``params_from_jax``, ``init_train_state`` with and without the
   compressed sync's residual (and so the state that ``lm_train_step``
@@ -164,6 +165,43 @@ def test_deepseek_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     assert eng.device.type == "cpu"
     cache = T.init_lm_cache(cfg, 2, 8, device="cpu")
     assert cache["prelude"]["ckv"].device.type == "cpu"
+
+
+def test_scan_sees_the_ssm_modules():
+    names = {p.name for p in _sources()}
+    assert {"ssm.py", "mamba2_370m.py", "hymba_1_5b.py"} <= names
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "hymba-1.5b"])
+def test_ssm_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, arch):
+    """mamba2 and hymba: init, the train state, the element pack, the
+    engine and the SSD block's cache run on the card unless a device is
+    named, and raise without one; with ``device="cpu"`` the SSD block's
+    leaves and its fp32 cache are there."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import ssm as S
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg, sp = get_arch(arch).smoke, SparsityConfig(n=2, m=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.init(cfg, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ST.init_train_state(cfg, sp)
+    params = T.init(cfg, seed=0, device="cpu", dtype=torch.bfloat16)
+    assert params["blocks"][0]["ssm"]["conv_w"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pack_tree_element(params, sp)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(params, cfg, sp, ServeConfig(packed=True))
+    eng = ServeEngine(params, cfg, sp, ServeConfig(packed=True, max_len=16,
+                                                   prompt_bucket=8),
+                      device="cpu")
+    assert eng.device.type == "cpu"
+    cache = T.init_lm_cache(cfg, 2, 8, device="cpu")
+    assert cache["layers"][0]["state"].device.type == "cpu"
+    assert cache["layers"][0]["state"].dtype == torch.float32
+    assert S.init_ssm_cache(cfg.ssm_cfg(), 1, device="cpu")[
+        "conv"].device.type == "cpu"
 
 
 @pytest.mark.parametrize("name", ["resnet9", "vgg19", "vit"])
