@@ -28,14 +28,15 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
   5. small      the port at qwen3-8b SMOKE size on the card against the
                 same port on the CPU (the plain path the CPU tests hold
                 against the JAX reference): logits within 2e-2;
-  6. serve      qwen3-8b FULL (36 layers, d_model 4096, vocab 151936),
+  6. serve      qwen3-8b FULL widths (d_model 4096, vocab 151936) at 18
+                of its 36 layers (SERVE_LAYERS),
                 bf16 weights from a seed, drawn and 2:8 u4-packed layer by
                 layer, served by ServeEngine(n_slots=4, prompt_bucket=32,
                 max_len=96, packed=True) on six requests that join
                 mid-flight; every batched stream must equal its solo
                 stream and the nm_spmm launch count must be
-                7 x 36 x (prefills + decode steps), the pack's nm_compact
-                launches 7 x 36, every one on the vector variant (pack
+                7 x 18 x (prefills + decode steps), the pack's nm_compact
+                launches 7 x 18, every one on the vector variant (pack
                 time without the draws); then five
                 decode steps under torch.profiler give the device's busy time
                 and idle share per step and the top kernels and host ops;
@@ -136,13 +137,13 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
  16. small shared qwen3-8b SMOKE, 2:8 shared granularity: pack_tree_shared
                 on the card and on the CPU bitwise equal; prefill + 8
                 greedy decode steps, logits within SMALL_ATOL;
- 17. shared serve  qwen3-8b FULL (36 layers, nothing cut), bf16 weights
+ 17. shared serve  qwen3-8b FULL widths at 18 layers, bf16 weights
                 from a seed packed layer by layer by pack_tree_shared on
-                the card (exactly 7 x 36 nm_compact launches, on the
+                the card (exactly 7 x 18 nm_compact launches, on the
                 scalar variant: the score rows are contiguous; layer 0
                 bitwise the plain pack); 4 prompts of 5-32 tokens
                 right-padded to 32 and prefilled with last_index, then
-                16 greedy lm_decode_steps with exactly 7 x 36 x 17
+                16 greedy lm_decode_steps with exactly 7 x 18 x 17
                 nm_spmm_shared launches; each prompt's tokens unchanged
                 when the batch's rows are permuted; prefill ms, decode
                 ms/step and tok/s, five decode steps under
@@ -198,15 +199,15 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 the two runs' selections differ, their near-ties in
                 ulps, and where in the backward they first differ, are
                 printed);
- 22. train transposable  qwen3-8b TRAIN at 4 of its 8 layers (every
+ 22. train transposable  qwen3-8b TRAIN at 2 of its 8 layers (every
                 width), 2:8 bdwp with transposable
-                masks, packed: five timed steps with exactly 2 x 7 x 4
+                masks, packed: five timed steps with exactly 2 x 7 x 2
                 nm_spmm launches and no fused_update launch a step (the
                 reference keeps transposable sites off the fused kernel),
                 a profiled sixth; layer 0's operands against
                 nm_mask_transposable of a CPU copy of its new master
                 (a leading 512 x 2048 block of each projection); the
-                mask selection's time over the 28 sites;
+                mask selection's time over the 14 sites;
  23. train shared  the same with shared-granularity masks (tile 128),
                 pre-generated and unpacked: no nm_spmm or fused_update
                 launch; then pack_tree_shared on the trained master and
@@ -256,10 +257,10 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 phase 10's checks: five timed steps, 2 x 7 x L nm_spmm
                 and one fused_update over 7 x L sites a step, a
                 profiled sixth, layer 0's operands, peak under 80 GB;
- 30. arch serve each one's FULL at every published width and a
-                quarter of its depth (qwen2.5 16 of 64 layers, glm4 10
-                of 40, gemma3 12 of 48: two 5:1 periods, internvl2 12
-                of 48), drawn and 2:8 u4-packed
+ 30. arch serve each one's FULL at every published width and an
+                eighth of its depth (qwen2.5 8 of 64 layers, glm4 5 of
+                40, gemma3 6 of 48: one 5:1 period, internvl2 6 of 48),
+                drawn and 2:8 u4-packed
                 layer by layer (7 x L nm_compact, all vector): qwen2.5,
                 glm4 and gemma3 through phase 6's engine run (gemma3
                 with prompts of 1100-1200 tokens in a bucket of 1280, so
@@ -294,17 +295,19 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 step-0 compute trees bitwise) and three legacy steps
                 (within SMALL_LOSS_ATOL); prefill and 20 decode steps, u4
                 attention, masked experts (within MOE_SMALL_ATOL);
- 33. moe train  granite TRAIN (every published width, all 24 layers, 4 x
-                1024 tokens: 8 routing groups of 512, capacity 160)
-                through phase 10's checks: five timed steps, exactly 336
-                nm_spmm (2 x (4 + 3) x 24, one launch per expert stack)
-                and one fused_update over 168 sites a step, a profiled
+ 33. moe train  granite TRAIN (every published width, 12 of 24 layers,
+                MOE_LAYERS; 4 x 1024 tokens: 8 routing groups of 512,
+                capacity 160) through phase 10's checks: five timed
+                steps, exactly 168 nm_spmm (2 x (4 + 3) x 12, one launch
+                per expert stack) and one fused_update over 84 sites a
+                step, a profiled
                 sixth with the moe/route, moe/dispatch, moe/experts and
                 moe/combine ranges, layer 0's operands (expert stacks
                 per expert), peak;
- 34. moe serve  granite FULL (24 layers) through phase 6's engine run:
-                attention 2:8 u4-packed (4 x 24 nm_compact a pack, 4 x
-                24 nm_spmm an engine step), the expert stacks bf16 and
+ 34. moe serve  granite FULL widths at 12 layers through phase 6's
+                engine run: attention 2:8 u4-packed (4 x 12 nm_compact a
+                pack, 4 x 12 nm_spmm an engine step), the expert stacks
+                bf16 and
                 re-masked on every call as the reference serves them;
                 batched streams equal solo streams; the experts' mask
                 derivation's device ms a decode step;
@@ -332,11 +335,11 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 sites (3.00 G elements, past 2^31) a step, a profiled
                 sixth with the moe/* ranges, the operands of layer 0,
                 the prelude and the last layer, peak;
- 38. deepseek serve  deepseek FULL's widths at the prelude and 8 of
-                its 26 MoE layers (9 of 27)
+ 38. deepseek serve  deepseek FULL's widths at the prelude and 4 of
+                its 26 MoE layers (5 of 27)
                 through phase 6's engine run with 4 prompts: MLA's
                 q_proj, kv_down and o_proj and the prelude packed 2:8 u4
-                (30 nm_compact a pack, 30 nm_spmm a forward), k_up/v_up
+                (15 nm_compact a pack, 15 nm_spmm a forward), k_up/v_up
                 read raw by the absorbed decode, the experts and shared
                 experts bf16 and re-masked on every call; batched streams
                 equal solo streams (cap = t at 4 slots); the experts'
@@ -361,18 +364,53 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 first decode step) on both sides, three packed
                 pre-generated steps (step-0 compute trees bitwise) and
                 one legacy step (losses within SMALL_LOSS_ATOL);
- 41. ssm train  each one's TRAIN (every published width, all 48 / 32
-                layers, 4 x 2048 tokens: hymba's attention banded past
-                its 1024 window, 16 SSD chunks) through phase 10's
-                checks: five timed steps, exactly 192 / 512 nm_spmm and
-                one fused_update over 96 / 256 sites a step, a profiled
-                sixth with the ssm/conv, ssm/scan and ssm/out ranges,
-                layer 0's operands equal to the pack of the new master,
-                peak;
- 42. ssm serve  each one's FULL through phase 6's engine run, 2:8
-                u4-packed (96 / 256 nm_compact a pack, all vector; 96 /
-                256 nm_spmm a forward; hymba's in_proj dense): batched
-                streams equal solo streams; ms, tok/s, decode idle share.
+ 41. ssm train  each one's TRAIN (every published width, 12 of 48 / 8 of
+                32 layers, SSM_LAYERS; 4 x 2048 tokens: hymba's
+                attention banded past its 1024 window, 16 SSD chunks)
+                through phase 10's checks: five timed steps, exactly
+                48 / 128 nm_spmm and one fused_update over 24 / 64 sites
+                a step, a profiled sixth with the ssm/conv, ssm/scan and
+                ssm/out ranges, layer 0's operands equal to the pack of
+                the new master, peak;
+ 42. ssm serve  each one's FULL widths at the same depth through phase
+                6's engine run, 2:8 u4-packed (24 / 64 nm_compact a
+                pack, all vector; 24 / 64 nm_spmm a forward; hymba's
+                in_proj dense): batched streams equal solo streams; ms,
+                tok/s, decode idle share;
+ 43. whisper kernels  whisper-large-v3's shapes: nm_spmm (1280 -> 1280,
+                1280 -> 5120, 5120 -> 1280) at B = 4 (u4) and at the
+                TRAIN step's 12,000 encoder rows (u8), and 1280 -> 1280
+                at a decode step's 6,000 cross-K/V rows (u4), within the
+                phase-3 tolerance, row 0 the B = 1 result, timed beside
+                torch.matmul and the plain version; nm_compact of each
+                shape bitwise; one decoder layer's 10 sites in one
+                grouped fused_update launch, bitwise, timed against
+                21.75 B/element; one launch over 512 small sites (its
+                table in device memory) bitwise; the FULL element pack's
+                512 weights timed shape by shape;
+ 44. whisper small  whisper SMOKE, card vs CPU: the encoder output and
+                logits, the prefill with a cache (within 1e-4 of the
+                forward's last position on each side), a seated cache's
+                20 shared-cursor decode steps from u4-packed weights,
+                the reference hazard (an unseated prefill cache decodes
+                over the last prompt position) on both sides, three
+                packed pre-generated steps (step-0 compute trees
+                bitwise) and one legacy step;
+ 45. whisper train  whisper TRAIN (FULL: every width, 32 + 32 layers), 8
+                rows of 1500 frames and 448 tokens: five timed steps,
+                exactly 1024 nm_spmm and one fused_update over 512 sites
+                (1.468 G elements) a step, a profiled sixth with the
+                encdec/encoder, encdec/decoder and encdec/cross_kv
+                ranges, the first and last layers' operands of both
+                stacks equal to the pack of the new master, peak;
+ 46. whisper serve  whisper FULL 2:8 u4-packed (512 nm_compact, all
+                vector): 4 rows of their own 1500 frames and Whisper's
+                4-token start prompt prefilled (512 nm_spmm), the cache
+                seated in a 448-long one, 32 greedy decode steps on the
+                shared cursor (320 nm_spmm a step, 64 of them the cross
+                K/V at 6,000 rows); each row's tokens equal its solo
+                run's; prefill ms, decode ms a step, tok/s, the decode
+                idle share and the cross K/V's share of a step.
 
 It prints a JSON line with every kernel's numbers, the card line, and as
 its last line {"ok": true, "device": {...}}.  With no card, or outside a
@@ -408,7 +446,10 @@ TRAIN_ROWS = (4, 512)           # sequences x tokens of a training step
 UPDATE_SCALARS = dict(lr=0.0123, mu=0.9, wd=5e-4, lam=2e-4)
 L2_BYTES = 50 * 2**20
 SEED = 0                        # weights, activations and prompts
-RANGES = ("train/", "sgd/", "moe/", "ssm/")  # the port's profiler ranges
+# phases 6 and 17 serve qwen3-8b at every width and this depth (of 36
+# layers), to keep the whole run in its time
+SERVE_LAYERS = 18
+RANGES = ("train/", "sgd/", "moe/", "ssm/", "encdec/")  # profiler ranges
 
 # qwen3-8b projection shapes (K, F), in the order one layer runs them
 PROJ = [("q_proj", 4096, 4096), ("k_proj", 4096, 1024), ("v_proj", 4096, 1024),
@@ -1798,11 +1839,13 @@ def profile_steps(step, steps: int, kernel_keys) -> dict:
             step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels, host = [], []
+    kernels, host, parts = [], [], {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0)
-        if e.key.startswith(RANGES):
-            continue         # a profiler range's span on the card, no kernel
+        if e.key.startswith(RANGES):   # a range's span, no kernel
+            if not str(e.device_type).endswith("CUDA"):
+                parts[e.key] = {"host_ms": e.cpu_time_total / steps / 1e3}
+            continue
         if us > 0 and str(e.device_type).endswith("CUDA"):
             kernels.append((us / steps / 1e3, e.count // steps, e.key))
         elif e.self_cpu_time_total > 0:
@@ -1826,7 +1869,7 @@ def profile_steps(step, steps: int, kernel_keys) -> dict:
     for ms, count, key in host[:8]:
         print(f"    {ms:8.4f} ms/step  x{count:<5d} {key[:90]}")
     return {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy,
-            "kernel_ms_per_step": mine,
+            "kernel_ms_per_step": mine, "parts": parts,
             "top_kernels": [list(k) for k in kernels[:12]],
             "top_host_ops": [list(h) for h in host[:12]]}
 
@@ -2394,8 +2437,9 @@ def phase_shared_small(dev, seed):
     return worst
 
 
-def phase_shared_serve(dev, seed):
-    """qwen3-8b FULL, 2:8 shared-pattern serving: pack_tree_shared layer by
+def phase_shared_serve(dev, seed, cfg=None):
+    """qwen3-8b FULL (or ``cfg``), 2:8 shared-pattern serving:
+    pack_tree_shared layer by
     layer on the card, 4 right-padded prompts prefilled, then greedy
     per-slot decode steps; exact launch counts, layer 0 against the plain
     pack, tokens independent of the batch's row order."""
@@ -2408,7 +2452,7 @@ def phase_shared_serve(dev, seed):
     from repro_torch.models import transformer_lm as T
     from repro_torch.train import step as ST
 
-    cfg = C.FULL
+    cfg = cfg or C.FULL
     sp = SparsityConfig(n=2, m=8, method="bdwp", granularity="shared")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3092,7 +3136,7 @@ TRAIN_FLOWS = {"transposable": ("transposable", True, True),
 # their depth: every published width, 4 of qwen3-8b TRAIN's 8 layers
 # (the whole run's time; the selections' cost a layer does not depend
 # on depth)
-FLOW_LAYERS = 4
+FLOW_LAYERS = 2
 # phases 22-23: layer 0's transposable operands are checked on this
 # leading block (rows, columns) of each projection
 CHECK_BLOCK = (512, 2048)
@@ -3611,8 +3655,8 @@ VLM_ROWS = (2, 64, 1024)        # internvl2 FULL: prompts, text, prefix
 # phase 30's serving depth: every published width, a quarter of the
 # layers (gemma3: two 5:1 periods); at full depth the engine runs' solo
 # reruns took most of the whole run's time
-ARCH_SERVE_LAYERS = {"qwen2.5-32b": 16, "glm4-9b": 10, "gemma3-12b": 12,
-                     "internvl2-26b": 12}
+ARCH_SERVE_LAYERS = {"qwen2.5-32b": 8, "glm4-9b": 5, "gemma3-12b": 6,
+                     "internvl2-26b": 6}
 
 
 def phase_fig4(dev):
@@ -3676,50 +3720,66 @@ def arch_proj(cfg):
             ("w_down", ff, d)]
 
 
-def proj_kernel_checks(dev, gen, label, proj, train_rows):
-    """nm_spmm and nm_compact at one arch's projection shapes ``proj``
-    [(name, K, F)]: nm_spmm at decode rows (B = 4, u4) and at
-    ``train_rows`` (u8) within the phase-3 tolerance, deterministic, row
-    0 bitwise the B = 1 result, timed beside dense torch.matmul; then
-    nm_compact of each weight as the element pack reads it, u4, vector
-    and scalar variants, bitwise.  Returns (rows, nm_spmm's max abs
+def spmm_case_checks(dev, gen, label, cases):
+    """nm_spmm at ``cases`` [(name, B, K, F, idx bits)] within the
+    phase-3 tolerance of the plain version, deterministic, row 0 bitwise
+    the B = 1 result; timed (CUDA graph replay) beside dense torch.matmul
+    and the plain version, against the bound.  Returns (rows, max abs
     err)."""
     from repro_torch.kernels import nm_spmm as K
     from repro_torch.kernels import ref
 
     rows, worst = [], 0.0
-    for name, k, f in proj:
-        for b, bits in ((4, 4), (train_rows, 8)):
-            act, vals, idx = packed_case(gen, b, k, f, 2, 8, bits, dev)
-            kern = K.nm_spmm(act, vals, idx, 2, 8, idx_bits=bits)
-            again = K.nm_spmm(act, vals, idx, 2, 8, idx_bits=bits)
-            row0 = K.nm_spmm(act[:1].contiguous(), vals, idx, 2, 8,
-                             idx_bits=bits)
-            plain = ref.ref_nm_spmm(act, vals, idx, 2, 8, idx_bits=bits)
-            w = ref.decompress_nm(vals, idx, 2, 8, axis=0, idx_bits=bits)
-            err = (kern - plain).abs()
-            scale = act.float().abs() @ w.float().abs()
-            case = f"{label} {name} B={b} u{bits}"
-            check(float((err - TOL * scale).max()) <= 0,
-                  f"nm_spmm {case}: error above tolerance")
-            check(torch.equal(kern, again),
-                  f"nm_spmm {case}: not deterministic")
-            check(torch.equal(kern[:1], row0),
-                  f"nm_spmm {case}: row 0 depends on the batch")
-            worst = max(worst, float(err.max()))
-            wb = w.to(torch.bfloat16)
-            del plain, scale, err, w
-            t_k = time_ms(lambda i: K.nm_spmm(act, vals, idx, 2, 8, bits),
-                          1, iters=5)
-            t_l = time_ms(lambda i: torch.matmul(act, wb), 1, iters=5)
-            pl = K.plan(b, k, f, 2, 8)
-            rows.append({"proj": name, "B": b, "K": k, "F": f,
-                         "idx_bits": bits, "ms": t_k, "library_ms": t_l,
-                         "bound_ms": bound_ms(act, vals, idx, f)[0],
-                         "chunk_groups": pl.chunk_groups,
-                         "stage_groups": pl.gs, "config": pl.config,
-                         "splits": pl.splits})
-            del act, vals, idx, kern, again, row0, wb
+    for name, b, k, f, bits in cases:
+        act, vals, idx = packed_case(gen, b, k, f, 2, 8, bits, dev)
+        kern = K.nm_spmm(act, vals, idx, 2, 8, idx_bits=bits)
+        again = K.nm_spmm(act, vals, idx, 2, 8, idx_bits=bits)
+        row0 = K.nm_spmm(act[:1].contiguous(), vals, idx, 2, 8,
+                         idx_bits=bits)
+        plain = ref.ref_nm_spmm(act, vals, idx, 2, 8, idx_bits=bits)
+        w = ref.decompress_nm(vals, idx, 2, 8, axis=0, idx_bits=bits)
+        err = (kern - plain).abs()
+        scale = act.float().abs() @ w.float().abs()
+        case = f"{label} {name} B={b} u{bits}"
+        check(float((err - TOL * scale).max()) <= 0,
+              f"nm_spmm {case}: error above tolerance")
+        check(torch.equal(kern, again), f"nm_spmm {case}: not deterministic")
+        check(torch.equal(kern[:1], row0),
+              f"nm_spmm {case}: row 0 depends on the batch")
+        worst = max(worst, float(err.max()))
+        wb = w.to(torch.bfloat16)
+        del plain, scale, err, w, kern, again, row0
+        t_k = time_ms(lambda i: K.nm_spmm(act, vals, idx, 2, 8, bits), 1,
+                      iters=5)
+        t_l = time_ms(lambda i: torch.matmul(act, wb), 1, iters=5)
+        t_p = time_ms(lambda i: ref.ref_nm_spmm(act, vals, idx, 2, 8,
+                                                idx_bits=bits), 1, iters=1)
+        t_b, by = bound_ms(act, vals, idx, f)
+        pl = K.plan(b, k, f, 2, 8)
+        rows.append({"proj": name, "B": b, "K": k, "F": f, "idx_bits": bits,
+                     "ms": t_k, "library_ms": t_l, "plain_ms": t_p,
+                     "bound_ms": t_b, "bound_by": by,
+                     "chunk_groups": pl.chunk_groups,
+                     "stage_groups": pl.gs, "config": pl.config,
+                     "splits": pl.splits})
+        print(f"  {label} nm_spmm {name:20s} B={b:5d} {k:4d}x{f:<4d} u{bits}: "
+              f"kernel {t_k:.4f} ms, torch.matmul (dense bf16) {t_l:.4f} "
+              f"ms, bound {t_b:.4f} ms ({by}), plain {t_p:.3f} ms; config "
+              f"{pl.config}, split-K {pl.splits}")
+        del act, vals, idx, wb
+        torch.cuda.empty_cache()
+    return rows, worst
+
+
+def proj_kernel_checks(dev, gen, label, proj, train_rows):
+    """nm_spmm and nm_compact at one arch's projection shapes ``proj``
+    [(name, K, F)]: nm_spmm at decode rows (B = 4, u4) and at
+    ``train_rows`` (u8) through ``spmm_case_checks``; then nm_compact of
+    each weight as the element pack reads it, u4, vector and scalar
+    variants, bitwise.  Returns (rows, nm_spmm's max abs err)."""
+    rows, worst = spmm_case_checks(
+        dev, gen, label, [(name, b, k, f, bits) for name, k, f in proj
+                          for b, bits in ((4, 4), (train_rows, 8))])
     for b in sorted({r["B"] for r in rows}):
         rs = [r for r in rows if r["B"] == b]
         print(f"  {label} nm_spmm B={b}: one layer's {len(proj)} "
@@ -4180,6 +4240,9 @@ MOE_PACKED_STEP_ATOL = (1e-3, 5e-3, 1e-3)
 # phase 34's requests: phase 6's prompts asking for about half as many
 # tokens (each decode step re-masks the experts: ~160 ms a step)
 MOE_SERVE_NEW = (4, 12, 8, 6, 10, 5)
+# phases 33-34 run granite at every width and this depth (of 24 layers),
+# to keep the whole run in its time
+MOE_LAYERS = 12
 
 
 def stacked_case(gen, e, b, k, f, dev):
@@ -4511,7 +4574,7 @@ DS_PACKED_STEP_ATOL = ((1e-4, 1e-4, 1e-4), (1e-4, 1e-4, 1e-4),
 DS_SERVE_LENS, DS_SERVE_NEW = (5, 32, 17, 9), (2, 4, 3, 2)
 # phase 38's depth: every published width, the prelude and 8 of the 26
 # MoE layers (the whole run's time: every forward re-masks the experts)
-DS_SERVE_LAYERS = 9
+DS_SERVE_LAYERS = 5
 
 
 def ds_proj(cfg):
@@ -4592,6 +4655,9 @@ SSM_TRAIN_ROWS = (4, 2048)
 SSM_STATE_ATOL = 2e-3
 SSM_PREFILL_ATOL = 1e-4         # prefill vs the forward, on one side
 SSM_HAZARD = dict(prompt=5, bucket=16)
+# phases 41-42 run mamba2 and hymba at every width and this depth (of
+# 48 / 32 layers), to pay for phases 43-46 in the run's time
+SSM_LAYERS = {"mamba2-370m": 12, "hymba-1.5b": 8}
 
 
 def ssm_proj(cfg):
@@ -4651,7 +4717,6 @@ def phase_ssm_kernels(dev, gen):
     timed shape by shape (``pack_timing``).  Returns {arch: rows} and the
     worst errors."""
     from repro_torch.configs import get_arch
-    from repro_torch.kernels import ref
 
     out, worst = {}, {"nm_spmm": 0.0, "fused_update": 0.0}
     b_train = SSM_TRAIN_ROWS[0] * SSM_TRAIN_ROWS[1]
@@ -4660,13 +4725,6 @@ def phase_ssm_kernels(dev, gen):
         proj = ssm_proj(cfg)
         rows, err = proj_kernel_checks(dev, gen, arch_id, proj, b_train)
         worst["nm_spmm"] = max(worst["nm_spmm"], err)
-        for r in rows:
-            act, vals, idx = packed_case(gen, r["B"], r["K"], r["F"], 2, 8,
-                                         r["idx_bits"], dev)
-            r["plain_ms"] = time_ms(lambda i: ref.ref_nm_spmm(
-                act, vals, idx, 2, 8, idx_bits=r["idx_bits"]), 1, iters=1)
-            r["bound_by"] = bound_ms(act, vals, idx, r["F"])[1]
-            del act, vals, idx
         upd_err, upd = layer_update_check(gen, [(k, f) for _, k, f in proj],
                                           dev, arch_id)
         worst["fused_update"] = max(worst["fused_update"], upd_err)
@@ -4834,6 +4892,544 @@ def phase_ssm_small(dev, seed):
     return result
 
 
+WHISPER = "whisper-large-v3"
+# the TRAIN step: 8 rows of 1500 frames (a 30-second segment) and 448
+# target tokens (Whisper's own max_target; the config keeps 32768
+# positions, as the reference's)
+WHISPER_TRAIN_ROWS = (8, 1500, 448)
+# phase 46: 4 rows, each with its own 1500 frames and the start-of-
+# transcript prompt of whisper-large-v3's generation config
+# (<|startoftranscript|> <|en|> <|transcribe|> <|notimestamps|>), the
+# prefill cache seated in a WHISPER_MAX_LEN-long one, then
+# WHISPER_DECODE_STEPS greedy steps on the shared cursor
+WHISPER_SERVE_ROWS = 4
+WHISPER_PROMPT = (50258, 50259, 50360, 50364)
+WHISPER_MAX_LEN = 448
+WHISPER_DECODE_STEPS = 32
+# phase 43's nm_spmm cases (label, B, K, F, idx bits): decode rows (u4),
+# the TRAIN step's 12,000 encoder rows (u8), and a decode step's cross
+# K/V projection over 4 rows x 1500 frames (u4)
+WHISPER_SPMM = [
+    ("q/k/v/o, xattn", 4, 1280, 1280, 4), ("ffn w_in", 4, 1280, 5120, 4),
+    ("ffn w_out", 4, 5120, 1280, 4),
+    ("q/k/v/o, xattn", 12000, 1280, 1280, 8),
+    ("ffn w_in", 12000, 1280, 5120, 8), ("ffn w_out", 12000, 5120, 1280, 8),
+    ("xattn k/v cross K/V", 6000, 1280, 1280, 4)]
+# phase 44: the seated cache's decode after an 8-token prefill against
+# a 9-token prefill (the same last position) must be this much closer
+# than the unseated one's, on each side
+WHISPER_HAZARD_RATIO = 4.0
+# phase 44, card vs CPU at SMOKE: the encoder output and the logits (up
+# to 3.7, where a bf16 ulp is 1.6e-2; measured 1.1e-2 to 2.1e-2 a step
+# on the card, not growing over 20 decode steps); the CPU tests hold the
+# compiled reference at the same
+WHISPER_SMALL_ATOL = 4e-2
+WHISPER_SMALL_TOKENS = 9
+
+
+def whisper_site_views(cfg, stack):
+    """The (K, F) weight sites of one encoder or decoder layer, in the
+    tree's order: q/k/v/o (and a decoder's cross-attention q/k/v/o), FFN
+    in and out."""
+    d, hd = cfg.d_model, cfg.n_heads * cfg.head_dim
+    attn = [(d, hd), (d, hd), (d, hd), (hd, d)]
+    return (attn * (2 if stack == "dec_blocks" else 1)
+            + [(d, cfg.d_ff), (cfg.d_ff, d)])
+
+
+WHISPER_PATHS = {
+    "enc_blocks": tuple(("attn", n) for n in ("q_proj", "k_proj", "v_proj",
+                                              "o_proj"))
+    + (("ffn", "w_in"), ("ffn", "w_out")),
+    "dec_blocks": tuple((sub, n) for sub in ("attn", "xattn")
+                        for n in ("q_proj", "k_proj", "v_proj", "o_proj"))
+    + (("ffn", "w_in"), ("ffn", "w_out"))}
+
+
+def whisper_launches(cfg):
+    """(nm_spmm a TRAIN step, sites a step, nm_spmm a prefill, nm_spmm a
+    decode step, those of them at the encoder's rows): every site's FF
+    once in the forward and once in its block's recompute; a prefill
+    runs every site once; a decode step the decoder's, its
+    cross-attention k/v over the encoder output."""
+    enc = len(WHISPER_PATHS["enc_blocks"]) * cfg.n_enc_layers
+    dec = len(WHISPER_PATHS["dec_blocks"]) * cfg.n_layers
+    return 2 * (enc + dec), enc + dec, enc + dec, dec, 2 * cfg.n_layers
+
+
+def phase_whisper_kernels(dev, gen):
+    """whisper-large-v3's shapes through the ported kernels: nm_spmm at
+    WHISPER_SPMM (``spmm_case_checks``) and nm_compact of each weight
+    shape bitwise (u4, vector and scalar); one decoder layer's 10 sites
+    in one grouped fused_update launch, bitwise the per-site plain
+    calls, timed against 21.75 B/element (``layer_update_check``); a
+    grouped launch over 512 sites, past the by-value table, bitwise;
+    the FULL element pack's 512 nm_compact launches timed shape by
+    shape (``pack_timing``)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import fused_update as KF
+
+    cfg = get_arch(WHISPER).full
+    rows, spmm_err = spmm_case_checks(dev, gen, "whisper", WHISPER_SPMM)
+    for k, f in {(1280, 1280), (1280, 5120), (5120, 1280)}:
+        w = torch.randn((k, f), generator=gen, device=dev).to(torch.bfloat16)
+        check_compact_view(w.t(), 2, 8, 4, ("vector", "scalar"),
+                           f"whisper {k}x{f} u4")
+        del w
+    upd_err, upd = layer_update_check(
+        gen, whisper_site_views(cfg, "dec_blocks"), dev, "whisper decoder")
+    # as many sites as a whisper step, small: the table goes through
+    # device memory (more than KF.PARAM_SITES)
+    n_sites = whisper_launches(cfg)[1]
+    many = [(64, 128 + 64 * (i % 3)) for i in range(n_sites)]
+    check(n_sites > KF.PARAM_SITES, "whisper: the step fits a by-value "
+          "fused_update table")
+    upd_err = max(upd_err, grouped_update_check(
+        gen, many, dev, UPDATE_SCALARS, f"{n_sites} small sites"))
+    print(f"  one grouped fused_update launch over {n_sites} small sites "
+          f"(a table of more than {KF.PARAM_SITES} in device memory): "
+          "bitwise the plain version (in place too)")
+    torch.cuda.empty_cache()
+    counts = collections.Counter(
+        (k, f) for stack, n in (("enc_blocks", cfg.n_enc_layers),
+                                ("dec_blocks", cfg.n_layers))
+        for k, f in whisper_site_views(cfg, stack) * n)
+    pack_rows, pack = pack_timing(
+        dev, gen, [(f"{k}x{f}", k, f, c) for (k, f), c in counts.items()],
+        WHISPER)
+    print(f"  whisper: nm_spmm within tolerance at its {len(rows)} cases, "
+          "rows independent of B; nm_compact of each weight shape bitwise")
+    return {"nm_spmm": spmm_err, "fused_update": upd_err}, {
+        "spmm": rows, "update": upd, "pack_rows": pack_rows, "pack": pack}
+
+
+def _encdec_seat(cfg, cache, max_len, dev):
+    """A prefill cache copied into a ``max_len``-long one (its positions
+    first, the cursors kept), as every driver of the reference's
+    encoder-decoder must before it decodes."""
+    from repro_torch.models import encdec as E
+
+    b = cache["layers"][0]["k"].shape[0]
+    out = E.init_cache(cfg, b, max_len, device=dev)
+    for dst, src in zip(out["layers"], cache["layers"]):
+        s = src["k"].shape[1]
+        dst["k"][:, :s] = src["k"]
+        dst["v"][:, :s] = src["v"]
+        dst["pos"] = src["pos"]
+    return out
+
+
+def _whisper_hazard(dev, cfg, params, sp, frames, toks):
+    """The reference hazard on ``dev``: the last of n tokens' logits
+    from one n-token prefill against an (n-1)-token prefill and one
+    decode step, its cache seated in an n-long one and unseated: (the
+    seated gap, the unseated gap)."""
+    from repro_torch.train import step as ST
+
+    n = toks.shape[1]
+    with torch.no_grad():
+        full, _, _ = ST.encdec_prefill_step(
+            params, {"frames": frames, "tokens": toks}, cfg=cfg, sp_cfg=sp)
+        gaps = []
+        for seat in (True, False):
+            _, cache, enc = ST.encdec_prefill_step(
+                params, {"frames": frames, "tokens": toks[:, :-1]}, cfg=cfg,
+                sp_cfg=sp)
+            if seat:
+                cache = _encdec_seat(cfg, cache, n, dev)
+            step, _ = ST.encdec_decode_step(params, cache, enc,
+                                            toks[:, -1:], n - 1, cfg=cfg,
+                                            sp_cfg=sp)
+            gaps.append(float((step - full)[..., :cfg.vocab].abs().max()))
+    return tuple(gaps)
+
+
+def phase_whisper_small(dev, seed):
+    """whisper SMOKE, card vs CPU: the encoder output and the logits;
+    the prefill with a cache against the forward's last position (on
+    each side) and against the other side; a 9-token prefill's cache
+    seated and ARCH_DECODE_STEPS shared-cursor decode steps from
+    u4-packed weights, teacher-forced by the CPU's argmax; the reference
+    hazard (an unseated prefill cache decodes over its last position) on
+    both sides; three packed pre-generated steps (step-0 compute trees
+    bitwise) and one legacy step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.data.synthetic import encdec_stream
+    from repro_torch.models import encdec as E
+    from repro_torch.optim import sgd
+    from repro_torch.serve.packed_params import pack_tree_element
+    from repro_torch.train import step as ST
+
+    cfg = get_arch(WHISPER).smoke
+    sp = SparsityConfig(n=2, m=8, method="bdwp")
+    dense = SparsityConfig(n=2, m=8, method="dense")
+    opt = sgd.SGDConfig(lr=0.1, warmup_steps=2, total_steps=50)
+    params = E.init(cfg, seed=seed, device="cpu")
+    devs = ("cpu", dev)
+    n_tok = WHISPER_SMALL_TOKENS
+    batch0 = {d: next(encdec_stream(cfg.vocab, 2, n_tok, cfg.d_model,
+                                    enc_frames=32, device=d, seed=seed))[1]
+              for d in devs}
+    enc, fwd, pre, p16 = {}, {}, {}, {}
+    with torch.no_grad():
+        for d in devs:
+            p16[d] = sgd.tree_map(lambda _, t: t.to(d, torch.bfloat16),
+                                  params)
+            b = batch0[d]
+            enc[d] = E.encode(p16[d], b["frames"], cfg, sp)
+            h, _ = E.decode(p16[d], b["tokens"], enc[d], cfg, sp)
+            fwd[d] = E.logits_from_hidden(p16[d], h, cfg)
+            pre[d] = ST.encdec_prefill_step(p16[d], b, cfg=cfg, sp_cfg=sp)
+    d_self = max(float((pre[d][0][:, 0] - fwd[d][:, -1]).abs().max())
+                 for d in devs)
+    check(d_self <= SSM_PREFILL_ATOL, "whisper small: prefill logits != the "
+          "forward's last position")
+    d_enc = float((enc[dev].cpu().float() - enc["cpu"].float()).abs().max())
+    d_fwd = float((fwd[dev].cpu() - fwd["cpu"]).abs().max())
+    d_pre = float((pre[dev][0].cpu() - pre["cpu"][0]).abs().max())
+    check(max(d_enc, d_fwd, d_pre) <= WHISPER_SMALL_ATOL,
+          "whisper small: encoder output or logits disagree")
+    # packed serving: prefill 8 tokens, seat, decode teacher-forced
+    packed = {d: pack_tree_element(
+        sgd.tree_map(lambda _, t: t.to(torch.bfloat16), params), sp,
+        device=d)[0] for d in devs}
+    logits, caches, encs, gaps = {}, {}, {}, []
+    with torch.no_grad():
+        for d in devs:
+            b = batch0[d]
+            logits[d], cache, encs[d] = ST.encdec_prefill_step(
+                packed[d], {"frames": b["frames"],
+                            "tokens": b["tokens"][:, :8]}, cfg=cfg, sp_cfg=sp)
+            caches[d] = _encdec_seat(cfg, cache, 8 + ARCH_DECODE_STEPS, d)
+        for step in range(ARCH_DECODE_STEPS + 1):
+            gaps.append(float((logits[dev].cpu() - logits["cpu"])[
+                ..., :cfg.vocab].abs().max()))
+            if step == ARCH_DECODE_STEPS:
+                break
+            tok = torch.argmax(logits["cpu"][:, -1, :cfg.vocab], -1)[:, None]
+            for d in devs:
+                logits[d], caches[d] = ST.encdec_decode_step(
+                    packed[d], caches[d], encs[d], tok.to(d), 8 + step,
+                    cfg=cfg, sp_cfg=sp)
+    d_dec = max(gaps)
+    print("  whisper SMOKE packed prefill, then decode steps: card vs CPU "
+          "|dlogit| " + " ".join(f"{x:.2e}" for x in gaps))
+    check(d_dec <= WHISPER_SMALL_ATOL,
+          "whisper small: packed decode logits disagree")
+    hazard = {d: _whisper_hazard(d, cfg, sgd.tree_map(
+        lambda _, t: t.to(d, torch.bfloat16), params), dense,
+        batch0[d]["frames"], batch0[d]["tokens"]) for d in devs}
+    for d, (seated, unseated) in hazard.items():
+        check(unseated >= WHISPER_HAZARD_RATIO * seated,
+              f"whisper small: the unseated prefill cache's hazard is not "
+              f"reproduced on {d}")
+    check(abs(hazard[dev][1] - hazard["cpu"][1]) <= 0.1,
+          "whisper small: the hazard's gaps disagree")
+    losses = {}
+    for flow, pregen, steps in (("pregen packed", True, 3),
+                                ("legacy", False, 1)):
+        states = {d: ST.train_state_from_params(
+            sgd.tree_map(lambda _, t: t.to(d, copy=True), params), sp,
+            pregen=pregen, pregen_pack=pregen) for d in devs}
+        if pregen:
+            check(_compute_bitwise(states["cpu"]["compute"],
+                                   states[dev]["compute"]),
+                  "whisper small: step-0 compute trees differ")
+        data = {d: encdec_stream(cfg.vocab, 2, 16, cfg.d_model,
+                                 enc_frames=32, device=d, seed=seed)
+                for d in devs}
+        hist = {d: [] for d in devs}
+        for _ in range(steps):
+            for d in devs:
+                _, batch = next(data[d])
+                states[d], met = ST.encdec_train_step(
+                    states[d], batch, cfg=cfg, sp_cfg=sp, opt_cfg=opt,
+                    pregen=pregen, pregen_pack=pregen)
+                hist[d].append(float(met["loss"]))
+        diffs = [abs(a - b) for a, b in zip(hist[dev], hist["cpu"])]
+        check(all(math.isfinite(x) for x in hist[dev]),
+              f"whisper small {flow}: non-finite loss")
+        check(all(x <= t for x, t in zip(diffs, SMALL_LOSS_ATOL)),
+              f"whisper small {flow}: losses disagree")
+        losses[flow] = (hist[dev], diffs)
+    print(f"  whisper SMOKE: encoder |d| {d_enc:.3e}, forward |dlogit| "
+          f"{d_fwd:.3e}, prefill {d_pre:.3e} (tol {WHISPER_SMALL_ATOL}); "
+          "prefill vs "
+          f"the forward's last position {d_self:.2e} (tol "
+          f"{SSM_PREFILL_ATOL}); packed prefill + {ARCH_DECODE_STEPS} "
+          f"shared-cursor decode steps from a seated cache {d_dec:.3e}")
+    print("  whisper unseated-cache hazard (seated gap, unseated gap): card "
+          + " ".join(f"{x:.3e}" for x in hazard[dev]) + ", CPU "
+          + " ".join(f"{x:.3e}" for x in hazard["cpu"]))
+    for flow, (h, diffs) in losses.items():
+        print(f"  whisper {flow}: losses card "
+              + " ".join(f"{x:.5f}" for x in h) + " |d| "
+              + " ".join(f"{x:.2e}" for x in diffs)
+              + f" (tol {SMALL_LOSS_ATOL[:len(h)]})")
+    return {"encoder": d_enc, "forward": d_fwd, "prefill": d_pre,
+            "decode": d_dec, "hazard": {"card": hazard[dev],
+                                        "cpu": hazard["cpu"]},
+            "losses": losses}
+
+
+def phase_whisper_train(dev, seed, cfg=None, rows=None):
+    """whisper TRAIN (FULL: every width, 32 + 32 layers), BDWP 2:8 packed
+    pre-generation, ``rows`` = (rows, frames, tokens): five timed steps
+    with exact launch counts, a profiled sixth (the encdec/* ranges), the
+    operands of each stack's first and last layer equal to the pack of
+    the new master, peak."""
+    import functools
+
+    from repro_torch.configs import whisper_large_v3 as W
+    from repro_torch.core import sparsity as S
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.data.synthetic import encdec_stream
+    from repro_torch.kernels import fused_update as KF
+    from repro_torch.kernels import nm_spmm as KS
+    from repro_torch.optim import sgd
+    from repro_torch.train import step as ST
+
+    cfg, sp = cfg or W.TRAIN, SparsityConfig(n=2, m=8, method="bdwp")
+    n_rows, frames, n_tok = rows or WHISPER_TRAIN_ROWS
+    opt = sgd.SGDConfig(lr=0.004, warmup_steps=2, total_steps=100)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = ST.init_train_state(cfg, sp, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    print(f"  init {cfg.n_enc_layers} + {cfg.n_layers} layers + "
+          f"pre-generation: {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    step_fn = functools.partial(ST.encdec_train_step, cfg=cfg, sp_cfg=sp,
+                                opt_cfg=opt)
+    data = encdec_stream(cfg.vocab, n_rows, n_tok, cfg.d_model,
+                         enc_frames=frames, device=dev, seed=seed)
+    spmm, sites = whisper_launches(cfg)[:2]
+    want = (spmm, 1, sites)
+    KS.launches = KF.launches = KF.launched_sites = 0
+    losses, times, per_step = [], [], []
+    for _ in range(5):
+        _, batch = next(data)
+        c0 = (KS.launches, KF.launches, KF.launched_sites)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step_fn(state, batch)
+        loss = float(met["loss"])
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss)
+        per_step.append(tuple(a - b for a, b in zip(
+            (KS.launches, KF.launches, KF.launched_sites), c0)))
+        print(f"  step {len(losses) - 1}: loss {loss:.6f} lr "
+              f"{float(met['lr']):.4g} {times[-1]:.1f} ms "
+              f"({n_rows * n_tok / times[-1] * 1e3:.0f} decoder tok/s); "
+              f"launches nm_spmm {per_step[-1][0]} (want {want[0]}), "
+              f"fused_update {per_step[-1][1]} over {per_step[-1][2]} sites "
+              f"(want {want[1]} over {want[2]})")
+        check(math.isfinite(loss), "whisper train: non-finite loss")
+        check(per_step[-1] == want, "whisper train: launch counts")
+    launches = {"nm_spmm": KS.launches, "fused_update": KF.launches,
+                "fused_update_sites": KF.launched_sites}
+    _, batch = next(data)
+    state, met, prof = profile_train_step(step_fn, state, batch)
+    check(math.isfinite(float(met["loss"])), "whisper train: non-finite loss")
+    check(prof["argmax_kernels"] == 0,
+          "whisper train: an argmax reduce (a plain N:M selection) is left")
+    peak = torch.cuda.max_memory_allocated()
+    site_elems = 0
+    for stack, n in (("enc_blocks", cfg.n_enc_layers),
+                     ("dec_blocks", cfg.n_layers)):
+        site_elems += n * sum(k * f for k, f in whisper_site_views(cfg,
+                                                                   stack))
+        for i in (0, n - 1):
+            for path in WHISPER_PATHS[stack]:
+                name = f"{stack}[{i}]/" + "/".join(path)
+                op = _at(state["compute"], (stack, i, *path, "w"))
+                w = _at(state["master"], (stack, i, *path, "w"))
+                vals, idx = S.nm_pack(w, 2, 8, axis=0)
+                check(torch.equal(op.vals.view(torch.int16),
+                                  vals.to(torch.bfloat16).view(torch.int16))
+                      and torch.equal(op.idx, idx),
+                      f"whisper train: {name} packed operand != "
+                      "nm_pack(master)")
+                check(torch.equal(op.mask, S.nm_mask(w, 2, 8, axis=0)),
+                      f"whisper train: {name} stored mask != nm_mask(master)")
+                bp = torch.where(S.nm_mask(w, 2, 8, axis=1), w, 0.0)
+                check(bits_equal(op.bp, bp.to(torch.bfloat16)),
+                      f"whisper train: {name} bp != the BP-axis mask's "
+                      "operand")
+                del vals, idx, bp
+    print("  both stacks' first and last layers: packed vals/idx == "
+          "nm_pack(new master), stored mask == nm_mask(new master), bp == "
+          "bf16(where(nm_mask(new master, BP axis), master, 0)); the step's "
+          f"grouped launch covers {site_elems} elements")
+    steady = sorted(times[1:])
+    ms = steady[len(steady) // 2]
+    tokens = n_rows * n_tok
+    print(f"  {cfg.name} {cfg.n_enc_layers} + {cfg.n_layers} layers, "
+          f"{n_rows} x ({frames} frames, {n_tok} tokens): median of steps "
+          f"1-4 {ms:.1f} ms/step, {tokens / ms * 1e3:.0f} decoder tokens/s, "
+          f"{n_rows * frames / ms * 1e3:.0f} frames/s; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    check(peak < 80e9, f"train {cfg.name}: peak memory over 80 GB")
+    return {"losses": losses, "step_ms": times, "ms_per_step": ms,
+            "tokens_per_s": tokens / ms * 1e3, "launches": launches,
+            "launches_per_step": per_step, "max_memory_allocated": peak,
+            "site_elements": site_elems, "profile": prof}
+
+
+def _whisper_greedy(params, cfg, sp, frames, prompt, dev, steps=None):
+    """Prefill ``prompt`` (B, P) after ``frames``, seat the cache in a
+    WHISPER_MAX_LEN-long one, then ``steps`` (WHISPER_DECODE_STEPS)
+    greedy steps on the shared cursor: (tokens (B, steps + 1), prefill
+    ms, decode ms a step)."""
+    from repro_torch.train import step as ST
+
+    steps = WHISPER_DECODE_STEPS if steps is None else steps
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache, enc = ST.encdec_prefill_step(
+            params, {"frames": frames, "tokens": prompt}, cfg=cfg, sp_cfg=sp)
+        cache = _encdec_seat(cfg, cache, WHISPER_MAX_LEN, dev)
+        tok = torch.argmax(logits[:, -1, :cfg.vocab], -1)[:, None]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = [tok]
+        for step in range(steps):
+            logits, cache = ST.encdec_decode_step(
+                params, cache, enc, tok, prompt.shape[1] + step, cfg=cfg,
+                sp_cfg=sp)
+            tok = torch.argmax(logits[:, -1, :cfg.vocab], -1)[:, None]
+            out.append(tok)
+        toks = torch.cat(out, 1).cpu()
+        t2 = time.perf_counter()
+    return toks, 1e3 * (t1 - t0), 1e3 * (t2 - t1) / steps
+
+
+def phase_whisper_serve(dev, seed, cfg=None):
+    """whisper FULL from 2:8 u4 element-packed weights (512 nm_compact,
+    all vector): WHISPER_SERVE_ROWS rows of their own 1500 frames and
+    the start prompt, prefilled (512 nm_spmm), the cache seated, then
+    WHISPER_DECODE_STEPS greedy shared-cursor decode steps (320 nm_spmm a
+    step, 64 of them the cross K/V at the encoder's rows); each row's
+    tokens equal its solo run's (the row alone among idle slots); five
+    decode steps under the profiler (idle share; the cross K/V's device
+    time replayed alone, and its range's host time)."""
+    from repro_torch.configs import whisper_large_v3 as W
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.kernels import nm_compact as KC
+    from repro_torch.kernels import nm_spmm as KS
+    from repro_torch.models import encdec as E
+    from repro_torch.serve.packed_params import PackedParamStore
+    from repro_torch.train import step as ST
+
+    cfg, sp = cfg or W.FULL, SparsityConfig(n=2, m=8, method="bdwp")
+    _, _, per_prefill, per_decode, cross = whisper_launches(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = E.init(cfg, seed=seed, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    KC.launches = 0
+    KC.variant_launches.update(dict.fromkeys(KC.VARIANTS, 0))
+    t0 = time.perf_counter()
+    store = PackedParamStore.pack(params, sp, idx_bits=4, device=dev)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    del params
+    compact, variants = KC.launches, dict(KC.variant_launches)
+    print(f"  init {init_s:.1f} s + pack {pack_s:.4f} s ({cfg.n_enc_layers} "
+          f"+ {cfg.n_layers} layers, nm_compact launches {compact}, want "
+          f"{per_prefill}, by variant {variants}); n_packed "
+          f"{store.n_packed}, n_dense {store.n_dense}")
+    check(compact == per_prefill, "whisper serve: nm_compact launch count")
+    check(variants["vector"] == compact, "whisper serve: an element-pack "
+          "launch missed the vector variant")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b = WHISPER_SERVE_ROWS
+    frames = torch.randn((b, cfg.max_source, cfg.d_model), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    prompt = torch.tensor([WHISPER_PROMPT] * b, device=dev)
+    params = store.params
+    _whisper_greedy(params, cfg, sp, frames[:1], prompt[:1], dev, steps=1)
+    KS.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ST.encdec_prefill_step(params, {"frames": frames, "tokens": prompt},
+                               cfg=cfg, sp_cfg=sp)
+    prefill_launches = KS.launches
+    check(prefill_launches == per_prefill, "whisper serve: nm_spmm "
+          "launches a prefill")
+    toks, prefill_ms, decode_ms = _whisper_greedy(params, cfg, sp, frames,
+                                                  prompt, dev)
+    batched = KS.launches
+    decode_launches = (batched - 2 * per_prefill) / WHISPER_DECODE_STEPS
+    check(decode_launches == per_decode, "whisper serve: nm_spmm launches a "
+          "decode step")
+    tok_s = b * (WHISPER_DECODE_STEPS + 1) / ((prefill_ms + decode_ms
+                                               * WHISPER_DECODE_STEPS) / 1e3)
+    print(f"  batched: {b} rows x ({cfg.max_source} frames, "
+          f"{len(WHISPER_PROMPT)}-token prompt), prefill {prefill_ms:.1f} ms "
+          f"(nm_spmm {prefill_launches}, want {per_prefill}), "
+          f"{WHISPER_DECODE_STEPS} decode steps {decode_ms:.2f} ms/step "
+          f"(nm_spmm {decode_launches:.0f} a step, want {per_decode}, "
+          f"{cross} of them the cross K/V at {b * cfg.max_source} rows), "
+          f"{tok_s:.1f} tok/s")
+    # a row's solo run: the row alone in its slot, the other slots' frames
+    # zero, as the engine's solo runs hold a request among idle slots (a
+    # batch of another size may sum the norms' rows in another order)
+    for i in range(b):
+        alone = torch.zeros_like(frames)
+        alone[i] = frames[i]
+        solo, _, _ = _whisper_greedy(params, cfg, sp, alone, prompt, dev)
+        check(torch.equal(solo[i], toks[i]),
+              f"whisper serve: row {i}'s tokens != its solo run's")
+    print(f"  all {b} rows' tokens equal their solo runs' (each alone in "
+          f"its slot, the others' frames zero; {WHISPER_DECODE_STEPS + 1} "
+          "tokens each)")
+    with torch.no_grad():
+        _, cache, enc = ST.encdec_prefill_step(
+            params, {"frames": frames, "tokens": prompt}, cfg=cfg, sp_cfg=sp)
+        cache = _encdec_seat(cfg, cache, WHISPER_MAX_LEN, dev)
+        pos = [len(WHISPER_PROMPT)]
+        tok = prompt[:, -1:]
+
+        def step():
+            ST.encdec_decode_step(params, cache, enc, tok, pos[0], cfg=cfg,
+                                  sp_cfg=sp)
+            pos[0] += 1
+
+        prof = profile_steps(step, 5, ("nm_spmm",))
+        # the profiler links no ctypes launch (nm_spmm) to its range, so
+        # the cross K/V's device time is that of a decode step's 32
+        # layers of _enc_kv replayed alone; its host time is the range's
+        cross_kv = time_ms(lambda i: [E._enc_kv(bp, enc, cfg, sp)
+                                      for bp in params["dec_blocks"]], 1,
+                           iters=2)
+    host_kv = prof["parts"].get("encdec/cross_kv", {}).get("host_ms", 0.0)
+    print(f"  encdec/cross_kv: {cross_kv:.3f} device ms a decode step (the "
+          f"{cfg.n_layers} layers' k/v projections replayed alone), "
+          f"{cross_kv / prof['device_busy_ms_per_step']:.3f} of the step's "
+          f"busy time; host {host_kv:.2f} ms a step in its range, "
+          f"{host_kv / prof['wall_ms_per_step']:.3f} of the profiled wall")
+    peak = torch.cuda.max_memory_allocated()
+    report = store.report()
+    print(f"  max_memory_allocated {peak / 2**30:.2f} GiB")
+    print("  hbm_report " + json.dumps(report))
+    check(peak < 80e9, "whisper serve: peak memory over 80 GB")
+    return {"launches": KS.launches, "prefill_launches": prefill_launches,
+            "decode_launches": decode_launches, "compact_launches": compact,
+            "compact_variants": variants, "pack_s": pack_s,
+            "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+            "tok_per_s": tok_s, "cross_kv_device_ms": cross_kv,
+            "cross_kv_host_ms": host_kv, "batched_launches": batched,
+            "tokens": toks.tolist(), "max_memory_allocated": peak,
+            "hbm_report": report, "profile": prof}
+
+
 def _leaf_at(tree, name):
     for key in name.split("/"):
         tree = tree[key]
@@ -4890,8 +5486,12 @@ def main(argv=None) -> int:
     rows = phase_timing(dev, gen)
     head("[5] SMOKE size: card vs CPU")
     phase_small(dev, SEED)
-    head("[6] serve qwen3-8b FULL, packed 2:8 u4")
-    serve = phase_serve(dev, SEED)
+    from repro_torch.configs import qwen3_8b
+
+    serve_cfg = dataclasses.replace(qwen3_8b.FULL, n_layers=SERVE_LAYERS)
+    head(f"[6] serve qwen3-8b FULL widths ({SERVE_LAYERS} of 36 layers), "
+         "packed 2:8 u4")
+    serve = phase_serve(dev, SEED, serve_cfg)
     torch.cuda.empty_cache()
     head("[7] fused_update vs plain, and timing (cold L2)")
     upd_err, upd_rows, upd_layer = phase_update(dev, gen)
@@ -4923,8 +5523,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     head("[16] SMOKE shared-pattern serving: card vs CPU")
     phase_shared_small(dev, SEED)
-    head("[17] serve qwen3-8b FULL, shared-pattern 2:8 (reduced K)")
-    shared_serve = phase_shared_serve(dev, SEED)
+    head(f"[17] serve qwen3-8b FULL widths ({SERVE_LAYERS} of 36 layers), "
+         "shared-pattern 2:8 (reduced K)")
+    shared_serve = phase_shared_serve(dev, SEED, serve_cfg)
     torch.cuda.empty_cache()
     head("[18] paper models' kernels: nm_spmm at ViT rows, fused_update at "
           "the sites' views")
@@ -4991,15 +5592,16 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     from repro_torch.configs import granite_moe_1b
 
-    moe_cfg = granite_moe_1b.TRAIN
+    moe_cfg = dataclasses.replace(granite_moe_1b.TRAIN, n_layers=MOE_LAYERS)
     head(f"[33] train {MOE_ARCH} TRAIN (full width, {moe_cfg.n_layers} of "
           f"{granite_moe_1b.FULL.n_layers} layers), 2:8 bdwp, packed, "
           f"{MOE_TRAIN_ROWS[0]} x {MOE_TRAIN_ROWS[1]} tokens")
     moe_train = phase_train(dev, SEED, moe_cfg, MOE_TRAIN_ROWS)
     torch.cuda.empty_cache()
-    head(f"[34] serve {MOE_ARCH} FULL (24 layers), attention packed 2:8 u4, "
-          "experts masked")
-    moe_serve = phase_moe_serve(dev, SEED)
+    head(f"[34] serve {MOE_ARCH} FULL widths ({MOE_LAYERS} of 24 layers), "
+         "attention packed 2:8 u4, experts masked")
+    moe_serve = phase_moe_serve(dev, SEED, dataclasses.replace(
+        granite_moe_1b.FULL, n_layers=MOE_LAYERS))
     torch.cuda.empty_cache()
     head("[35] deepseek-v2-lite kernels: nm_spmm on the 64-expert stacks and "
           "the MLA, prelude and shared-expert shapes, one MoE layer's "
@@ -5039,17 +5641,38 @@ def main(argv=None) -> int:
     ssm_train, ssm_serve = {}, {}
     for arch_id in SSM_ARCHS:
         torch.cuda.empty_cache()
-        cfg = arch_module(arch_id).TRAIN
-        head(f"[41] train {arch_id} TRAIN (full width, all {cfg.n_layers} "
-              f"layers), 2:8 bdwp, packed, {SSM_TRAIN_ROWS[0]} x "
-              f"{SSM_TRAIN_ROWS[1]} tokens")
+        full = arch_module(arch_id).TRAIN
+        cfg = dataclasses.replace(full, n_layers=SSM_LAYERS[arch_id])
+        head(f"[41] train {arch_id} TRAIN (full width, {cfg.n_layers} of "
+              f"{full.n_layers} layers), 2:8 bdwp, packed, "
+              f"{SSM_TRAIN_ROWS[0]} x {SSM_TRAIN_ROWS[1]} tokens")
         ssm_train[arch_id] = phase_train(dev, SEED, cfg, SSM_TRAIN_ROWS)
     for arch_id in SSM_ARCHS:
         torch.cuda.empty_cache()
-        cfg = arch_module(arch_id).FULL
-        head(f"[42] serve {arch_id} FULL ({cfg.n_layers} layers), packed "
-              "2:8 u4")
+        full = arch_module(arch_id).FULL
+        cfg = dataclasses.replace(full, n_layers=SSM_LAYERS[arch_id])
+        head(f"[42] serve {arch_id} FULL widths ({cfg.n_layers} of "
+              f"{full.n_layers} layers), packed 2:8 u4")
         ssm_serve[arch_id] = phase_serve(dev, SEED, cfg)
+    torch.cuda.empty_cache()
+    head("[43] whisper-large-v3 kernels: nm_spmm at its sites (decode rows, "
+         "the TRAIN step's encoder rows, a decode step's cross K/V), one "
+         "decoder layer's and a 512-site grouped fused_update, nm_compact "
+         "and the FULL element pack")
+    whisper_err, whisper_rows = phase_whisper_kernels(dev, gen)
+    torch.cuda.empty_cache()
+    head("[44] whisper-large-v3 SMOKE: card vs CPU")
+    whisper_small = phase_whisper_small(dev, SEED)
+    torch.cuda.empty_cache()
+    w_rows, w_frames, w_tok = WHISPER_TRAIN_ROWS
+    head(f"[45] train {WHISPER} TRAIN (full width, all 32 + 32 layers), 2:8 "
+         f"bdwp, packed, {w_rows} x ({w_frames} frames, {w_tok} tokens)")
+    whisper_train = phase_whisper_train(dev, SEED)
+    torch.cuda.empty_cache()
+    head(f"[46] serve {WHISPER} FULL (32 + 32 layers), packed 2:8 u4, "
+         f"{WHISPER_SERVE_ROWS} rows, {WHISPER_DECODE_STEPS} shared-cursor "
+         "decode steps")
+    whisper_serve = phase_whisper_serve(dev, SEED)
 
     def summed(rs, at, launches, by_path, err):
         return {"launches": launches, "launches_by_path": by_path,
@@ -5086,7 +5709,9 @@ def main(argv=None) -> int:
                   **{f"train_{a.split('-')[0]}": r["launches"]["nm_spmm"]
                      for a, r in ssm_train.items()},
                   **{f"serve_{a.split('-')[0]}": r["launches"]
-                     for a, r in ssm_serve.items()}}
+                     for a, r in ssm_serve.items()},
+                  "train_whisper": whisper_train["launches"]["nm_spmm"],
+                  "serve_whisper": whisper_serve["batched_launches"]}
     upd_paths, upd_sites = ({
         "train": train["launches"][key],
         "train_sync": train_sync["launches"][key],
@@ -5095,7 +5720,8 @@ def main(argv=None) -> int:
         "train_granite": moe_train["launches"][key],
         "train_deepseek": ds_train["launches"][key],
         **{f"train_{a.split('-')[0]}": r["launches"][key]
-           for a, r in ssm_train.items()}}
+           for a, r in ssm_train.items()},
+        "train_whisper": whisper_train["launches"][key]}
         for key in ("fused_update", "fused_update_sites"))
     upd_paths.update({k: v["fused_update"] for k, v in flow_paths.items()})
     compact_paths = {"serve": serve["compact_launches"],
@@ -5105,7 +5731,8 @@ def main(argv=None) -> int:
                      "serve_granite": moe_serve["compact_launches"],
                      "serve_deepseek": ds_serve["compact_launches"],
                      **{f"serve_{a.split('-')[0]}": r["compact_launches"]
-                        for a, r in ssm_serve.items()}}
+                        for a, r in ssm_serve.items()},
+                     "serve_whisper": whisper_serve["compact_launches"]}
     shared_decode = [r for r in shared_rows if r["B"] == 4]
     shared_prefill = [r for r in shared_rows if r["B"] != 4]
     sync_at = {(r["leaf"], r["dtype"]): r for r in sync_rows}
@@ -5133,7 +5760,8 @@ def main(argv=None) -> int:
                  "u4, summed", sum(spmm_paths.values()), spmm_paths,
                  max(max_err, spmm_err, paper_spmm_err,
                      arch_err["nm_spmm"], moe_attn_err, ds_err,
-                     ds_proj_err, ssm_err["nm_spmm"])),
+                     ds_proj_err, ssm_err["nm_spmm"],
+                     whisper_err["nm_spmm"])),
         arch_layers={a: {str(b): {key: sum(r[key] for r in rs
                                            if r["B"] == b)
                                   for key in ("ms", "library_ms", "bound_ms")}
@@ -5148,6 +5776,17 @@ def main(argv=None) -> int:
             {f"train_{a.split('-')[0]}":
              spmm_paths[f"train_{a.split('-')[0]}"]}, ssm_err["nm_spmm"]))
             for a in SSM_ARCHS},
+        whisper_rows={str(b): summed(
+            [r for r in whisper_rows["spmm"] if r["B"] == b],
+            f"whisper-large-v3's cases at B={b}, summed: "
+            + ", ".join(f"{r['proj']} {r['K']}x{r['F']} u{r['idx_bits']}"
+                        for r in whisper_rows["spmm"] if r["B"] == b)
+            + "; library: torch.matmul on the dense bf16 weights",
+            spmm_paths["train_whisper" if b == w_rows * w_frames
+                       else "serve_whisper"],
+            {k: spmm_paths[k] for k in ("train_whisper", "serve_whisper")},
+            whisper_err["nm_spmm"])
+            for b in sorted({r["B"] for r in whisper_rows["spmm"]})},
         train_rows=summed(spmm_rows, "one training layer's forward: the 7 "
                           "projections at B=2048, 2:8 u8, summed",
                           spmm_paths["train"], {"train": spmm_paths["train"]},
@@ -5188,7 +5827,8 @@ def main(argv=None) -> int:
              sites_by_path=upd_sites,
              max_abs_err=max(upd_err, paper_upd_err, arch_err["fused_update"],
                              moe_upd_err, ds_upd_err,
-                             ssm_err["fused_update"]),
+                             ssm_err["fused_update"],
+                             whisper_err["fused_update"]),
              ms=upd_layer["ms"], plain_ms=upd_layer["plain_ms"],
              bound_ms=upd_layer["bound_ms"], bound_by="bytes",
              library_ms=None, singles_ms=upd_layer["singles_ms"],
@@ -5218,7 +5858,13 @@ def main(argv=None) -> int:
                  f"{ssm_rows[a]['update']['sites']} sites in one grouped "
                  "launch, 2:8 bdwp",
                  launches=ssm_train[a]["launches"]["fused_update"])
-                 for a in SSM_ARCHS}),
+                 for a in SSM_ARCHS},
+             whisper_layer=dict(
+                 whisper_rows["update"], at="one whisper decoder layer's 10 "
+                 "sites in one grouped launch, 2:8 bdwp",
+                 launches=whisper_train["launches"]["fused_update"],
+                 step_sites=whisper_train["launches_per_step"][0][2],
+                 step_elements=whisper_train["site_elements"])),
         sync_row("grad_compress", "one leaf, as the sync launches it: a "
                  "layer's w_gate, (2, 50331648) bf16 gradient rows + fp32 "
                  "residual columns, 2:8, vector variant"),
@@ -5241,7 +5887,8 @@ def main(argv=None) -> int:
                  "serve_granite": moe_serve["compact_variants"],
                  "serve_deepseek": ds_serve["compact_variants"],
                  **{f"serve_{a.split('-')[0]}": r["compact_variants"]
-                    for a, r in ssm_serve.items()}},
+                    for a, r in ssm_serve.items()},
+                 "serve_whisper": whisper_serve["compact_variants"]},
              **{key: sum(r[key] for r in compact_rows)
                 for key in ("scalar_ms", "u8_ms", "u8_bound_ms")},
              deepseek_pack=dict(
@@ -5256,7 +5903,13 @@ def main(argv=None) -> int:
                  "u4, vector variant, summed from its shapes",
                  bound_by="bytes", library_ms=None,
                  launches=ssm_serve[a]["compact_launches"],
-                 cases=ssm_rows[a]["pack_rows"]) for a in SSM_ARCHS}),
+                 cases=ssm_rows[a]["pack_rows"]) for a in SSM_ARCHS},
+             whisper_pack=dict(
+                 whisper_rows["pack"], at="whisper-large-v3 FULL's element "
+                 "pack, 512 weights, 2:8 u4, vector variant, summed from its "
+                 "three shapes", bound_by="bytes", library_ms=None,
+                 launches=whisper_serve["compact_launches"],
+                 cases=whisper_rows["pack_rows"])),
         dict(name="nm_spmm_shared", route="cuda",
              source="src/repro_torch/kernels/csrc/nm_spmm_shared.cu",
              replaces="src/repro/kernels/nm_spmm_shared.py:104",
@@ -5297,6 +5950,10 @@ def main(argv=None) -> int:
                        "deepseek_serve": ds_serve,
                        "ssm_kernels": ssm_rows, "ssm_small": ssm_small,
                        "ssm_train": ssm_train, "ssm_serve": ssm_serve,
+                       "whisper_kernels": whisper_rows,
+                       "whisper_small": whisper_small,
+                       "whisper_train": whisper_train,
+                       "whisper_serve": whisper_serve,
                        "phase_starts": starts,
                        "seconds": time.perf_counter() - t_start}, fh,
                       indent=1, default=str)

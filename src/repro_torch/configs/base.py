@@ -32,7 +32,8 @@ class ArchSpec:
     arch_id: str
     family: str                  # "lm" | "encdec"
     kind: str                    # dense | moe | ssm | hybrid | vlm | audio
-    full: object                 # the published widths (an LMConfig)
+    full: object                 # the published widths (an LMConfig or an
+                                 # EncDecConfig)
     smoke: object                # the CPU-test size
     source: str                  # provenance tag, as the reference has it
     sub_quadratic: bool = False  # may run long_500k

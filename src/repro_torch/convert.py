@@ -2,14 +2,16 @@
 port's layout.
 
 No reference counterpart.  ``params_from_jax`` takes the reference's
-``transformer_lm.init`` or ``convnets.*_init`` tree, and
+``transformer_lm.init``, ``encdec.init`` or ``convnets.*_init`` tree, and
 ``train_state_from_jax`` its train state, with every array already
 turned into numpy (``jax.tree.map(np.asarray, tree)``), so this module
 needs neither JAX nor ``repro``:
 
-  * leaves under ``"blocks"`` are stacked along a leading layer axis
-    (L, …) and become a list of L per-layer dicts; a tree without
-    ``"blocks"`` (the convnets) keeps its structure;
+  * leaves under ``"blocks"`` (an encoder-decoder: ``"enc_blocks"`` and
+    ``"dec_blocks"``) are stacked along a leading layer axis (L, …) and
+    become a list of L per-layer dicts, pre-generated and packed
+    operands included; a tree without them (the convnets) keeps its
+    structure;
   * ``{"w": (K, F)}`` leaf-dicts keep their layout (``x @ w``), and so
     do HWIO conv weights and their pre-generated operands (a
     transposable one may hold ``bp`` alone, or ``bp`` and the packed
@@ -119,15 +121,20 @@ def _n_layers(node) -> int:
     return np.asarray(node).shape[0]
 
 
+STACKS = ("blocks", "enc_blocks", "dec_blocks")   # layer-stacked subtrees
+
+
 def params_from_jax(tree, *, device=None):
-    """The reference's (stacked) param tree as the port's per-layer tree."""
+    """The reference's (stacked) param tree as the port's per-layer tree,
+    the block lists after the other keys (the order the compressed
+    sync's residual columns follow, ``optim.compress``)."""
     device = resolve_device(device)
     out = {k: _convert(v, device, None) for k, v in tree.items()
-           if k != "blocks"}
-    if "blocks" in tree:
-        blocks = tree["blocks"]
-        out["blocks"] = [_convert(blocks, device, i)
-                         for i in range(_n_layers(blocks))]
+           if k not in STACKS}
+    for k in STACKS:
+        if k in tree:
+            out[k] = [_convert(tree[k], device, i)
+                      for i in range(_n_layers(tree[k]))]
     return out
 
 

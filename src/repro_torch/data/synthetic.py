@@ -1,7 +1,8 @@
 """Deterministic synthetic token and image streams (numpy, then torch).
 
 The port's own copy of ``TokenTaskConfig``, ``token_batch``,
-``lm_stream``, ``ImageTaskConfig`` and ``image_batch`` from
+``lm_stream``, ``encdec_stream``, ``ImageTaskConfig`` and
+``image_batch`` from
 ``src/repro/data/synthetic.py`` (that module imports JAX): Zipfian
 unigram tokens with a copy-task signal, and class-conditional image
 blobs, seeded per (seed, step), so the same seed gives the reference's
@@ -12,8 +13,7 @@ torch indexing wants; images fp32 NHWC) on an explicit device, the card
 unless the caller names another; the class prototypes are drawn once
 per task and cached (the same bits); ``image_stream`` is the image
 counterpart of ``lm_stream`` (the reference's image callers loop over
-``image_batch`` themselves); the encoder-decoder stream is not
-ported.
+``image_batch`` themselves).
 """
 
 from __future__ import annotations
@@ -77,6 +77,34 @@ def _stream(cfg: TokenTaskConfig, device, step: int, prefix: int,
             out["prefix_embeds"] = torch.from_numpy(
                 emb.astype(np.float32)).to(torch.bfloat16).to(device)
         yield step, out
+        step += 1
+
+
+def encdec_stream(vocab: int, batch: int, seq: int, d_model: int, *,
+                  enc_frames: int = 128, device=None, seed: int = 0,
+                  start: int = 0):
+    """The Whisper-style stream: an iterator of (step, {"frames",
+    "tokens", "labels"}) on ``device`` (the card unless another is
+    named).  "frames" are (batch, enc_frames, d_model) bf16 stub frame
+    embeddings, normals from ``PCG64([seed + 11, step])`` rounded to bf16
+    (the reference's bits); "tokens" and "labels" (batch, seq) int64 from
+    ``token_batch``."""
+    device = resolve_device(device)
+    cfg = TokenTaskConfig(vocab=vocab, seq=seq, batch=batch, seed=seed)
+    return _encdec_stream(cfg, device, start, enc_frames, d_model)
+
+
+def _encdec_stream(cfg: TokenTaskConfig, device, step: int, enc_frames: int,
+                   d_model: int):
+    while True:
+        tokens, labels = token_batch(cfg, step)
+        rng = np.random.default_rng(np.random.PCG64([cfg.seed + 11, step]))
+        frames = rng.normal(size=(cfg.batch, enc_frames, d_model))
+        yield step, {
+            "frames": torch.from_numpy(frames.astype(np.float32)).to(
+                torch.bfloat16).to(device),
+            "tokens": torch.from_numpy(tokens).long().to(device),
+            "labels": torch.from_numpy(labels).long().to(device)}
         step += 1
 
 

@@ -47,7 +47,9 @@
 //     table (pointers, K, F, first tile) travels by value as one
 //     __grid_constant__ parameter (up to 32 KB on Hopper with CUDA >=
 //     12.1), so the launch holds no host-to-device copy and a CUDA graph
-//     can capture it.
+//     can capture it.  That holds kMaxSites (256) sites; a launch of
+//     more (whisper's 512 a step) reads the same table from device
+//     memory the caller filled (FuTableRef), with the same kernel body.
 // In and out pointers may alias (w/w_out, v/v_out: the optimizer
 // updates master and momentum in place): a lane reads each element it
 // writes, before it writes it, and reads nothing another lane writes.
@@ -90,7 +92,7 @@ namespace {
 constexpr int kWarp = 32;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / kWarp;
-constexpr int kMaxSites = 256;   // sites a launch's table holds
+constexpr int kMaxSites = 256;   // sites a by-value table holds
 
 // columns a lane owns on the vector path: 2 for m >= 8 (8-byte fp32
 // accesses; 4 columns hold 3 x m x 4 inputs in 140 registers, which
@@ -101,6 +103,14 @@ constexpr int kVecCols = M >= 8 ? 2 : 4;
 
 struct FuTable {
   FuSite site[kMaxSites];
+  long long tiles;
+  int count, n;
+  float lr, mu, wd, lam;
+};
+
+// the same table with its sites in device memory (more than kMaxSites)
+struct FuTableRef {
+  const FuSite* site;
   long long tiles;
   int count, n;
   float lr, mu, wd, lam;
@@ -334,9 +344,9 @@ __device__ __forceinline__ void update_tile(const FuSite& s, int grp,
   }
 }
 
-template <int M, bool BP_SELECT, typename G>
+template <int M, bool BP_SELECT, typename G, typename Table>
 __global__ void __launch_bounds__(kThreads)
-fused_update_sites_kernel(const __grid_constant__ FuTable t) {
+fused_update_sites_kernel(const __grid_constant__ Table t) {
   // a warp's stage: its tile of w' for the BP groups (M x 32*C floats)
   __shared__ __align__(16) float stage[kWarps][BP_SELECT
                                                ? M * kWarp * kVecCols<M>
@@ -366,10 +376,10 @@ fused_update_sites_kernel(const __grid_constant__ FuTable t) {
   }
 }
 
-template <int M, bool BP_SELECT, typename G>
-int launch(const FuTable& t, cudaStream_t st) {
+template <int M, bool BP_SELECT, typename G, typename Table>
+int launch(const Table& t, cudaStream_t st) {
   static int grid_cap = 0;   // resident blocks on the card, per kernel
-  auto kernel = fused_update_sites_kernel<M, BP_SELECT, G>;
+  auto kernel = fused_update_sites_kernel<M, BP_SELECT, G, Table>;
   if (grid_cap == 0) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t e = cudaGetDevice(&dev);
@@ -387,14 +397,26 @@ int launch(const FuTable& t, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int M>
-int dispatch(const FuTable& t, bool g_bf16, bool bp_select,
+template <int M, typename Table>
+int dispatch(const Table& t, bool g_bf16, bool bp_select,
              cudaStream_t st) {
   if (g_bf16)
     return bp_select ? launch<M, true, __nv_bfloat16>(t, st)
                      : launch<M, false, __nv_bfloat16>(t, st);
   return bp_select ? launch<M, true, float>(t, st)
                    : launch<M, false, float>(t, st);
+}
+
+template <typename Table>
+int dispatch_m(const Table& t, int m, bool g_bf16, bool bp_select,
+               cudaStream_t st) {
+  switch (m) {
+    case 2: return dispatch<2>(t, g_bf16, bp_select, st);
+    case 4: return dispatch<4>(t, g_bf16, bp_select, st);
+    case 8: return dispatch<8>(t, g_bf16, bp_select, st);
+    case 16: return dispatch<16>(t, g_bf16, bp_select, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -438,12 +460,30 @@ extern "C" int fused_update_sites_launch(const FuSite* sites, int count,
   t.mu = mu;
   t.wd = wd;
   t.lam = lam;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (m) {
-    case 2: return dispatch<2>(t, g_bf16, bp_select, st);
-    case 4: return dispatch<4>(t, g_bf16, bp_select, st);
-    case 8: return dispatch<8>(t, g_bf16, bp_select, st);
-    case 16: return dispatch<16>(t, g_bf16, bp_select, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch_m(t, m, g_bf16, bp_select,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// The same launch over ``count`` sites of any number, whose table the
+// caller has copied to device memory (``dev_sites``, valid until the
+// kernel has run on ``stream``).
+extern "C" int fused_update_sites_launch_ref(const FuSite* dev_sites,
+                                             int count, long long tiles,
+                                             int n, int m, int g_bf16,
+                                             int bp_select, float lr,
+                                             float mu, float wd, float lam,
+                                             void* stream) {
+  if (dev_sites == nullptr || count < 1 || tiles < 1 || n < 1 || n > m)
+    return static_cast<int>(cudaErrorInvalidValue);
+  FuTableRef t;
+  t.site = dev_sites;
+  t.tiles = tiles;
+  t.count = count;
+  t.n = n;
+  t.lr = lr;
+  t.mu = mu;
+  t.wd = wd;
+  t.lam = lam;
+  return dispatch_m(t, m, g_bf16, bp_select,
+                    static_cast<cudaStream_t>(stream));
 }

@@ -13,7 +13,8 @@ groups run along K (axis 0), vals/idx come out as (K*n/m, F), the layout
 ``nm_spmm`` reads, and the BP groups run along F.  ``fused_update_sites``
 updates all of a step's sites in one launch: ``plan_sites`` (pure
 Python) lays their tiles out in a table that the kernel receives by
-value.  The wrappers only launch: they check device, dtype, shape and
+value, up to ``PARAM_SITES`` sites, or for a larger launch (whisper's
+512 sites a step) copied to device memory first.  The wrappers only launch: they check device, dtype, shape and
 contiguity and raise on anything else; ``kernels.ops`` sends CPU
 tensors to ``kernels.ref.ref_fused_update`` instead.  ``launches``
 counts the launches made here and nowhere else, ``launched_sites`` the
@@ -35,7 +36,8 @@ GROUP_SIZES = (2, 4, 8, 16)   # the m the kernel is instantiated for
 BP_MODES = ("bdwp", "srste", None)
 WARP = 32                     # lanes of a tile's columns
 VEC_COLS = {2: 4, 4: 4, 8: 2, 16: 2}   # columns a lane owns (vector path)
-MAX_SITES = 256               # sites a launch's table holds (kMaxSites)
+PARAM_SITES = 256             # sites of a by-value table (kMaxSites)
+MAX_SITES = 4096              # sites one launch takes
 
 _lib = None
 
@@ -67,11 +69,14 @@ def _library():
             ctypes.POINTER(_Site), i, ctypes.c_longlong, i, i, i, i, f, f,
             f, f, p]
         lib.fused_update_sites_launch.restype = i
+        lib.fused_update_sites_launch_ref.argtypes = [
+            p, i, ctypes.c_longlong, i, i, i, i, f, f, f, f, p]
+        lib.fused_update_sites_launch_ref.restype = i
         for name in ("fused_update_max_sites", "fused_update_site_bytes"):
             getattr(lib, name).restype = i
         lib.fused_update_vec_cols.argtypes = [i]
         lib.fused_update_vec_cols.restype = i
-        if (lib.fused_update_max_sites() != MAX_SITES
+        if (lib.fused_update_max_sites() != PARAM_SITES
                 or lib.fused_update_site_bytes() != ctypes.sizeof(_Site)
                 or any(lib.fused_update_vec_cols(m) != c
                        for m, c in VEC_COLS.items())):
@@ -146,7 +151,9 @@ def fused_update_sites(sites, lr: float, mu: float, wd: float, lam: float,
     vals (K*n/m, F) bf16, idx uint8), and with ``bp_mode`` "bdwp" or
     "srste" also (bp (K, F) bf16, FF mask (K, F) bool).  ``inplace``
     writes w' over w and v' over v.  One launch covers all sites of one
-    gradient dtype, up to ``MAX_SITES``; the scalars go as fp32."""
+    gradient dtype, up to ``MAX_SITES``; a table of more than
+    ``PARAM_SITES`` is copied to the card before its launch.  The
+    scalars go as fp32."""
     global launches, launched_sites
     if m not in GROUP_SIZES or not 0 < n <= m:
         raise ValueError(f"fused_update: unsupported {n}:{m} (m in "
@@ -189,11 +196,19 @@ def fused_update_sites(sites, lr: float, mu: float, wd: float, lam: float,
                   int(cols > 1))
             for i, first, col_tiles, cols in launch.sites))
         g_bf16 = sites[launch.sites[0][0]][1].dtype == torch.bfloat16
-        with torch.cuda.device(dev):
-            err = lib.fused_update_sites_launch(
-                arr, len(launch.sites), launch.tiles, n, m, int(g_bf16),
+        args = (len(launch.sites), launch.tiles, n, m, int(g_bf16),
                 int(bp_mode == "bdwp"), float(lr), float(mu), float(wd),
                 float(lam), stream)
+        with torch.cuda.device(dev):
+            if len(launch.sites) <= PARAM_SITES:
+                err = lib.fused_update_sites_launch(arr, *args)
+            else:   # the table in device memory, freed after the launch
+                # (the stream orders any reuse of it after the kernel)
+                table_d = torch.frombuffer(bytearray(arr),
+                                           dtype=torch.uint8).to(dev)
+                err = lib.fused_update_sites_launch_ref(table_d.data_ptr(),
+                                                        *args)
+                del table_d
         if err != 0:
             raise RuntimeError(f"fused_update: kernel launch failed, CUDA "
                                f"error {err}")

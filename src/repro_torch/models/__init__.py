@@ -1,2 +1,2 @@
-"""Models of the port (counterpart of ``src/repro/models/``: the dense GQA
-decoder LM and the paper's convnets and ViT so far)."""
+"""Models of the port (counterpart of ``src/repro/models/``: the decoder
+LM families, the encoder-decoder, and the paper's convnets and ViT)."""

@@ -46,7 +46,8 @@ its masks are per expert along K and F (axes 1 and 2), as the
 reference's along the last two axes of its (L, E, K, F) leaf.
 
 What differs:
-  * trees are the port's per-layer trees (``"blocks"`` is a list), and
+  * trees are the port's per-layer trees (``"blocks"`` is a list, as
+    are an encoder-decoder's ``"enc_blocks"`` and ``"dec_blocks"``), and
     leaf names skip the list index, so a name is the reference's
     (``blocks/attn/q_proj/w``); shapes are per layer, so a leaf's shape
     is its logical shape;

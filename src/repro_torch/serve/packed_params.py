@@ -9,8 +9,10 @@ vals (K·N/M, F) and idx uint8 (K·N/M, F), or the u4 plane
 (ceil(K·N/M / 2), F) — the default whenever M <= 16.  Byte counts equal
 the reference's for the same tree.
 
-What differs: the tree is the port's (per-layer block list, walked
-without list indices in the names, so names match the reference's);
+What differs: the tree is the port's (per-layer block lists, walked
+without list indices in the names, so names match the reference's: an
+encoder-decoder's ``enc_blocks`` and ``dec_blocks`` both, each stacked
+name counted once);
 ``pack_tree_element`` moves every leaf to ``device`` (the card unless
 the caller says otherwise) and packs each weight with one
 ``kernels.ops.nm_compact`` (the SORE kernel on the card) that reads the
@@ -154,7 +156,10 @@ class PackedParamStore:
                        device=None) -> "PackedParamStore":
         """Same store as ``pack({**shell, "blocks": list(blocks)})``, but
         ``blocks`` is consumed one layer at a time: each dense block is
-        packed and dropped before the next is drawn."""
+        packed and dropped before the next is drawn.  It knows the LM's
+        single ``"blocks"`` list; an encoder-decoder's tree (its
+        ``enc_blocks`` and ``dec_blocks``, 3.2 GB of bf16 weights at
+        whisper's FULL) goes through ``pack``."""
         params, st, names = _pack(shell, sp_cfg, idx_bits, device)
         params["blocks"] = []
         for block in blocks:

@@ -1,11 +1,13 @@
-"""Train and serve steps of the LM, and the training step of the paper's
-image models.
+"""Train and serve steps of the LM and the encoder-decoder, and the
+training step of the paper's image models.
 
 Counterpart of ``src/repro/train/step.py``: the training step
 (``lm_train_step``, with or without the compressed cross-pod gradient
 sync), ``init_train_state``, ``state_core``, and the serving steps
 (``lm_prefill_step`` with ``last_index``, ``lm_decode_step`` with
-``per_slot=True``).  ``init_image_train_state`` and ``image_train_step``
+``per_slot=True``), and the encoder-decoder's ``encdec_train_step``,
+``encdec_prefill_step`` and ``encdec_decode_step``.
+``init_image_train_state`` and ``image_train_step``
 are the same step for ``models.convnets`` (ResNet9/18/50, VGG19, ViT),
 which the reference composes inline (``sgd.pregen_tree``,
 ``convnets.*_apply``, the loss of ``examples/paper_loss_curves.py``,
@@ -41,6 +43,15 @@ embeddings (internvl2): the model reads them before the tokens, the
 loss is taken on the text positions only (``lm_train_step``), and
 ``lm_prefill_step`` builds its cache over prefix and text.
 
+The encoder-decoder (``models.encdec``, whisper) trains on batches of
+stub ``frames``, ``tokens`` and ``labels`` with the reference's loss,
+the mean of ``logz - gold`` over every position, on either dataflow and
+with no compressed sync (the reference's has none).  Its prefill
+returns the logits, a cache exactly as long as the prompt, as the
+reference's does (a decode step straight after it writes over the last
+prompt position: seat the cache in a longer one first), and the encoder
+output, which every decode step reads again.
+
 What differs: no mesh or activation sharding; no step builder
 (``functools.partial`` of ``lm_train_step`` is the step function);
 ``lm_decode_step`` defaults to per-slot decode (``pos`` a (B,) vector
@@ -60,6 +71,7 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.models import convnets as CN
+from repro_torch.models import encdec as E
 from repro_torch.models import transformer_lm as T
 from repro_torch.optim import compress as C
 from repro_torch.optim import sgd
@@ -71,12 +83,14 @@ def init_train_state(cfg, sp_cfg, *, seed: int = 0, device=None,
                      pregen: bool = True, pregen_pack: bool = True,
                      compress: bool = False, n_pods: int = 1):
     """Random fp32 params from ``seed`` on ``device`` (the card unless
-    another is named), the optimizer state, and with ``pregen`` the
+    another is named), of an LM or, for an ``EncDecConfig``, of the
+    encoder-decoder; the optimizer state, and with ``pregen`` the
     pre-generated compute tree of their masks (``sp_cfg``; packed with
     ``pregen_pack``).  ``compress`` adds the zero error-feedback
     residual ``err`` of ``n_pods`` pods, (n_pods, err_state_elems)
     fp32."""
-    params = T.init(cfg, seed=seed, device=device, dtype=torch.float32)
+    model = E if isinstance(cfg, E.EncDecConfig) else T
+    params = model.init(cfg, seed=seed, device=device, dtype=torch.float32)
     return train_state_from_params(params, sp_cfg, pregen=pregen,
                                    pregen_pack=pregen_pack,
                                    compress=compress, n_pods=n_pods)
@@ -209,6 +223,25 @@ def _update(state, grads, loss, *, opt_cfg, sp_cfg, pregen, pregen_pack):
                        "lr": sgd.lr_schedule(opt_cfg, state["step"])}
 
 
+def encdec_train_step(state, batch, *, cfg, sp_cfg, opt_cfg,
+                      pregen: bool = True, pregen_pack: bool = True):
+    """One training step of the encoder-decoder on ``batch`` ({"frames"
+    (B, T_enc, d), "tokens", "labels" (B, S)}): the encoder, the decoder
+    and the loss on the compute tree (the pre-generated operands, or the
+    bf16 cast of the master on the legacy dataflow), gradients of its
+    float leaves mapped to the master's shape, then ``sgd.update``.
+    Returns (new_state, {"loss", "lr"}); consumes ``state``."""
+    def loss_fn(tree):
+        enc = E.encode(tree, batch["frames"], cfg, sp_cfg)
+        hidden, _ = E.decode(tree, batch["tokens"], enc, cfg, sp_cfg)
+        return E.loss(tree, hidden, batch["labels"], cfg)
+
+    loss, grads = _loss_and_grads(
+        state["compute"] if pregen else _bf16_cast(state["master"]), loss_fn)
+    return _update(state, grads, loss, opt_cfg=opt_cfg, sp_cfg=sp_cfg,
+                   pregen=pregen, pregen_pack=pregen_pack)
+
+
 def init_image_train_state(model: CN.ImageModel, sp_cfg, *, seed: int = 0,
                            device=None, pregen: bool = True,
                            pregen_pack: bool = True):
@@ -243,14 +276,21 @@ def image_loss_and_grads(tree, batch, *, model: CN.ImageModel, sp_cfg):
     """The forward and backward of ``image_train_step`` on ``tree`` (a
     compute tree, or the fp32 master on the legacy dataflow): (loss,
     master-shaped gradients of ``sgd.diff_leaves(tree)``)."""
+    return _loss_and_grads(tree, lambda t: CN.image_loss(CN.apply(
+        model, t, batch["images"].to(torch.bfloat16), sp_cfg),
+        batch["labels"]))
+
+
+def _loss_and_grads(tree, loss_fn):
+    """(loss, master-shaped gradients) of ``loss_fn(tree)`` with respect
+    to ``sgd.diff_leaves(tree)``: the forward under the profiler range
+    ``train/forward``, the backward under ``train/backward``."""
     roots = sgd.diff_leaves(tree)
     for r in roots:
         r.requires_grad_(True)
     try:
         with record_function("train/forward"):
-            logits = CN.apply(model, tree,
-                              batch["images"].to(torch.bfloat16), sp_cfg)
-            loss = CN.image_loss(logits, batch["labels"])
+            loss = loss_fn(tree)
         with record_function("train/backward"):
             grads = torch.autograd.grad(loss, roots, allow_unused=True,
                                         materialize_grads=True)
@@ -302,3 +342,32 @@ def lm_decode_step(params, cache, token, pos, *, cfg, sp_cfg,
                                  decode=True, positions=positions,
                                  per_slot=per_slot)
     return T.logits_from_hidden(params, hidden, cfg), cache
+
+
+def encdec_prefill_step(params, batch, *, cfg, sp_cfg,
+                        cache_dtype=torch.bfloat16):
+    """Encode ``batch["frames"]`` and prefill the decoder with
+    ``batch["tokens"]`` (B, S): returns (next-token logits (B, 1, V), the
+    cache, the encoder output).  The cache is exactly S long, as the
+    reference's (step.py's ``E.init_cache(cfg, b, s)``)."""
+    enc = E.encode(params, batch["frames"], cfg, sp_cfg)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    cache = E.init_cache(cfg, b, s, device=tokens.device, dtype=cache_dtype)
+    hidden, cache = E.decode(params, tokens, enc, cfg, sp_cfg, cache=cache)
+    return E.logits_from_hidden(params, hidden[:, -1:], cfg), cache, enc
+
+
+def encdec_decode_step(params, cache, enc_out, token, pos, *, cfg, sp_cfg):
+    """One decode step of token (B, 1) at the scalar position ``pos``
+    (every row's learned position and RoPE), every row writing at each
+    layer's shared cursor; the cross-attention K/V are projected from
+    ``enc_out`` again.  The cache is updated in place and returned with
+    the logits (B, 1, V)."""
+    b = token.shape[0]
+    positions = torch.as_tensor(pos, device=token.device).reshape(
+        1, 1).expand(b, 1)
+    hidden, cache = E.decode(params, token, enc_out, cfg, sp_cfg,
+                             cache=cache, decode_step=True,
+                             positions=positions)
+    return E.logits_from_hidden(params, hidden, cfg), cache

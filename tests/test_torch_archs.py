@@ -52,7 +52,7 @@ from repro.serve import ServeEngine as JServeEngine
 from repro.train import step as JST
 from repro.train import trainer as JTR
 from repro_torch import convert
-from repro_torch.configs import ARCHS, SHAPES, Unported, all_cells, get_arch
+from repro_torch.configs import ARCHS, SHAPES, ArchSpec, all_cells, get_arch
 from repro_torch.configs import (gemma3_12b, glm4_9b, internvl2_26b,
                                  qwen2_5_32b, qwen3_8b)
 from repro_torch.core.operand import PackedOp, PregenOp
@@ -73,7 +73,7 @@ NEW = ["qwen2.5-32b", "glm4-9b", "gemma3-12b", "internvl2-26b"]
 DENSE = ["qwen3-8b"] + NEW
 # MoE: tests/test_torch_moe*.py, tests/test_torch_deepseek*.py
 PORTED = DENSE + ["granite-moe-1b-a400m", "deepseek-v2-lite-16b",
-                  "mamba2-370m", "hymba-1.5b"]
+                  "mamba2-370m", "hymba-1.5b", "whisper-large-v3"]
 MODULES = {"qwen3-8b": qwen3_8b, "qwen2.5-32b": qwen2_5_32b,
            "glm4-9b": glm4_9b, "gemma3-12b": gemma3_12b,
            "internvl2-26b": internvl2_26b}
@@ -188,27 +188,19 @@ def _batch(arch_id, step=0, seed=0):
 
 
 def test_registry_keys_match_reference():
-    assert sorted(ARCHS) == sorted(J_ARCHS)
-    assert sorted(a for a, s in ARCHS.items()
-                  if not isinstance(s, Unported)) == sorted(PORTED)
+    assert sorted(ARCHS) == sorted(J_ARCHS) == sorted(PORTED)
 
 
-@pytest.mark.parametrize("arch_id", sorted(
-    a for a, s in ARCHS.items() if isinstance(s, Unported)))
-def test_unported_arch_raises(arch_id):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        get_arch(arch_id)
+@pytest.mark.parametrize("arch_id", sorted(J_ARCHS))
+def test_get_arch_returns_an_arch_spec_for_every_reference_id(arch_id):
+    spec = get_arch(arch_id)
+    assert isinstance(spec, ArchSpec) and spec is ARCHS[arch_id]
+    assert spec.arch_id == arch_id
 
 
-def test_unported_archs_name_their_items():
-    """The arch still unported raises, naming its ROADMAP queue 1
-    item."""
-    items = {"whisper-large-v3": "item 6"}
-    assert sorted(a for a, s in ARCHS.items()
-                  if isinstance(s, Unported)) == sorted(items)
-    for arch_id, item in items.items():
-        with pytest.raises(NotImplementedError, match=item):
-            get_arch(arch_id)
+def test_get_arch_refuses_an_unknown_id():
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch("whisper-tiny")
 
 
 def test_shapes_match_reference():

@@ -343,6 +343,15 @@ def test_plan_covers_every_element_once(label, m, shapes, max_sites):
         assert (cover == 1).all(), (label, shapes[i])
 
 
+def test_a_whisper_step_is_one_launch_past_the_by_value_table():
+    """whisper's 32 SMOKE sites, and 600 small ones, each in one launch;
+    600 is more than the kernel's by-value table holds, so that launch
+    takes the table from device memory."""
+    assert len(K.plan_sites(_model_sites("whisper SMOKE"), 8)) == 1
+    plan = K.plan_sites(_model_sites("600 small sites"), 8)
+    assert len(plan) == 1 and len(plan[0].sites) == 600 > K.PARAM_SITES
+
+
 def test_plan_splits_by_capacity_and_dtype():
     plan = K.plan_sites([(8, 64)] * 5, 8, groups=["a", "a", "b", "a", "a"],
                         max_sites=3)
@@ -371,8 +380,15 @@ def _model_sites(name):
     from repro_torch.models import transformer_lm as TT
 
     sp = SparsityConfig(n=2, m=8, method="bdwp")
+    if name == "600 small sites":   # past the by-value table's 256
+        return [(64, 128 + 64 * (i % 3)) for i in range(600)]
     if name == "qwen3-8b SMOKE":
         master = TT.init(QC.SMOKE, seed=0, device="cpu")
+    elif name == "whisper SMOKE":
+        from repro_torch.configs import whisper_large_v3 as W
+        from repro_torch.models import encdec as E
+
+        master = E.init(W.SMOKE, seed=0, device="cpu")
     else:
         master = CN.init(PM.image_model(name, 64), seed=0, device="cpu")
     return _site_views(master, sp)
@@ -381,7 +397,8 @@ def _model_sites(name):
 @pytest.mark.gpu
 @pytest.mark.parametrize("method", ["bdwp", "srste"])
 @pytest.mark.parametrize("model", ["qwen3-8b SMOKE", "resnet9", "vgg19",
-                                   "vit"])
+                                   "vit", "whisper SMOKE",
+                                   "600 small sites"])
 def test_cuda_grouped_matches_plain_per_site(model, method):
     """One grouped launch over a model's site list (bf16 gradients, as
     the step hands them over) against per-site plain calls, bitwise, out

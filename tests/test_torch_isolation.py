@@ -5,12 +5,14 @@
   reference package ``repro``.
 * The entry points (``ServeEngine``, ``init``, ``pack_tree_element``
   (for deepseek-v2-lite's MLA and prelude too, and for mamba2's and
-  hymba's SSD blocks and their fp32 caches),
+  hymba's SSD blocks and their fp32 caches, and for whisper's
+  encoder-decoder),
   ``pack_tree_shared``,
   ``params_from_jax``, ``init_train_state`` with and without the
   compressed sync's residual (and so the state that ``lm_train_step``
   and ``cross_pod_sync`` take), ``train_state_from_jax``,
-  ``err_from_jax``, ``lm_stream``, ``CheckpointManager.restore`` and
+  ``err_from_jax``, ``lm_stream``, ``encdec_stream``, the
+  encoder-decoder's ``init`` and train state, ``CheckpointManager.restore`` and
   ``recover_or_init``, and for the paper's image models
   ``convnets.init``, ``init_image_train_state``, ``image_batch`` and
   ``image_stream``) run on the card unless the caller names a device;
@@ -204,6 +206,50 @@ def test_ssm_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, arch):
         "conv"].device.type == "cpu"
 
 
+def test_scan_sees_the_encdec_modules():
+    names = {p.name for p in _sources()}
+    assert {"encdec.py", "whisper_large_v3.py"} <= names
+
+
+def test_encdec_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+    """whisper (the encoder-decoder): init, the train state, the data,
+    the element pack and the parameter conversion run on the card unless
+    a device is named, and raise without one; with ``device="cpu"`` both
+    block lists and the cache are there, and the prefill and decode
+    steps run there."""
+    from repro_torch.configs import whisper_large_v3 as W
+    from repro_torch.models import encdec as E
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg, sp = W.SMOKE, SparsityConfig(n=2, m=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        E.init(cfg, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ST.init_train_state(cfg, sp)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TD.encdec_stream(cfg.vocab, 2, 8, cfg.d_model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.params_from_jax({"enc_blocks": {}, "dec_blocks": {}})
+    params = E.init(cfg, seed=0, device="cpu", dtype=torch.bfloat16)
+    assert params["enc_blocks"][0]["ffn"]["w_in"]["b"].device.type == "cpu"
+    assert params["dec_blocks"][1]["xattn"]["k_proj"]["w"].device.type == \
+        "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pack_tree_element(params, sp)
+    state = ST.init_train_state(cfg, sp, device="cpu")
+    assert all(t.device.type == "cpu" for t in _tensors(state["compute"]))
+    _, batch = next(TD.encdec_stream(cfg.vocab, 2, 8, cfg.d_model,
+                                     enc_frames=16, device="cpu"))
+    assert batch["frames"].device.type == "cpu"
+    with torch.no_grad():
+        logits, cache, enc = ST.encdec_prefill_step(params, batch, cfg=cfg,
+                                                    sp_cfg=sp)
+        step, _ = ST.encdec_decode_step(params, cache, enc,
+                                        batch["tokens"][:, -1:], 8, cfg=cfg,
+                                        sp_cfg=sp)
+    assert step.device.type == cache["layers"][0]["k"].device.type == "cpu"
+
+
 @pytest.mark.parametrize("name", ["resnet9", "vgg19", "vit"])
 def test_image_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, name):
     """The image models' init, train state and data run on the card
@@ -234,6 +280,9 @@ def test_image_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, name):
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, list):
+        for v in tree:
             yield from _tensors(v)
     elif isinstance(tree, torch.Tensor):
         yield tree
