@@ -28,15 +28,15 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
   5. small      the port at qwen3-8b SMOKE size on the card against the
                 same port on the CPU (the plain path the CPU tests hold
                 against the JAX reference): logits within 2e-2;
-  6. serve      qwen3-8b FULL widths (d_model 4096, vocab 151936) at 18
+  6. serve      qwen3-8b FULL widths (d_model 4096, vocab 151936) at 9
                 of its 36 layers (SERVE_LAYERS),
                 bf16 weights from a seed, drawn and 2:8 u4-packed layer by
                 layer, served by ServeEngine(n_slots=4, prompt_bucket=32,
                 max_len=96, packed=True) on six requests that join
                 mid-flight; every batched stream must equal its solo
                 stream and the nm_spmm launch count must be
-                7 x 18 x (prefills + decode steps), the pack's nm_compact
-                launches 7 x 18, every one on the vector variant (pack
+                7 x 9 x (prefills + decode steps), the pack's nm_compact
+                launches 7 x 9, every one on the vector variant (pack
                 time without the draws); then five
                 decode steps under torch.profiler give the device's busy time
                 and idle share per step and the top kernels and host ops;
@@ -137,13 +137,13 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
  16. small shared qwen3-8b SMOKE, 2:8 shared granularity: pack_tree_shared
                 on the card and on the CPU bitwise equal; prefill + 8
                 greedy decode steps, logits within SMALL_ATOL;
- 17. shared serve  qwen3-8b FULL widths at 18 layers, bf16 weights
+ 17. shared serve  qwen3-8b FULL widths at 9 layers, bf16 weights
                 from a seed packed layer by layer by pack_tree_shared on
-                the card (exactly 7 x 18 nm_compact launches, on the
+                the card (exactly 7 x 9 nm_compact launches, on the
                 scalar variant: the score rows are contiguous; layer 0
                 bitwise the plain pack); 4 prompts of 5-32 tokens
                 right-padded to 32 and prefilled with last_index, then
-                16 greedy lm_decode_steps with exactly 7 x 18 x 17
+                16 greedy lm_decode_steps with exactly 7 x 9 x 17
                 nm_spmm_shared launches; each prompt's tokens unchanged
                 when the batch's rows are permuted; prefill ms, decode
                 ms/step and tok/s, five decode steps under
@@ -295,11 +295,11 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 step-0 compute trees bitwise) and three legacy steps
                 (within SMALL_LOSS_ATOL); prefill and 20 decode steps, u4
                 attention, masked experts (within MOE_SMALL_ATOL);
- 33. moe train  granite TRAIN (every published width, 12 of 24 layers,
+ 33. moe train  granite TRAIN (every published width, 6 of 24 layers,
                 MOE_LAYERS; 4 x 1024 tokens: 8 routing groups of 512,
                 capacity 160) through phase 10's checks: five timed
-                steps, exactly 168 nm_spmm (2 x (4 + 3) x 12, one launch
-                per expert stack) and one fused_update over 84 sites a
+                steps, exactly 84 nm_spmm (2 x (4 + 3) x 6, one launch
+                per expert stack) and one fused_update over 42 sites a
                 step, a profiled
                 sixth with the moe/route, moe/dispatch, moe/experts and
                 moe/combine ranges, layer 0's operands (expert stacks
@@ -364,17 +364,17 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 first decode step) on both sides, three packed
                 pre-generated steps (step-0 compute trees bitwise) and
                 one legacy step (losses within SMALL_LOSS_ATOL);
- 41. ssm train  each one's TRAIN (every published width, 12 of 48 / 8 of
+ 41. ssm train  each one's TRAIN (every published width, 6 of 48 / 4 of
                 32 layers, SSM_LAYERS; 4 x 2048 tokens: hymba's
                 attention banded past its 1024 window, 16 SSD chunks)
                 through phase 10's checks: five timed steps, exactly
-                48 / 128 nm_spmm and one fused_update over 24 / 64 sites
+                24 / 64 nm_spmm and one fused_update over 12 / 32 sites
                 a step, a profiled sixth with the ssm/conv, ssm/scan and
                 ssm/out ranges, layer 0's operands equal to the pack of
                 the new master, peak;
  42. ssm serve  each one's FULL widths at the same depth through phase
-                6's engine run, 2:8 u4-packed (24 / 64 nm_compact a
-                pack, all vector; 24 / 64 nm_spmm a forward; hymba's
+                6's engine run, 2:8 u4-packed (12 / 32 nm_compact a
+                pack, all vector; 12 / 32 nm_spmm a forward; hymba's
                 in_proj dense): batched streams equal solo streams; ms,
                 tok/s, decode idle share;
  43. whisper kernels  whisper-large-v3's shapes: nm_spmm (1280 -> 1280,
@@ -396,21 +396,61 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 over the last prompt position) on both sides, three
                 packed pre-generated steps (step-0 compute trees
                 bitwise) and one legacy step;
- 45. whisper train  whisper TRAIN (FULL: every width, 32 + 32 layers), 8
-                rows of 1500 frames and 448 tokens: five timed steps,
-                exactly 1024 nm_spmm and one fused_update over 512 sites
-                (1.468 G elements) a step, a profiled sixth with the
+ 45. whisper train  whisper TRAIN (every width, 12 + 20 of its 32 + 32
+                layers), 8 rows of 1500 frames and 448 tokens: five
+                timed steps, exactly 2 x (6 x 12 + 10 x 20) nm_spmm and
+                one fused_update over 272 sites (past the 256 of its
+                by-value table) a step, a profiled sixth with the
                 encdec/encoder, encdec/decoder and encdec/cross_kv
                 ranges, the first and last layers' operands of both
                 stacks equal to the pack of the new master, peak;
- 46. whisper serve  whisper FULL 2:8 u4-packed (512 nm_compact, all
-                vector): 4 rows of their own 1500 frames and Whisper's
-                4-token start prompt prefilled (512 nm_spmm), the cache
+ 46. whisper serve  whisper FULL widths at 8 + 8 layers, 2:8 u4-packed
+                (all nm_compact vector): 4 rows of their own 1500 frames
+                and Whisper's 4-token start prompt prefilled, the cache
                 seated in a 448-long one, 32 greedy decode steps on the
-                shared cursor (320 nm_spmm a step, 64 of them the cross
-                K/V at 6,000 rows); each row's tokens equal its solo
-                run's; prefill ms, decode ms a step, tok/s, the decode
-                idle share and the cross K/V's share of a step.
+                shared cursor (the cross K/V at 6,000 rows every step);
+                each row's tokens equal its solo run's among idle slots;
+                row 0 decoded alone (B = 1) equals row 0 of the 4-row
+                batch bitwise, logits of the prefill and 16 decode steps
+                (the decoder runs under layers.batch_invariant: the
+                attention and the LayerNorms at a batch padded to 8
+                rows), and the same without it, with the decode ms a
+                step both ways; prefill ms, decode ms a step, tok/s,
+                the decode idle share and the cross K/V's share;
+ 47. new sync leaves  grad_compress and grad_decompress_mean at the
+                units the sync launches for granite's (32, 1024, 512)
+                and deepseek's (64, 2048, 1408) expert stacks, deepseek's
+                prelude FFN, mamba2's in_proj, conv_w and A_log, hymba's
+                conv_w, in_proj and its 32-layer A_log stack (2 pods):
+                both variants bitwise against the plain versions with
+                the EF identity, device times against the byte bound and
+                the plain version; hymba FULL's SSD leaves of 32 layers
+                through cross_pod_sync, card == CPU bitwise;
+ 48. mvue       given the same uniforms, the mvue cross_pod_sync of a
+                tree with an expert stack, a ragged leaf and a 32-layer
+                stack on the card equals the CPU's bitwise and keeps the
+                residual; step-seeded draws repeat and differ by step;
+                over 4096 draws of one gradient the mean estimate lies
+                within 5 standard errors (entries drawn 25 times or
+                more); mvue_compress timed beside grad_compress;
+ 49. granite sync granite-moe-1b-a400m TRAIN (every width, 12 of 24
+                layers), 2 pods on one card, topk compressed sync, 2:8
+                bdwp packed, 4 x 1024 tokens, the launcher's settings,
+                under torch.use_deterministic_algorithms (the MoE
+                backward's index_select gradient is an atomic
+                scatter-add otherwise, and two runs part in the last
+                bits):
+                five timed steps with exactly 2 x 7 x 12 x 2 nm_spmm,
+                one fused_update over 84 sites and one grad_compress and
+                one grad_decompress_mean per unit (122) a step; the
+                state's fingerprints after step 3, a profiled sixth step
+                (the sync's share), peak;
+ 50. processes  the same run in two processes on the one card through
+                the launcher (torchrun --standalone, gloo; NCCL refuses
+                two ranks on one card; --deterministic), 3 steps: losses, the shared
+                state and both residual rows bitwise phase 49's after 3
+                steps (fingerprints), each rank's launches, the backend,
+                the gathers and bytes a step against wire_bytes.
 
 It prints a JSON line with every kernel's numbers, the card line, and as
 its last line {"ok": true, "device": {...}}.  With no card, or outside a
@@ -421,6 +461,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -448,7 +489,7 @@ L2_BYTES = 50 * 2**20
 SEED = 0                        # weights, activations and prompts
 # phases 6 and 17 serve qwen3-8b at every width and this depth (of 36
 # layers), to keep the whole run in its time
-SERVE_LAYERS = 18
+SERVE_LAYERS = 9
 RANGES = ("train/", "sgd/", "moe/", "ssm/", "encdec/")  # profiler ranges
 
 # qwen3-8b projection shapes (K, F), in the order one layer runs them
@@ -1503,7 +1544,7 @@ def bucket_sync(grads, err, cfg):
     outs = [None if off is None else torch.empty(
         x.shape[1:], dtype=x.dtype, device=err.device)
         for x, off in zip(leaves, plan.offsets)]
-    for i, s, e in plan.chunks:
+    for (i,), s, e in plan.chunks:   # trees without layer stacks
         col = plan.offsets[i]
         vals, idx, _ = ops.grad_compress(
             leaves[i].reshape(pods, -1)[:, s:e], err[:, col + s:col + e],
@@ -1591,12 +1632,12 @@ class SyncSpy:
         self.real = compress_mod.cross_pod_sync
 
     def __enter__(self):
-        def spy(grads, err, cfg):
+        def spy(grads, err, cfg, **kw):
             from repro_torch.optim import sgd
 
             cpu = sgd.tree_map(lambda _, x: x.to("cpu", copy=True), grads)
             err_in = err.to("cpu", copy=True)
-            out, new_err = self.real(grads, err, cfg)
+            out, new_err = self.real(grads, err, cfg, **kw)
             self.seen = (cpu, err_in, cfg, sgd.tree_map(
                 lambda _, x: x.to("cpu", copy=True), out),
                 new_err.to("cpu", copy=True))
@@ -1771,14 +1812,14 @@ def _spy_leaf(compress_mod, state, plan):
     real = compress_mod.cross_pod_sync
     kept = {"real": real}
 
-    def spy(grads, err, cfg):
+    def spy(grads, err, cfg, **kw):
         leaves = sgd.tree_leaves(grads)
         target = grads["blocks"][0]["ffn"]["w_gate"]["w"]
         i = next(j for j, x in enumerate(leaves) if x is target)
         col, numel = plan.offsets[i], target[0].numel()
         kept["g"] = target.reshape(target.shape[0], -1).clone()
         kept["err_in"] = err[:, col:col + numel].clone()
-        out = real(grads, err, cfg)
+        out = real(grads, err, cfg, **kw)
         kept["err_out"] = err[:, col:col + numel].clone()
         return out
 
@@ -4242,7 +4283,7 @@ MOE_PACKED_STEP_ATOL = (1e-3, 5e-3, 1e-3)
 MOE_SERVE_NEW = (4, 12, 8, 6, 10, 5)
 # phases 33-34 run granite at every width and this depth (of 24 layers),
 # to keep the whole run in its time
-MOE_LAYERS = 12
+MOE_LAYERS = 6
 
 
 def stacked_case(gen, e, b, k, f, dev):
@@ -4657,7 +4698,7 @@ SSM_PREFILL_ATOL = 1e-4         # prefill vs the forward, on one side
 SSM_HAZARD = dict(prompt=5, bucket=16)
 # phases 41-42 run mamba2 and hymba at every width and this depth (of
 # 48 / 32 layers), to pay for phases 43-46 in the run's time
-SSM_LAYERS = {"mamba2-370m": 12, "hymba-1.5b": 8}
+SSM_LAYERS = {"mamba2-370m": 6, "hymba-1.5b": 4}
 
 
 def ssm_proj(cfg):
@@ -4906,6 +4947,11 @@ WHISPER_SERVE_ROWS = 4
 WHISPER_PROMPT = (50258, 50259, 50360, 50364)
 WHISPER_MAX_LEN = 448
 WHISPER_DECODE_STEPS = 32
+WHISPER_B1_STEPS = 16           # phase 46's B = 1 against B = 4 steps
+# phases 45-46: encoder + decoder layers (45: 12 + 20, 272
+# sites, past the 256 of fused_update's by-value table; 46: 8 + 8)
+WHISPER_TRAIN_LAYERS = (12, 20)
+WHISPER_SERVE_LAYERS = 8
 # phase 43's nm_spmm cases (label, B, K, F, idx bits): decode rows (u4),
 # the TRAIN step's 12,000 encoder rows (u8), and a decode step's cross
 # K/V projection over 4 rows x 1500 frames (u4)
@@ -5309,6 +5355,29 @@ def _whisper_greedy(params, cfg, sp, frames, prompt, dev, steps=None):
     return toks, 1e3 * (t1 - t0), 1e3 * (t2 - t1) / steps
 
 
+def _whisper_logits(params, cfg, sp, frames, prompt, dev):
+    """Greedy prefill and WHISPER_B1_STEPS decode steps: (the logits of
+    each, decode ms a step)."""
+    from repro_torch.train import step as ST
+
+    with torch.no_grad():
+        logits, cache, enc = ST.encdec_prefill_step(
+            params, {"frames": frames, "tokens": prompt}, cfg=cfg, sp_cfg=sp)
+        cache = _encdec_seat(cfg, cache, WHISPER_MAX_LEN, dev)
+        out = [logits]
+        tok = torch.argmax(logits[:, -1, :cfg.vocab], -1)[:, None]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for step in range(WHISPER_B1_STEPS):
+            logits, cache = ST.encdec_decode_step(
+                params, cache, enc, tok, prompt.shape[1] + step, cfg=cfg,
+                sp_cfg=sp)
+            out.append(logits)
+            tok = torch.argmax(logits[:, -1, :cfg.vocab], -1)[:, None]
+        torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0) / WHISPER_B1_STEPS
+
+
 def phase_whisper_serve(dev, seed, cfg=None):
     """whisper FULL from 2:8 u4 element-packed weights (512 nm_compact,
     all vector): WHISPER_SERVE_ROWS rows of their own 1500 frames and
@@ -5390,6 +5459,41 @@ def phase_whisper_serve(dev, seed, cfg=None):
     print(f"  all {b} rows' tokens equal their solo runs' (each alone in "
           f"its slot, the others' frames zero; {WHISPER_DECODE_STEPS + 1} "
           "tokens each)")
+    # B = 1 against B = 4: the serving steps run the decoder under
+    # layers.batch_invariant (the attention and the LayerNorms at a batch
+    # padded to 8 rows); without it row 0 parts
+    from repro_torch.models import layers as L
+
+    on = L.batch_invariant
+    cost, parted = {}, None
+    for label, ctx in (("invariant", on), ("plain", contextlib.nullcontext),
+                       ("plain", contextlib.nullcontext),
+                       ("invariant", on)):
+        L.batch_invariant = ctx
+        try:
+            four, ms4 = _whisper_logits(params, cfg, sp, frames, prompt, dev)
+            one, ms1 = _whisper_logits(params, cfg, sp, frames[:1],
+                                       prompt[:1], dev)
+        finally:
+            L.batch_invariant = on
+        same = sum(bool(torch.equal(x[:1], y)) for x, y in zip(four, one))
+        gap = max(float((x[:1] - y)[..., :cfg.vocab].abs().max())
+                  for x, y in zip(four, one))
+        cost.setdefault(label, []).append((ms4, ms1))
+        if label == "invariant":
+            check(same == len(four), f"whisper serve: row 0 decoded alone "
+                  f"(B = 1) parts from B = 4 at {len(four) - same} of "
+                  f"{len(four)} steps (largest gap {gap:.3e})")
+        else:
+            parted = (same, len(four), gap)
+    med = {k: [sorted(v[j] for v in runs)[len(runs) // 2]
+               for j in range(2)] for k, runs in cost.items()}
+    print(f"  B = 1 against B = 4, row 0: logits bitwise at all "
+          f"{len(four)} steps (prefill + {len(four) - 1} decode); without "
+          f"batch_invariant bitwise at {parted[0]} of {parted[1]}, largest "
+          f"gap {parted[2]:.3e}; decode ms a step with / without it: B = 4 "
+          f"{med['invariant'][0]:.2f} / {med['plain'][0]:.2f}, B = 1 "
+          f"{med['invariant'][1]:.2f} / {med['plain'][1]:.2f}")
     with torch.no_grad():
         _, cache, enc = ST.encdec_prefill_step(
             params, {"frames": frames, "tokens": prompt}, cfg=cfg, sp_cfg=sp)
@@ -5427,7 +5531,415 @@ def phase_whisper_serve(dev, seed, cfg=None):
             "tok_per_s": tok_s, "cross_kv_device_ms": cross_kv,
             "cross_kv_host_ms": host_kv, "batched_launches": batched,
             "tokens": toks.tolist(), "max_memory_allocated": peak,
-            "hbm_report": report, "profile": prof}
+            "hbm_report": report, "profile": prof,
+            "b1_vs_b4_without_invariance": parted,
+            "decode_ms_invariant_vs_plain": med}
+
+
+# ---------------------------------------------------------------------------
+# Phases 47-50: the compressed sync on the new archs, mvue, the process form
+# ---------------------------------------------------------------------------
+
+# phase 47's leaves: (arch, the leaf's name in tree_map's terms, the
+# gradient's dtype): the unit the sync launches at, from the FULL config's
+# plan (a layer stack of ragged leaves is one unit of L x 50 elements)
+SYNC_NEW_LEAVES = [
+    ("granite-moe-1b-a400m", "blocks/moe/w_gate", "bf16"),
+    ("deepseek-v2-lite-16b", "blocks/moe/w_gate", "bf16"),
+    ("deepseek-v2-lite-16b", "prelude/ffn/w_gate/w", "bf16"),
+    ("mamba2-370m", "blocks/ssm/in_proj/w", "bf16"),
+    ("mamba2-370m", "blocks/ssm/conv_w", "fp32"),
+    ("mamba2-370m", "blocks/ssm/A_log", "fp32"),
+    ("hymba-1.5b", "blocks/ssm/conv_w", "fp32"),
+    ("hymba-1.5b", "blocks/ssm/A_log", "fp32"),
+    ("hymba-1.5b", "blocks/ssm/in_proj/w", "fp32")]
+SYNC_PLAIN_MAX = 1 << 25          # plain versions timed up to this numel
+MVUE_DRAWS = 4096                 # phase 48's draws of one gradient
+SYNC_MOE_LAYERS = 12              # phases 49-50: granite at 12 of 24 layers
+SYNC_MOE_STEPS = 5
+SYNC_PROC_STEPS = 3
+SYNC_LR = 0.1                     # the launcher's default
+
+
+def _unit_names(tree, plan):
+    """{leaf name: (members, column, numel)} of each unit of ``plan``,
+    named after its first member (the first layer's, for a block list)."""
+    from repro_torch.optim import sgd
+
+    names = []
+    sgd.tree_map(lambda name, _: names.append(name), tree)
+    out = {}
+    for members, col, numel in plan.units:
+        out.setdefault(names[members[0]], (members, col, numel))
+    return out
+
+
+def phase_sync_new_leaves(dev, gen):
+    """grad_compress and grad_decompress_mean at the new archs' leaves as
+    the sync launches them ((2, numel) gradient rows, the residual's
+    columns): both variants bitwise against the plain versions and the EF
+    identity (``_check_sync_case``), the vector variant timed against the
+    byte bound and the plain version; then hymba FULL's SSD leaves of all
+    32 layers (the A_log, D and dt_bias stacks one unit each) through
+    cross_pod_sync on the card against the CPU, bitwise."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import grad_compress as K
+    from repro_torch.kernels import ref
+    from repro_torch.optim import compress as CS
+    from repro_torch.optim import sgd
+
+    worst, rows = 0.0, []
+    for arch, name, dt in SYNC_NEW_LEAVES:
+        tree, _ = _sync_shapes(get_arch(arch).full)
+        units = _unit_names(tree, CS.plan_for(tree, 1 << 16, 8))
+        members, _, numel = units[name]
+        label = f"{arch} {name} ({2}, {numel})" + (
+            f" [{len(members)} layers in one unit]" if len(members) > 1
+            else "")
+        g, err = sync_case(gen, 2, numel, 8, dt, False, dev)
+        # the vector variant wants the payload's rows on 16 bytes
+        variants = (("vector", "scalar") if numel % 32 == 0
+                    else ("auto", "scalar"))
+        w, _ = _check_sync_case(K, ref, label, g, err, 2, 8, variants)
+        worst = max(worst, w)
+        vals, idx, _ = K.grad_compress(g, _copy_view(err), 2, 8)
+        out = torch.empty(numel, dtype=g.dtype, device=dev)
+        iters = 5 if numel > 1 << 26 else 20
+        t_c = time_ms(lambda i: K.grad_compress(g, err, 2, 8, out_err=err),
+                      1, iters=iters)
+        t_m = time_ms(lambda i: K.grad_decompress_mean(vals, idx, 2, 8,
+                                                       out=out), 1,
+                      iters=iters)
+        p_c = p_m = None
+        if numel <= SYNC_PLAIN_MAX:
+            p_c = time_ms(lambda i: ref.ref_grad_compress(g, err, 2, 8), 1,
+                          iters=2)
+            p_m = time_ms(lambda i: out.copy_(ref.ref_grad_decompress_mean(
+                vals, idx, 2, 8)), 1, iters=2)
+        gbytes = g.element_size()
+        b_c = compress_bound_ms(2, numel, 2, 8, gbytes)
+        b_m = mean_bound_ms(2, numel, 2, 8, gbytes)
+        rows.append({"arch": arch, "leaf": name, "dtype": dt, "P": 2,
+                     "K": numel, "layers_in_unit": len(members),
+                     "grad_compress": {"ms": t_c, "plain_ms": p_c,
+                                       "bound_ms": b_c},
+                     "grad_decompress_mean": {"ms": t_m, "plain_ms": p_m,
+                                              "bound_ms": b_m}})
+        plain = (f"; plain {p_c:.4f} / {p_m:.4f} ms" if p_c is not None
+                 else "; plain not timed at this size")
+        print(f"  {label} {dt}: bitwise ({' and '.join(variants)}); "
+              "grad_compress "
+              f"{t_c:.4f} ms (bound {b_c:.4f}: {b_c / t_c:.0%}), "
+              f"grad_decompress_mean {t_m:.4f} ms (bound {b_m:.4f}: "
+              f"{b_m / t_m:.0%}){plain}")
+        del g, err, vals, idx, out
+        torch.cuda.empty_cache()
+    # hymba FULL's SSD leaves through the sync, card against CPU
+    cfg = get_arch("hymba-1.5b").full
+    ssm = cfg.ssm_cfg()
+    cpu_gen = torch.Generator().manual_seed(47)
+    grads = {"blocks": [{"ssm": {
+        "conv_w": torch.randn((2, ssm.d_conv, ssm.conv_dim),
+                              generator=cpu_gen),
+        **{k: torch.randn((2, ssm.n_heads), generator=cpu_gen)
+           for k in ("A_log", "D", "dt_bias")}}}
+        for _ in range(cfg.n_layers)]}
+    gc = CS.GradCompressConfig()
+    plan = CS.plan_for(grads, gc.bucket_elems, gc.m, stacked=True)
+    err = torch.randn((2, plan.width), generator=cpu_gen) * 0.1
+    # (each side its own copy: the sync updates the residual in place)
+    on = {d: CS.cross_pod_sync(sgd.tree_map(lambda _, x: x.to(d), grads),
+                               err.to(d, copy=True), gc)
+          for d in ("cpu", dev)}
+    torch.cuda.synchronize()
+    same = all(bits_equal(a.cpu(), b) for a, b in zip(
+        sgd.tree_leaves(on[dev][0]), sgd.tree_leaves(on["cpu"][0])))
+    check(same and bits_equal(on[dev][1].cpu(), on["cpu"][1]),
+          "hymba SSD leaves: card sync != CPU sync")
+    print(f"  hymba FULL SSD leaves of {cfg.n_layers} layers: "
+          f"{len(plan.units)} units ({len(plan.stacks)} layer stacks of "
+          f"{cfg.n_layers} x {ssm.n_heads}), card sync == CPU sync, "
+          "bitwise")
+    return worst, rows
+
+
+def phase_mvue(dev, seed):
+    """mvue on the card: given the same uniforms the sync of a tree with
+    a granite expert stack, a ragged leaf and a layer stack equals the
+    CPU's bitwise and keeps the residual; the step-seeded draws repeat;
+    over MVUE_DRAWS draws of one gradient the mean estimate is within 5
+    standard errors; mvue_compress timed beside grad_compress."""
+    from repro_torch.core.sparsity import nm_unpack_n
+    from repro_torch.kernels import grad_compress as KG
+    from repro_torch.optim import compress as CS
+    from repro_torch.optim import sgd
+
+    g = torch.Generator().manual_seed(seed + 48)
+    grads = {"experts": (torch.randn((2, 32, 1024, 512), generator=g)
+                         * 1e-2).to(torch.bfloat16),
+             "norm": torch.randn((2, 1024), generator=g),
+             "bias": torch.randn((2, 3), generator=g),
+             "blocks": [{"x": torch.randn((2, 50), generator=g)}
+                        for _ in range(32)]}
+    cfg = CS.GradCompressConfig(estimator="mvue")
+    plan = CS.plan_for(grads, cfg.bucket_elems, cfg.m, stacked=True)
+    err = torch.randn((2, plan.width), generator=g)
+    u = torch.rand((2, plan.width // cfg.m), generator=g)
+    before = KG.launches["grad_decompress_mean"]
+    out = {}
+    for d in ("cpu", dev):
+        e = err.to(d, copy=True)
+        mean, e2 = CS.cross_pod_sync(sgd.tree_map(lambda _, x: x.to(d),
+                                                  grads), e, cfg,
+                                     uniforms=u.to(d))
+        out[d] = ([x.cpu() for x in sgd.tree_leaves(mean)], e2.cpu())
+    launched = KG.launches["grad_decompress_mean"] - before
+    check(all(bits_equal(a, b) for a, b in zip(out[dev][0], out["cpu"][0])),
+          "mvue: card sync != CPU sync given the same uniforms")
+    check(bits_equal(out[dev][1], err), "mvue: the residual changed")
+    check(launched == len(plan.units), f"mvue: {launched} "
+          f"grad_decompress_mean launches, want {len(plan.units)}")
+    dg = sgd.tree_map(lambda _, x: x.to(dev), grads)
+    a = CS.cross_pod_sync(dg, err.to(dev), cfg, step=3)[0]
+    b = CS.cross_pod_sync(dg, err.to(dev), cfg, step=3)[0]
+    c = CS.cross_pod_sync(dg, err.to(dev), cfg, step=4)[0]
+    check(all(bits_equal(x, y) for x, y in zip(sgd.tree_leaves(a),
+                                                sgd.tree_leaves(b))),
+          "mvue: the step's draws do not repeat")
+    check(not bits_equal(a["experts"], c["experts"]),
+          "mvue: two steps drew the same uniforms")
+    print(f"  sync of {len(plan.units)} units (a (32, 1024, 512) bf16 "
+          "expert stack, a 32-layer stack of (50,) leaves) and a ragged "
+          f"leaf: card == CPU bitwise given the same uniforms, residual "
+          f"kept, {launched} grad_decompress_mean launches; step-seeded "
+          "draws repeat and differ by step")
+    # unbiasedness: MVUE_DRAWS rows of one gradient
+    t = (torch.randn((1, 8 * 4096), generator=g)
+         * torch.exp(torch.randn((1, 8 * 4096), generator=g))).to(dev)
+    rows = t.expand(MVUE_DRAWS, -1).contiguous()
+    ud = torch.rand((MVUE_DRAWS, t.shape[1] // 8), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(seed))
+    vals, idx = CS.mvue_compress(rows, 2, 8, ud)
+    est = nm_unpack_n(vals.float(), idx, 2, 8).reshape(MVUE_DRAWS, -1)
+    mean = est.mean(0)
+    p = CS.mvue_probs(t.reshape(-1, 8).abs(), 2).reshape(-1)
+    sigma = torch.where(p > 0, t[0].abs() * torch.sqrt(
+        (1 - p) / torch.clamp(p, min=1e-30)), 0.0)
+    often = (MVUE_DRAWS * p >= 25) | (p == 0)
+    tol = 5 * sigma / MVUE_DRAWS ** 0.5 + 2.0 ** -8 * t[0].abs() + 1e-30
+    worst = float(((mean - t[0]).abs() / tol)[often].max())
+    kept = int((vals != 0).sum(-1).max())
+    check(worst <= 1.0, "mvue: biased beyond 5 standard errors")
+    print(f"  unbiasedness over {MVUE_DRAWS} draws of a (1, {t.shape[1]}) "
+          f"gradient: |mean - g| / (5 se + bf16) at most {worst:.3f} over "
+          f"the {float(often.float().mean()):.0%} of entries drawn 25 "
+          f"times or more; at most {kept} nonzero slots of "
+          f"{vals.shape[1]} a row")
+    del rows, ud, vals, idx, est
+    # mvue_compress beside grad_compress on the expert stack
+    ge = dg["experts"].reshape(2, -1)
+    ue = torch.rand((2, ge.shape[1] // 8), device=dev)
+    ee = torch.zeros(ge.shape, dtype=torch.float32, device=dev)
+    t_mvue = time_ms(lambda i: CS.mvue_compress(ge, 2, 8, ue), 1, iters=3)
+    t_topk = time_ms(lambda i: KG.grad_compress(ge, ee, 2, 8, out_err=ee),
+                     1, iters=20)
+    print(f"  mvue_compress (plain PyTorch) on the (2, {ge.shape[1]}) bf16 "
+          f"stack {t_mvue:.3f} ms; grad_compress (topk) {t_topk:.4f} ms")
+    return {"units": len(plan.units), "decompress_launches": launched,
+            "bias_worst": worst, "mvue_ms": t_mvue, "topk_ms": t_topk}
+
+
+def _granite_sync_cfg():
+    from repro_torch.configs import granite_moe_1b
+
+    return dataclasses.replace(granite_moe_1b.FULL,
+                               n_layers=SYNC_MOE_LAYERS)
+
+
+def phase_train_granite_sync(dev, seed):
+    """granite-moe-1b-a400m TRAIN (every width, SYNC_MOE_LAYERS layers),
+    2 pods on one card, topk, BDWP 2:8 packed, the launcher's settings
+    (lr 0.1, warmup 100, seed ``seed``, 4 x 1024 tokens): five timed
+    steps with exact launch counts (grad_compress and
+    grad_decompress_mean once per unit a step), the losses, the shared
+    state's and each residual row's fingerprints after step 3 (phase 50
+    holds the process form to them), a profiled sixth step (the sync's
+    share), peak memory; under torch.use_deterministic_algorithms: the
+    MoE backward accumulates the dispatch gather's gradient with atomics
+    (index_select's backward), so two runs of one step part in the last
+    bits without it (phase 50 runs the launcher with --deterministic)."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return _train_granite_sync(dev, seed)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _train_granite_sync(dev, seed):
+    import functools
+
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.data.synthetic import lm_stream
+    from repro_torch.kernels import fused_update as KF
+    from repro_torch.kernels import grad_compress as KG
+    from repro_torch.kernels import nm_spmm as KS
+    from repro_torch.optim import compress as CS
+    from repro_torch.optim import sgd
+    from repro_torch.train import step as ST
+    from repro_torch.train.checkpoint import state_fingerprint
+
+    cfg, sp = _granite_sync_cfg(), SparsityConfig(n=2, m=8, method="bdwp")
+    opt = sgd.SGDConfig(lr=SYNC_LR, total_steps=SYNC_MOE_STEPS)
+    gc = CS.GradCompressConfig.from_sparsity(sp)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = ST.init_train_state(cfg, sp, seed=seed, device=dev,
+                                compress=True, n_pods=2)
+    torch.cuda.synchronize()
+    plan = CS.plan_for(state["master"], gc.bucket_elems, gc.m)
+    units = len(plan.units)
+    print(f"  init {cfg.n_layers} layers + pre-generation + residual "
+          f"{tuple(state['err'].shape)}: {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; {units} units "
+          "a sync")
+    step_fn = functools.partial(ST.lm_train_step, cfg=cfg, sp_cfg=sp,
+                                opt_cfg=opt, compress=True, n_pods=2,
+                                grad_sync=gc)
+    data = lm_stream(cfg.vocab, *MOE_TRAIN_ROWS, device=dev, seed=seed)
+    tokens = MOE_TRAIN_ROWS[0] * MOE_TRAIN_ROWS[1]
+    want = {"nm_spmm": 2 * 7 * cfg.n_layers * 2, "fused_update": 1,
+            "fused_update_sites": 7 * cfg.n_layers, "grad_compress": units,
+            "grad_decompress_mean": units}
+
+    def counts():
+        return {"nm_spmm": KS.launches, "fused_update": KF.launches,
+                "fused_update_sites": KF.launched_sites, **KG.launches}
+
+    KS.launches = KF.launches = KF.launched_sites = 0
+    KG.launches.update(dict.fromkeys(KG.launches, 0))
+    losses, times, prints = [], [], None
+    for i in range(SYNC_MOE_STEPS):
+        _, batch = next(data)
+        c0 = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step_fn(state, batch)
+        loss = float(met["loss"])
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss)
+        got = {k: v - c0[k] for k, v in counts().items()}
+        print(f"  step {i}: loss {loss!r} aux {float(met['aux']):.5f} "
+              f"{times[-1]:.1f} ms; launches {got}")
+        check(math.isfinite(loss), "granite sync: non-finite loss")
+        check(got == want, f"granite sync: launches {got} != {want}")
+        if i + 1 == SYNC_PROC_STEPS:
+            t1 = time.perf_counter()
+            prints = {"shared": state_fingerprint(
+                {k: v for k, v in state.items() if k != "err"}),
+                **{f"err{r}": state_fingerprint(state["err"][r:r + 1])
+                   for r in range(2)}}
+            print(f"  fingerprints after step {i}: {prints} "
+                  f"({time.perf_counter() - t1:.1f} s)")
+    launches = counts()
+    _, batch = next(data)
+    state, met, prof = profile_train_step(step_fn, state, batch)
+    peak = torch.cuda.max_memory_allocated()
+    steady = sorted(times[1:])
+    ms = steady[len(steady) // 2]
+    sync = prof["parts"].get("train/sync", {})
+    share = sync.get("device_ms", 0.0) / max(prof["device_busy_ms"], 1e-9)
+    print(f"  {cfg.name} x{cfg.n_layers} layers, 2 pods: median of steps "
+          f"1-4 {ms:.1f} ms/step, {tokens / ms * 1e3:.0f} tokens/s; the "
+          f"sync {sync.get('device_ms', 0.0):.2f} device ms ({share:.3f} of "
+          f"busy), host {sync.get('host_ms', 0.0):.1f} ms; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    del state
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": times, "ms_per_step": ms,
+            "tokens_per_s": tokens / ms * 1e3, "launches": launches,
+            "units": units, "fingerprints": prints, "sync_share": share,
+            "max_memory_allocated": peak, "profile": prof,
+            "width": plan.width}
+
+
+def phase_train_granite_procs(dev, seed, one):
+    """Phase 49's run in the process form: two processes on the one card,
+    started through the launcher (``torchrun --standalone
+    --nproc-per-node 2 -m repro_torch.launch.train ... --digest``), gloo
+    between them, SYNC_PROC_STEPS steps: the losses, the shared state and
+    each rank's residual row bitwise phase 49's after as many steps
+    (fingerprints), the kernel launches of each rank, the backend and
+    the bytes gathered a step against ``wire_bytes``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+           "--arch", "granite-moe-1b-a400m", "--full", "--layers",
+           str(SYNC_MOE_LAYERS), "--steps", str(SYNC_PROC_STEPS),
+           "--batch", str(MOE_TRAIN_ROWS[0]), "--seq",
+           str(MOE_TRAIN_ROWS[1]), "--compress", "--lr", str(SYNC_LR),
+           "--seed", str(seed), "--log-every", "1", "--digest",
+           "--deterministic"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(root, "src"), os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                          text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    out = proc.stdout
+    if proc.returncode != 0:
+        print(out[-3000:])
+        print(proc.stderr[-3000:])
+    check(proc.returncode == 0, f"process form: the launcher exited "
+          f"{proc.returncode}")
+    lines = [ln for ln in out.splitlines() if ln.strip()]
+    for ln in lines:
+        if not ln.startswith("step "):
+            print(f"  | {ln}")
+    step_ms = [float(x) for x in re.findall(r"^step +\d+ loss \S+ "
+                                            r"([\d.]+)ms$", out, re.M)]
+    losses = eval(next(ln for ln in lines if ln.startswith("losses "))[7:])
+    prints = {"shared": re.search(r"fingerprint shared ([0-9a-f]{32})",
+                                  out)[1],
+              **{f"err{r}": re.search(
+                  rf"fingerprint err rank {r} ([0-9a-f]{{32}})", out)[1]
+                 for r in range(2)}}
+    hop = re.search(r"hop backend (\w+) gathers a step (\d+) bytes sent a "
+                    r"step (\d+) wire_bytes (\d+) payload on (\S+)", out)
+    ranks = {int(m[1]): {"nm_spmm": int(m[2]), "fused_update": int(m[3]),
+                         "grad_compress": int(m[4]),
+                         "grad_decompress_mean": int(m[5])}
+             for m in re.finditer(r"launches rank (\d+) nm_spmm (\d+) "
+                                  r"fused_update (\d+) grad_compress (\d+) "
+                                  r"grad_decompress_mean (\d+)", out)}
+    units = one["units"]
+    want = {"nm_spmm": 2 * 7 * SYNC_MOE_LAYERS * SYNC_PROC_STEPS,
+            "fused_update": SYNC_PROC_STEPS,
+            "grad_compress": units * SYNC_PROC_STEPS,
+            "grad_decompress_mean": units * SYNC_PROC_STEPS}
+    check(losses == one["losses"][:SYNC_PROC_STEPS],
+          f"process form: losses {losses} != one card's "
+          f"{one['losses'][:SYNC_PROC_STEPS]}")
+    check(prints == one["fingerprints"], f"process form: state "
+          f"fingerprints {prints} != one card's {one['fingerprints']}")
+    check(hop is not None and hop[1] == "gloo", "process form: backend")
+    check(int(hop[2]) == 2 * units, "process form: gathers a step")
+    check(int(hop[3]) == int(hop[4]), "process form: bytes gathered a "
+          "step != wire_bytes")
+    check(ranks == {0: want, 1: want}, f"process form: launches {ranks} != "
+          f"{want} on each rank")
+    print(f"  two processes on {hop[5]}, backend {hop[1]} (NCCL refuses two "
+          "ranks on one card): gloo gathered the CUDA payload itself, no "
+          f"staging by the hop; {hop[2]} gathers and {int(hop[3]):,} bytes "
+          f"sent a step and a rank (wire_bytes {int(hop[4]):,}); losses, "
+          "the shared state and both residual rows bitwise phase 49's "
+          f"after {SYNC_PROC_STEPS} steps; launches per rank {ranks[0]}; "
+          f"steps {step_ms} ms; {wall:.1f} s with start-up")
+    return {"losses": losses, "fingerprints": prints, "step_ms": step_ms,
+            "backend": hop[1], "gathers_per_step": int(hop[2]),
+            "bytes_per_step": int(hop[3]), "wire_bytes": int(hop[4]),
+            "launches": ranks, "seconds": wall}
 
 
 def _leaf_at(tree, name):
@@ -5665,14 +6177,41 @@ def main(argv=None) -> int:
     whisper_small = phase_whisper_small(dev, SEED)
     torch.cuda.empty_cache()
     w_rows, w_frames, w_tok = WHISPER_TRAIN_ROWS
-    head(f"[45] train {WHISPER} TRAIN (full width, all 32 + 32 layers), 2:8 "
-         f"bdwp, packed, {w_rows} x ({w_frames} frames, {w_tok} tokens)")
-    whisper_train = phase_whisper_train(dev, SEED)
+    from repro_torch.configs import whisper_large_v3
+
+    w_enc, w_dec = WHISPER_TRAIN_LAYERS
+    head(f"[45] train {WHISPER} TRAIN (full width, {w_enc} + {w_dec} of 32 "
+         f"+ 32 layers), 2:8 bdwp, packed, {w_rows} x ({w_frames} frames, "
+         f"{w_tok} tokens)")
+    whisper_train = phase_whisper_train(dev, SEED, dataclasses.replace(
+        whisper_large_v3.TRAIN, n_enc_layers=w_enc, n_layers=w_dec))
     torch.cuda.empty_cache()
-    head(f"[46] serve {WHISPER} FULL (32 + 32 layers), packed 2:8 u4, "
+    head(f"[46] serve {WHISPER} FULL ({WHISPER_SERVE_LAYERS} + "
+         f"{WHISPER_SERVE_LAYERS} of 32 + 32 layers), packed 2:8 u4, "
          f"{WHISPER_SERVE_ROWS} rows, {WHISPER_DECODE_STEPS} shared-cursor "
-         "decode steps")
-    whisper_serve = phase_whisper_serve(dev, SEED)
+         "decode steps; B = 1 against B = 4")
+    whisper_serve = phase_whisper_serve(dev, SEED, dataclasses.replace(
+        whisper_large_v3.FULL, n_enc_layers=WHISPER_SERVE_LAYERS,
+        n_layers=WHISPER_SERVE_LAYERS))
+    torch.cuda.empty_cache()
+    head("[47] grad_compress and grad_decompress_mean at the new archs' "
+         "leaves: granite's and deepseek's expert stacks, deepseek's "
+         "prelude, mamba2's and hymba's SSD leaves")
+    new_sync_err, new_sync_rows = phase_sync_new_leaves(dev, gen)
+    torch.cuda.empty_cache()
+    head("[48] mvue on the card: card == CPU given the uniforms, "
+         "unbiasedness")
+    mvue = phase_mvue(dev, SEED)
+    torch.cuda.empty_cache()
+    head(f"[49] train granite-moe-1b-a400m TRAIN (full width, "
+         f"{SYNC_MOE_LAYERS} of 24 layers), 2 pods on one card, topk "
+         f"compressed sync, 2:8 bdwp, packed, {MOE_TRAIN_ROWS[0]} x "
+         f"{MOE_TRAIN_ROWS[1]} tokens")
+    granite_sync = phase_train_granite_sync(dev, SEED)
+    torch.cuda.empty_cache()
+    head(f"[50] the process form: [49] in two processes on the one card "
+         f"through the launcher, {SYNC_PROC_STEPS} steps")
+    granite_procs = phase_train_granite_procs(dev, SEED, granite_sync)
 
     def summed(rs, at, launches, by_path, err):
         return {"launches": launches, "launches_by_path": by_path,
@@ -5711,7 +6250,10 @@ def main(argv=None) -> int:
                   **{f"serve_{a.split('-')[0]}": r["launches"]
                      for a, r in ssm_serve.items()},
                   "train_whisper": whisper_train["launches"]["nm_spmm"],
-                  "serve_whisper": whisper_serve["batched_launches"]}
+                  "serve_whisper": whisper_serve["batched_launches"],
+                  "train_granite_sync": granite_sync["launches"]["nm_spmm"],
+                  **{f"train_granite_procs/rank{k}": v["nm_spmm"]
+                     for k, v in granite_procs["launches"].items()}}
     upd_paths, upd_sites = ({
         "train": train["launches"][key],
         "train_sync": train_sync["launches"][key],
@@ -5721,8 +6263,11 @@ def main(argv=None) -> int:
         "train_deepseek": ds_train["launches"][key],
         **{f"train_{a.split('-')[0]}": r["launches"][key]
            for a, r in ssm_train.items()},
-        "train_whisper": whisper_train["launches"][key]}
+        "train_whisper": whisper_train["launches"][key],
+        "train_granite_sync": granite_sync["launches"][key]}
         for key in ("fused_update", "fused_update_sites"))
+    upd_paths.update({f"train_granite_procs/rank{k}": v["fused_update"]
+                      for k, v in granite_procs["launches"].items()})
     upd_paths.update({k: v["fused_update"] for k, v in flow_paths.items()})
     compact_paths = {"serve": serve["compact_launches"],
                      "shared_serve": shared_serve["compact_launches"],
@@ -5739,19 +6284,29 @@ def main(argv=None) -> int:
 
     def sync_row(name, at):
         r = sync_at["w_gate", "bf16"][name]
+        by_path = {"train_sync": train_sync["launches"][name],
+                   "legacy_sync_small": legacy_sync[name],
+                   "train_granite_sync": granite_sync["launches"][name],
+                   **{f"train_granite_procs/rank{k}": v[name]
+                      for k, v in granite_procs["launches"].items()}}
+        if name == "grad_decompress_mean":
+            by_path["mvue_sync"] = mvue["decompress_launches"]
         return dict(
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/grad_compress.cu",
             replaces="src/repro/kernels/grad_compress.py:"
                      + ("61" if name == "grad_compress" else "117"),
-            launches=train_sync["launches"][name],
-            launches_by_path={"train_sync": train_sync["launches"][name],
-                              "legacy_sync_small": legacy_sync[name]},
+            launches=sum(by_path.values()), launches_by_path=by_path,
             launches_vector_variant=train_sync["launches"][f"{name}/vector"],
-            max_abs_err=sync_err, ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by="bytes", library_ms=None, at=at,
+            max_abs_err=max(sync_err, new_sync_err), ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by="bytes", library_ms=None, at=at,
             embed_leaf=sync_at["embed", "bf16"][name],
-            bucket=sync_at["bucket", "bf16"][name])
+            bucket=sync_at["bucket", "bf16"][name],
+            new_arch_leaves=[dict(
+                at=f"{x['arch']} {x['leaf']} ({x['P']}, {x['K']}) "
+                   f"{x['dtype']}", bound_by="bytes", library_ms=None,
+                **x[name]) for x in new_sync_rows])
     kernels = [dict(
         name="nm_spmm", route="cuda",
         source="src/repro_torch/kernels/csrc/nm_spmm.cu",
@@ -5954,6 +6509,9 @@ def main(argv=None) -> int:
                        "whisper_small": whisper_small,
                        "whisper_train": whisper_train,
                        "whisper_serve": whisper_serve,
+                       "new_sync_leaves": new_sync_rows, "mvue": mvue,
+                       "granite_sync": granite_sync,
+                       "granite_procs": granite_procs,
                        "phase_starts": starts,
                        "seconds": time.perf_counter() - t_start}, fh,
                       indent=1, default=str)

@@ -21,5 +21,9 @@ compressed cross-pod gradient sync (``lm_train_step(compress=True)`` →
 ``optim.compress.cross_pod_sync``, all pods on one card) on the
 hand-written ``kernels/csrc/grad_compress.cu``, and ``train.trainer.fit``
 with checkpoints (``train.checkpoint``) and fault tolerance
-(``train.fault``).
+(``train.fault``).  Later slices add the paper's models, the other
+archs of the reference's registry and, in slice 16, the compressed sync
+for every LM arch, the mvue estimator, the pod hop across processes
+(``cross_pod_sync(group=...)``) and the training launcher
+(``launch.train``).
 """

@@ -37,7 +37,8 @@ needs neither JAX nor ``repro``:
     slab holds the compressible leaves in JAX's flatten order (dict keys
     sorted at every level), a layer-stacked leaf as its L layers in a
     row; the port's holds them in ``sgd.tree_leaves`` order of its
-    per-layer tree (``optim.compress``).  Both pad with zeros to whole
+    per-layer tree, a layer stack of ragged per-layer leaves as one unit
+    (``optim.compress.plan_sync``).  Both pad with zeros to whole
     m-groups.
 """
 
@@ -165,12 +166,14 @@ def train_state_from_jax(state, *, device=None, m=None):
 def _err_layout(master, m: int):
     """[(reference column, port column, numel)] of every compressible
     leaf (one layer's slice of a stacked leaf), in the reference's order;
-    and the padded width."""
-    port, col = {}, 0
-    layers = {}
+    and the padded width.  The port's columns are those of
+    ``compress.plan_for(master)``, which compresses what the reference's
+    stacked leaves compress (a layer stack of ragged per-layer leaves
+    whose stack is whole m-groups as one unit)."""
+    plan = C.plan_for(master, m, m)
+    paths = []
 
     def walk(node, path, layer):
-        nonlocal col
         if isinstance(node, dict):
             for k, v in node.items():
                 walk(v, path + (k,), layer)
@@ -178,28 +181,21 @@ def _err_layout(master, m: int):
             for i, v in enumerate(node):
                 walk(v, path, i)
         else:
-            numel = node.numel()
-            layers.setdefault(path, []).append((layer, numel))
-            if C.compressible_shape(tuple(node.shape), m):
-                port[(path, layer)] = col
-                col += numel
+            paths.append((path, layer, node.numel()))
 
     walk(master, (), None)
+    by_path = {}
+    for (path, layer, numel), col in zip(paths, plan.offsets):
+        by_path.setdefault(path, []).append((layer, numel, col))
     out, ref = [], 0
-    for path in sorted(layers):          # JAX's flatten order
-        entries = layers[path]
-        stacked = sum(numel for _, numel in entries)
-        stacked_ok = stacked > 0 and stacked % m == 0
-        if stacked_ok != all((path, layer) in port for layer, _ in entries):
-            raise ValueError(f"leaf {'/'.join(path)}: a layer-stacked size "
-                             f"{stacked} and its per-layer size disagree on "
-                             f"m={m} compressibility")
-        if not stacked_ok:
+    for path in sorted(by_path):          # JAX's flatten order
+        entries = by_path[path]
+        if entries[0][2] is None:
             continue
-        for layer, numel in entries:     # the stacked leaf's layers in a row
-            out.append((ref, port[(path, layer)], numel))
+        for _, numel, col in entries:     # the stacked leaf's layers in a row
+            out.append((ref, col, numel))
             ref += numel
-    return out, (col + m - 1) // m * m
+    return out, plan.width
 
 
 def _move_columns(src: np.ndarray, master, m: int, to_port: bool):

@@ -136,8 +136,16 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     """Online-softmax attention over KV chunks.
 
     q: (B, Sq, H, D); k, v: (B, Skv, Hkv, D); q_offset: absolute position
-    of q[0] for the causal mask.
+    of q[0] for the causal mask.  Batch-invariant under
+    ``layers.batch_invariant``.
     """
+    return L.batch_padded(lambda q_, k_, v_: _chunked_attention(
+        q_, k_, v_, causal=causal, q_offset=q_offset, chunk_kv=chunk_kv),
+        q, k, v)
+
+
+def _chunked_attention(q, k, v, *, causal: bool, q_offset: int,
+                       chunk_kv: int):
     b, sq, h, d = q.shape
     dv = v.shape[-1]
     skv, hkv = k.shape[1], k.shape[2]
@@ -214,7 +222,16 @@ def decode_attention(q1, k_cache, v_cache, cur_pos, *,
     last ``window`` of them, by mask) or an int, the whole batch's one
     position; then a window smaller than the cache slices the last
     ``window`` positions, clipped into the cache, so the work is O(W).
+    Batch-invariant under ``layers.batch_invariant``.
     """
+    if isinstance(cur_pos, torch.Tensor) and cur_pos.ndim > 0:
+        return L.batch_padded(lambda q_, k_, v_, p_: _decode_attention(
+            q_, k_, v_, p_, window=window), q1, k_cache, v_cache, cur_pos)
+    return L.batch_padded(lambda q_, k_, v_: _decode_attention(
+        q_, k_, v_, cur_pos, window=window), q1, k_cache, v_cache)
+
+
+def _decode_attention(q1, k_cache, v_cache, cur_pos, *, window):
     b, _, h, d = q1.shape
     smax, hkv = k_cache.shape[1], k_cache.shape[2]
     g = h // hkv

@@ -18,6 +18,7 @@ load the reference's weights through ``convert.params_from_jax``.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -71,10 +72,63 @@ def layernorm_init(d: int, *, device, dtype=torch.float32):
             "norm_bias": torch.zeros((d,), dtype=dtype, device=device)}
 
 
+_BATCH_INVARIANT = [False]
+
+
+@contextlib.contextmanager
+def batch_invariant():
+    """Inside it, on the card, the ops whose kernels the batch size picks
+    (LayerNorm's row reductions, the attention's fp32 einsums, the head
+    product) run on their operands padded along dim 0 to
+    ``invariant_rows(B)`` rows, so that a row's bits are the same for
+    every B of one bucket (1-8, 9-16, 17-32, ...).  cuBLAS picks another
+    algorithm for a batched product of another batch count, and PyTorch's
+    row reductions split a row over more threads when there are fewer
+    rows.  The serving steps of the encoder-decoder's decoder run under
+    it; the CPU path ignores it."""
+    prev = _BATCH_INVARIANT[0]
+    _BATCH_INVARIANT[0] = True
+    try:
+        yield
+    finally:
+        _BATCH_INVARIANT[0] = prev
+
+
+def _padding_on(x: torch.Tensor) -> bool:
+    return _BATCH_INVARIANT[0] and x.is_cuda
+
+
+def invariant_rows(b: int) -> int:
+    """The padded batch of ``batch_invariant``: the next power of two, at
+    least 8."""
+    return max(8, 1 << (b - 1).bit_length())
+
+
+def batch_padded(fn, *xs: torch.Tensor) -> torch.Tensor:
+    """``fn(*xs)`` with every x padded with zero rows along dim 0 to
+    ``invariant_rows(B)`` and the result cut back to B rows, under
+    ``batch_invariant`` on the card; else ``fn(*xs)``."""
+    b = xs[0].shape[0]
+    if not _padding_on(xs[0]):
+        return fn(*xs)
+    rows = invariant_rows(b)
+
+    def pad(x):
+        out = x.new_zeros((rows, *x.shape[1:]))
+        out[:b] = x
+        return out
+
+    return fn(*(pad(x) for x in xs))[:b]
+
+
 def layernorm_apply(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis: fp32 mean and population variance,
     ``(x - mu) * rsqrt(var + eps) * scale + bias``, cast back to x's
-    dtype."""
+    dtype.  Batch-invariant under ``batch_invariant``."""
+    return batch_padded(lambda t: _layernorm(p, t, eps), x)
+
+
+def _layernorm(p, x: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.to(torch.float32)
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.var(xf, dim=-1, keepdim=True, correction=0)
@@ -107,8 +161,9 @@ class _HeadProduct(torch.autograd.Function):
 
 def head_product(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The reference's ``jnp.matmul(h, w.astype(h.dtype),
-    preferred_element_type=jnp.float32)`` of a 2-D h: fp32 logits."""
-    return _HeadProduct.apply(h, w)
+    preferred_element_type=jnp.float32)`` of a 2-D h: fp32 logits;
+    batch-invariant under ``batch_invariant``."""
+    return batch_padded(lambda t: _HeadProduct.apply(t, w), h)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, *, device,

@@ -29,14 +29,17 @@ Both dataflows of the reference:
     which ResNet18/50 train (their ``fc/w`` would become a
     ``PregenOp``).
 
-With ``compress=True`` the step is the reference's pod-split step with
-every pod on this device: the batch is cut into ``n_pods`` contiguous
-row blocks (``_pod_split_batch``), each pod takes its loss and
-gradients on its block through the unchanged compute tree (the
-reference vmaps ``value_and_grad`` over a pod-stacked copy), the pod
-gradients are stacked (P, *shape), and ``optim.compress.cross_pod_sync``
-gives their mean through packed N:M payloads and updates the error
-feedback residual ``state["err"]`` before ``sgd.update``.
+With ``compress=True`` the step is the reference's pod-split step, for
+every LM arch (dense, MoE with its aux loss, SSM and hybrid): the batch
+is cut into P contiguous row blocks (``_pod_split_batch``), each pod
+takes its loss and gradients on its block through the unchanged compute
+tree (the reference vmaps ``value_and_grad`` over a pod-stacked copy),
+the pod gradients are stacked (P, *shape), and
+``optim.compress.cross_pod_sync`` gives their mean through packed N:M
+payloads (topk, updating the error-feedback residual ``state["err"]``,
+or mvue, seeded by the step) before ``sgd.update``.  The P pods are
+either all on this device or one a process of a ``torch.distributed``
+group (``group=``), which then holds its pod's rows and residual row.
 
 A batch may carry ``prefix_embeds`` (B, S_pre, d), the stub frontend's
 embeddings (internvl2): the model reads them before the tokens, the
@@ -72,6 +75,7 @@ from torch.profiler import record_function
 
 from repro_torch.models import convnets as CN
 from repro_torch.models import encdec as E
+from repro_torch.models import layers as L
 from repro_torch.models import transformer_lm as T
 from repro_torch.optim import compress as C
 from repro_torch.optim import sgd
@@ -123,30 +127,42 @@ def _bf16_cast(master):
 
 def lm_train_step(state, batch, *, cfg, sp_cfg, opt_cfg,
                   pregen: bool = True, pregen_pack: bool = True,
-                  compress: bool = False, n_pods: int = 1):
+                  compress: bool = False, n_pods: int = 1, grad_sync=None,
+                  group=None):
     """One training step.  With ``pregen``: FF on the pre-generated
     (packed) operands of ``state["compute"]``, BP on ``bp``, the dense WU
     gradient on ``bp``'s gradient, then ``sgd.update``, which writes the
     next compute tree.  Without it: the model on the bf16 cast of the
     master, each matmul a ``MaskedOp`` that re-derives its masks, the
     gradients of the bf16 leaves, then ``sgd.update(pregen=False)``; the
-    state keeps no compute tree.  With ``compress`` the gradient is the
-    compressed pod mean of ``n_pods`` pods (``sp_cfg``'s n:m, the
-    reference's buckets; fp32 gradients on the legacy dataflow, as the
-    reference's master gives) and the loss the mean of the pod losses.
-    The gradient is that of ``loss + AUX_COEF * aux``, aux the MoE
-    load-balance loss summed over layers (0 for a dense model).  Returns
+    state keeps no compute tree.  The gradient is that of ``loss +
+    AUX_COEF * aux``, aux the MoE load-balance loss summed over layers (0
+    for a model without experts).
+
+    With ``compress`` the gradient is the compressed pod mean of the
+    pods' gradients (``grad_sync``, a ``GradCompressConfig``; by default
+    topk at ``sp_cfg``'s n:m, the reference's buckets; fp32 gradients on
+    the legacy dataflow, as the reference's master gives), each pod's
+    loss, aux and total taken on its own rows, and the step's the mean
+    over the pods.  Either all ``n_pods`` pods on this device, or, with
+    ``group`` (a ``torch.distributed`` group, one process per pod), this
+    process's pod alone: it takes its rank's rows of the global batch,
+    holds its (1, width) row of the residual, and returns the same loss,
+    aux, total and shared state as every other rank.  Returns
     (new_state, {"loss", "aux", "total", "lr"}); consumes ``state`` (see
     ``sgd.update``, ``cross_pod_sync``).
     """
-    if compress and (getattr(cfg, "moe", None) is not None
-                     or getattr(cfg, "has_ssm", False)):
-        raise NotImplementedError(
-            f"{cfg.name}: MoE and SSM training under the compressed sync "
-            "is not ported (ROADMAP queue 1, item 3b)")
     compute = state["compute"] if pregen else _bf16_cast(state["master"])
     roots = sgd.diff_leaves(compute)
-    pods = n_pods if compress else 1
+    if compress and group is not None:
+        import torch.distributed as dist
+
+        pods, mine = dist.get_world_size(group), [dist.get_rank(group)]
+        if n_pods not in (1, pods):
+            raise ValueError(f"n_pods={n_pods} != the group's {pods}")
+    else:
+        pods = n_pods if compress else 1
+        mine = list(range(pods))
     rows = batch["tokens"].shape[0]
     if rows % pods:
         raise ValueError(f"global batch {rows} not divisible by "
@@ -156,7 +172,7 @@ def lm_train_step(state, batch, *, cfg, sp_cfg, opt_cfg,
     for r in roots:
         r.requires_grad_(True)
     try:
-        for p in range(pods):
+        for row, p in enumerate(mine):
             rows_p = slice(p * per, (p + 1) * per)
             prefix = batch.get("prefix_embeds")
             with record_function("train/forward"):
@@ -178,11 +194,11 @@ def lm_train_step(state, batch, *, cfg, sp_cfg, opt_cfg,
             if compress:   # pod p's row of the pod-stacked gradients
                 if stacked is None:
                     stacked = [g.new_empty(
-                        (pods, *g.shape),
+                        (len(mine), *g.shape),
                         dtype=g.dtype if pregen else torch.float32)
                         for g in grads]
                 for s, g in zip(stacked, grads):
-                    s[p].copy_(g)
+                    s[row].copy_(g)
                 del grads
     finally:
         for r in roots:
@@ -190,10 +206,17 @@ def lm_train_step(state, batch, *, cfg, sp_cfg, opt_cfg,
     new_err = None
     if compress:
         with torch.no_grad(), record_function("train/sync"):
-            gc_cfg = C.GradCompressConfig.from_sparsity(sp_cfg)
+            gc_cfg = grad_sync or C.GradCompressConfig.from_sparsity(sp_cfg)
             grads, new_err = C.cross_pod_sync(
-                sgd.pregen_grads(compute, stacked), state["err"], gc_cfg)
+                sgd.pregen_grads(compute, stacked), state["err"], gc_cfg,
+                step=int(state["step"]), group=group)
             del stacked
+        if group is not None:   # every pod's (loss, aux, total), in order
+            pod_vals = C.gather_rows(torch.stack(
+                [losses[0], auxes[0], totals[0]]).to(torch.float32)[None],
+                group, count=False)
+            losses, auxes, totals = (list(pod_vals[:, j].unbind())
+                                     for j in range(3))
     else:
         grads = sgd.pregen_grads(compute, grads)
     del compute, roots
@@ -349,13 +372,18 @@ def encdec_prefill_step(params, batch, *, cfg, sp_cfg,
     """Encode ``batch["frames"]`` and prefill the decoder with
     ``batch["tokens"]`` (B, S): returns (next-token logits (B, 1, V), the
     cache, the encoder output).  The cache is exactly S long, as the
-    reference's (step.py's ``E.init_cache(cfg, b, s)``)."""
+    reference's (step.py's ``E.init_cache(cfg, b, s)``).  The decoder and
+    the logits run under ``layers.batch_invariant``: on the card a row's
+    bits are the same for every B of one bucket (1-8, ...)."""
     enc = E.encode(params, batch["frames"], cfg, sp_cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     cache = E.init_cache(cfg, b, s, device=tokens.device, dtype=cache_dtype)
-    hidden, cache = E.decode(params, tokens, enc, cfg, sp_cfg, cache=cache)
-    return E.logits_from_hidden(params, hidden[:, -1:], cfg), cache, enc
+    with L.batch_invariant():
+        hidden, cache = E.decode(params, tokens, enc, cfg, sp_cfg,
+                                 cache=cache)
+        logits = E.logits_from_hidden(params, hidden[:, -1:], cfg)
+    return logits, cache, enc
 
 
 def encdec_decode_step(params, cache, enc_out, token, pos, *, cfg, sp_cfg):
@@ -363,11 +391,12 @@ def encdec_decode_step(params, cache, enc_out, token, pos, *, cfg, sp_cfg):
     (every row's learned position and RoPE), every row writing at each
     layer's shared cursor; the cross-attention K/V are projected from
     ``enc_out`` again.  The cache is updated in place and returned with
-    the logits (B, 1, V)."""
+    the logits (B, 1, V).  Batch-invariant as ``encdec_prefill_step``."""
     b = token.shape[0]
     positions = torch.as_tensor(pos, device=token.device).reshape(
         1, 1).expand(b, 1)
-    hidden, cache = E.decode(params, token, enc_out, cfg, sp_cfg,
-                             cache=cache, decode_step=True,
-                             positions=positions)
-    return E.logits_from_hidden(params, hidden, cfg), cache
+    with L.batch_invariant():
+        hidden, cache = E.decode(params, token, enc_out, cfg, sp_cfg,
+                                 cache=cache, decode_step=True,
+                                 positions=positions)
+        return E.logits_from_hidden(params, hidden, cfg), cache

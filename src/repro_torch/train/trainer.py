@@ -55,11 +55,22 @@ def train_steps(step_fn, state, data_iter: Iterator, n_steps: int):
 
 
 def fit(step_fn, state, data_iter: Iterator, tcfg: TrainerConfig,
-        log_fn: Callable = print):
+        log_fn: Callable = print, group=None):
     """Run the loop up to ``tcfg.total_steps``; returns (final_state,
-    history of {"step", "loss", "sec", "straggler"})."""
-    ckpt = CheckpointManager(tcfg.ckpt_dir) if tcfg.ckpt_dir else None
-    hb = Heartbeat(tcfg.heartbeat_path) if tcfg.heartbeat_path else None
+    history of {"step", "loss", "sec", "straggler"}).  Under ``group``
+    (one process per pod, the step's own group) every rank runs the
+    loop in lockstep, checkpoints go through the group
+    (``CheckpointManager(group=)``) and rank 0 alone beats the
+    heartbeat."""
+    ckpt = (CheckpointManager(tcfg.ckpt_dir, group=group) if tcfg.ckpt_dir
+            else None)
+    rank = 0
+    if group is not None:
+        import torch.distributed as dist
+
+        rank = dist.get_rank(group)
+    hb = (Heartbeat(tcfg.heartbeat_path)
+          if tcfg.heartbeat_path and rank == 0 else None)
     mon = StragglerMonitor(tcfg.straggler_threshold)
     history = []
     cur = int(state["step"])   # authoritative; advances with each update

@@ -185,8 +185,7 @@ def test_refusals():
         C.plan_buckets(60, 16, 8)
     with pytest.raises(ValueError, match="unknown"):
         C.GradCompressConfig(estimator="randk")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        C.GradCompressConfig(estimator="mvue")
+    assert C.GradCompressConfig(estimator="mvue").estimator == "mvue"
     tree = {"w": torch.zeros(2, 8, 8)}
     with pytest.raises(ValueError, match="EF residual"):
         C.cross_pod_sync(tree, torch.zeros(2, 63), C.GradCompressConfig())
@@ -221,7 +220,7 @@ def _bucket_sync(grads, err, cfg):
     outs = [x.float().mean(0).to(x.dtype) if off is None
             else torch.empty(x.shape[1:], dtype=x.dtype)
             for x, off in zip(leaves, plan.offsets)]
-    for i, s, e in plan.chunks:
+    for (i,), s, e in plan.chunks:   # trees without layer stacks
         col = plan.offsets[i]
         vals, idx, _ = TO.grad_compress(leaves[i].reshape(pods, -1)[:, s:e],
                                         err[:, col + s:col + e], cfg.n, cfg.m)

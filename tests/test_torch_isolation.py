@@ -289,3 +289,30 @@ def _tensors(tree):
     elif isinstance(tree, PregenOp):
         yield from (t for t in (tree.bp, tree.vals, tree.idx, tree.mask)
                     if t is not None)
+
+
+def test_scan_sees_the_launch_modules():
+    paths = {p.relative_to(ROOT).as_posix() for p in _sources()}
+    assert {"src/repro_torch/launch/dist.py",
+            "src/repro_torch/launch/train.py"} <= paths
+
+
+def test_launch_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+    """The launcher and its process-group helper run on the card unless
+    ``--device`` / ``device`` names another, and raise without one."""
+    from repro_torch.launch import dist as LD
+    from repro_torch.launch import train as LT
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LD.rank_device(None, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LD.init_from_env()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LT.run_training(LT.build_parser().parse_args(
+            ["--arch", "qwen3-8b", "--steps", "1"]))
+    pods = LD.init_from_env("cpu")
+    assert pods.group is None and pods.world == 1
+    assert pods.device.type == "cpu"
+    assert LD.pick_backend("cpu", 2) == "gloo"

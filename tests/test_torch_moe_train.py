@@ -52,6 +52,7 @@ from repro_torch.optim import sgd as TSGD
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 from repro_torch.train import step as TST
 from repro_torch.train import trainer as TTR
+from torch_sync_helpers import check_pod_split_metrics
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -140,13 +141,11 @@ def test_three_steps_match_reference(pregen):
                                + TST.AUX_COEF * port["aux"], rtol=1e-6)
 
 
-def test_compressed_moe_step_is_not_ported():
-    state = TST.init_train_state(T_CFG, T_SP, device="cpu", compress=True,
-                                 n_pods=2)
-    _, batch = next(lm_stream(T_CFG.vocab, BATCH, SEQ, device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        TST.lm_train_step(state, batch, cfg=T_CFG, sp_cfg=T_SP,
-                          opt_cfg=T_OPT, compress=True, n_pods=2)
+def test_compressed_step_takes_each_pods_aux_on_its_rows():
+    """Two pods on one device: each pod's loss and MoE aux on its own
+    rows, the step's the mean (the reference's vmap over pods)."""
+    m = check_pod_split_metrics(T_CFG, T_SP, T_OPT, BATCH, SEQ)
+    assert float(m["aux"]) > 0
 
 
 def test_prefill_and_decode_match_reference():

@@ -55,6 +55,7 @@ from repro_torch.models import transformer_lm as TT
 from repro_torch.optim import sgd as TSGD
 from repro_torch.train import step as TST
 from repro_torch.train import trainer as TTR
+from torch_sync_helpers import check_pod_split_metrics
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -317,11 +318,8 @@ def test_three_steps_match_reference(arch, pregen):
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
-def test_compressed_step_is_not_ported(arch):
-    tc = _cfgs(arch)[1]
-    state = TST.init_train_state(tc, T_SP, device="cpu", compress=True,
-                                 n_pods=2)
-    _, batch = next(lm_stream(tc.vocab, BATCH, SEQ, device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        TST.lm_train_step(state, batch, cfg=tc, sp_cfg=T_SP, opt_cfg=T_OPT,
-                          compress=True, n_pods=2)
+def test_compressed_step_takes_each_pods_loss_on_its_rows(arch):
+    """Two pods on one device: each pod's loss on its own rows, the
+    step's the mean; no aux without experts."""
+    m = check_pod_split_metrics(_cfgs(arch)[1], T_SP, T_OPT, BATCH, SEQ)
+    assert float(m["aux"]) == 0
