@@ -396,15 +396,15 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 over the last prompt position) on both sides, three
                 packed pre-generated steps (step-0 compute trees
                 bitwise) and one legacy step;
- 45. whisper train  whisper TRAIN (every width, 12 + 20 of its 32 + 32
+ 45. whisper train  whisper TRAIN (every width, 4 + 24 of its 32 + 32
                 layers), 8 rows of 1500 frames and 448 tokens: five
-                timed steps, exactly 2 x (6 x 12 + 10 x 20) nm_spmm and
-                one fused_update over 272 sites (past the 256 of its
+                timed steps, exactly 2 x (6 x 4 + 10 x 24) nm_spmm and
+                one fused_update over 264 sites (past the 256 of its
                 by-value table) a step, a profiled sixth with the
                 encdec/encoder, encdec/decoder and encdec/cross_kv
                 ranges, the first and last layers' operands of both
                 stacks equal to the pack of the new master, peak;
- 46. whisper serve  whisper FULL widths at 8 + 8 layers, 2:8 u4-packed
+ 46. whisper serve  whisper FULL widths at 4 + 4 layers, 2:8 u4-packed
                 (all nm_compact vector): 4 rows of their own 1500 frames
                 and Whisper's 4-token start prompt prefilled, the cache
                 seated in a 448-long one, 32 greedy decode steps on the
@@ -433,24 +433,60 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 over 4096 draws of one gradient the mean estimate lies
                 within 5 standard errors (entries drawn 25 times or
                 more); mvue_compress timed beside grad_compress;
- 49. granite sync granite-moe-1b-a400m TRAIN (every width, 12 of 24
+ 49. granite sync granite-moe-1b-a400m TRAIN (every width, 6 of 24
                 layers), 2 pods on one card, topk compressed sync, 2:8
                 bdwp packed, 4 x 1024 tokens, the launcher's settings,
                 under torch.use_deterministic_algorithms (the MoE
                 backward's index_select gradient is an atomic
                 scatter-add otherwise, and two runs part in the last
                 bits):
-                five timed steps with exactly 2 x 7 x 12 x 2 nm_spmm,
-                one fused_update over 84 sites and one grad_compress and
-                one grad_decompress_mean per unit (122) a step; the
+                five timed steps with exactly 2 x 7 x 6 x 2 nm_spmm,
+                one fused_update over 42 sites and one grad_compress and
+                one grad_decompress_mean per unit (62) a step; the
                 state's fingerprints after step 3, a profiled sixth step
                 (the sync's share), peak;
  50. processes  the same run in two processes on the one card through
-                the launcher (torchrun --standalone, gloo; NCCL refuses
-                two ranks on one card; --deterministic), 3 steps: losses, the shared
-                state and both residual rows bitwise phase 49's after 3
-                steps (fingerprints), each rank's launches, the backend,
-                the gathers and bytes a step against wire_bytes.
+                the launcher (torchrun --standalone, the mesh "pod=2",
+                gloo; NCCL refuses two ranks on one card;
+                --deterministic), 3 steps: losses and each rank's state
+                (shared state and residual row) bitwise phase 49's after
+                3 steps (fingerprints), each rank's launches, the
+                backend, the gathers and bytes a step against
+                wire_bytes;
+ 51. FSDP       one qwen3-8b TRAIN layer's update at data=2: each rank's
+                grouped fused_update over its 7 block sites (rows K/2,
+                columns F/2 of o_proj and w_down) bitwise the slice of
+                the whole layer's update, timed against its byte bound;
+                how far the embedding lookup's backward (repeated tokens
+                summed in bf16) lies from an fp32 sum (reported);
+                then qwen3-8b at every width, 4 of 36 layers, through
+                the launcher's --mesh data=2 (two processes on the one
+                card, gloo), 3 steps of 4 x 512 tokens: losses within
+                2e-3 and the master within 1e-3 of the one-process step
+                on the same rows (the reference's own sharded-vs-single
+                tolerance, at its optimizer; the master read from the
+                launcher's checkpoint) and each master leaf's change
+                within 2e-2 of the one-process change, a second run
+                bitwise the first, and per rank its state bytes, peak,
+                ms/step, bytes gathered and reduced a step, launches;
+ 52. pod x data granite-moe-1b-a400m at every width, 6 of 24 layers:
+                each rank's compressed sync of its blocks bitwise its
+                slice of the one-card sync of the whole gradients (mean
+                and residual, one grad_compress and grad_decompress_mean
+                a unit of its plan); then the launcher's --mesh
+                pod=2,data=2 --compress (four processes on the card), 3
+                steps of 4 x 1024 tokens: losses within 2e-3, the
+                master within 3e-3 and each leaf's change within 0.25
+                of phase 49's one-process step (the compressed sync's
+                picks flip where the ranks' sums round apart); each
+                rank's hop bytes a step equal to wire_bytes of its
+                blocks, launches, ms/step, state bytes, peak;
+ 53. checkpoints granite-moe SMOKE through the launcher: saved at
+                data=2, restored at data=1 on the card and saved,
+                resumed at data=2 and saved: bitwise; a checkpoint
+                without a compute tree resumed at data=2
+                (restore_with_pregen) gives the update's compute tree
+                bitwise.
 
 It prints a JSON line with every kernel's numbers, the card line, and as
 its last line {"ok": true, "device": {...}}.  With no card, or outside a
@@ -467,6 +503,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -4948,10 +4985,10 @@ WHISPER_PROMPT = (50258, 50259, 50360, 50364)
 WHISPER_MAX_LEN = 448
 WHISPER_DECODE_STEPS = 32
 WHISPER_B1_STEPS = 16           # phase 46's B = 1 against B = 4 steps
-# phases 45-46: encoder + decoder layers (45: 12 + 20, 272
-# sites, past the 256 of fused_update's by-value table; 46: 8 + 8)
-WHISPER_TRAIN_LAYERS = (12, 20)
-WHISPER_SERVE_LAYERS = 8
+# phases 45-46: encoder + decoder layers (45: 4 + 24, 264
+# sites, past the 256 of fused_update's by-value table; 46: 4 + 4)
+WHISPER_TRAIN_LAYERS = (4, 24)
+WHISPER_SERVE_LAYERS = 4
 # phase 43's nm_spmm cases (label, B, K, F, idx bits): decode rows (u4),
 # the TRAIN step's 12,000 encoder rows (u8), and a decode step's cross
 # K/V projection over 4 rows x 1500 frames (u4)
@@ -5555,7 +5592,7 @@ SYNC_NEW_LEAVES = [
     ("hymba-1.5b", "blocks/ssm/in_proj/w", "fp32")]
 SYNC_PLAIN_MAX = 1 << 25          # plain versions timed up to this numel
 MVUE_DRAWS = 4096                 # phase 48's draws of one gradient
-SYNC_MOE_LAYERS = 12              # phases 49-50: granite at 12 of 24 layers
+SYNC_MOE_LAYERS = 6               # phases 49-50: granite at 6 of 24 layers
 SYNC_MOE_STEPS = 5
 SYNC_PROC_STEPS = 3
 SYNC_LR = 0.1                     # the launcher's default
@@ -5797,6 +5834,8 @@ def _train_granite_sync(dev, seed):
     state = ST.init_train_state(cfg, sp, seed=seed, device=dev,
                                 compress=True, n_pods=2)
     torch.cuda.synchronize()
+    masters = {"init": [x.to("cpu", copy=True)
+                        for x in sgd.tree_leaves(state["master"])]}
     plan = CS.plan_for(state["master"], gc.bucket_elems, gc.m)
     units = len(plan.units)
     print(f"  init {cfg.n_layers} layers + pre-generation + residual "
@@ -5834,12 +5873,12 @@ def _train_granite_sync(dev, seed):
               f"{times[-1]:.1f} ms; launches {got}")
         check(math.isfinite(loss), "granite sync: non-finite loss")
         check(got == want, f"granite sync: launches {got} != {want}")
-        if i + 1 == SYNC_PROC_STEPS:
+        if i + 1 == SYNC_PROC_STEPS:   # each pod's rank of phase 50
             t1 = time.perf_counter()
-            prints = {"shared": state_fingerprint(
-                {k: v for k, v in state.items() if k != "err"}),
-                **{f"err{r}": state_fingerprint(state["err"][r:r + 1])
-                   for r in range(2)}}
+            prints = {r: state_fingerprint(
+                dict(state, err=state["err"][r:r + 1])) for r in range(2)}
+            masters["after"] = [x.to("cpu", copy=True)
+                                for x in sgd.tree_leaves(state["master"])]
             print(f"  fingerprints after step {i}: {prints} "
                   f"({time.perf_counter() - t1:.1f} s)")
     launches = counts()
@@ -5861,85 +5900,688 @@ def _train_granite_sync(dev, seed):
             "tokens_per_s": tokens / ms * 1e3, "launches": launches,
             "units": units, "fingerprints": prints, "sync_share": share,
             "max_memory_allocated": peak, "profile": prof,
-            "width": plan.width}
+            "width": plan.width, "masters": masters}
 
 
 def phase_train_granite_procs(dev, seed, one):
     """Phase 49's run in the process form: two processes on the one card,
     started through the launcher (``torchrun --standalone
-    --nproc-per-node 2 -m repro_torch.launch.train ... --digest``), gloo
-    between them, SYNC_PROC_STEPS steps: the losses, the shared state and
-    each rank's residual row bitwise phase 49's after as many steps
-    (fingerprints), the kernel launches of each rank, the backend and
-    the bytes gathered a step against ``wire_bytes``."""
-    root = os.path.dirname(os.path.abspath(__file__))
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
-           "--arch", "granite-moe-1b-a400m", "--full", "--layers",
-           str(SYNC_MOE_LAYERS), "--steps", str(SYNC_PROC_STEPS),
-           "--batch", str(MOE_TRAIN_ROWS[0]), "--seq",
-           str(MOE_TRAIN_ROWS[1]), "--compress", "--lr", str(SYNC_LR),
-           "--seed", str(seed), "--log-every", "1", "--digest",
-           "--deterministic"]
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [os.path.join(root, "src"), os.environ.get("PYTHONPATH", "")]))
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
-                          text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    out = proc.stdout
-    if proc.returncode != 0:
-        print(out[-3000:])
-        print(proc.stderr[-3000:])
-    check(proc.returncode == 0, f"process form: the launcher exited "
-          f"{proc.returncode}")
+    --nproc-per-node 2 -m repro_torch.launch.train ... --digest``: the
+    mesh "pod=2", one pod a process), gloo between them,
+    SYNC_PROC_STEPS steps: the losses and each rank's state (the shared
+    state and its residual row) bitwise phase 49's after as many steps
+    (fingerprints), the kernel launches of each rank, the backend, and
+    the hop's gathers and bytes a step against ``wire_bytes``."""
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.models import transformer_lm as T
+    from repro_torch.optim import compress as C
+    from repro_torch.optim import sgd
+
+    cfg, args = _mesh_cfg("granite-moe-1b-a400m", SYNC_MOE_LAYERS, dev)
+    args += ["--steps", str(SYNC_PROC_STEPS), "--batch",
+             str(MOE_TRAIN_ROWS[0]), "--seq", str(MOE_TRAIN_ROWS[1]),
+             "--compress", "--lr", str(SYNC_LR), "--seed", str(seed),
+             "--log-every", "1", "--digest", "--deterministic"]
+    out, wall = launch_done(launch_mesh(dev, 2, args), "process form")
     lines = [ln for ln in out.splitlines() if ln.strip()]
     for ln in lines:
         if not ln.startswith("step "):
-            print(f"  | {ln}")
+            print(f"  | {ln[:300]}")
     step_ms = [float(x) for x in re.findall(r"^step +\d+ loss \S+ "
                                             r"([\d.]+)ms$", out, re.M)]
-    losses = eval(next(ln for ln in lines if ln.startswith("losses "))[7:])
-    prints = {"shared": re.search(r"fingerprint shared ([0-9a-f]{32})",
-                                  out)[1],
-              **{f"err{r}": re.search(
-                  rf"fingerprint err rank {r} ([0-9a-f]{{32}})", out)[1]
-                 for r in range(2)}}
-    hop = re.search(r"hop backend (\w+) gathers a step (\d+) bytes sent a "
-                    r"step (\d+) wire_bytes (\d+) payload on (\S+)", out)
-    ranks = {int(m[1]): {"nm_spmm": int(m[2]), "fused_update": int(m[3]),
-                         "grad_compress": int(m[4]),
-                         "grad_decompress_mean": int(m[5])}
-             for m in re.finditer(r"launches rank (\d+) nm_spmm (\d+) "
-                                  r"fused_update (\d+) grad_compress (\d+) "
-                                  r"grad_decompress_mean (\d+)", out)}
+    got = mesh_digest(out)
+    backend = re.search(r"2 processes, backend (\w+) on (\S+)", out)
+    sp = SparsityConfig(n=2, m=8, method="bdwp")
+    plan = C.plan_for(T.abstract_params(cfg), 1 << 16, sp.m)
+    total = sum(n for _, _, n in plan.units)
+    ragged = sum(x.numel() for x, off in zip(
+        sgd.tree_leaves(T.abstract_params(cfg)), plan.offsets) if off is None)
+    wire = C.wire_bytes(total, ragged, C.GradCompressConfig.from_sparsity(sp))
     units = one["units"]
     want = {"nm_spmm": 2 * 7 * SYNC_MOE_LAYERS * SYNC_PROC_STEPS,
             "fused_update": SYNC_PROC_STEPS,
             "grad_compress": units * SYNC_PROC_STEPS,
             "grad_decompress_mean": units * SYNC_PROC_STEPS}
-    check(losses == one["losses"][:SYNC_PROC_STEPS],
-          f"process form: losses {losses} != one card's "
+    ranks = {r: x["launches"] for r, x in got["ranks"].items()}
+    check(got["losses"] == one["losses"][:SYNC_PROC_STEPS],
+          f"process form: losses {got['losses']} != one card's "
           f"{one['losses'][:SYNC_PROC_STEPS]}")
-    check(prints == one["fingerprints"], f"process form: state "
-          f"fingerprints {prints} != one card's {one['fingerprints']}")
-    check(hop is not None and hop[1] == "gloo", "process form: backend")
-    check(int(hop[2]) == 2 * units, "process form: gathers a step")
-    check(int(hop[3]) == int(hop[4]), "process form: bytes gathered a "
-          "step != wire_bytes")
+    check(got["fingerprints"] == one["fingerprints"], f"process form: "
+          f"state fingerprints {got['fingerprints']} != one card's "
+          f"{one['fingerprints']}")
+    check(backend is not None and backend[1] == "gloo",
+          "process form: backend")
+    check(sorted(ranks) == [0, 1] and all(
+        x["hop_gathers_per_step"] == 2 * units
+        and x["hop_bytes_per_step"] == wire
+        for x in got["ranks"].values()),
+        f"process form: the hop's gathers and bytes a step "
+        f"{got['ranks']} != {2 * units} and wire_bytes {wire}")
     check(ranks == {0: want, 1: want}, f"process form: launches {ranks} != "
           f"{want} on each rank")
-    print(f"  two processes on {hop[5]}, backend {hop[1]} (NCCL refuses two "
-          "ranks on one card): gloo gathered the CUDA payload itself, no "
-          f"staging by the hop; {hop[2]} gathers and {int(hop[3]):,} bytes "
-          f"sent a step and a rank (wire_bytes {int(hop[4]):,}); losses, "
-          "the shared state and both residual rows bitwise phase 49's "
-          f"after {SYNC_PROC_STEPS} steps; launches per rank {ranks[0]}; "
-          f"steps {step_ms} ms; {wall:.1f} s with start-up")
-    return {"losses": losses, "fingerprints": prints, "step_ms": step_ms,
-            "backend": hop[1], "gathers_per_step": int(hop[2]),
-            "bytes_per_step": int(hop[3]), "wire_bytes": int(hop[4]),
-            "launches": ranks, "seconds": wall}
+    print(f"  two processes on {backend[2]}, backend {backend[1]} (NCCL "
+          "refuses two ranks on one card): gloo gathered the CUDA payload "
+          f"itself, no staging by the hop; {2 * units} gathers and "
+          f"{wire:,} bytes sent a step and a rank (= wire_bytes); losses "
+          "and each rank's state (shared state and residual row) bitwise "
+          f"phase 49's after {SYNC_PROC_STEPS} steps; launches per rank "
+          f"{ranks[0]}; steps {step_ms} ms; {wall:.1f} s with start-up")
+    return {"losses": got["losses"], "fingerprints": got["fingerprints"],
+            "step_ms": step_ms, "backend": backend[1],
+            "gathers_per_step": 2 * units, "bytes_per_step": wire,
+            "wire_bytes": wire, "launches": ranks, "seconds": wall}
+
+
+# ---------------------------------------------------------------------------
+# Phases 51-53: the mesh (FSDP over "data", the pod x data sync,
+# checkpoints across meshes), through the launcher's --mesh
+# ---------------------------------------------------------------------------
+
+
+FSDP_LAYERS = 4                   # phase 51: qwen3-8b at TRAIN_SYNC's depth
+FSDP_ROWS = (4, 512)              # the global batch: 2 rows a rank
+FSDP_STEPS = 3
+FSDP_LOSS_ATOL = 2e-3             # tests/test_spmd.py's sharded-vs-single
+FSDP_MASTER_ATOL = 1e-3           # tolerance, at its optimizer (lr 0.1,
+FSDP_LR = 0.1                     # warmup 100: the launcher's default)
+FSDP_MOVE_RTOL = 2e-2             # each master leaf's change over the steps,
+POD_DATA_MOVE_RTOL = 0.25         # in norm, against one process's: the
+#                                   tolerance above is ~50x the change; the
+#                                   compressed sync's top-n picks flip where
+#                                   two ranks' sums round apart
+POD_DATA_MASTER_ATOL = 3e-3       # a flipped pick moves one element of a
+#                                   pod's payload by its whole |g + err|:
+#                                   at lr 0.001 and 0.002 (steps 1-2) and
+#                                   momentum 0.9, <= 3e-3 for |g + err| <= 1
+POD_DATA_LAYERS = 6               # phase 52: granite at 6 of 24 layers
+POD_DATA_STEPS = 3
+CKPT_ARCH = "granite-moe-1b-a400m"  # phase 53 (SMOKE: expert stacks)
+CKPT_STEPS = 2
+DIGEST_RANK = re.compile(
+    r"rank (\d+) coords (\{[^}]*\}) state_bytes (\d+) peak_bytes (\d+) "
+    r"step_ms (\[[^\]]*\]) launches nm_spmm (\d+) fused_update (\d+) "
+    r"grad_compress (\d+) grad_decompress_mean (\d+) "
+    r"gathered_bytes_per_step (\d+) reduced_bytes_per_step (\d+) "
+    r"hop_bytes_per_step (\d+) hop_gathers_per_step (\d+) "
+    r"fingerprint ([0-9a-f]{32})")
+
+
+def launch_mesh(dev, nproc, args):
+    """Start the launcher under torchrun on ``nproc`` processes (on the
+    card, or with ``--device cpu`` for a CPU rehearsal); returns (the
+    process, its start)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(nproc), "-m", "repro_torch.launch.train",
+           *args] + (["--device", "cpu"] if dev.type == "cpu" else [])
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(root, "src"), os.environ.get("PYTHONPATH", "")]))
+    return subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True), \
+        time.perf_counter()
+
+
+def launch_done(started, label, timeout=900):
+    """Wait for a launcher run; fail the phase unless it exited 0.
+    Returns (its stdout, its wall seconds with start-up)."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        print(out[-3000:])
+        print(err[-3000:])
+        check(False, f"{label}: the launcher did not end in {timeout} s")
+    if proc.returncode != 0:
+        print(out[-3000:])
+        print(err[-3000:])
+    check(proc.returncode == 0, f"{label}: the launcher exited "
+          f"{proc.returncode}")
+    return out, time.perf_counter() - t0
+
+
+def mesh_digest(out):
+    """The ``--digest`` lines of a mesh run: losses, and each rank's
+    coordinates, state bytes, peak, step times, launches, bytes a step
+    and the fingerprint of its blocks."""
+    losses = eval(next(ln for ln in out.splitlines()
+                       if ln.startswith("losses "))[7:])
+    ranks = {}
+    for mt in DIGEST_RANK.finditer(out):
+        ranks[int(mt[1])] = {
+            "coords": eval(mt[2]), "state_bytes": int(mt[3]),
+            "peak_bytes": int(mt[4]), "step_ms": eval(mt[5]),
+            "launches": {"nm_spmm": int(mt[6]), "fused_update": int(mt[7]),
+                         "grad_compress": int(mt[8]),
+                         "grad_decompress_mean": int(mt[9])},
+            "gathered_bytes_per_step": int(mt[10]),
+            "reduced_bytes_per_step": int(mt[11]),
+            "hop_bytes_per_step": int(mt[12]),
+            "hop_gathers_per_step": int(mt[13]), "fingerprint": mt[14]}
+    return {"losses": losses, "ranks": ranks,
+            "fingerprints": {r: x["fingerprint"] for r, x in ranks.items()}}
+
+
+def _mesh_cfg(arch, layers, dev):
+    """``arch`` at every width (SMOKE's for a CPU rehearsal), ``layers``
+    deep, and the launcher's flags for it."""
+    from repro_torch.configs import get_arch
+
+    size = "smoke" if dev.type == "cpu" else "full"
+    return (dataclasses.replace(getattr(get_arch(arch), size),
+                                n_layers=layers),
+            ["--arch", arch, f"--{size}", "--layers", str(layers)])
+
+
+def master_gaps(ckpt, state, init):
+    """(largest |a - b| over the master, largest ||a - b|| / ||a - x|| over
+    its leaves) of a launcher run's final master (its checkpoint in
+    ``ckpt``, mapped, not read whole) against ``state``'s, the
+    one-process run's, from ``init`` (its initial master leaves)."""
+    from repro_torch.optim import sgd
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    like = {k: v for k, v in state.items()}
+    saved = CheckpointManager(ckpt).restore(like, device="cpu", mmap=True)
+    worst = move = 0.0
+    for a, b, x in zip(sgd.tree_leaves(state["master"]),
+                       sgd.tree_leaves(saved["master"]), init):
+        b, x = b.to(a.device), x.to(a.device)
+        worst = max(worst, float((a - b).abs().max()))
+        move = max(move, float((a - b).norm() / (a - x).norm()))
+    return worst, move
+
+
+def phase_fsdp_update(dev, gen):
+    """One qwen3-8b TRAIN layer (every width) at data=2: each rank's
+    update of its blocks (``sgd.update`` with the logical shapes: one
+    grouped fused_update launch over the 7 block sites, rows K/2 of
+    q/k/v/gate/up, columns F/2 of o_proj and w_down) bitwise the slice
+    of the whole layer's update given the same gradient (w', v', vals,
+    idx, bp, mask); one rank's grouped launch timed against its byte
+    bound and the plain version."""
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.kernels import fused_update as KF
+    from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer_lm as T
+    from repro_torch.optim import sgd
+    from repro_torch.sharding import fsdp as F
+    from repro_torch.train import step as ST
+
+    cfg, _ = _mesh_cfg("qwen3-8b", 1, dev)
+    sp = SparsityConfig(n=2, m=8, method="bdwp")
+    opt = sgd.SGDConfig(lr=0.1, warmup_steps=2, total_steps=50)
+    shape = {"data": 2, "model": 1}
+    whole_specs = ST.state_pspecs(cfg, Mesh(shape), sp)
+    specs = {k: whole_specs[k]["blocks"][0]
+             for k in ("master", "momentum", "compute")}
+    block = T.block_init(gen, cfg, device=dev)
+    lshapes = sgd.shapes_of(block)
+
+    def randn_like(x, scale, dtype=None):
+        return (torch.randn(x.shape, generator=gen, device=dev) * scale).to(
+            dtype or x.dtype)
+
+    state = {"master": block, "momentum": sgd.tree_map(
+        lambda _, w: randn_like(w, 1e-2), block), "step": 5}
+    state["compute"] = sgd.pregen_tree(state["master"], sp, pack=True)
+    grads = sgd.pregen_grads(state["compute"], [
+        randn_like(x, 1e-2) for x in sgd.diff_leaves(state["compute"])])
+
+    def clone(tree):
+        return F.map_blocks(tree, tree, lambda t, _: t.clone())
+
+    blocks = []
+    for r in range(2):
+        rmesh = Mesh(shape, rank=r)
+        blocks.append(({k: clone(F.shard_tree(state[k], specs[k], rmesh))
+                        for k in ("master", "momentum", "compute")},
+                       F.shard_tree(grads, specs["master"], rmesh)))
+    c0 = KF.launches
+    new, comp = sgd.update(ST.state_core(clone(state)), grads, opt, sp,
+                           prev_compute=state["compute"], pack=True)
+    want = {"master": new["master"], "momentum": new["momentum"],
+            "compute": comp}
+    check(KF.launches - c0 == 1, "shard update: the whole layer is not "
+          "one grouped launch")
+    views = []
+    for r, (mine, g) in enumerate(blocks):
+        rmesh = Mesh(shape, rank=r)
+        c0, s0 = KF.launches, KF.launched_sites
+        got, gcomp = sgd.update(dict(mine, step=5), g, opt, sp,
+                                prev_compute=mine["compute"], pack=True,
+                                lshapes=lshapes)
+        check((KF.launches - c0, KF.launched_sites - s0) == (1, 7),
+              "shard update: a rank's 7 block sites are not one grouped "
+              "launch")
+        for key, tree in (("master", got["master"]),
+                          ("momentum", got["momentum"]), ("compute", gcomp)):
+            slices = F.tensors(F.shard_tree(want[key], specs[key], rmesh))
+            outs = F.tensors(tree)
+            check(len(slices) == len(outs) and all(
+                bits_equal(a, b) for a, b in zip(slices, outs)),
+                f"shard update: rank {r}'s {key} is not the slice of the "
+                "whole layer's update")
+        views.append([tuple(x.shape) for x in F.tensors(mine["master"])
+                      if x.ndim == 2])
+    print(f"  rank blocks {views[0]} / {views[1]}: each rank's update (one "
+          "grouped fused_update over its 7 block sites) bitwise the slice "
+          "of the whole layer's (w', v', vals, idx, bp, mask)")
+    mine, g = blocks[0]
+    s = UPDATE_SCALARS
+    sites = []
+    for w, gw, v in zip(F.tensors(mine["master"]), F.tensors(g),
+                        F.tensors(mine["momentum"])):
+        if w.ndim == 2:
+            sites.append((w.view(-1, w.shape[-1]), gw.reshape(
+                -1, w.shape[-1]), v.view(-1, w.shape[-1])))
+    args = (s["lr"], s["mu"], s["wd"], s["lam"], 2, 8, "bdwp")
+    t_k = time_ms(lambda i: KF.fused_update_sites(sites, *args), 1, iters=10)
+    t_p = time_ms(lambda i: [ref.ref_fused_update(
+        w, gw, v, n=2, m=8, axis=0, bp_mode="bdwp", **s)
+        for w, gw, v in sites], 1, iters=2)
+    t_b = sum(update_bound_ms(w.shape[0], w.shape[1], 2, 8)
+              for w, _, _ in sites)
+    elements = sum(w.numel() for w, _, _ in sites)
+    print(f"  rank 0's grouped launch over {len(sites)} block sites "
+          f"({elements:,} elements): {t_k:.4f} ms against a {t_b:.4f} ms "
+          f"bound (bound/kernel {t_b / t_k:.2f}); plain {t_p:.3f} ms")
+    del state, blocks, new, comp, want
+    torch.cuda.empty_cache()
+    embed = embed_grad_accumulation(dev, gen, cfg)
+    return {"views": views[0], "elements": elements, "ms": t_k,
+            "plain_ms": t_p, "bound_ms": t_b, "bound_by": "bytes",
+            "library_ms": None, "embed_grad": embed}
+
+
+def embed_grad_accumulation(dev, gen, cfg):
+    """How the embedding table's gradient sums repeated tokens on the
+    card: the lookup's backward (``table[tokens]``, as the one-process
+    step takes it and the FSDP row lookup reproduces) against an fp32
+    sum of the same rows, on the first FSDP_ROWS batch of phase 51 and a
+    random bf16 row gradient; the most repeated tokens' rows' relative
+    gaps are reported (no check: both steps take it the same way)."""
+    from repro_torch.data.synthetic import lm_stream
+
+    tokens = next(lm_stream(cfg.vocab, *FSDP_ROWS, device=dev,
+                            seed=SEED))[1]["tokens"]
+    table = torch.zeros((cfg.padded_vocab, cfg.d_model), device=dev,
+                        dtype=torch.bfloat16, requires_grad=True)
+    g = (torch.randn((*tokens.shape, cfg.d_model), generator=gen,
+                     device=dev) * 1e-3).to(torch.bfloat16)
+    (lookup,) = torch.autograd.grad(table[tokens], table, g)
+    exact = torch.zeros(table.shape, dtype=torch.float32, device=dev)
+    exact.index_add_(0, tokens.reshape(-1), g.reshape(-1, cfg.d_model).float())
+    counts = torch.bincount(tokens.reshape(-1), minlength=cfg.padded_vocab)
+    top = counts.argsort(descending=True)[:5]
+    gaps = [float((lookup[t].float() - exact[t]).norm() / exact[t].norm())
+            for t in top]
+    shown = ", ".join(f"{x:.4f}" for x in gaps)
+    print(f"  the embedding's lookup backward sums repeated tokens in "
+          f"bf16: the 5 most repeated of {tokens.numel()} tokens "
+          f"({counts[top].tolist()} times) are {shown} from an fp32 sum, "
+          "relative")
+    return {"repeats": counts[top].tolist(), "relative_gaps": gaps}
+
+
+def phase_fsdp_train(dev, seed, during=None):
+    """qwen3-8b at every width, FSDP_LAYERS layers, through the
+    launcher's ``--mesh data=2``: two processes on the one card (gloo),
+    FSDP_STEPS steps of the global FSDP_ROWS batch, each rank on its two
+    rows.  Against the port's one-process step on the same rows (run
+    here, beside a second launcher run): losses within FSDP_LOSS_ATOL
+    and the master within FSDP_MASTER_ATOL (the reference's own
+    sharded-vs-single tolerance at its optimizer); the second run
+    bitwise the first (losses, every rank's fingerprint of its blocks);
+    per rank: state bytes, peak, ms/step, bytes gathered and reduced a
+    step, launches (2 x 7 x L nm_spmm and one fused_update a step).
+    ``during()`` starts more work (a ``Background``) beside the second
+    run and the one-process run (the first is timed alone); its result
+    is returned under "during"."""
+    import functools
+
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.data.synthetic import lm_stream
+    from repro_torch.optim import sgd
+    from repro_torch.train import step as ST
+
+    cfg, args = _mesh_cfg("qwen3-8b", FSDP_LAYERS, dev)
+    root = os.path.dirname(os.path.abspath(__file__))
+    ckpt = os.path.join(root, "build", "fsdp_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    args += ["--steps", str(FSDP_STEPS), "--batch", str(FSDP_ROWS[0]),
+             "--seq", str(FSDP_ROWS[1]), "--lr", str(FSDP_LR), "--seed",
+             str(seed), "--log-every", "1", "--digest", "--mesh", "data=2"]
+    out, wall = launch_done(launch_mesh(dev, 2, args + ["--ckpt-dir",
+                                                        ckpt]), "fsdp")
+    for ln in out.splitlines():
+        if ln.strip() and not ln.startswith("step "):
+            print(f"  | {ln[:300]}")
+    one = mesh_digest(out)
+    second = launch_mesh(dev, 2, args)
+    t_side = time.perf_counter()
+    side = during() if during is not None else None
+    sp = SparsityConfig(n=2, m=8, method="bdwp")
+    opt = sgd.SGDConfig(lr=FSDP_LR, total_steps=FSDP_STEPS)
+    state = ST.init_train_state(cfg, sp, seed=seed, device=dev)
+    init = [x.to("cpu", copy=True) for x in sgd.tree_leaves(state["master"])]
+    fn = functools.partial(ST.lm_train_step, cfg=cfg, sp_cfg=sp, opt_cfg=opt)
+    data = lm_stream(cfg.vocab, *FSDP_ROWS, device=dev, seed=seed)
+    losses = []
+    for _ in range(FSDP_STEPS):
+        state, met = fn(state, next(data)[1])
+        losses.append(float(met["loss"]))
+    worst, move = master_gaps(ckpt, state, init)
+    del state, init
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    two = mesh_digest(launch_done(second, "fsdp, second run")[0])
+    if side is not None:   # done before the next phase's timed runs
+        side = side.result()
+    gap = max(abs(a - b) for a, b in zip(one["losses"], losses))
+    check(gap <= FSDP_LOSS_ATOL, f"fsdp: losses {one['losses']} vs one "
+          f"process {losses}")
+    check(worst <= FSDP_MASTER_ATOL, f"fsdp: master differs by {worst} "
+          "from the one-process run's")
+    check(move <= FSDP_MOVE_RTOL, f"fsdp: a master leaf's change is {move} "
+          "of the one-process run's away from it")
+    check(one["losses"] == two["losses"] and len(one["fingerprints"]) == 2
+          and one["fingerprints"] == two["fingerprints"],
+          "fsdp: two runs differ")
+    want = {"nm_spmm": 2 * 7 * FSDP_LAYERS * FSDP_STEPS,
+            "fused_update": FSDP_STEPS, "grad_compress": 0,
+            "grad_decompress_mean": 0}
+    check(sorted(one["ranks"]) == [0, 1] and all(
+        r["launches"] == want for r in one["ranks"].values()),
+        f"fsdp: launches {one['ranks']} != {want} on each rank")
+    total = sum(r["state_bytes"] for r in one["ranks"].values())
+    for r, x in sorted(one["ranks"].items()):
+        steady = x["step_ms"][1:] or x["step_ms"]
+        print(f"  rank {r}: state {x['state_bytes'] / 2**30:.2f} GiB of "
+              f"{total / 2**30:.2f}, peak {x['peak_bytes'] / 2**30:.2f} GiB, "
+              f"steps {x['step_ms']} ms (median after the first "
+              f"{sorted(steady)[len(steady) // 2]:.1f}), gathered "
+              f"{x['gathered_bytes_per_step']:,} and reduced "
+              f"{x['reduced_bytes_per_step']:,} bytes a step; launches "
+              f"{x['launches']}")
+    print(f"  losses {one['losses']} against one process {losses} (largest "
+          f"gap {gap:.2e}); master within {worst:.2e} of it, each leaf's "
+          f"change within {move:.2e} of its change; the second run "
+          f"bitwise the first; the first run {wall:.1f} s with start-up, "
+          f"the second with the one-process run and the side work "
+          f"{time.perf_counter() - t_side:.1f} s")
+    return {"losses": one["losses"], "one_process_losses": losses,
+            "loss_gap": gap, "master_gap": worst, "move_gap": move,
+            "ranks": one["ranks"],
+            "seconds": wall, "tokens": FSDP_ROWS[0] * FSDP_ROWS[1],
+            "during": side}
+
+
+def phase_pod_data_sync(dev, gen):
+    """granite-moe-1b-a400m at every width, POD_DATA_LAYERS layers, mesh
+    pod=2, data=2: each rank's compressed sync of its blocks (its pod's
+    gradient blocks, its residual block; grad_compress and
+    grad_decompress_mean once a unit of the rank's plan) bitwise the
+    rank's slice of the one-card sync of the whole gradients (the mean
+    and the residual); the sync of one rank's blocks and of the whole
+    timed."""
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.kernels import grad_compress as KG
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.optim import compress as C
+    from repro_torch.optim import sgd
+    from repro_torch.sharding import fsdp as F
+    from repro_torch.train import step as ST
+    from repro_torch.models import transformer_lm as T
+
+    cfg, _ = _mesh_cfg("granite-moe-1b-a400m", POD_DATA_LAYERS, dev)
+    sp = SparsityConfig(n=2, m=8, method="bdwp")
+    gc = C.GradCompressConfig.from_sparsity(sp)
+    shape = {"pod": 2, "data": 2}
+    specs = ST.state_pspecs(cfg, Mesh(shape), sp, compress=True)
+    aparams = T.abstract_params(cfg)
+    lshapes = sgd.shapes_of(aparams)
+    whole = sgd.tree_map(lambda _, x: (torch.randn(
+        (2, *x.shape), generator=gen, device=dev) * 1e-2).to(
+        torch.bfloat16), aparams)
+    width = C.err_state_elems(aparams, sp.m)
+    err = torch.randn((2, width), generator=gen, device=dev) * 1e-3
+
+    def synced(grads, e):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = C.cross_pod_sync(grads, e, gc)
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    (mean, new_err), whole_ms = synced(whole, err.clone())
+    rows = []
+    for d in range(2):
+        rmesh = Mesh(shape, rank=d)     # (pod 0, data d); pod 1 alike
+        sh = F.StateSharding(rmesh, specs, lshapes, sp.m)
+        layout = sh.err_layout()
+        mine = F.map_blocks(whole, specs["master"], lambda t, s: torch.stack(
+            [F.block_of(t[p], F.shard_dim(s, rmesh), 2, d)
+             for p in range(2)]))
+        e = torch.cat([F.err_block(err[p:p + 1], layout, 2, d)
+                       for p in range(2)])
+        c0 = dict(KG.launches)
+        (m_loc, e_loc), ms = synced(mine, e)
+        units = len(C.plan_for(mine, gc.bucket_elems, gc.m,
+                               stacked=True).units)
+        got = {k: KG.launches[k] - c0[k] for k in KG.launches}
+        check(got == {"grad_compress": units,
+                      "grad_decompress_mean": units},
+              f"pod x data sync: launches {got}, {units} units")
+        check(all(bits_equal(a, b) for a, b in zip(
+            F.tensors(m_loc), F.tensors(F.shard_tree(
+                mean, specs["master"], rmesh)))),
+              f"pod x data sync: data rank {d}'s mean is not the slice of "
+              "the one-card sync's")
+        for p in range(2):
+            check(bits_equal(e_loc[p:p + 1], F.err_block(
+                new_err[p:p + 1], layout, 2, d)), f"pod x data sync: rank "
+                f"(pod {p}, data {d})'s residual block is not the slice of "
+                "the one-card residual")
+        rows.append({"data": d, "units": units, "ms": ms,
+                     "local_width": layout.local_width})
+    print(f"  ranks' blocks: {rows[0]['units']} units a sync, residual "
+          f"{rows[0]['local_width']:,} of {width:,} columns a rank; each "
+          "rank's mean and residual block bitwise the slice of the one-card "
+          f"sync; sync of one data rank's blocks (both pods) "
+          f"{rows[0]['ms']:.1f} / {rows[1]['ms']:.1f} ms, of the whole "
+          f"{whole_ms:.1f} ms (host clock)")
+    del whole, mean, new_err, err
+    torch.cuda.empty_cache()
+    return {"rows": rows, "whole_ms": whole_ms, "width": width}
+
+
+def phase_pod_data_train(dev, seed, one):
+    """granite-moe-1b-a400m at every width, POD_DATA_LAYERS layers,
+    through the launcher's ``--mesh pod=2,data=2 --compress`` (topk):
+    four processes on the one card, POD_DATA_STEPS steps of 4 x 1024
+    tokens.  Against ``one``, phase 49's one-process step of the two
+    pods on the same rows (its losses, and its master after as many
+    steps): losses within FSDP_LOSS_ATOL, the master within
+    POD_DATA_MASTER_ATOL and each leaf's change within
+    POD_DATA_MOVE_RTOL of its change.  Per rank: the hop's bytes a step equal to
+    ``wire_bytes`` of its blocks, launches (grad_compress =
+    grad_decompress_mean = its units a step), ms/step, state bytes,
+    peak."""
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer_lm as T
+    from repro_torch.optim import compress as C
+    from repro_torch.optim import sgd
+    from repro_torch.train import step as ST
+
+    cfg, args = _mesh_cfg("granite-moe-1b-a400m", POD_DATA_LAYERS, dev)
+    args += ["--steps", str(POD_DATA_STEPS), "--batch",
+             str(MOE_TRAIN_ROWS[0]), "--seq", str(MOE_TRAIN_ROWS[1]),
+             "--compress", "--seed", str(seed), "--log-every", "1",
+             "--digest", "--mesh", "pod=2,data=2"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    ckpt = os.path.join(root, "build", "pod_data_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    out, wall = launch_done(launch_mesh(dev, 4, args + ["--ckpt-dir", ckpt]),
+                            "pod x data")
+    for ln in out.splitlines():
+        if ln.strip() and not ln.startswith("step "):
+            print(f"  | {ln[:300]}")
+    got = mesh_digest(out)
+    sp = SparsityConfig(n=2, m=8, method="bdwp")
+    like = ST.init_train_state(cfg, sp, device=dev, compress=True, n_pods=2)
+    for x, w in zip(sgd.tree_leaves(like["master"]), one["masters"]["after"]):
+        x.copy_(w)
+    worst, move = master_gaps(ckpt, like, one["masters"]["init"])
+    del like
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    ones = one["losses"][:POD_DATA_STEPS]
+    gap = max(abs(a - b) for a, b in zip(got["losses"], ones))
+    check(gap <= FSDP_LOSS_ATOL, f"pod x data: losses {got['losses']} vs "
+          f"one process {ones}")
+    check(worst <= POD_DATA_MASTER_ATOL, f"pod x data: master differs by "
+          f"{worst} from the one-process run's")
+    check(move <= POD_DATA_MOVE_RTOL, f"pod x data: a master leaf's change "
+          f"is {move} of the one-process run's away from it")
+    shape = {"pod": 2, "data": 2}
+    specs = ST.state_pspecs(cfg, Mesh(shape), sp, compress=True)
+    local = sgd.tree_map(lambda _, x, s: torch.empty(
+        C.local_block_shape(x.shape, s, Mesh(shape)), device="meta"),
+        T.abstract_params(cfg), specs["master"])
+    plan = C.plan_for(local, 1 << 16, sp.m)
+    total = sum(n for _, _, n in plan.units)
+    ragged = sum(x.numel() for x, off in zip(sgd.tree_leaves(local),
+                                             plan.offsets) if off is None)
+    wire = C.wire_bytes(total, ragged, C.GradCompressConfig.from_sparsity(
+        sp))
+    units = len(plan.units)
+    check(sorted(got["ranks"]) == [0, 1, 2, 3], "pod x data: four ranks")
+    for r, x in sorted(got["ranks"].items()):
+        check(x["hop_bytes_per_step"] == wire, f"pod x data: rank {r} sent "
+              f"{x['hop_bytes_per_step']} bytes a step, wire_bytes {wire}")
+        check(x["launches"]["grad_compress"] == units * POD_DATA_STEPS
+              == x["launches"]["grad_decompress_mean"],
+              f"pod x data: rank {r}'s sync launches {x['launches']}")
+        check(x["launches"]["fused_update"] == POD_DATA_STEPS,
+              f"pod x data: rank {r}'s fused_update launches")
+        steady = x["step_ms"][1:] or x["step_ms"]
+        print(f"  rank {r} {x['coords']}: state "
+              f"{x['state_bytes'] / 2**30:.2f} GiB, peak "
+              f"{x['peak_bytes'] / 2**30:.2f} GiB, steps {x['step_ms']} ms "
+              f"(median after the first "
+              f"{sorted(steady)[len(steady) // 2]:.1f}), hop "
+              f"{x['hop_bytes_per_step']:,} bytes a step (wire_bytes of its "
+              f"blocks {wire:,}), gathered {x['gathered_bytes_per_step']:,} "
+              f"and reduced {x['reduced_bytes_per_step']:,}; launches "
+              f"{x['launches']}")
+    print(f"  losses {got['losses']} against phase 49's one process {ones} "
+          f"(largest gap {gap:.2e}); master within {worst:.2e} of it, each "
+          f"leaf's change within {move:.2e} of its change; {wall:.1f} s "
+          "with start-up")
+    return {"losses": got["losses"], "one_process_losses": ones,
+            "loss_gap": gap, "master_gap": worst, "move_gap": move,
+            "ranks": got["ranks"],
+            "wire_bytes": wire, "units": units, "seconds": wall,
+            "tokens": MOE_TRAIN_ROWS[0] * MOE_TRAIN_ROWS[1]}
+
+
+class Background:
+    """A phase run on a thread beside another phase's untimed part;
+    ``result()`` waits for it and raises what it raised."""
+
+    def __init__(self, fn):
+        import threading
+
+        self._out = {}
+
+        def run():
+            try:
+                self._out["value"] = fn()
+            except BaseException as exc:   # re-raised by result()
+                self._out["error"] = exc
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def result(self):
+        self._thread.join()
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["value"]
+
+
+def phase_ckpt_reshard(dev, seed):
+    """Checkpoints across meshes on the card, granite-moe SMOKE (expert
+    stacks): the launcher at ``--mesh data=2`` saves after CKPT_STEPS
+    steps (A); one process here restores A onto the card (data=1) and
+    saves it (B) and a copy without the compute tree (C); the launcher
+    resumes B and C at data=2 (no step left: each saves again).  B's
+    files bitwise A's (2 -> 1 -> 2), C's compute tree, regenerated by
+    ``restore_with_pregen``, bitwise A's (the update's).  It runs beside
+    phase 51's untimed part (``Background``), so it prints nothing: its
+    summary line comes back with its result."""
+    import json
+    import shutil
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.train import step as ST
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(root, "build", "ckpt_reshard")
+    dirs = {k: os.path.join(base, k) for k in "abc"}
+    args = ["--arch", CKPT_ARCH, "--smoke", "--steps", str(CKPT_STEPS),
+            "--batch", "8", "--seq", "32", "--seed", str(seed),
+            "--mesh", "data=2", "--log-every", "1"]
+    shutil.rmtree(base, ignore_errors=True)
+    t0 = time.perf_counter()
+    launch_done(launch_mesh(dev, 2, args + ["--ckpt-dir", dirs["a"]]),
+                "checkpoint A")
+    cfg, sp = get_arch(CKPT_ARCH).smoke, SparsityConfig(n=2, m=8)
+    like = ST.init_train_state(cfg, sp, seed=seed, device=dev)
+    one = CheckpointManager(dirs["a"]).restore(like, device=dev)
+    check(one["step"] == CKPT_STEPS and next(iter(
+        one["master"]["embed"].values())).device == dev,
+        "checkpoint: the one-process restore")
+    CheckpointManager(dirs["b"]).save(CKPT_STEPS, one, blocking=True)
+    CheckpointManager(dirs["c"]).save(CKPT_STEPS, {
+        k: v for k, v in one.items() if k != "compute"}, blocking=True)
+    runs = [launch_mesh(dev, 2, args + ["--resume", "--ckpt-dir", dirs[k]])
+            for k in "bc"]
+    for k, run in zip("bc", runs):
+        out, _ = launch_done(run, f"checkpoint {k.upper()} resumed")
+        check("done: 0 steps" in out, f"checkpoint {k.upper()}: resumed "
+              "with steps left")
+
+    def leaves(d):
+        path = os.path.join(d, f"step_{CKPT_STEPS:08d}")
+        man = json.load(open(os.path.join(path, "manifest.json")))
+        return [torch.load(os.path.join(path, f"leaf_{i:05d}.pt"),
+                           weights_only=True) if x["kind"] == "tensor"
+                else x for i, x in enumerate(man["leaves"])]
+
+    def same(xs, ys):
+        return len(xs) == len(ys) > 0 and all(
+            bits_equal(x, y) if isinstance(x, torch.Tensor) else x == y
+            for x, y in zip(xs, ys))
+
+    a, b, c = (leaves(dirs[k]) for k in "abc")
+    check(same(a, b), "checkpoint: data=2 -> 1 -> 2 is not bitwise")
+    check(same(a, c), "checkpoint: restore_with_pregen's compute tree is "
+          "not the update's")
+    shutil.rmtree(base, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    return {"leaves": len(a), "seconds": wall, "summary": (
+        f"  {len(a)} leaves: saved at data=2, restored at data=1 on the "
+        "card and saved, resumed at data=2 and saved: bitwise; a "
+        "checkpoint without a compute tree resumed at data=2 "
+        "(restore_with_pregen): bitwise the update's compute tree; "
+        f"{wall:.1f} s beside phase 51")}
 
 
 def _leaf_at(tree, name):
@@ -6212,6 +6854,27 @@ def main(argv=None) -> int:
     head(f"[50] the process form: [49] in two processes on the one card "
          f"through the launcher, {SYNC_PROC_STEPS} steps")
     granite_procs = phase_train_granite_procs(dev, SEED, granite_sync)
+    torch.cuda.empty_cache()
+    head(f"[51] FSDP: qwen3-8b TRAIN (full width, {FSDP_LAYERS} of 36 "
+         "layers) through the launcher's --mesh data=2, two processes on the "
+         f"one card, {FSDP_STEPS} steps of {FSDP_ROWS[0]} x {FSDP_ROWS[1]} "
+         "tokens; a rank's update of its blocks")
+    shard_upd = phase_fsdp_update(dev, gen)
+    fsdp = phase_fsdp_train(dev, SEED, during=lambda: Background(
+        lambda: phase_ckpt_reshard(dev, SEED)))
+    torch.cuda.empty_cache()
+    head(f"[52] pod x data: granite-moe-1b-a400m (full width, "
+         f"{POD_DATA_LAYERS} of 24 layers), --mesh pod=2,data=2 --compress, "
+         f"four processes on the one card, {POD_DATA_STEPS} steps")
+    pod_sync = phase_pod_data_sync(dev, gen)
+    pod_data = phase_pod_data_train(dev, SEED, granite_sync)
+    del granite_sync["masters"]
+    torch.cuda.empty_cache()
+    head("[53] checkpoints across meshes: data=2 -> 1 -> 2 and "
+         "restore_with_pregen, through the launcher (run beside [51]'s "
+         "second run)")
+    reshard = fsdp.pop("during")
+    print(reshard["summary"])
 
     def summed(rs, at, launches, by_path, err):
         return {"launches": launches, "launches_by_path": by_path,
@@ -6253,7 +6916,11 @@ def main(argv=None) -> int:
                   "serve_whisper": whisper_serve["batched_launches"],
                   "train_granite_sync": granite_sync["launches"]["nm_spmm"],
                   **{f"train_granite_procs/rank{k}": v["nm_spmm"]
-                     for k, v in granite_procs["launches"].items()}}
+                     for k, v in granite_procs["launches"].items()},
+                  **{f"train_fsdp/rank{k}": v["launches"]["nm_spmm"]
+                     for k, v in fsdp["ranks"].items()},
+                  **{f"train_pod_data/rank{k}": v["launches"]["nm_spmm"]
+                     for k, v in pod_data["ranks"].items()}}
     upd_paths, upd_sites = ({
         "train": train["launches"][key],
         "train_sync": train_sync["launches"][key],
@@ -6268,6 +6935,9 @@ def main(argv=None) -> int:
         for key in ("fused_update", "fused_update_sites"))
     upd_paths.update({f"train_granite_procs/rank{k}": v["fused_update"]
                       for k, v in granite_procs["launches"].items()})
+    for path, run in (("train_fsdp", fsdp), ("train_pod_data", pod_data)):
+        upd_paths.update({f"{path}/rank{k}": v["launches"]["fused_update"]
+                          for k, v in run["ranks"].items()})
     upd_paths.update({k: v["fused_update"] for k, v in flow_paths.items()})
     compact_paths = {"serve": serve["compact_launches"],
                      "shared_serve": shared_serve["compact_launches"],
@@ -6288,7 +6958,9 @@ def main(argv=None) -> int:
                    "legacy_sync_small": legacy_sync[name],
                    "train_granite_sync": granite_sync["launches"][name],
                    **{f"train_granite_procs/rank{k}": v[name]
-                      for k, v in granite_procs["launches"].items()}}
+                      for k, v in granite_procs["launches"].items()},
+                   **{f"train_pod_data/rank{k}": v["launches"][name]
+                      for k, v in pod_data["ranks"].items()}}
         if name == "grad_decompress_mean":
             by_path["mvue_sync"] = mvue["decompress_launches"]
         return dict(
@@ -6301,6 +6973,10 @@ def main(argv=None) -> int:
             max_abs_err=max(sync_err, new_sync_err), ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by="bytes", library_ms=None, at=at,
+            rank_blocks=dict(
+                pod_sync, at="phase 52: one data rank's blocks of "
+                "granite's 6-layer gradients, both pods in one tensor, "
+                "bitwise the slice of the whole sync; ms on the host clock"),
             embed_leaf=sync_at["embed", "bf16"][name],
             bucket=sync_at["bucket", "bf16"][name],
             new_arch_leaves=[dict(
@@ -6414,6 +7090,12 @@ def main(argv=None) -> int:
                  "launch, 2:8 bdwp",
                  launches=ssm_train[a]["launches"]["fused_update"])
                  for a in SSM_ARCHS},
+             rank_blocks=dict(
+                 shard_upd, at="phase 51: rank 0's 7 block sites of one "
+                 "qwen3-8b layer at data=2 (rows K/2; columns F/2 of o_proj "
+                 "and w_down) in one grouped launch, 2:8 bdwp",
+                 launches=sum(v["launches"]["fused_update"]
+                              for v in fsdp["ranks"].values())),
              whisper_layer=dict(
                  whisper_rows["update"], at="one whisper decoder layer's 10 "
                  "sites in one grouped launch, 2:8 bdwp",
@@ -6512,6 +7194,9 @@ def main(argv=None) -> int:
                        "new_sync_leaves": new_sync_rows, "mvue": mvue,
                        "granite_sync": granite_sync,
                        "granite_procs": granite_procs,
+                       "fsdp_update": shard_upd, "fsdp": fsdp,
+                       "pod_data_sync": pod_sync, "pod_data": pod_data,
+                       "ckpt_reshard": reshard,
                        "phase_starts": starts,
                        "seconds": time.perf_counter() - t_start}, fh,
                       indent=1, default=str)

@@ -8,6 +8,12 @@ unigram tokens with a copy-task signal, and class-conditional image
 blobs, seeded per (seed, step), so the same seed gives the reference's
 batches exactly.
 
+``rows=(index, count)`` gives one rank of a mesh its part of the
+global batch: every rank draws the same global batch from the seed and
+keeps the contiguous block ``index`` of ``count`` of its rows, the
+block the reference's ``P(("pod", "data"), None)`` puts on the device
+at (pod, data) = divmod(index, data size).
+
 What differs: batches are torch tensors (tokens and labels int64, as
 torch indexing wants; images fp32 NHWC) on an explicit device, the card
 unless the caller names another; the class prototypes are drawn once
@@ -51,17 +57,41 @@ def token_batch(cfg: TokenTaskConfig, step: int):
     return toks[:, :-1], toks[:, 1:]
 
 
+def row_block(batch: int, rows) -> slice:
+    """The rows of block ``index`` of ``count`` (``rows``) of a global
+    batch; all rows for None."""
+    if rows is None:
+        return slice(None)
+    index, count = rows
+    if batch % count:
+        raise ValueError(f"global batch {batch} does not split into "
+                         f"{count} row blocks")
+    per = batch // count
+    return slice(index * per, (index + 1) * per)
+
+
+def _take(batch: dict, rows, n: int) -> dict:
+    sl = row_block(n, rows)
+    return {k: v[sl] for k, v in batch.items()}
+
+
 def lm_stream(vocab: int, batch: int, seq: int, *, device=None,
               seed: int = 0, start: int = 0, prefix: int = 0,
-              d_model: int = 0):
+              d_model: int = 0, rows=None):
     """An iterator of (step, {"tokens", "labels"}) with (batch, seq)
     int64 tensors on ``device`` (the card unless another is named).
     ``prefix`` > 0 adds "prefix_embeds", (batch, prefix, d_model) bf16
     stub-frontend embeddings: normals from ``PCG64([seed + 7, step])``
-    rounded to bf16, the reference's bits."""
+    rounded to bf16, the reference's bits.  ``rows=(index, count)``:
+    only that row block of each batch."""
     device = resolve_device(device)
     cfg = TokenTaskConfig(vocab=vocab, seq=seq, batch=batch, seed=seed)
-    return _stream(cfg, device, start, prefix, d_model)
+    return _rows(_stream(cfg, device, start, prefix, d_model), rows, batch)
+
+
+def _rows(stream, rows, batch: int):
+    for step, b in stream:
+        yield step, (b if rows is None else _take(b, rows, batch))
 
 
 def _stream(cfg: TokenTaskConfig, device, step: int, prefix: int,
@@ -82,16 +112,18 @@ def _stream(cfg: TokenTaskConfig, device, step: int, prefix: int,
 
 def encdec_stream(vocab: int, batch: int, seq: int, d_model: int, *,
                   enc_frames: int = 128, device=None, seed: int = 0,
-                  start: int = 0):
+                  start: int = 0, rows=None):
     """The Whisper-style stream: an iterator of (step, {"frames",
     "tokens", "labels"}) on ``device`` (the card unless another is
     named).  "frames" are (batch, enc_frames, d_model) bf16 stub frame
     embeddings, normals from ``PCG64([seed + 11, step])`` rounded to bf16
     (the reference's bits); "tokens" and "labels" (batch, seq) int64 from
-    ``token_batch``."""
+    ``token_batch``.  ``rows=(index, count)``: only that row block of
+    each batch."""
     device = resolve_device(device)
     cfg = TokenTaskConfig(vocab=vocab, seq=seq, batch=batch, seed=seed)
-    return _encdec_stream(cfg, device, start, enc_frames, d_model)
+    return _rows(_encdec_stream(cfg, device, start, enc_frames, d_model),
+                 rows, batch)
 
 
 def _encdec_stream(cfg: TokenTaskConfig, device, step: int, enc_frames: int,

@@ -1,11 +1,15 @@
 """A process group from the environment, and the rank -> device map.
 
 No reference counterpart (the reference runs one SPMD program over a
-mesh).  The port's process form runs one process per pod:
-``torchrun --nproc-per-node P -m repro_torch.launch.train ...`` (or
-``python -m torch.distributed.run``) sets ``RANK``, ``WORLD_SIZE``,
-``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``, and ``init_from_env``
-joins that group.
+mesh).  The port runs one process a rank: ``torchrun --nproc-per-node W
+-m repro_torch.launch.train ...`` (or ``python -m
+torch.distributed.run``) sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``MASTER_ADDR`` and ``MASTER_PORT``, and ``init_from_env`` joins that
+group.  The ranks form a ``launch.mesh.Mesh`` (``--mesh``, or "pod=W"
+without it: one pod a rank) whose axis groups (``dist.new_group``: the
+"data" group of the ranks of one pod, the "pod" group of the ranks that
+share a data coordinate) carry the FSDP gathers and reductions and the
+pod hop, on the default group's backend.
 
 Backends: NCCL when every rank has a card of its own, else gloo.  NCCL
 refuses two ranks on one device, so P processes on one card run gloo,

@@ -1,0 +1,81 @@
+"""The ``--mesh`` grammar and the mesh it builds over the process group.
+
+Counterpart of ``src/repro/launch/spmd.py`` (``parse_mesh_spec``,
+``make_spmd_mesh``, ``single_device_mesh``), with the reference's
+grammar:
+
+    pod,data,model            axis names; the rank count auto-factored,
+                              inner axes ("model") get factors first
+    pod=2,data=2,model=2      explicit sizes (their product must divide
+                              the rank count; unsized axes take the rest)
+
+What differs: the cells are the ranks of the process group
+(``launch.mesh.Mesh``), not devices, so there is no
+``force_host_devices``: ranks come from ``torchrun`` or ``mp.spawn``.
+``replica_device_groups``/``fleet_meshes`` (the serving fleet, ROADMAP
+item 8) and ``serve_shardings``/``sanitize_pspecs`` (sharded serving,
+ROADMAP item 7, part 3) are not here.
+"""
+
+from __future__ import annotations
+
+from repro_torch.launch.mesh import Mesh, mesh_over_group
+
+
+def parse_mesh_spec(spec: str, n_devices: int) -> dict:
+    """``--mesh`` string -> ordered {axis: size} covering ``n_devices``
+    ranks.  Prime factors of what the sized axes leave go to the
+    innermost unsized axes first: 8 over "pod,data,model" is {pod: 2,
+    data: 2, model: 2}, 4 is {pod: 1, data: 2, model: 2}."""
+    axes: dict = {}
+    unsized = []
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" in part:
+            name, size = part.split("=")
+            axes[name.strip()] = int(size)
+        else:
+            axes[part] = None
+            unsized.append(part)
+    sized = 1
+    for v in axes.values():
+        sized *= v or 1
+    if n_devices % sized:
+        raise ValueError(f"mesh sizes {spec!r} (product {sized}) do not "
+                         f"divide device count {n_devices}")
+    rest = n_devices // sized
+    for name in unsized:
+        axes[name] = 1
+    factors = []
+    x, p = rest, 2
+    while x > 1:
+        while x % p == 0:
+            factors.append(p)
+            x //= p
+        p += 1
+    for i, f in enumerate(sorted(factors, reverse=True)):
+        if not unsized:
+            raise ValueError(f"{spec!r} under-covers {n_devices} devices "
+                             f"({rest}x unassigned, no unsized axis)")
+        axes[unsized[-1 - (i % len(unsized))]] *= f
+    return axes
+
+
+def make_spmd_mesh(spec: str = "pod,data,model", *, world=None,
+                   rank=None) -> Mesh:
+    """The mesh of a ``--mesh`` spec over the ranks of the process group
+    (``world`` ranks, by default all of them; one when there is
+    none), with this rank's axis groups."""
+    import torch.distributed as dist
+
+    if world is None:
+        live = dist.is_available() and dist.is_initialized()
+        world = dist.get_world_size() if live else 1
+    return mesh_over_group(parse_mesh_spec(spec, world), rank)
+
+
+def single_device_mesh(axis_names=("data", "model")) -> Mesh:
+    """A one-rank mesh with the same axis names: the parity reference."""
+    return Mesh({a: 1 for a in axis_names})

@@ -8,6 +8,12 @@
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
       --arch qwen3-8b --smoke --steps 8 --compress --device cpu
 
+  # FSDP over two ranks; two pods of two ranks with the compressed sync
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+      --arch qwen3-8b --smoke --mesh data=2 --device cpu
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch qwen3-8b --smoke --mesh pod=2,data=2 --compress --device cpu
+
 Counterpart of ``src/repro/launch/train.py``: config -> train state
 (fresh, or the newest checkpoint with ``--resume``) -> synthetic data
 stream -> ``train.trainer.fit`` (checkpoints, heartbeat, straggler
@@ -16,13 +22,24 @@ monitor), with the same flags where they mean the same thing.
 published one.  ``--watchdog`` restarts ``-m repro_torch.launch.train``
 with ``--resume`` whenever the heartbeat goes stale (``run_watchdog``).
 
-What differs: the port cannot shard, so there is no ``--mesh`` and no
-``--model-parallel``.  The pods of ``--compress`` come from the process
-group when ``torchrun`` started W > 1 processes (one pod a process,
-``launch.dist``), else from ``--pods P`` (all P pods in one tensor on
-one device).  It runs on the card unless ``--device cpu`` is given, and
-never falls back to the CPU on its own.  The encoder-decoder trains
-without compression, as the reference's ``build_encdec_train`` does.
+``--mesh`` (the reference's grammar, ``launch.spmd.parse_mesh_spec``)
+lays a mesh over the ranks ``torchrun`` started and trains through
+``train.step.build_lm_train`` / ``build_encdec_train``: FSDP over
+"data", the pod mean over "pod" (compressed with ``--compress``), each
+rank on its rows of the global ``--batch``.  Without ``--mesh``, W > 1
+processes under ``torchrun`` are the mesh "pod=W" (one pod a process,
+the process form of the compressed sync), and one process holds the
+``--pods P`` pods of ``--compress`` in one tensor on its device.
+``--resume`` restores through ``restore_with_pregen`` onto whatever
+mesh is current.
+
+What differs: a "model" axis of more than one rank (``--mesh`` with
+model > 1, or ``--model-parallel`` > 1) raises NotImplementedError
+(tensor parallelism is ROADMAP item 7, part 3), where the reference
+shards over it.  It runs on the card unless ``--device
+cpu`` is given, and never falls back to the CPU on its own.  The
+encoder-decoder trains without compression, as the reference's
+``build_encdec_train`` does.
 """
 
 from __future__ import annotations
@@ -71,6 +88,15 @@ def build_parser():
                     help="pods in one process (all on one device); a "
                          "process group of W > 1 ranks gives W pods "
                          "instead")
+    ap.add_argument("--mesh", default=None,
+                    help="mesh over the ranks torchrun started, e.g. "
+                         "'data=2' (FSDP) or 'pod=2,data=2' (with "
+                         "--compress: the compressed pod sync); the "
+                         "reference's grammar ('pod,data,model' is "
+                         "auto-factored)")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="size of the 'model' axis; above 1 raises: "
+                         "tensor parallelism is not in the port yet")
     ap.add_argument("--device", default=None,
                     help="'cpu' to run the plain PyTorch path; default: "
                          "the card (a rank's card under torchrun)")
@@ -92,105 +118,181 @@ def build_parser():
 
 
 def run_training(args) -> int:
+    """Train in this process: ``--pods P`` all on its device, or, with
+    ``--mesh`` or under a torchrun of W > 1 processes (the mesh
+    "pod=W": one pod a process), this rank's part of
+    ``build_lm_train`` / ``build_encdec_train`` over the mesh."""
     from repro_torch.configs import get_arch
     from repro_torch.core.sparsity import SparsityConfig
     from repro_torch.data import synthetic as D
     from repro_torch.launch import dist as LD
+    from repro_torch.launch import spmd
+    from repro_torch.launch.mesh import Mesh
     from repro_torch.optim import compress as C
     from repro_torch.optim import sgd
+    from repro_torch.sharding import fsdp as F
     from repro_torch.train import step as ST
     from repro_torch.train import trainer as TR
     from repro_torch.train.checkpoint import CheckpointManager
     from repro_torch.train.fault import recover_or_init
 
+    world = LD.env_world()
+    spec = args.mesh or (f"pod={world}" if world > 1 else None)
+    shape = spmd.parse_mesh_spec(spec, world) if spec else {}
+    if args.model_parallel != 1 and shape.get("model", 1) == 1:
+        if not args.mesh:
+            ST.check_mesh(Mesh({"model": args.model_parallel}))
+        print("[warn] --model-parallel ignored: --mesh controls the axis "
+              f"sizes (use e.g. --mesh pod,data,model={args.model_parallel})")
+    ST.check_mesh(Mesh(shape))
+    if spec and args.pods not in (1, shape.get("pod", 1)):
+        raise SystemExit(f"--pods {args.pods} != the mesh's "
+                         f"{shape.get('pod', 1)} pods")
     if args.deterministic:
         import torch
 
         torch.use_deterministic_algorithms(True, warn_only=True)
+    import torch.distributed as dist
+
     pods = LD.init_from_env(args.device)
     say = _emit if pods.rank == 0 else (lambda *a, **k: None)
     try:
+        mesh = (spmd.make_spmd_mesh(spec, world=pods.world, rank=pods.rank)
+                if spec else None)
         arch = get_arch(args.arch)
-        cfg = arch.smoke if args.smoke else arch.full
-        if args.layers is not None:
-            depth = ({"n_layers": args.layers, "n_enc_layers": args.layers}
-                     if arch.family == "encdec"
-                     else {"n_layers": args.layers})
-            cfg = dataclasses.replace(cfg, **depth)
+        cfg = _cut_depth(arch, arch.smoke if args.smoke else arch.full,
+                         args.layers)
         n, m = (int(v) for v in args.nm.split(":"))
         sp_cfg = SparsityConfig(n=n, m=m, method=args.method,
                                 granularity=args.granularity)
         opt_cfg = sgd.SGDConfig(lr=args.lr, total_steps=args.steps)
         encdec = arch.family == "encdec"
-        if pods.group is not None and args.pods not in (1, pods.world):
-            raise SystemExit(f"--pods {args.pods} != the process group's "
-                             f"{pods.world} ranks")
-        n_pods = pods.world if pods.group is not None else args.pods
-        compress = args.compress and not encdec
-        if args.compress and encdec:
-            say("[warn] --compress ignored: the encoder-decoder trains "
-                "without the compressed sync, as the reference's does")
-        if pods.group is not None and not compress:
-            raise SystemExit(f"{pods.world} processes need --compress: a "
-                             "process is a pod of the compressed sync")
-        hop = ""
-        if compress and pods.group is not None:
-            import torch.distributed as dist
+        compress = args.compress and not encdec and (
+            mesh is None or "pod" in mesh.axis_names)
+        if args.compress and not compress:
+            say("[warn] --compress ignored: "
+                + ("the encoder-decoder trains without the compressed "
+                   "sync, as the reference's does" if encdec else
+                   "mesh has no 'pod' axis (use --mesh pod=2,data=...)"))
+        grad_sync = C.GradCompressConfig(
+            n=n, m=m, estimator=args.grad_estimator,
+            bucket_elems=args.bucket_elems) if compress else None
+        if mesh is None:
+            where = f"pods {args.pods} on {pods.device}"
+            bundle = (functools.partial(
+                ST.encdec_train_step, cfg=cfg, sp_cfg=sp_cfg,
+                opt_cfg=opt_cfg) if encdec else functools.partial(
+                ST.lm_train_step, cfg=cfg, sp_cfg=sp_cfg, opt_cfg=opt_cfg,
+                compress=compress, n_pods=args.pods, grad_sync=grad_sync))
+            shardings, rows = None, None
 
-            hop = (f" | {pods.world} processes, backend "
-                   f"{dist.get_backend(pods.group)}")
-        say(f"pods {n_pods} on {pods.device} | {args.arch} "
+            def fresh():
+                return ST.init_train_state(cfg, sp_cfg, seed=args.seed,
+                                           device=pods.device,
+                                           compress=compress,
+                                           n_pods=args.pods)
+        else:
+            where = f"mesh {dict(mesh.shape)}"
+            bundle = (ST.build_encdec_train(cfg, mesh, sp_cfg, opt_cfg)
+                      if encdec else ST.build_lm_train(
+                          cfg, mesh, sp_cfg, opt_cfg, compress=compress,
+                          grad_sync=grad_sync))
+            shardings = bundle.state_shardings
+            rows = (mesh.coord("pod") * mesh.shape.get("data", 1)
+                    + mesh.coord("data"), mesh.shape.get("pod", 1)
+                    * mesh.shape.get("data", 1))
+
+            def fresh():
+                return bundle.init_state(cfg, sp_cfg, seed=args.seed,
+                                         device=pods.device,
+                                         compress=compress)
+        say(f"{where} | {args.arch} "
             f"({'smoke' if args.smoke else 'full'}) | {args.method} {n}:{m} "
             f"{args.granularity}"
             + (f" | compressed pod sync ({args.grad_estimator})"
-               if compress else "") + hop)
-
-        def fresh():
-            return ST.init_train_state(
-                cfg, sp_cfg, seed=args.seed, device=pods.device,
-                compress=compress,
-                n_pods=1 if pods.group is not None else n_pods)
-
+               if compress else "")
+            + (f" | {pods.world} processes, backend "
+               f"{dist.get_backend(pods.group)} on {pods.device}"
+               if pods.group is not None else ""))
         if args.resume and args.ckpt_dir:
-            mgr = CheckpointManager(args.ckpt_dir, group=pods.group)
-            state, _ = recover_or_init(mgr, fresh, device=pods.device)
+            mgr = CheckpointManager(args.ckpt_dir, shardings=shardings)
+            state, _ = recover_or_init(
+                mgr, fresh, device=pods.device,
+                restore_fn=functools.partial(
+                    ST.restore_with_pregen, mgr, sp_cfg=sp_cfg,
+                    shardings=shardings))
         else:
             state = fresh()
         start = int(state["step"])
         if encdec:
             stream = D.encdec_stream(cfg.vocab, args.batch, args.seq,
                                      cfg.d_model, device=pods.device,
-                                     seed=args.seed, start=start)
-            step_fn = functools.partial(ST.encdec_train_step, cfg=cfg,
-                                        sp_cfg=sp_cfg, opt_cfg=opt_cfg)
+                                     seed=args.seed, start=start, rows=rows)
         else:
             stream = D.lm_stream(cfg.vocab, args.batch, args.seq,
                                  device=pods.device, seed=args.seed,
                                  start=start,
                                  prefix=8 if arch.prefix_len else 0,
-                                 d_model=cfg.d_model)
-            grad_sync = C.GradCompressConfig(
-                n=n, m=m, estimator=args.grad_estimator,
-                bucket_elems=args.bucket_elems) if compress else None
-            step_fn = functools.partial(
-                ST.lm_train_step, cfg=cfg, sp_cfg=sp_cfg, opt_cfg=opt_cfg,
-                compress=compress, n_pods=n_pods, grad_sync=grad_sync,
-                group=pods.group)
+                                 d_model=cfg.d_model, rows=rows)
         tcfg = TR.TrainerConfig(
             total_steps=args.steps, ckpt_every=args.ckpt_every,
             log_every=args.log_every, ckpt_dir=args.ckpt_dir,
             heartbeat_path=(os.path.join(args.ckpt_dir, "heartbeat.json")
                             if args.ckpt_dir else None))
         C.reset_hop_stats()
-        state, history = TR.fit(step_fn, state, stream, tcfg, log_fn=say,
-                                group=pods.group)
+        F.reset_stats()
+        state, history = TR.fit(bundle, state, stream, tcfg, log_fn=say)
         if args.digest:
-            _print_digest(state, history, pods, args, say)
+            _print_digest(state, history, mesh, say)
         final = history[-1]["loss"] if history else float("nan")
         say(f"done: {len(history)} steps, final loss {final:.4f}")
         return 0
     finally:
         LD.shutdown(pods)
+
+
+def _cut_depth(arch, cfg, layers):
+    if layers is None:
+        return cfg
+    depth = ({"n_layers": layers, "n_enc_layers": layers}
+             if arch.family == "encdec" else {"n_layers": layers})
+    return dataclasses.replace(cfg, **depth)
+
+
+def _print_digest(state, history, mesh, say):
+    """``--digest``: exact losses, and each rank's state bytes, peak
+    device memory, step times, kernel launches, the bytes its gathers,
+    reductions and pod hop sent a step and the hop's gathers a step, and
+    the fingerprint of its state (its blocks and its residual row on a
+    mesh, ``checkpoint.state_fingerprint``): two runs with the same
+    fingerprints on every rank hold the same bits."""
+    import torch
+
+    from repro_torch.kernels import fused_update as KF
+    from repro_torch.kernels import grad_compress as KG
+    from repro_torch.kernels import nm_spmm as KS
+    from repro_torch.optim import compress as C
+    from repro_torch.sharding import fsdp as F
+    from repro_torch.train.checkpoint import state_fingerprint
+
+    say("losses " + repr([h["loss"] for h in history]))
+    steps = max(len(history), 1)
+    nbytes = sum(t.numel() * t.element_size() for t in F.tensors(state))
+    dev = F.tensors(state)[0].device
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else 0)
+    step_ms = [round(h["sec"] * 1e3, 1) for h in history]
+    rank, coords = (0, {}) if mesh is None else (mesh.rank, mesh.coords)
+    _emit(f"rank {rank} coords {coords} state_bytes {nbytes} "
+          f"peak_bytes {peak} step_ms {step_ms} "
+          f"launches nm_spmm {KS.launches} fused_update {KF.launches} "
+          f"grad_compress {KG.launches['grad_compress']} "
+          f"grad_decompress_mean {KG.launches['grad_decompress_mean']} "
+          f"gathered_bytes_per_step {F.stats['gather_bytes'] // steps} "
+          f"reduced_bytes_per_step {F.stats['reduce_bytes'] // steps} "
+          f"hop_bytes_per_step {C.hop_stats['bytes_sent'] // steps} "
+          f"hop_gathers_per_step {C.hop_stats['gathers'] // steps} "
+          f"fingerprint {state_fingerprint(state)}")
 
 
 def _emit(line: str):
@@ -199,45 +301,6 @@ def _emit(line: str):
     and its newline apart) interleaves with another rank's."""
     sys.stdout.write(f"{line}\n")
     sys.stdout.flush()
-
-
-def _print_digest(state, history, pods, args, say):
-    """The lines ``--digest`` prints: exact losses and the final shared
-    state's fingerprint (``checkpoint.state_fingerprint``) from rank 0,
-    each residual row's fingerprint and each rank's kernel launches, and
-    the hop's bytes a step against ``wire_bytes``."""
-    from repro_torch.kernels import fused_update as KF
-    from repro_torch.kernels import grad_compress as KG
-    from repro_torch.kernels import nm_spmm as KS
-    from repro_torch.optim import compress as C
-    from repro_torch.optim import sgd
-    from repro_torch.train.checkpoint import state_fingerprint
-
-    say("losses " + repr([h["loss"] for h in history]))
-    say("fingerprint shared " + state_fingerprint(
-        {k: v for k, v in state.items() if k != "err"}))
-    if "err" in state:   # one row a rank, or every pod's row here
-        rows = state["err"].shape[0]
-        for r in range(rows):
-            _emit(f"fingerprint err rank {pods.rank + r} "
-                  f"{state_fingerprint(state['err'][r:r + 1])}")
-    _emit(f"launches rank {pods.rank} nm_spmm {KS.launches} fused_update "
-          f"{KF.launches} grad_compress {KG.launches['grad_compress']} "
-          f"grad_decompress_mean {KG.launches['grad_decompress_mean']}")
-    if pods.group is not None and history:
-        plan = C.plan_for(state["master"], args.bucket_elems,
-                          int(args.nm.split(":")[1]))
-        n = int(args.nm.split(":")[0])
-        total = sum(numel for _, _, numel in plan.units)
-        ragged = sum(x.numel() for x, off in zip(
-            sgd.tree_leaves(state["master"]), plan.offsets) if off is None)
-        want = C.wire_bytes(total, ragged, C.GradCompressConfig(
-            n=n, m=plan.m, bucket_elems=args.bucket_elems))
-        steps = len(history)
-        say(f"hop backend {C.hop_stats['backend']} gathers a step "
-            f"{C.hop_stats['gathers'] / steps:.0f} bytes sent a step "
-            f"{C.hop_stats['bytes_sent'] / steps:.0f} wire_bytes {want} "
-            f"payload on {pods.device}")
 
 
 def run_watchdog(args, argv) -> int:

@@ -47,6 +47,10 @@ What differs:
     decoder unless it decodes; without gradients it changes nothing);
   * the profiler ranges ``encdec/encoder``, ``encdec/decoder`` and
     ``encdec/cross_kv`` split a step's time.
+  * the logical-axis specs come from ``init_specs`` (leaf paths,
+    ``layers.leaf_spec``); each block reads its params through
+    ``layers.gathered`` (a block kept in shards by ``sharding.fsdp``
+    gathers them there).
 """
 
 from __future__ import annotations
@@ -189,10 +193,23 @@ def init(cfg: EncDecConfig, *, seed: int = 0, device=None,
     return p
 
 
+def abstract_params(cfg: EncDecConfig):
+    """The param tree's shapes on the meta device, nothing allocated."""
+    return init(cfg, device="meta")
+
+
+def init_specs(cfg: EncDecConfig):
+    """The logical-axis spec of every leaf of ``init(cfg)``
+    (``layers.leaf_spec``): the reference's, ``enc_blocks`` and
+    ``dec_blocks`` leaves without its leading "layer"."""
+    return L.spec_tree(abstract_params(cfg))
+
+
 def _enc_block(bp, x: torch.Tensor, cfg: EncDecConfig, sp_cfg):
     """One encoder block: bidirectional self-attention over every frame
     (no RoPE, no mask), then the GELU FFN, each pre-LN and residual."""
     acfg = cfg.attn_cfg()
+    bp = L.gathered(bp)
     h = L.layernorm_apply(bp["ln1"], x)
     q = L.dense_apply(bp["attn"]["q_proj"], h, "attn/q_proj", sp_cfg)
     k = L.dense_apply(bp["attn"]["k_proj"], h, "attn/k_proj", sp_cfg)
@@ -248,6 +265,7 @@ def _dec_block(bp, x: torch.Tensor, enc_out: torch.Tensor,
     with a cache, the prefill fills it or a decode step writes at its
     shared cursor), cross-attention to the encoder output, the GELU FFN.
     Returns (x, cache)."""
+    bp = L.gathered(bp)
     h = L.layernorm_apply(bp["ln1"], x)
     mix, cache = A.attn_apply(bp["attn"], h, cfg.attn_cfg(), sp_cfg,
                               positions=positions, cache=cache,

@@ -10,10 +10,20 @@ norms in fp32 cast back to the input dtype,
 RoPE over the two halves of head_dim (not interleaved pairs) in fp32,
 SiLU and GELU as the reference computes them in bf16.
 
-What differs: no logical-axis spec trees (sharding is not ported), and
-init draws from an explicit ``torch.Generator`` on an explicit device —
-the same seed gives other numbers than ``jax.random``, so parity tests
-load the reference's weights through ``convert.params_from_jax``.
+The reference's logical-axis vocabulary ("embed", "mlp", "heads",
+"kv", "vocab", "expert"; "layer" for its stacked axis) is
+``leaf_spec``: the spec of a leaf from its tree path, the tuple the
+reference's ``*_init`` returns beside the leaf (``sharding.rules`` maps
+the names onto mesh axes).  ``gathered`` is where a block's layers read
+its params: a block kept in shards (``sharding.fsdp``) gathers its full
+operands there.
+
+What differs: the spec trees are not returned by each ``*_init`` but
+made from the leaf's path by ``leaf_spec`` (``transformer_lm.init_specs``,
+``encdec.init_specs``), and init draws from an explicit
+``torch.Generator`` on an explicit device — the same seed gives other
+numbers than ``jax.random``, so parity tests load the reference's
+weights through ``convert.params_from_jax``.
 """
 
 from __future__ import annotations
@@ -25,6 +35,121 @@ import torch
 
 from repro_torch.core import operand as O
 from repro_torch.core.sparsity import SparsityConfig
+
+
+# the (K, F) weights of a dense layer, by (module, layer) name: the
+# reference's ``axes=`` of each ``dense_init`` (attention.py, encdec.py,
+# ssm.py, transformer_lm.py, moe.py)
+_DENSE_AXES = {
+    ("attn", "q_proj"): ("embed", "heads"),
+    ("attn", "k_proj"): ("embed", "kv"),
+    ("attn", "v_proj"): ("embed", "kv"),
+    ("attn", "o_proj"): ("heads", "embed"),
+    ("attn", "kv_down"): ("embed", None),
+    ("attn", "k_up"): (None, "heads"),
+    ("attn", "v_up"): (None, "heads"),
+    ("ffn", "w_gate"): ("embed", "mlp"),
+    ("ffn", "w_up"): ("embed", "mlp"),
+    ("ffn", "w_down"): ("mlp", "embed"),
+    ("ffn", "w_in"): ("embed", "mlp"),
+    ("ffn", "w_out"): ("mlp", "embed"),
+    ("ssm", "in_proj"): ("embed", "mlp"),
+    ("ssm", "out_proj"): ("mlp", "embed"),
+    ("moe", "router"): ("embed", None),
+    ("", "lm_head"): ("embed", "vocab"),
+}
+_DENSE_AXES.update({("xattn", k): v for (m, k), v in _DENSE_AXES.items()
+                    if m == "attn"})
+# bare-array leaves: MoE expert stacks and shared-expert matrices, the
+# SSD block's conv and per-head vectors, learned positions
+_BARE_AXES = {
+    ("moe", "w_gate"): ("expert", "embed", "mlp"),
+    ("moe", "w_up"): ("expert", "embed", "mlp"),
+    ("moe", "w_down"): ("expert", "mlp", "embed"),
+    ("shared", "w_gate"): ("embed", "mlp"),
+    ("shared", "w_up"): ("embed", "mlp"),
+    ("shared", "w_down"): ("mlp", "embed"),
+    ("ssm", "conv_w"): (None, "mlp"),
+    ("ssm", "A_log"): (None,),
+    ("ssm", "D"): (None,),
+    ("ssm", "dt_bias"): (None,),
+    ("", "pos_embed_dec"): (None, "embed"),
+    ("", "pos_embed_enc"): (None, "embed"),
+    ("embed", "embed_table"): ("vocab", "embed"),
+}
+
+
+def leaf_spec(path: tuple) -> tuple:
+    """The logical axes of the leaf at ``path`` (dict keys, list indices
+    left out), as the reference's init gives them for one layer (its
+    stacked leaves add a leading "layer"): a dense layer's "w" and "b",
+    a norm's scale and bias ("embed"; a head-wise q/k norm or MLA's
+    ckv norm replicated; the SSD block's gated norm "mlp"), and the
+    bare leaves of ``_BARE_AXES``.  Raises on a path it does not
+    know."""
+    key = path[-1]
+    parent = path[-2] if len(path) > 1 else ""
+    if key in ("norm_scale", "norm_bias"):
+        if parent in ("q_norm", "k_norm", "ckv_norm"):
+            return (None,)
+        return ("mlp",) if parent == "ssm_norm" else ("embed",)
+    if key in ("w", "b"):
+        module = path[-3] if len(path) > 2 else ""
+        axes = _DENSE_AXES.get((module, parent))
+        if axes is not None:
+            return axes if key == "w" else (axes[-1],)
+    else:
+        axes = _BARE_AXES.get((parent, key))
+        if axes is not None:
+            return axes
+    raise KeyError(f"no logical axes for leaf {'/'.join(path)}")
+
+
+def spec_tree(params):
+    """``leaf_spec`` of every leaf of a param tree of dicts and lists."""
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, path) for v in node]
+        return leaf_spec(path)
+
+    return walk(params, ())
+
+
+def gathered(p):
+    """A block's params as its layers read them: ``p`` itself, or, for a
+    block kept in shards (``sharding.fsdp.ShardedBlock``), its full
+    operands gathered now.  Inside a rematerialized block this runs
+    again in the recompute, so the full operands live for one block at
+    a time."""
+    gather = getattr(p, "gather", None)
+    return p if gather is None else gather()
+
+
+_TOKEN_SPLIT = [None]
+
+
+@contextlib.contextmanager
+def token_split(split):
+    """Inside it the batch the model sees is one rank's contiguous row
+    block of a batch split over ``split``'s ranks
+    (``sharding.fsdp.TokenSplit``: ``parts``, ``index``, ``sum``,
+    ``gather``): the MoE layers route and take their load-balance loss
+    over the whole batch, as one SPMD program over it does.  A module
+    global, not a context variable: the blocks' recompute runs in the
+    autograd engine's threads."""
+    prev = _TOKEN_SPLIT[0]
+    _TOKEN_SPLIT[0] = split
+    try:
+        yield
+    finally:
+        _TOKEN_SPLIT[0] = prev
+
+
+def current_token_split():
+    """The ``token_split`` in force, or None."""
+    return _TOKEN_SPLIT[0]
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, device,

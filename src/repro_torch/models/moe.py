@@ -29,7 +29,13 @@ What differs:
     is never rounded), not as its source's bf16 product reads;
   * routing, dispatch, experts and combine run under the profiler
     ranges ``moe/route``, ``moe/dispatch``, ``moe/experts`` and
-    ``moe/combine``.
+    ``moe/combine``;
+  * the reference is one SPMD program over the whole batch; a port rank
+    holds its row block of it, and under ``layers.token_split`` (the
+    sharded training step) it routes in the whole batch's groups (a
+    group that spans ranks continues the queues of the ranks ahead,
+    ``_split_groups``) and sums the aux loss's probabilities and kept
+    counts over the ranks, in rank order.
 """
 
 from __future__ import annotations
@@ -126,16 +132,22 @@ def router_probs(xt: torch.Tensor, router_w: torch.Tensor) -> torch.Tensor:
     return z / z.sum(-1, keepdim=True)
 
 
-def route(probs: torch.Tensor, cfg: MoEConfig) -> Routing:
+def route(probs: torch.Tensor, cfg: MoEConfig, *, cap=None,
+          before=None) -> Routing:
     """Route (G, S) tokens by their probabilities: top-k, renormalised
-    gates, queue positions in token order, capacity."""
+    gates, queue positions in token order, capacity (``cap`` slots an
+    expert, by default the group's).  ``before``, for one group (G = 1)
+    that is the tail of a longer one: a function of the (E,) count of
+    these tokens' assignments to each expert giving each expert's count
+    of the assignments queued ahead of them."""
     g, sg, e = probs.shape
     k = cfg.top_k
     top, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_idx = order[..., :k]
     gates = top[..., :k]
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
-    cap = capacity(sg, cfg)
+    if cap is None:
+        cap = capacity(sg, cfg)
 
     # slot assignment inside each (group, expert) queue, in token order:
     # the count of the expert's earlier assignments, a running sum of the
@@ -144,6 +156,8 @@ def route(probs: torch.Tensor, cfg: MoEConfig) -> Routing:
         torch.int32).transpose(1, 2).contiguous()
     pos = (torch.cumsum(flat, dim=2, dtype=torch.int32) - flat).gather(
         1, gate_idx.reshape(g, 1, sg * k)).reshape(g, sg, k)
+    if before is not None:
+        pos = pos + before(flat.sum((0, 2), dtype=torch.int32))[gate_idx]
     keep = pos < cap
     gates = gates * keep
 
@@ -193,18 +207,47 @@ def _expert_ffn(w_gate, w_up, w_down, x: torch.Tensor,
     return _nm_mm(w_down, h.to(x.dtype), "moe/expert/w_down", sp_cfg)
 
 
+def _split_groups(t: int, split, cfg: MoEConfig):
+    """(group size here, ``before``, capacity) of this rank's ``t``
+    tokens, the ``split.index``-th contiguous block of a batch of ``t x
+    split.parts`` tokens, routed in the whole batch's groups: whole
+    groups here, or the part of one group that spans several ranks (its
+    queues continue those of the ranks ahead of this one).  Raises when
+    the whole batch's groups cut this rank's block otherwise."""
+    sg = group_size(t * split.parts, cfg)
+    if t % sg == 0:
+        return sg, None, None
+    if sg % t:
+        raise ValueError(
+            f"MoE routing groups of {sg} tokens over {split.parts} ranks of "
+            f"{t} tokens each cut a rank's block: give each rank a multiple "
+            "or a divisor of the group")
+    first = split.index - split.index % (sg // t)
+
+    def before(counts):
+        return split.gather(counts)[first:split.index].sum(
+            0, dtype=torch.int32)
+
+    return t, before, capacity(sg, cfg)
+
+
 def moe_apply(p, x: torch.Tensor, cfg: MoEConfig,
               sp_cfg: SparsityConfig):
     """x (B, S, d) -> ((B, S, d), aux load-balancing loss (fp32 0-d))."""
     b, s, d = x.shape
     t = b * s
     e, k = cfg.n_experts, cfg.top_k
-    sg = group_size(t, cfg)
+    split = L.current_token_split()
+    if split is None:
+        sg, before, cap = group_size(t, cfg), None, None
+    else:
+        sg, before, cap = _split_groups(t, split, cfg)
     g = t // sg
     xt = x.reshape(g, sg, d)
 
     with record_function("moe/route"):
-        r = route(router_probs(xt, p["router"]["w"]), cfg)
+        r = route(router_probs(xt, p["router"]["w"]), cfg, cap=cap,
+                  before=before)
     cap = r.cap
     with record_function("moe/dispatch"):
         x_e = _slot_gather(xt, r.slot_token)                  # (E, G*C, d)
@@ -231,9 +274,13 @@ def moe_apply(p, x: torch.Tensor, cfg: MoEConfig,
                          sp_cfg)
 
     # Switch-style load-balance aux loss (counts from kept assignments)
-    me = r.probs.mean((0, 1))                                # (E,)
     counts = (F.one_hot(r.gate_idx, e) * r.keep[..., None]).sum(
         (0, 1, 2)).to(torch.float32)
+    if split is None:
+        me = r.probs.mean((0, 1))                            # (E,)
+    else:   # the whole batch's: every rank's sums, in rank order
+        me = split.sum(r.probs.sum((0, 1))) / (t * split.parts)
+        counts = split.sum(counts)
     ce = counts / torch.clamp(counts.sum(), min=1.0)
     aux = e * torch.sum(me * ce)
     return yt.reshape(b, s, d).to(x.dtype), aux

@@ -39,6 +39,12 @@ What differs:
     ``init_shell``/``iter_blocks`` give the same draws one layer at a
     time, so a full-width model can be packed without holding every
     dense layer at once.
+  * the logical-axis specs come from ``init_specs`` (leaf paths,
+    ``layers.leaf_spec``) and the shapes from ``abstract_params`` (the
+    meta device), where the reference's ``init(..., abstract=True)``
+    returns both; ``forward`` reads each block through
+    ``layers.gathered``, so a block kept in shards (``sharding.fsdp``)
+    gathers its operands inside its own recompute.
 """
 
 from __future__ import annotations
@@ -295,6 +301,23 @@ def init(cfg: LMConfig, *, seed: int = 0, device=None, dtype=torch.float32):
     return params
 
 
+def abstract_params(cfg: LMConfig):
+    """The param tree's shapes on the meta device, nothing allocated:
+    with ``init_specs``, the reference's ``init(..., abstract=True)``."""
+    params = init_shell(cfg, None, device="meta")
+    params["blocks"] = [block_init(None, cfg, device="meta")
+                        for _ in range(cfg.n_blocks)]
+    return params
+
+
+def init_specs(cfg: LMConfig):
+    """The logical-axis spec of every leaf of ``init(cfg)``
+    (``layers.leaf_spec``): the reference's spec tuples, a per-layer
+    leaf's without the leading "layer" of the reference's stacked one
+    (``sharding.rules.TRAIN_RULES`` never shards it)."""
+    return L.spec_tree(abstract_params(cfg))
+
+
 def forward(params, tokens: torch.Tensor, cfg: LMConfig,
             sp_cfg: SparsityConfig = DENSE, *, prefix_embeds=None,
             cache=None, decode: bool = False, positions=None,
@@ -325,7 +348,7 @@ def forward(params, tokens: torch.Tensor, cfg: LMConfig,
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
     aux = None
     if cfg.uses_scan_prelude:
-        x, _, _ = block_apply(params["prelude"], x, cfg, sp_cfg,
+        x, _, _ = block_apply(L.gathered(params["prelude"]), x, cfg, sp_cfg,
                               positions=positions,
                               cache=None if cache is None
                               else cache["prelude"],
@@ -338,7 +361,8 @@ def forward(params, tokens: torch.Tensor, cfg: LMConfig,
                               kind, window, use_reentrant=False)
         else:
             lc = layer_caches[i] if layer_caches is not None else None
-            x, _, a = block_apply(bp, x, cfg, sp_cfg, positions=positions,
+            x, _, a = block_apply(L.gathered(bp), x, cfg, sp_cfg,
+                                  positions=positions,
                                   kind=kind, window=window, cache=lc,
                                   decode=decode, per_slot=per_slot)
         if a is not None:
@@ -350,7 +374,8 @@ def forward(params, tokens: torch.Tensor, cfg: LMConfig,
 
 
 def _block_out(p, x, cfg, sp_cfg, positions, kind, window):
-    x, _, aux = block_apply(p, x, cfg, sp_cfg, positions=positions,
+    x, _, aux = block_apply(L.gathered(p), x, cfg, sp_cfg,
+                            positions=positions,
                             kind=kind, window=window)
     return x, aux
 

@@ -9,8 +9,14 @@ fp32 residual; ``mvue`` (``mvue_probs``, ``_systematic_sample``,
 inclusion probabilities, rescales the kept values by 1/p and keeps no
 residual.  Every pod decodes all payloads and takes their mean.
 ``GradCompressConfig``, ``compressible_shape``, ``plan_buckets``,
-``compress_leaf``, ``err_state_elems``, ``cross_pod_sync`` and
+``compress_leaf``, ``slab_shards``, ``local_block_shape``,
+``err_state_elems`` (with its mesh form), ``cross_pod_sync`` and
 ``wire_bytes`` keep the reference's names and semantics.
+
+On a mesh (``sharding.fsdp``) each rank runs the process form on its
+blocks of every leaf, with its own (1, local width) residual row: its
+groups run along its blocks, as the reference's device-local slabs lay
+them out, and its payloads cross the "pod" group only.
 
 Two forms of the pod hop.  On one card every pod's row lives in one
 tensor: gradients are pod-stacked leaves (P, *shape), the residual is
@@ -325,11 +331,43 @@ def plan_for(tree, bucket_elems: int, m: int, stacked: bool = False):
                      leaf_families(tree))
 
 
-def err_state_elems(master, m: int) -> int:
+def slab_shards(mesh) -> int:
+    """S: the ranks a pod holds (every axis but "pod"), each with its
+    own slab of the residual."""
+    return math.prod(s for a, s in mesh.shape.items() if a != "pod")
+
+
+def local_block_shape(shape, spec, mesh) -> tuple:
+    """A leaf's block shape on one rank under its spec; raises when a
+    cut dim does not split evenly."""
+    out = []
+    for i, d in enumerate(shape):
+        entry = spec[i] if spec is not None and i < len(spec) else None
+        split = 1
+        for ax in (() if entry is None else entry if isinstance(entry, tuple)
+                   else (entry,)):
+            split *= mesh.shape.get(ax, 1)
+        if d % split:
+            raise ValueError(f"dim {d} of {tuple(shape)} not divisible by "
+                             f"its {split}-way shard ({spec})")
+        out.append(d // split)
+    return tuple(out)
+
+
+def err_state_elems(master, m: int, mesh=None, grad_pspecs=None) -> int:
     """Width of the (n_pods, width) residual: the compressible total of
     ``master`` (layer stacks included), padded to whole m-groups (one
-    device per pod: the reference's S = 1)."""
-    return plan_for(master, m, m).width
+    rank per pod: the reference's S = 1).  With ``mesh`` and the
+    master's resolved specs ``grad_pspecs``: the rank-local slab's
+    padded width (its blocks, ``local_block_shape``; a block that is not
+    whole m-groups is ragged there) times ``slab_shards``, the
+    reference's T_loc_pad * S."""
+    if mesh is None or grad_pspecs is None:
+        return plan_for(master, m, m).width
+    local = sgd.tree_map(lambda _, x, spec: torch.empty(
+        local_block_shape(tuple(x.shape), spec, mesh), device="meta"),
+        master, grad_pspecs)
+    return plan_for(local, m, m).width * slab_shards(mesh)
 
 
 def init_err(master, n_pods: int, m: int) -> torch.Tensor:

@@ -200,17 +200,32 @@ def _pregen_leaf(w: torch.Tensor, sp_cfg: SparsityConfig,
                     cfg=sp_cfg)
 
 
-def pregen_tree(master, sp_cfg: SparsityConfig, *, pack: bool = False):
+def shapes_of(tree):
+    """The tree of its leaves' shapes (tuples)."""
+    return tree_map(lambda _, x: tuple(x.shape), tree)
+
+
+def pregen_tree(master, sp_cfg: SparsityConfig, *, pack: bool = False,
+                bare_sites: bool = True, lshapes=None):
     """The pre-generated compute tree of an fp32 master tree: sites
-    become PregenOp leaves, other float leaves their bf16 copies."""
-    def leaf(name, w):
-        if bdwp.pregen_site(name, tuple(w.shape), sp_cfg):
+    become PregenOp leaves, other float leaves their bf16 copies.
+
+    ``bare_sites=False`` leaves the bare-array MoE expert stacks as
+    plain bf16 copies, the structure of the reference's dict-sites-only
+    compute trees (``train.step.restore_with_pregen`` reads it).
+    ``lshapes``: a tree of each leaf's logical (unsharded) shape, which
+    picks the sites, for a master of rank-local blocks
+    (``sharding.fsdp``); by default the leaves' own shapes."""
+    def leaf(name, w, lshape):
+        if (bare_sites or not bdwp.bare_nm_leaf(name)) and \
+                bdwp.pregen_site(name, lshape, sp_cfg):
             return _pregen_leaf(w.to(torch.float32), sp_cfg, pack)
         if w.is_floating_point():
             return w.to(torch.bfloat16)
         return w
 
-    return tree_map(leaf, master)
+    return tree_map(leaf, master,
+                    shapes_of(master) if lshapes is None else lshapes)
 
 
 def diff_leaves(compute) -> list:
@@ -247,7 +262,8 @@ class _Pending(typing.NamedTuple):
 
 
 def update(state, grads, opt_cfg: SGDConfig, sp_cfg: SparsityConfig, *,
-           prev_compute=None, pregen: bool = True, pack: bool = False):
+           prev_compute=None, pregen: bool = True, pack: bool = False,
+           lshapes=None):
     """One optimizer step: (new_state, compute tree).
 
     ``grads`` is master-shaped (``pregen_grads``).  With ``pregen`` the
@@ -258,6 +274,13 @@ def update(state, grads, opt_cfg: SGDConfig, sp_cfg: SparsityConfig, *,
     None (the reference's would be the bf16 cast of the new master).
     Master and momentum, and the fp32 gradients of non-site leaves, are
     updated in place.
+
+    ``lshapes`` (a tree of logical shapes, ``pregen_tree``'s) lets the
+    state be a rank's blocks of a sharded one (``sharding.fsdp``): the
+    sites and the decay are picked by the logical shapes, and each
+    block, a site of its own, is updated where it is.  Where no shard
+    cuts an N:M group (``sharding.rules.assert_nm_unsplit``) every
+    output is bitwise the block's slice of the unsharded update.
     """
     lr = float(lr_schedule(opt_cfg, state["step"]))
     n, m = sp_cfg.n, sp_cfg.m
@@ -289,12 +312,11 @@ def update(state, grads, opt_cfg: SGDConfig, sp_cfg: SparsityConfig, *,
             leaf = PregenOp(ff=ff, **common)
         return nw.view(shape), nv.view(shape), leaf
 
-    def elementwise_upd(name, w, g, v, prev, site):
+    def elementwise_upd(name, w, g, v, prev, site, lshape):
         # one rounding per op, in the reference's order: g + wd*w, then
         # + lam*where(mask, 0, w); mu*v + g; w - lr*v
         g = g.to(torch.float32)
         g.add_(w * opt_cfg.weight_decay)
-        lshape = tuple(w.shape)
         if (not sp_cfg.is_dense and sp_cfg.lam > 0.0
                 and bdwp.decays(name, lshape, sp_cfg)
                 and sp_cfg.method in ("srste", "bdwp", "sdwp")):
@@ -312,21 +334,23 @@ def update(state, grads, opt_cfg: SGDConfig, sp_cfg: SparsityConfig, *,
         comp = _pregen_leaf(w, sp_cfg, pack) if site else w.to(torch.bfloat16)
         return w, v, comp
 
-    def upd(name, w, g, v, prev):
-        site = pregen and bdwp.pregen_site(name, tuple(w.shape), sp_cfg)
+    def upd(name, w, g, v, prev, lshape):
+        site = pregen and bdwp.pregen_site(name, lshape, sp_cfg)
         if (site and sp_cfg.method in ("srste", "bdwp")
                 and sp_cfg.granularity == "element"
                 and not sp_cfg.transposable):
             # the kernel derives one-sided element masks: shared and
             # transposable sites stay on the elementwise path
             return fused_site(w, g, v)
-        return elementwise_upd(name, w, g, v, prev, site)
+        return elementwise_upd(name, w, g, v, prev, site, lshape)
 
     # two passes: the elementwise leaves and the list of fused sites,
     # then one fused_update_sites over all sites, then their PregenOps
     prev = (prev_compute if pregen and prev_compute is not None
             else state["master"])
-    outs = tree_map(upd, state["master"], grads, state["momentum"], prev)
+    outs = tree_map(upd, state["master"], grads, state["momentum"], prev,
+                    shapes_of(state["master"]) if lshapes is None
+                    else lshapes)
     done = ops.fused_update_sites(
         fused, lr, opt_cfg.momentum, opt_cfg.weight_decay, sp_cfg.lam, n, m,
         "bdwp" if sp_cfg.prunes_bp_weights() else "srste", inplace=True)

@@ -17,15 +17,20 @@ None, so a transposable bp-only operand too) and Python ints (``step``),
 with or without a compute tree (the legacy dataflow keeps none); the
 snapshot is a copy on the host, because the port's update changes
 master, momentum and the EF residual in place; ``restore`` loads onto
-a device, the card unless the caller names another, instead of
-resharding onto a mesh.
+a device, the card unless the caller names another.
 
-Under a ``torch.distributed`` group of one process per pod (the
-process form of the compressed sync, ``group=``), the state the ranks
-share (master, momentum, compute tree, step) is written once, by rank
-0, and the error-feedback residual, one (1, width) row a rank, is
-gathered into the checkpoint's (P, width) ``err``; ``restore`` hands
-each rank its own row back.
+On a mesh (``shardings=``, a ``sharding.fsdp.StateSharding`` of more
+than one rank, each holding its blocks of the state), a save streams:
+leaf by leaf, the blocks are gathered to rank 0 alone
+(``StateSharding.lazy``), which writes the leaf at once; the residual
+goes into the one-process (P, width) layout.  A restore maps each file
+into memory (``torch.load(mmap=True)``) and copies only the rank's
+block of it to the device, so no rank ever holds the whole state.  The
+files are those of a one-process run, so a checkpoint restores onto any
+mesh the specs allow: saved at data=2 it restores at data=1 and the
+reverse, bitwise, the residual's columns moved too (the reference's
+elastic restore, ``restore(..., shardings=)``); a mesh of pods, one
+process each, is the process form of the compressed sync.
 """
 
 from __future__ import annotations
@@ -73,21 +78,6 @@ def _unflatten(like, it):
     return next(it)
 
 
-def _to(node, device):
-    """A restored subtree moved onto ``device``."""
-    if isinstance(node, dict):
-        return {k: _to(v, device) for k, v in node.items()}
-    if isinstance(node, list):
-        return [_to(v, device) for v in node]
-    if isinstance(node, PregenOp):
-        return PregenOp(**{f: _to(getattr(node, f), device)
-                           for f in _PREGEN_FIELDS},
-                        cfg=node.cfg, idx_bits=node.idx_bits)
-    if isinstance(node, torch.Tensor):
-        return node.to(device)
-    return node
-
-
 def _describe(leaf) -> dict:
     if leaf is None:
         return {"kind": "none"}
@@ -129,73 +119,77 @@ def state_fingerprint(tree) -> str:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3, group=None):
+    def __init__(self, directory: str, keep: int = 3, shardings=None):
         self.dir = directory
         self.keep = keep
-        self.group = group
+        self.shardings = shardings
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
 
-    def _rank(self) -> int:
-        if self.group is None:
-            return 0
-        import torch.distributed as dist
-
-        return dist.get_rank(self.group)
+    def _sharded(self, shardings=None) -> bool:
+        sh = shardings if shardings is not None else self.shardings
+        return sh is not None and sh.sharded
 
     def _barrier(self):
-        if self.group is not None:
+        if self._sharded():
             import torch.distributed as dist
 
-            dist.barrier(group=self.group)
+            dist.barrier()
 
     # -- save ---------------------------------------------------------------
 
     def save(self, step: int, state, blocking: bool = False):
-        """Copy the state to host memory now, write it on a thread (under
-        a group: every rank's residual row gathered, rank 0 writing)."""
-        if self.group is not None and "err" in state:
-            from repro_torch.optim.compress import gather_rows
-
-            state = dict(state, err=gather_rows(
-                state["err"].detach().to("cpu"), self.group, count=False))
+        """Copy the state to host memory now and write it on a thread; on
+        a mesh, gather and write it leaf by leaf on rank 0 before
+        returning (every rank takes part)."""
+        if self._thread is not None:
+            self._thread.join()   # one in-flight save at a time
+        if self._sharded():
+            self._save_streamed(step, state)
+            return
         host = [x.detach().to("cpu", copy=True)
                 if isinstance(x, torch.Tensor) else x
                 for x in _flatten(state, [])]
-        if self._thread is not None:
-            self._thread.join()   # one in-flight save at a time
-        if self._rank() != 0:
-            if blocking:
-                self._barrier()
-            return
-
-        def write():
-            tmp = os.path.join(self.dir, f"step_{step:08d}.tmp")
-            final = os.path.join(self.dir, f"step_{step:08d}")
-            if os.path.exists(tmp):
-                shutil.rmtree(tmp)
-            os.makedirs(tmp)
-            manifest = {"step": step, "n_leaves": len(host),
-                        "leaves": [_describe(a) for a in host],
-                        "time": time.time()}
-            for i, a in enumerate(host):
-                if isinstance(a, torch.Tensor):
-                    torch.save(a, os.path.join(tmp, f"leaf_{i:05d}.pt"))
-            with open(os.path.join(tmp, "manifest.json"), "w") as f:
-                json.dump(manifest, f)
-            if os.path.exists(final):
-                shutil.rmtree(final)
-            os.replace(tmp, final)   # atomic commit
-            self._gc()
-
-        self._thread = threading.Thread(target=write, daemon=True)
+        self._thread = threading.Thread(
+            target=self._write, args=(step, iter(host)), daemon=True)
         self._thread.start()
         if blocking:
             self._thread.join()
-            self._barrier()
+
+    def _save_streamed(self, step: int, state):
+        leaves = (x() if callable(x) else x for x in _flatten(
+            self.shardings.lazy(state), []))
+        if self.shardings.mesh.rank == 0:
+            self._write(step, leaves)
+        else:
+            for _ in leaves:   # this rank's part of each gather
+                pass
+        self._barrier()
+
+    def _write(self, step: int, leaves):
+        """Write ``leaves`` (checkpoint order) as ``step``, each as soon
+        as it comes, then commit the directory atomically."""
+        tmp = os.path.join(self.dir, f"step_{step:08d}.tmp")
+        final = os.path.join(self.dir, f"step_{step:08d}")
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        described = []
+        for i, a in enumerate(leaves):
+            described.append(_describe(a))
+            if isinstance(a, torch.Tensor):
+                torch.save(a, os.path.join(tmp, f"leaf_{i:05d}.pt"))
+        manifest = {"step": step, "n_leaves": len(described),
+                    "leaves": described, "time": time.time()}
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)   # atomic commit
+        self._gc()
 
     def wait(self):
-        """Join the save in flight (under a group, on every rank)."""
+        """Join the save in flight (on a mesh, on every rank)."""
         if self._thread is not None:
             self._thread.join()
         self._barrier()
@@ -222,26 +216,27 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like_state, step: Optional[int] = None, device=None):
+    def restore(self, like_state, step: Optional[int] = None, device=None,
+                shardings=None, mmap: bool = False):
         """Restore into the structure of ``like_state``, every tensor on
         ``device`` (the card unless another is named), with the dtype it
-        was saved with (under a group, this rank's row of ``err``).
-        Raises on a structure, shape or dtype mismatch."""
+        was saved with (on a mesh, ``shardings`` or the manager's, this
+        rank's blocks of every leaf, ``like_state`` being blocks too).
+        ``mmap`` (host tensors only): map the files rather than read them,
+        so a leaf is read when it is used.  Raises on a structure, shape
+        or dtype mismatch."""
         device = resolve_device(device)
-        if self.group is not None and "err" in like_state:
-            import torch.distributed as dist
+        sh = shardings if shardings is not None else self.shardings
+        if self._sharded(sh):
+            full = self._restore(sh.full_like(like_state), step, "cpu",
+                                 mmap=True)
+            return sh.shard(full, to=device)
+        if mmap and device.type != "cpu":
+            raise ValueError("mmap maps the files into host memory: "
+                             "restore onto the CPU")
+        return self._restore(like_state, step, device, mmap=mmap)
 
-            err = like_state["err"]
-            rows = torch.empty((dist.get_world_size(self.group),
-                                *err.shape[1:]), dtype=err.dtype,
-                               device="meta")
-            out = self._restore(dict(like_state, err=rows), step, "cpu")
-            rank = self._rank()
-            return {k: (v[rank:rank + 1].to(device, copy=True) if k == "err"
-                        else _to(v, device)) for k, v in out.items()}
-        return self._restore(like_state, step, device)
-
-    def _restore(self, like_state, step, device):
+    def _restore(self, like_state, step, device, mmap: bool = False):
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -263,7 +258,7 @@ class CheckpointManager:
             if desc["kind"] == "tensor":
                 loaded.append(torch.load(
                     os.path.join(path, f"leaf_{i:05d}.pt"),
-                    map_location=device, weights_only=True))
+                    map_location=device, weights_only=True, mmap=mmap))
             elif desc["kind"] == "int":
                 loaded.append(desc["value"])
             else:

@@ -37,9 +37,9 @@ tree (the reference vmaps ``value_and_grad`` over a pod-stacked copy),
 the pod gradients are stacked (P, *shape), and
 ``optim.compress.cross_pod_sync`` gives their mean through packed N:M
 payloads (topk, updating the error-feedback residual ``state["err"]``,
-or mvue, seeded by the step) before ``sgd.update``.  The P pods are
-either all on this device or one a process of a ``torch.distributed``
-group (``group=``), which then holds its pod's rows and residual row.
+or mvue, seeded by the step) before ``sgd.update``.  The P pods are all
+on this device; one process a pod is the mesh step at "pod" = P
+(``build_lm_train``).
 
 A batch may carry ``prefix_embeds`` (B, S_pre, d), the stub frontend's
 embeddings (internvl2): the model reads them before the tokens, the
@@ -55,8 +55,33 @@ reference's does (a decode step straight after it writes over the last
 prompt position: seat the cache in a longer one first), and the encoder
 output, which every decode step reads again.
 
-What differs: no mesh or activation sharding; no step builder
-(``functools.partial`` of ``lm_train_step`` is the step function);
+``build_lm_train`` and ``build_encdec_train`` (with
+``StepBundle``, ``abstract_compute_tree`` and ``_train_state_pspecs``)
+resolve the TRAIN rules over a ``launch.mesh.Mesh`` of processes and
+return a bundle whose step runs on the rank's blocks of the state
+(``sharding.fsdp``): the model gathers each block's operands where it
+reads them, the gradients are reduced to blocks over "data", then
+averaged over "pod" (the compressed sync with ``compress``, its packed
+payloads over the "pod" group, each rank compressing its own blocks
+with its own residual columns; else a dense mean), and ``sgd.update``
+runs on the blocks.  Each rank gets its own rows of the global batch
+(``data.synthetic``'s ``rows=``); the MoE layers route and take their
+load-balance loss over the whole batch of the program they stand for
+(``fsdp.token_split``: the pod's rows with ``compress``, else every
+rank's), as the reference's one SPMD program does.  At "pod" = P and
+"data" = 1 this is the process form of the compressed sync, one pod a
+process, bitwise ``lm_train_step``'s P pods in one process.
+``restore_with_pregen`` upgrades checkpoints of the two older dataflow
+generations (no compute tree; MoE expert stacks still plain bf16
+copies) by regenerating the compute tree from the restored master.
+
+What differs: a mesh with "model" > 1 raises NotImplementedError
+(tensor and expert parallelism, and sequence parallelism there, are
+ROADMAP item 7, part 3; ``seq_parallel`` is accepted and changes
+nothing at "model" = 1, as in the reference); no activation sharding
+(``act``); the bundle's step is a Python function, not a compiled one,
+and ``donate`` has no counterpart (the update consumes the state
+anyway); with one rank the bundle's step is ``lm_train_step`` itself;
 ``lm_decode_step`` defaults to per-slot decode (``pos`` a (B,) vector
 of per-request positions, the serve engine's mode), where the
 reference defaults to the shared cursor (``per_slot=False``, ``pos``
@@ -70,48 +95,87 @@ recompute), ``train/sync`` (compressed steps only) and
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 from torch.profiler import record_function
 
+from repro_torch.core.operand import PregenOp
+from repro_torch.device import resolve_device
 from repro_torch.models import convnets as CN
 from repro_torch.models import encdec as E
 from repro_torch.models import layers as L
 from repro_torch.models import transformer_lm as T
 from repro_torch.optim import compress as C
 from repro_torch.optim import sgd
+from repro_torch.sharding import fsdp as F
+from repro_torch.sharding import rules as R
 
 AUX_COEF = 0.01     # weight of the MoE load-balance loss in the total
 
 
 def init_train_state(cfg, sp_cfg, *, seed: int = 0, device=None,
                      pregen: bool = True, pregen_pack: bool = True,
-                     compress: bool = False, n_pods: int = 1):
+                     compress: bool = False, n_pods: int = 1, mesh=None):
     """Random fp32 params from ``seed`` on ``device`` (the card unless
     another is named), of an LM or, for an ``EncDecConfig``, of the
     encoder-decoder; the optimizer state, and with ``pregen`` the
     pre-generated compute tree of their masks (``sp_cfg``; packed with
     ``pregen_pack``).  ``compress`` adds the zero error-feedback
     residual ``err`` of ``n_pods`` pods, (n_pods, err_state_elems)
-    fp32."""
+    fp32.
+
+    With ``mesh`` (a ``launch.mesh.Mesh``), this rank's blocks of that
+    state under the TRAIN rules: an LM's params are drawn a layer at a
+    time and cut at once, so no rank holds the whole model (the same
+    bits as ``fsdp.shard_tree`` of the whole draw); ``err`` is the
+    rank's (1, local width) row, and ``n_pods`` is the mesh's."""
     model = E if isinstance(cfg, E.EncDecConfig) else T
-    params = model.init(cfg, seed=seed, device=device, dtype=torch.float32)
-    return train_state_from_params(params, sp_cfg, pregen=pregen,
-                                   pregen_pack=pregen_pack,
-                                   compress=compress, n_pods=n_pods)
+    if mesh is None or mesh.size == 1:
+        params = model.init(cfg, seed=seed, device=device,
+                            dtype=torch.float32)
+        return train_state_from_params(params, sp_cfg, pregen=pregen,
+                                       pregen_pack=pregen_pack,
+                                       compress=compress, n_pods=n_pods)
+    specs = state_pspecs(cfg, mesh, sp_cfg, compress=False, pregen=False)
+    cut = functools.partial(F.shard_tree, mesh=mesh)
+    if model is T:
+        device = resolve_device(device)
+        gen = T.generator(seed, device)
+        shell = T.init_shell(cfg, gen, device=device)
+        params = cut({k: v for k, v in shell.items()},
+                     {k: specs["master"][k] for k in shell})
+        params["blocks"] = [cut(b, s) for b, s in zip(
+            T.iter_blocks(cfg, gen, device=device),
+            specs["master"]["blocks"])]
+    else:
+        params = cut(E.init(cfg, seed=seed, device=device,
+                            dtype=torch.float32), specs["master"])
+    lshapes = sgd.shapes_of(T.abstract_params(cfg) if model is T
+                            else E.abstract_params(cfg))
+    state = train_state_from_params(params, sp_cfg, pregen=pregen,
+                                    pregen_pack=pregen_pack,
+                                    lshapes=lshapes)
+    if compress and "pod" in mesh.axis_names:
+        state["err"] = C.init_err(state["master"], 1, sp_cfg.m)
+    return state
 
 
 def train_state_from_params(params, sp_cfg, *, pregen: bool = True,
                             pregen_pack: bool = True,
-                            compress: bool = False, n_pods: int = 1):
+                            compress: bool = False, n_pods: int = 1,
+                            lshapes=None):
     """The train state of ``params``, on their device; fp32 params are
     taken over as the master.  Without ``pregen`` it holds no compute
-    tree."""
+    tree.  ``lshapes``: the logical shapes of a rank's blocks
+    (``sgd.pregen_tree``)."""
     state = sgd.init_state(params)
     if compress:
         state["err"] = C.init_err(state["master"], n_pods, sp_cfg.m)
     if pregen:
         state["compute"] = sgd.pregen_tree(state["master"], sp_cfg,
-                                           pack=pregen_pack)
+                                           pack=pregen_pack, lshapes=lshapes)
     return state
 
 
@@ -127,8 +191,7 @@ def _bf16_cast(master):
 
 def lm_train_step(state, batch, *, cfg, sp_cfg, opt_cfg,
                   pregen: bool = True, pregen_pack: bool = True,
-                  compress: bool = False, n_pods: int = 1, grad_sync=None,
-                  group=None):
+                  compress: bool = False, n_pods: int = 1, grad_sync=None):
     """One training step.  With ``pregen``: FF on the pre-generated
     (packed) operands of ``state["compute"]``, BP on ``bp``, the dense WU
     gradient on ``bp``'s gradient, then ``sgd.update``, which writes the
@@ -144,25 +207,13 @@ def lm_train_step(state, batch, *, cfg, sp_cfg, opt_cfg,
     topk at ``sp_cfg``'s n:m, the reference's buckets; fp32 gradients on
     the legacy dataflow, as the reference's master gives), each pod's
     loss, aux and total taken on its own rows, and the step's the mean
-    over the pods.  Either all ``n_pods`` pods on this device, or, with
-    ``group`` (a ``torch.distributed`` group, one process per pod), this
-    process's pod alone: it takes its rank's rows of the global batch,
-    holds its (1, width) row of the residual, and returns the same loss,
-    aux, total and shared state as every other rank.  Returns
-    (new_state, {"loss", "aux", "total", "lr"}); consumes ``state`` (see
+    over the ``n_pods`` pods, all on this device.  Returns (new_state,
+    {"loss", "aux", "total", "lr"}); consumes ``state`` (see
     ``sgd.update``, ``cross_pod_sync``).
     """
     compute = state["compute"] if pregen else _bf16_cast(state["master"])
     roots = sgd.diff_leaves(compute)
-    if compress and group is not None:
-        import torch.distributed as dist
-
-        pods, mine = dist.get_world_size(group), [dist.get_rank(group)]
-        if n_pods not in (1, pods):
-            raise ValueError(f"n_pods={n_pods} != the group's {pods}")
-    else:
-        pods = n_pods if compress else 1
-        mine = list(range(pods))
+    pods = n_pods if compress else 1
     rows = batch["tokens"].shape[0]
     if rows % pods:
         raise ValueError(f"global batch {rows} not divisible by "
@@ -172,7 +223,7 @@ def lm_train_step(state, batch, *, cfg, sp_cfg, opt_cfg,
     for r in roots:
         r.requires_grad_(True)
     try:
-        for row, p in enumerate(mine):
+        for p in range(pods):
             rows_p = slice(p * per, (p + 1) * per)
             prefix = batch.get("prefix_embeds")
             with record_function("train/forward"):
@@ -194,11 +245,11 @@ def lm_train_step(state, batch, *, cfg, sp_cfg, opt_cfg,
             if compress:   # pod p's row of the pod-stacked gradients
                 if stacked is None:
                     stacked = [g.new_empty(
-                        (len(mine), *g.shape),
+                        (pods, *g.shape),
                         dtype=g.dtype if pregen else torch.float32)
                         for g in grads]
                 for s, g in zip(stacked, grads):
-                    s[row].copy_(g)
+                    s[p].copy_(g)
                 del grads
     finally:
         for r in roots:
@@ -209,14 +260,8 @@ def lm_train_step(state, batch, *, cfg, sp_cfg, opt_cfg,
             gc_cfg = grad_sync or C.GradCompressConfig.from_sparsity(sp_cfg)
             grads, new_err = C.cross_pod_sync(
                 sgd.pregen_grads(compute, stacked), state["err"], gc_cfg,
-                step=int(state["step"]), group=group)
+                step=int(state["step"]))
             del stacked
-        if group is not None:   # every pod's (loss, aux, total), in order
-            pod_vals = C.gather_rows(torch.stack(
-                [losses[0], auxes[0], totals[0]]).to(torch.float32)[None],
-                group, count=False)
-            losses, auxes, totals = (list(pod_vals[:, j].unbind())
-                                     for j in range(3))
     else:
         grads = sgd.pregen_grads(compute, grads)
     del compute, roots
@@ -231,15 +276,17 @@ def lm_train_step(state, batch, *, cfg, sp_cfg, opt_cfg,
     return new_state, metrics
 
 
-def _update(state, grads, loss, *, opt_cfg, sp_cfg, pregen, pregen_pack):
+def _update(state, grads, loss, *, opt_cfg, sp_cfg, pregen, pregen_pack,
+            lshapes=None):
     """``sgd.update`` of ``state`` with master-shaped ``grads`` (range
     ``train/update``): the new state, with the next compute tree if
-    ``pregen``, and the step's {"loss", "lr"}."""
+    ``pregen``, and the step's {"loss", "lr"}.  ``lshapes``: the
+    logical shapes of a rank's blocks."""
     with torch.no_grad(), record_function("train/update"):
         new_state, new_compute = sgd.update(
             state_core(state), grads, opt_cfg, sp_cfg,
             prev_compute=state.get("compute"), pregen=pregen,
-            pack=pregen_pack)
+            pack=pregen_pack, lshapes=lshapes)
     if pregen:
         new_state["compute"] = new_compute
     return new_state, {"loss": loss.detach(),
@@ -400,3 +447,322 @@ def encdec_decode_step(params, cache, enc_out, token, pos, *, cfg, sp_cfg):
                                  cache=cache, decode_step=True,
                                  positions=positions)
         return E.logits_from_hidden(params, hidden, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# build_lm_train and build_encdec_train: the TRAIN rules over a mesh
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class StepBundle:
+    """A built training step.  ``step_fn(state, batch)`` takes this
+    rank's blocks of the state and its rows of the global batch;
+    ``state_shardings`` (a ``sharding.fsdp.StateSharding``) holds the
+    state's resolved spec tree (``.specs``: "master", "momentum",
+    "step", and "compute" / "err" where the state has them) and cuts or
+    gathers a state by it; ``input_pspecs`` are the batch's specs,
+    ``names`` the master's leaf names, ``specs`` its logical-axis tree
+    and ``lshapes`` its logical shapes."""
+    step_fn: callable
+    state_shardings: object
+    input_pspecs: dict
+    names: list
+    specs: object
+    mesh: object = None
+    lshapes: object = None
+
+    def init_state(self, cfg, sp_cfg, *, seed: int = 0, device=None,
+                   compress: bool = False):
+        """This rank's blocks of a fresh train state for the bundle."""
+        sh = self.state_shardings
+        return init_train_state(
+            cfg, sp_cfg, seed=seed, device=device,
+            pregen="compute" in sh.specs, pregen_pack=sh.pregen_pack,
+            compress=compress and "err" in sh.specs, mesh=self.mesh)
+
+
+def check_mesh(mesh):
+    """Refuse a mesh whose "model" axis has more than one rank."""
+    if mesh.shape.get("model", 1) > 1:
+        raise NotImplementedError(
+            f"mesh {dict(mesh.shape)}: a 'model' axis of more than one rank "
+            "(tensor and expert parallelism, and sequence parallelism over "
+            "'model') is ROADMAP item 7, part 3; this port runs 'data' "
+            "(FSDP) and 'pod' only")
+
+
+def abstract_compute_tree(aparams, sp_cfg, pack=False):
+    """The compute tree of an abstract master (meta tensors): shapes and
+    structure, nothing allocated."""
+    return sgd.pregen_tree(aparams, sp_cfg, pack=pack)
+
+
+def _train_state_pspecs(p_pspecs, aparams, mesh, sp_cfg, *, compress,
+                        pregen, pregen_pack):
+    """State specs with the pre-generated compute tree's; asserts that
+    no resolved spec of master or compute splits an N:M group or a
+    packed run."""
+    R.assert_nm_unsplit(p_pspecs, aparams, mesh, sp_cfg)
+    state_pspecs = {"master": p_pspecs, "momentum": p_pspecs, "step": ()}
+    if compress and "pod" in mesh.axis_names:
+        state_pspecs["err"] = R.grad_sync_pspecs(mesh)["err"]
+    if pregen:
+        acompute = abstract_compute_tree(aparams, sp_cfg, pack=pregen_pack)
+        c_pspecs = R.pregen_pspecs(acompute, p_pspecs)
+        R.assert_nm_unsplit(c_pspecs, acompute, mesh, sp_cfg)
+        state_pspecs["compute"] = c_pspecs
+    return state_pspecs
+
+
+def _model_of(cfg):
+    return E if isinstance(cfg, E.EncDecConfig) else T
+
+
+def state_pspecs(cfg, mesh, sp_cfg, *, compress=False, pregen=True,
+                 pregen_pack=True):
+    """The resolved state spec tree of ``cfg`` on ``mesh`` (TRAIN
+    rules, the group guard asserted)."""
+    model = _model_of(cfg)
+    aparams = model.abstract_params(cfg)
+    p_pspecs = R.nm_params_pspecs(model.init_specs(cfg), R.TRAIN_RULES,
+                                  aparams, mesh, sp_cfg)
+    return _train_state_pspecs(p_pspecs, aparams, mesh, sp_cfg,
+                               compress=compress, pregen=pregen,
+                               pregen_pack=pregen_pack)
+
+
+def _metric_means(values, mesh):
+    """Each metric's mean over every rank of ``mesh`` (rank order)."""
+    if mesh.size == 1:
+        return values
+    import torch.distributed as dist
+
+    rows = C.gather_rows(torch.stack(values).to(torch.float32)[None],
+                         dist.group.WORLD, count=False)
+    return [rows[:, j].mean() for j in range(len(values))]
+
+
+def sharded_train_step(state, batch, *, losses, mesh, shardings, sp_cfg,
+                       opt_cfg, pregen: bool = True,
+                       pregen_pack: bool = True, compress: bool = False,
+                       grad_sync=None, rows_only=()):
+    """One training step on this rank's blocks ``state`` and rows
+    ``batch``.  ``losses(tree, batch)`` gives [total, loss] (an LM also
+    aux) on the tree the model reads (``fsdp.step_view``: blocks
+    gathered where they are read); the gradients of ``total`` come back
+    reduced to blocks over "data" (their data mean), then the pod mean:
+    the compressed sync over the "pod" group with ``compress`` (the
+    rank's blocks and its residual row), else a dense mean; then
+    ``sgd.update`` on the blocks.  The metrics are means over every
+    rank.  Consumes ``state``."""
+    specs = shardings.specs
+    compute = state["compute"] if pregen else _bf16_cast(state["master"])
+    roots = sgd.diff_leaves(compute)
+    split = F.token_split(mesh, ("data",) if compress else ("pod", "data"))
+    for r in roots:
+        r.requires_grad_(True)
+    try:
+        view = F.step_view(compute, specs["compute"] if pregen
+                           else specs["master"], mesh, rows_only)
+        with L.token_split(split):
+            with record_function("train/forward"):
+                values = losses(view, batch)
+            with record_function("train/backward"):
+                grads = torch.autograd.grad(values[0], roots,
+                                            allow_unused=True,
+                                            materialize_grads=True)
+        del view
+    finally:
+        for r in roots:
+            r.requires_grad_(False)
+    grads = sgd.pregen_grads(compute, grads)
+    del compute, roots
+    new_err = None
+    with torch.no_grad(), record_function("train/sync"):
+        if compress:
+            stacked = sgd.tree_map(lambda _, g: (
+                g if pregen else g.to(torch.float32))[None], grads)
+            del grads
+            gc_cfg = grad_sync or C.GradCompressConfig.from_sparsity(sp_cfg)
+            grads, new_err = C.cross_pod_sync(
+                stacked, state["err"], gc_cfg, step=int(state["step"]),
+                group=mesh.group("pod"))
+            del stacked
+        elif mesh.shape.get("pod", 1) > 1:
+            grads = F.reduce_tree(grads, specs["master"], mesh, "pod")
+    values = _metric_means([v.detach() for v in values], mesh)
+    new_state, metrics = _update(state, grads, values[1], opt_cfg=opt_cfg,
+                                 sp_cfg=sp_cfg, pregen=pregen,
+                                 pregen_pack=pregen_pack,
+                                 lshapes=shardings.lshapes)
+    if len(values) > 2:
+        metrics.update(aux=values[2], total=values[0])
+    if new_err is not None:
+        new_state["err"] = new_err
+    return new_state, metrics
+
+
+def _lm_losses(tree, batch, *, cfg, sp_cfg):
+    prefix = batch.get("prefix_embeds")
+    hidden, _, aux = T.forward(tree, batch["tokens"], cfg, sp_cfg,
+                               prefix_embeds=prefix)
+    if prefix is not None:   # the loss reads the text only
+        hidden = hidden[:, prefix.shape[1]:]
+    loss = T.lm_loss(tree, hidden, batch["labels"], cfg)
+    return [loss + AUX_COEF * aux, loss, aux]
+
+
+def _encdec_losses(tree, batch, *, cfg, sp_cfg):
+    enc = E.encode(tree, batch["frames"], cfg, sp_cfg)
+    hidden, _ = E.decode(tree, batch["tokens"], enc, cfg, sp_cfg)
+    loss = E.loss(tree, hidden, batch["labels"], cfg)
+    return [loss, loss]
+
+
+def _names(tree) -> list:
+    out = []
+    sgd.tree_map(lambda name, _: out.append(name), tree)
+    return out
+
+
+def _bundle(cfg, mesh, sp_cfg, *, compress, pregen, pregen_pack):
+    check_mesh(mesh)
+    model = _model_of(cfg)
+    aparams, specs = model.abstract_params(cfg), model.init_specs(cfg)
+    p_pspecs = R.nm_params_pspecs(specs, R.TRAIN_RULES, aparams, mesh,
+                                  sp_cfg)
+    st = _train_state_pspecs(p_pspecs, aparams, mesh, sp_cfg,
+                             compress=compress, pregen=pregen,
+                             pregen_pack=pregen_pack)
+    lshapes = sgd.shapes_of(aparams)
+    sh = F.StateSharding(mesh, st, lshapes, sp_cfg.m, pregen_pack)
+    dp = R.batch_axes(mesh)
+    return sh, specs, _names(aparams), dp[0] if len(dp) == 1 else dp
+
+
+def build_lm_train(cfg, mesh, sp_cfg, opt_cfg, *, compress=False,
+                   donate=True, seq_parallel=False, pregen=True,
+                   pregen_pack=True, grad_sync=None) -> StepBundle:
+    """The LM's training step on ``mesh`` under the TRAIN rules: FSDP
+    over "data", the (compressed, with ``compress`` and a "pod" axis)
+    pod mean over "pod".  ``donate`` and ``seq_parallel`` (at "model" =
+    1) change nothing.  With one rank the step is ``lm_train_step``."""
+    del donate, seq_parallel
+    compress = compress and "pod" in mesh.axis_names
+    sh, specs, names, dp = _bundle(cfg, mesh, sp_cfg, compress=compress,
+                                   pregen=pregen, pregen_pack=pregen_pack)
+    in_pspecs = {"tokens": (dp, None), "labels": (dp, None)}
+    if cfg.name.startswith("internvl"):
+        in_pspecs["prefix_embeds"] = (dp, None, None)
+    if mesh.size == 1:
+        fn = functools.partial(lm_train_step, cfg=cfg, sp_cfg=sp_cfg,
+                               opt_cfg=opt_cfg, pregen=pregen,
+                               pregen_pack=pregen_pack, compress=compress,
+                               grad_sync=grad_sync)
+    else:
+        fn = functools.partial(
+            sharded_train_step, losses=functools.partial(
+                _lm_losses, cfg=cfg, sp_cfg=sp_cfg), mesh=mesh, shardings=sh,
+            sp_cfg=sp_cfg, opt_cfg=opt_cfg, pregen=pregen,
+            pregen_pack=pregen_pack, compress=compress, grad_sync=grad_sync,
+            rows_only=() if cfg.tie_embed else ("embed",))
+    return StepBundle(fn, sh, in_pspecs, names, specs, mesh, sh.lshapes)
+
+
+def build_encdec_train(cfg, mesh, sp_cfg, opt_cfg, donate=True,
+                       pregen=True, pregen_pack=True) -> StepBundle:
+    """The encoder-decoder's training step on ``mesh`` (FSDP over
+    "data", a dense pod mean over "pod"; no compressed sync, as the
+    reference's)."""
+    del donate
+    sh, specs, names, dp = _bundle(cfg, mesh, sp_cfg, compress=False,
+                                   pregen=pregen, pregen_pack=pregen_pack)
+    in_pspecs = {"frames": (dp, None, None), "tokens": (dp, None),
+                 "labels": (dp, None)}
+    if mesh.size == 1:
+        fn = functools.partial(encdec_train_step, cfg=cfg, sp_cfg=sp_cfg,
+                               opt_cfg=opt_cfg, pregen=pregen,
+                               pregen_pack=pregen_pack)
+    else:
+        fn = functools.partial(
+            sharded_train_step, losses=functools.partial(
+                _encdec_losses, cfg=cfg, sp_cfg=sp_cfg), mesh=mesh,
+            shardings=sh, sp_cfg=sp_cfg, opt_cfg=opt_cfg, pregen=pregen,
+            pregen_pack=pregen_pack)
+    return StepBundle(fn, sh, in_pspecs, names, specs, mesh, sh.lshapes)
+
+
+def _meta(tree):
+    return sgd.tree_map(lambda _, x: torch.empty(
+        x.shape, dtype=x.dtype, device="meta"), tree)
+
+
+def _structure(node):
+    """A tree's structure: keys, list lengths, operand fields."""
+    if isinstance(node, dict):
+        return {k: _structure(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_structure(v) for v in node]
+    if isinstance(node, PregenOp):
+        return ("PregenOp",) + tuple(getattr(node, f) is not None
+                                     for f in F.PREGEN_FIELDS)
+    return "leaf"
+
+
+def restore_with_pregen(mgr, like_state, step=None, shardings=None, *,
+                        sp_cfg=None, pregen_pack: bool = True,
+                        device=None):
+    """Checkpoint restore that upgrades older-dataflow checkpoints.
+
+    Two generations mismatch today's state tree: no ``compute`` at all,
+    and a compute tree whose bare MoE expert stacks are plain bf16
+    copies (``sgd.pregen_tree(bare_sites=False)``).  Either way the rest
+    (master, momentum, step, err) restores and the compute tree is
+    regenerated from the restored master, a pure function of it, so the
+    upgrade is exact.  ``shardings`` (a ``fsdp.StateSharding``) restores
+    onto a mesh, each rank its blocks; ``device`` as
+    ``CheckpointManager.restore``.  A checkpoint that matches neither
+    raises the full-structure error."""
+    try:
+        return mgr.restore(like_state, step=step, device=device,
+                           shardings=shardings)
+    except ValueError as full_err:
+        legacy_like = {k: v for k, v in like_state.items() if k != "compute"}
+        legacy_sh = None if shardings is None else shardings.without(
+            "compute")
+        lshapes = None if shardings is None else shardings.lshapes
+        attempts = [(legacy_like, legacy_sh)]
+        if "compute" in like_state:
+            old_compute = sgd.pregen_tree(
+                _meta(legacy_like["master"]), sp_cfg, pack=pregen_pack,
+                bare_sites=False, lshapes=lshapes)
+            if _structure(old_compute) != _structure(like_state["compute"]):
+                old_sh = None if shardings is None else shardings.with_specs(
+                    compute=_old_compute_shardings(
+                        old_compute, shardings.specs["master"]))
+                attempts.append((dict(legacy_like, compute=old_compute),
+                                 old_sh))
+        restored = None
+        for like, sh in attempts:
+            try:
+                restored = mgr.restore(like, step=step, device=device,
+                                       shardings=sh)
+                break
+            except ValueError:
+                continue
+        if restored is None:
+            raise full_err from None
+        out = {k: v for k, v in restored.items() if k != "compute"}
+        if "compute" in like_state:
+            out["compute"] = sgd.pregen_tree(out["master"], sp_cfg,
+                                             pack=pregen_pack,
+                                             lshapes=lshapes)
+        return out
+
+
+def _old_compute_shardings(old_compute, master_specs):
+    """Specs of a dict-sites-only compute tree: its dict sites take their
+    master weight's spec in every operand field, as today's, and the
+    bare expert stacks, plain copies there, the master weight's."""
+    return R.pregen_pspecs(old_compute, master_specs)

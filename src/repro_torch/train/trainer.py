@@ -8,11 +8,16 @@ keyed off the optimizer step ``state["step"]``, a stale data iterator
 after a resume is fast-forwarded, and the final save is skipped when the
 last periodic save already covered it.
 
-What differs: the step function is a plain callable (``functools.
-partial`` of ``train.step.lm_train_step`` or ``image_train_step``, on
-either dataflow: a legacy state without a compute tree loops and
-checkpoints the same way), not a step bundle; the card is synchronised
-by reading the loss.
+Both take a ``train.step.StepBundle`` (``build_lm_train`` /
+``build_encdec_train``), as the reference's do, or a plain step
+callable (``functools.partial`` of ``train.step.lm_train_step`` or
+``image_train_step``, on either dataflow: a legacy state without a
+compute tree loops and checkpoints the same way).  With a bundle on a
+mesh of several ranks every rank runs the loop on its blocks of the
+state, checkpoints gather and cut them (``CheckpointManager(
+shardings=)``), and rank 0 alone beats the heartbeat.
+
+What differs: the card is synchronised by reading the loss.
 """
 
 from __future__ import annotations
@@ -37,11 +42,18 @@ class TrainerConfig:
     straggler_threshold: float = 2.0
 
 
-def train_steps(step_fn, state, data_iter: Iterator, n_steps: int):
+def _step_of(bundle):
+    """The step callable of a ``StepBundle`` or of a bare callable."""
+    return getattr(bundle, "step_fn", bundle)
+
+
+def train_steps(bundle, state, data_iter: Iterator, n_steps: int):
     """``n_steps`` of ``state, metrics = step_fn(state, batch)`` over
-    ``data_iter`` (yielding (step, batch)); returns the final state and
-    the per-step metrics, after the card that holds the batch (if one
-    does) has finished."""
+    ``data_iter`` (yielding (step, batch)); ``bundle`` is a
+    ``StepBundle`` or the step callable itself.  Returns the final state
+    and the per-step metrics, after the card that holds the batch (if
+    one does) has finished."""
+    step_fn = _step_of(bundle)
     history = []
     for _ in range(n_steps):
         _, batch = next(data_iter)
@@ -54,21 +66,18 @@ def train_steps(step_fn, state, data_iter: Iterator, n_steps: int):
     return state, history
 
 
-def fit(step_fn, state, data_iter: Iterator, tcfg: TrainerConfig,
-        log_fn: Callable = print, group=None):
+def fit(bundle, state, data_iter: Iterator, tcfg: TrainerConfig,
+        log_fn: Callable = print):
     """Run the loop up to ``tcfg.total_steps``; returns (final_state,
-    history of {"step", "loss", "sec", "straggler"}).  Under ``group``
-    (one process per pod, the step's own group) every rank runs the
-    loop in lockstep, checkpoints go through the group
-    (``CheckpointManager(group=)``) and rank 0 alone beats the
-    heartbeat."""
-    ckpt = (CheckpointManager(tcfg.ckpt_dir, group=group) if tcfg.ckpt_dir
-            else None)
-    rank = 0
-    if group is not None:
-        import torch.distributed as dist
-
-        rank = dist.get_rank(group)
+    history of {"step", "loss", "sec", "straggler"}).  ``bundle``: a
+    ``StepBundle`` (on a mesh: every rank in lockstep on its blocks,
+    checkpoints through ``CheckpointManager(shardings=)``, rank 0 alone
+    beating the heartbeat) or the step callable."""
+    step_fn = _step_of(bundle)
+    shardings = getattr(bundle, "state_shardings", None)
+    ckpt = (CheckpointManager(tcfg.ckpt_dir, shardings=shardings)
+            if tcfg.ckpt_dir else None)
+    rank = shardings.mesh.rank if shardings is not None else 0
     hb = (Heartbeat(tcfg.heartbeat_path)
           if tcfg.heartbeat_path and rank == 0 else None)
     mon = StragglerMonitor(tcfg.straggler_threshold)

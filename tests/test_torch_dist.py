@@ -10,10 +10,12 @@ form and compares, bitwise:
    rounds with topk (each rank's residual row carried) and mvue (each
    rank drawing pod ``rank``'s uniforms): the mean gradients and each
    rank's residual row;
-2. three ``lm_train_step``s of granite-moe-1b-a400m SMOKE (aux per pod)
-   with topk and of qwen3-8b SMOKE with mvue: loss, aux and total, each
-   rank's residual row, and the shared state (equal on both ranks);
-3. ``fit`` interrupted after step 2 and resumed from the group's
+2. three steps of ``build_lm_train`` on the mesh "pod=2" (one pod a
+   process) of granite-moe-1b-a400m SMOKE (aux per pod) with topk and
+   of qwen3-8b SMOKE with mvue, against ``lm_train_step``'s two pods in
+   one process: loss, aux and total, each rank's residual row, and the
+   shared state (equal on both ranks);
+3. ``fit`` interrupted after step 2 and resumed from the mesh's
    checkpoint (the shared state once, the residual rows gathered) ends
    bitwise where the uninterrupted run ends;
 4. the hop's bytes: a sync's gathers carry ``wire_bytes`` a pod.
@@ -83,24 +85,35 @@ def _sync_rounds(estimator, group=None, rank=None):
     return means, errs
 
 
-def _init(arch, pods_here):
-    return TST.init_train_state(get_arch(arch).smoke, SP, seed=0,
-                                device="cpu", compress=True,
-                                n_pods=pods_here)
+def _step_fn(arch, estimator, mesh=None):
+    """The one-process step of both pods, or this rank's ``StepBundle``
+    on ``mesh``."""
+    cfg, gc = get_arch(arch).smoke, C.GradCompressConfig(estimator=estimator)
+    if mesh is not None:
+        return TST.build_lm_train(cfg, mesh, SP, OPT, compress=True,
+                                  grad_sync=gc)
+    return functools.partial(TST.lm_train_step, cfg=cfg, sp_cfg=SP,
+                             opt_cfg=OPT, compress=True, n_pods=PODS,
+                             grad_sync=gc)
 
 
-def _step_fn(arch, estimator, group=None):
-    return functools.partial(
-        TST.lm_train_step, cfg=get_arch(arch).smoke, sp_cfg=SP, opt_cfg=OPT,
-        compress=True, n_pods=PODS,
-        grad_sync=C.GradCompressConfig(estimator=estimator), group=group)
+def _init(arch, step):
+    cfg = get_arch(arch).smoke
+    if isinstance(step, TST.StepBundle):
+        return step.init_state(cfg, SP, seed=0, device="cpu", compress=True)
+    return TST.init_train_state(cfg, SP, seed=0, device="cpu",
+                                compress=True, n_pods=PODS)
 
 
-def _train(arch, estimator, group=None):
-    state = _init(arch, 1 if group is not None else PODS)
-    stream = lm_stream(get_arch(arch).smoke.vocab, BATCH, SEQ, device="cpu")
-    state, hist = TTR.train_steps(_step_fn(arch, estimator, group), state,
-                                  stream, STEPS)
+def _stream(arch, mesh):
+    return lm_stream(get_arch(arch).smoke.vocab, BATCH, SEQ, device="cpu",
+                     rows=None if mesh is None else (mesh.rank, PODS))
+
+
+def _train(arch, estimator, mesh=None):
+    step = _step_fn(arch, estimator, mesh)
+    state, hist = TTR.train_steps(step, _init(arch, step),
+                                  _stream(arch, mesh), STEPS)
     return state, [{k: h[k] for k in ("loss", "aux", "total")}
                    for h in hist]
 
@@ -116,18 +129,17 @@ def _flat(state):
     return out
 
 
-def _fit(state, total, ckpt_dir, group):
+def _fit(bundle, state, total, ckpt_dir, mesh):
     tcfg = TTR.TrainerConfig(total_steps=total, ckpt_every=2, log_every=1,
                              ckpt_dir=str(ckpt_dir))
-    arch = "qwen3-8b"
-    return TTR.fit(_step_fn(arch, "topk", group), state,
-                   lm_stream(get_arch(arch).smoke.vocab, BATCH, SEQ,
-                             device="cpu"), tcfg, log_fn=lambda *_: None,
-                   group=group)
+    return TTR.fit(bundle, state, _stream("qwen3-8b", mesh), tcfg,
+                   log_fn=lambda *_: None)
 
 
 def _worker(rank, store, out_dir):
     import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
 
     torch.set_num_threads(2)
     dist.init_process_group("gloo", init_method=f"file://{store}",
@@ -138,16 +150,21 @@ def _worker(rank, store, out_dir):
         C.reset_hop_stats()
         out[f"sync_{est}"] = _sync_rounds(est, group, rank)
         out[f"hop_{est}"] = dict(C.hop_stats)
+    mesh = make_host_mesh(pods=PODS)
     for name, (arch, est) in RUNS.items():
-        state, hist = _train(arch, est, group)
+        state, hist = _train(arch, est, mesh)
         out[name] = (_flat(state), state["err"], hist)
-    whole, _ = _fit(_init("qwen3-8b", 1), 4, os.path.join(out_dir, "whole"),
-                    group)
-    _fit(_init("qwen3-8b", 1), 2, os.path.join(out_dir, "cut"), group)
-    mgr = CheckpointManager(os.path.join(out_dir, "cut"), group=group)
-    restored, step = TF.recover_or_init(mgr, lambda: _init("qwen3-8b", 1),
-                                        device="cpu")
-    resumed, rhist = _fit(restored, 4, os.path.join(out_dir, "cut"), group)
+    bundle = _step_fn("qwen3-8b", "topk", mesh)
+    whole, _ = _fit(bundle, _init("qwen3-8b", bundle), 4,
+                    os.path.join(out_dir, "whole"), mesh)
+    _fit(bundle, _init("qwen3-8b", bundle), 2, os.path.join(out_dir, "cut"),
+         mesh)
+    mgr = CheckpointManager(os.path.join(out_dir, "cut"),
+                            shardings=bundle.state_shardings)
+    restored, step = TF.recover_or_init(
+        mgr, lambda: _init("qwen3-8b", bundle), device="cpu")
+    resumed, rhist = _fit(bundle, restored, 4, os.path.join(out_dir, "cut"),
+                          mesh)
     out["fit"] = (step, [h["step"] for h in rhist], _flat(whole),
                   whole["err"], _flat(resumed), resumed["err"])
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))

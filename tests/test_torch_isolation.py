@@ -316,3 +316,42 @@ def test_launch_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     assert pods.group is None and pods.world == 1
     assert pods.device.type == "cpu"
     assert LD.pick_backend("cpu", 2) == "gloo"
+
+
+def test_scan_sees_the_sharding_modules():
+    paths = {p.relative_to(ROOT).as_posix() for p in _sources()}
+    assert {"src/repro_torch/sharding/rules.py",
+            "src/repro_torch/sharding/fsdp.py",
+            "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/launch/spmd.py"} <= paths
+
+
+def test_mesh_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+    """The sharded train state, a bundle's fresh state, the launcher's
+    ``--mesh`` form and a rank's row block of the data run on the card
+    unless a device is named, and raise without one; with
+    ``device="cpu"`` a rank's blocks are there."""
+    from repro_torch.launch import train as LT
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.spmd import single_device_mesh
+    from repro_torch.optim import sgd
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    sp = SparsityConfig(n=2, m=8)
+    mesh = Mesh({"data": 2, "model": 1}, rank=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ST.init_train_state(TC.SMOKE, sp, mesh=mesh)
+    bundle = ST.build_lm_train(TC.SMOKE, single_device_mesh(), sp,
+                               sgd.SGDConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bundle.init_state(TC.SMOKE, sp)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LT.run_training(LT.build_parser().parse_args(
+            ["--arch", "qwen3-8b", "--steps", "1", "--mesh", "data"]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm_stream(TC.SMOKE.vocab, 4, 8, rows=(1, 2))
+    state = ST.init_train_state(TC.SMOKE, sp, mesh=mesh, device="cpu")
+    assert all(t.device.type == "cpu" for t in _tensors(state["compute"]))
+    w = state["master"]["blocks"][0]["attn"]["q_proj"]["w"]
+    assert w.shape[0] == TC.SMOKE.d_model // 2
