@@ -487,6 +487,21 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 without a compute tree resumed at data=2
                 (restore_with_pregen) gives the update's compute tree
                 bitwise.
+ 54. fleet      qwen3-8b FULL widths at 9 of 36 layers (SERVE_LAYERS),
+                one 2:8 u4 PackedParamStore shared by every engine,
+                ServeConfig(n_slots=4, prompt_bucket=32, packed=True):
+                4 prompts from the seed, each submitted twice, 16 new
+                tokens each, decoded alone on one engine, then through
+                a ServeFleet of 1 replica (the control: one engine on
+                the same trace), a colocated one of 2 under the prefix,
+                least_loaded and random routers, a disaggregated one (1
+                prefill engine, 2 decode replicas, which prefill
+                nothing) and AsyncFrontend (4 concurrent generate()
+                calls): every stream equals its prompt's solo stream,
+                and each run's nm_spmm launches equal 7 x 9 x (prefills
+                + decode steps); fleet steps, prefills, prefix hits,
+                routed_by_depth, ms a fleet step and tok/s a run;
+                fleet_meshes(2) raises ValueError on one card.
 
 It prints a JSON line with every kernel's numbers, the card line, and as
 its last line {"ok": true, "device": {...}}.  With no card, or outside a
@@ -6584,6 +6599,162 @@ def phase_ckpt_reshard(dev, seed):
         f"{wall:.1f} s beside phase 51")}
 
 
+FLEET_LENS = (9, 32, 17, 24)    # phase 54's distinct prompts, each sent twice
+FLEET_NEW = 16
+FLEET_ROUTERS = ("prefix", "least_loaded", "random")
+
+
+def _fleet_run(label, fleet, waves, solo, cfg, submit=None):
+    """Drive ``fleet`` with the nm_spmm counter from 0: each wave of
+    requests (indices into ``solo``) is submitted, then the fleet steps
+    once, so a later wave finds the earlier waves' prefixes pooled; then
+    it drains.  Every stream must equal its solo stream and the launches
+    7 x L x (prefills + decode steps).  ``submit(fleet, prompts)``
+    replaces all that for one wave (the async frontend) and returns the
+    streams in request order."""
+    from repro_torch.kernels import nm_spmm as K
+
+    requests = [i for wave in waves for i in wave]
+    prompts = [solo[i][0] for i in requests]
+    K.launches = 0
+    t0 = time.perf_counter()
+    if submit is None:
+        rids = []
+        for wave in waves:
+            rids += [fleet.submit(solo[i][0], max_new_tokens=FLEET_NEW)
+                     for i in wave]
+            fleet.step()
+        while fleet.n_pending:
+            fleet.step()
+        done = {r.rid: r for r in fleet.finished_requests}
+        streams = [done[r].tokens for r in rids]
+        hits = sum(done[r].prefix_hit for r in rids)
+        fleet.harvest()
+    else:
+        streams, hits = submit(fleet, prompts), None
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launches
+    st = fleet.stats()
+    want = packed_per_forward(cfg) * (st["prefill_steps"]
+                                      + st["decode_steps"])
+    tokens = sum(len(t) for t in streams)
+    replica_prefills = [e["prefill_steps"] for e in st["engines"]]
+    out = {"fleet_steps": st["steps"], "prefill_steps": st["prefill_steps"],
+           "replica_prefill_steps": replica_prefills,
+           "decode_steps": st["decode_steps"], "prefix_hits": hits,
+           "routed_by_depth": st["routed_by_depth"],
+           "store": st["store"], "launches": launches, "want": want,
+           "wall_s": wall, "ms_per_fleet_step": 1e3 * wall / st["steps"],
+           "tokens": tokens, "tok_per_s": tokens / wall}
+    print(f"  {label}: {len(prompts)} requests, {st['steps']} fleet steps, "
+          f"{st['prefill_steps']} prefills (decode replicas "
+          f"{replica_prefills}), {st['decode_steps']} decode steps, prefix "
+          f"hits {hits}, routed_by_depth {st['routed_by_depth']}; "
+          f"{out['ms_per_fleet_step']:.2f} ms a fleet step, "
+          f"{out['tok_per_s']:.1f} tok/s; nm_spmm launches {launches} "
+          f"(want {want})")
+    check(launches > 0 and launches == want,
+          f"fleet {label}: nm_spmm launch count")
+    for k, (i, got) in enumerate(zip(requests, streams)):
+        check(list(got) == solo[i][1], f"fleet {label}: request {k} "
+              f"(prompt {i}) != its solo stream")
+    return out
+
+
+def phase_fleet(dev, seed, cfg):
+    """qwen3-8b at ``cfg``, 2:8 u4 packed once, through the fleet."""
+    import asyncio
+
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.kernels import nm_spmm as K
+    from repro_torch.launch import spmd
+    from repro_torch.serve import AsyncFrontend, FleetConfig, ServeFleet
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    sp = SparsityConfig(n=2, m=8, method="bdwp")
+    scfg = ServeConfig(n_slots=4, prompt_bucket=32, packed=True)
+    torch.cuda.reset_peak_memory_stats()
+    store, compact, compact_variants, pack_s = pack_full(dev, seed, cfg, sp)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in FLEET_LENS]
+    first = list(range(len(prompts)))
+    waves = [first, first]      # the repeats arrive a fleet step later
+
+    engine = ServeEngine(store, cfg, sp, scfg, device=dev)
+    engine.submit(prompts[0][:3], max_new_tokens=2)      # warm-up
+    engine.run()
+    engine.reset()
+    K.launches = 0
+    solo = []
+    for p in prompts:
+        rid = engine.submit(p, max_new_tokens=FLEET_NEW)
+        solo.append((p, engine.run()[rid]))
+    st = engine.stats()
+    want = packed_per_forward(cfg) * (st["prefill_steps"]
+                                      + st["decode_steps"])
+    print(f"  solo: {len(prompts)} prompts of {FLEET_LENS} tokens, "
+          f"{FLEET_NEW} new each, {st['prefill_steps']} prefills, "
+          f"{st['decode_steps']} decode steps; nm_spmm launches "
+          f"{K.launches} (want {want})")
+    check(K.launches == want, "fleet solo: nm_spmm launch count")
+    check(all(len(s) == FLEET_NEW for _, s in solo), "fleet solo: lengths")
+    runs = {"solo": {"launches": K.launches, "want": want, **st}}
+    del engine
+
+    # the control: one engine behind the same queue, on the same trace
+    fleet = ServeFleet(store, cfg, sp, scfg, FleetConfig(n_replicas=1),
+                       device=dev)
+    runs["one_engine"] = _fleet_run("one engine (1 replica, prefix)", fleet,
+                                    waves, solo, cfg)
+    for router in FLEET_ROUTERS:
+        fleet = ServeFleet(store, cfg, sp, scfg,
+                           FleetConfig(n_replicas=2, router=router),
+                           device=dev)
+        runs[router] = _fleet_run(f"colocated {router}", fleet, waves,
+                                  solo, cfg)
+    check(runs["prefix"]["prefix_hits"] > 0, "fleet prefix: no prefix hit")
+    fleet = ServeFleet(store, cfg, sp, scfg,
+                       FleetConfig(n_replicas=2, router="prefix",
+                                   disaggregate=True, n_prefill=1),
+                       device=dev)
+    runs["disaggregated"] = r = _fleet_run(
+        "disaggregated 1 + 2", fleet, waves, solo, cfg)
+    check(r["replica_prefill_steps"] == [0, 0],
+          "fleet disaggregated: a decode replica ran a prefill")
+    check(r["store"]["size"] == 0, "fleet disaggregated: a lane left behind")
+
+    def concurrent(fleet, prompts):
+        async def main():
+            fr = AsyncFrontend(fleet)
+            return await asyncio.gather(
+                *[fr.generate(p, max_new_tokens=FLEET_NEW) for p in prompts])
+        return asyncio.run(main())
+
+    fleet = ServeFleet(store, cfg, sp, scfg, FleetConfig(n_replicas=2),
+                       device=dev)
+    runs["async"] = _fleet_run("AsyncFrontend, 4 concurrent", fleet,
+                               [first], solo, cfg, submit=concurrent)
+    del fleet
+    try:
+        spmd.fleet_meshes(2)
+    except ValueError as e:
+        print(f"  fleet_meshes(2) on {torch.cuda.device_count()} card: "
+              f"ValueError ({e})")
+    else:
+        raise RuntimeError("fleet_meshes(2) did not raise on one card")
+    check(spmd.fleet_meshes(1) == [torch.device("cuda", 0)],
+          "fleet_meshes(1) != [cuda:0]")
+    peak = torch.cuda.max_memory_allocated()
+    card = card_line()
+    print(f"  max_memory_allocated {peak / 2**30:.2f} GiB; {card}")
+    del store
+    return {"runs": runs, "compact_launches": compact,
+            "compact_variants": compact_variants, "pack_s": pack_s,
+            "launches": sum(v["launches"] for v in runs.values()),
+            "max_memory_allocated": peak, "card": card}
+
+
 def _leaf_at(tree, name):
     for key in name.split("/"):
         tree = tree[key]
@@ -6875,6 +7046,11 @@ def main(argv=None) -> int:
          "second run)")
     reshard = fsdp.pop("during")
     print(reshard["summary"])
+    torch.cuda.empty_cache()
+    head(f"[54] fleet: qwen3-8b FULL widths ({SERVE_LAYERS} of 36 layers), "
+         "packed 2:8 u4, one store; 1 replica, 2 under three routers, "
+         "disaggregated 1 + 2, AsyncFrontend")
+    fleet = phase_fleet(dev, SEED, serve_cfg)
 
     def summed(rs, at, launches, by_path, err):
         return {"launches": launches, "launches_by_path": by_path,
@@ -6920,7 +7096,8 @@ def main(argv=None) -> int:
                   **{f"train_fsdp/rank{k}": v["launches"]["nm_spmm"]
                      for k, v in fsdp["ranks"].items()},
                   **{f"train_pod_data/rank{k}": v["launches"]["nm_spmm"]
-                     for k, v in pod_data["ranks"].items()}}
+                     for k, v in pod_data["ranks"].items()},
+                  "fleet": fleet["launches"]}
     upd_paths, upd_sites = ({
         "train": train["launches"][key],
         "train_sync": train_sync["launches"][key],
@@ -6947,7 +7124,8 @@ def main(argv=None) -> int:
                      "serve_deepseek": ds_serve["compact_launches"],
                      **{f"serve_{a.split('-')[0]}": r["compact_launches"]
                         for a, r in ssm_serve.items()},
-                     "serve_whisper": whisper_serve["compact_launches"]}
+                     "serve_whisper": whisper_serve["compact_launches"],
+                     "fleet": fleet["compact_launches"]}
     shared_decode = [r for r in shared_rows if r["B"] == 4]
     shared_prefill = [r for r in shared_rows if r["B"] != 4]
     sync_at = {(r["leaf"], r["dtype"]): r for r in sync_rows}
@@ -7125,7 +7303,8 @@ def main(argv=None) -> int:
                  "serve_deepseek": ds_serve["compact_variants"],
                  **{f"serve_{a.split('-')[0]}": r["compact_variants"]
                     for a, r in ssm_serve.items()},
-                 "serve_whisper": whisper_serve["compact_variants"]},
+                 "serve_whisper": whisper_serve["compact_variants"],
+                 "fleet": fleet["compact_variants"]},
              **{key: sum(r[key] for r in compact_rows)
                 for key in ("scalar_ms", "u8_ms", "u8_bound_ms")},
              deepseek_pack=dict(
@@ -7196,7 +7375,7 @@ def main(argv=None) -> int:
                        "granite_procs": granite_procs,
                        "fsdp_update": shard_upd, "fsdp": fsdp,
                        "pod_data_sync": pod_sync, "pod_data": pod_data,
-                       "ckpt_reshard": reshard,
+                       "ckpt_reshard": reshard, "fleet": fleet,
                        "phase_starts": starts,
                        "seconds": time.perf_counter() - t_start}, fh,
                       indent=1, default=str)

@@ -12,12 +12,17 @@ grammar:
 What differs: the cells are the ranks of the process group
 (``launch.mesh.Mesh``), not devices, so there is no
 ``force_host_devices``: ranks come from ``torchrun`` or ``mp.spawn``.
-``replica_device_groups``/``fleet_meshes`` (the serving fleet, ROADMAP
-item 8) and ``serve_shardings``/``sanitize_pspecs`` (sharded serving,
-ROADMAP item 7, part 3) are not here.
+The serving fleet's ``replica_device_groups`` partitions a device list
+as the reference's does; ``fleet_meshes`` gives each replica its group
+as one torch device (``ServeFleet(devices=)``), and raises
+NotImplementedError for a group of more than one device, which needs
+sharded serving.  ``serve_shardings``/``sanitize_pspecs`` (sharded
+serving, ROADMAP item 7, part 3) are not here.
 """
 
 from __future__ import annotations
+
+import torch
 
 from repro_torch.launch.mesh import Mesh, mesh_over_group
 
@@ -79,3 +84,40 @@ def make_spmd_mesh(spec: str = "pod,data,model", *, world=None,
 def single_device_mesh(axis_names=("data", "model")) -> Mesh:
     """A one-rank mesh with the same axis names: the parity reference."""
     return Mesh({a: 1 for a in axis_names})
+
+
+def replica_device_groups(n_replicas: int, *, devices=None) -> list:
+    """Partition ``devices`` (by default every CUDA device) into
+    ``n_replicas`` disjoint contiguous groups: fleet replicas never
+    share a group; lanes cross replicas through the host-side
+    CacheStore, not a collective."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass devices=[...] to "
+                               "partition other devices")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = list(devices)
+    if n_replicas < 1:
+        raise ValueError("n_replicas must be >= 1")
+    if len(devices) % n_replicas:
+        raise ValueError(f"{len(devices)} devices do not split into "
+                         f"{n_replicas} equal replica groups")
+    per = len(devices) // n_replicas
+    return [devices[i * per:(i + 1) * per] for i in range(n_replicas)]
+
+
+def fleet_meshes(n_replicas: int, *, devices=None) -> list:
+    """Each fleet replica's device group as the one torch device it
+    serves on, for ``ServeFleet(devices=)``.  A group of more than one
+    device would shard a replica's serving (``serve_shardings``), which
+    is not ported (ROADMAP item 7, part 3)."""
+    out = []
+    for group in replica_device_groups(n_replicas, devices=devices):
+        if len(group) > 1:
+            raise NotImplementedError(
+                f"a replica group of {len(group)} devices needs sharded "
+                "serving (serve_shardings), which is not ported: ROADMAP "
+                "item 7, part 3")
+        out.append(torch.device(group[0]))
+    return out

@@ -2,8 +2,9 @@
 
 Counterpart of ``src/repro/serve/engine.py``: ``ServeConfig``,
 ``Request`` and ``ServeEngine`` with the same admission order, stop
-conditions, prefix lane pool and lane hooks (``prefill_to_lane``,
-``submit_lane``, ``export_lane``).  One ``step()`` admits queued
+conditions, prefix lane pool, lane hooks (``prefill_to_lane``,
+``submit_lane``, ``export_lane``) and the fleet's router hooks
+(``prefix_match_depth``, ``utilization``).  One ``step()`` admits queued
 requests into free slots (a prefill each, or a prefix-pool hit), then
 runs one decode step for every lane; finished requests free their slot
 at once, so a queued request joins on the next step.
@@ -12,8 +13,8 @@ What differs: the engine runs on an explicit device — the card unless
 the caller passes ``device="cpu"`` — and raises when there is none; it
 takes either a dense param tree (packed here when ``serve_cfg.packed``)
 or a ready ``PackedParamStore``; any arch of ``repro_torch.configs``
-(sliding-window layers take their window in the per-slot decode's mask); no mesh, and no fleet router hooks
-(``utilization``, ``prefix_match_depth``) until the fleet is ported.
+(sliding-window layers take their window in the per-slot decode's
+mask); no mesh.
 """
 
 from __future__ import annotations
@@ -281,6 +282,20 @@ class ServeEngine:
         del self._running[req.slot]
         req.slot, req.state = None, "exported"
         return lane
+
+    def prefix_match_depth(self, chain) -> int:
+        """How many leading prompt blocks of ``chain`` this engine's
+        prefix pool already holds: the router's KV-affinity signal."""
+        return (self.prefix_pool.match_depth(chain)
+                if self.prefix_pool is not None else 0)
+
+    def utilization(self) -> dict:
+        """Live occupancy snapshot the fleet routes on."""
+        n = self.serve_cfg.n_slots
+        queued = self.n_queued
+        return {"n_slots": n, "running": self.n_running,
+                "queued": queued, "free_slots": self.batcher.kv.n_free,
+                "load": (self.n_running + queued) / n}
 
     # -- introspection ------------------------------------------------------
 

@@ -15,7 +15,10 @@
   encoder-decoder's ``init`` and train state, ``CheckpointManager.restore`` and
   ``recover_or_init``, and for the paper's image models
   ``convnets.init``, ``init_image_train_state``, ``image_batch`` and
-  ``image_stream``) run on the card unless the caller names a device;
+  ``image_stream``, and the serving fleet: ``ServeFleet``,
+  ``replica_device_groups``, ``fleet_meshes`` and
+  ``examples/torch_serve_decode.py``) run on the card unless the caller
+  names a device;
   with no card they raise instead of falling back to the CPU.
 """
 
@@ -355,3 +358,45 @@ def test_mesh_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     assert all(t.device.type == "cpu" for t in _tensors(state["compute"]))
     w = state["master"]["blocks"][0]["attn"]["q_proj"]["w"]
     assert w.shape[0] == TC.SMOKE.d_model // 2
+
+
+def test_scan_sees_the_fleet_and_the_serve_example():
+    paths = {p.relative_to(ROOT).as_posix() for p in _sources()}
+    assert {"src/repro_torch/serve/fleet.py",
+            "examples/torch_serve_decode.py"} <= paths
+
+
+def test_fleet_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+    """The fleet, its device groups and the serving example run on the
+    card unless ``device`` / ``devices`` / ``--device`` names another,
+    and raise without one; a disaggregated fleet's prefill engines take
+    ``device``, so ``devices`` alone does not move them.  With the CPU
+    named, every engine is there."""
+    from repro_torch.launch import spmd
+    from repro_torch.serve import FleetConfig, ServeFleet
+
+    monkeypatch.syspath_prepend(str(ROOT / "examples"))
+    import torch_serve_decode as E
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = T.init(TC.SMOKE, seed=0, device="cpu", dtype=torch.bfloat16)
+    sp = SparsityConfig(n=2, m=8)
+    serve = ServeConfig(packed=True, n_slots=2, max_len=16, prompt_bucket=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeFleet(params, TC.SMOKE, sp, serve, FleetConfig(n_replicas=2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeFleet(params, TC.SMOKE, sp, serve,
+                   FleetConfig(n_replicas=2, disaggregate=True),
+                   devices=["cpu", "cpu"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spmd.replica_device_groups(1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spmd.fleet_meshes(1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        E.main(["--tokens", "2"])
+    fleet = ServeFleet(params, TC.SMOKE, sp, serve,
+                       FleetConfig(n_replicas=2, disaggregate=True),
+                       devices=["cpu", "cpu"], device="cpu")
+    assert {e.device.type for e in fleet.engines + fleet.prefill_engines} \
+        == {"cpu"}
+    assert E.main(["--device", "cpu", "--tokens", "4"]) == 0
