@@ -459,7 +459,7 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 the whole layer's update, timed against its byte bound;
                 how far the embedding lookup's backward (repeated tokens
                 summed in bf16) lies from an fp32 sum (reported);
-                then qwen3-8b at every width, 4 of 36 layers, through
+                then qwen3-8b at every width, 2 of 36 layers, through
                 the launcher's --mesh data=2 (two processes on the one
                 card, gloo), 3 steps of 4 x 512 tokens: losses within
                 2e-3 and the master within 1e-3 of the one-process step
@@ -502,6 +502,35 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 + decode steps); fleet steps, prefills, prefix hits,
                 routed_by_depth, ms a fleet step and tok/s a run;
                 fleet_meshes(2) raises ValueError on one card.
+ 55. tp serve   tensor-parallel serving over "model": nm_spmm at one
+                rank's block shapes of qwen3-8b at model = 2 (B = 4, u4:
+                q, k, v, w_gate, w_up by columns, o_proj and w_down by
+                rows) within the phase-3 tolerance, timed against the
+                bound, the plain version and torch.matmul on the dense
+                block; nm_compact (vector, u4) at those shapes timed;
+                then qwen3-8b FULL widths at 9 of 36 layers
+                (SERVE_LAYERS), 2:8 u4, ServeConfig(n_slots=4,
+                prompt_bucket=32, packed=True): TP_LENS prompts from the
+                seed, TP_NEW new tokens each, the last two joining after
+                TP_JOIN_AFTER engine steps, on one engine (every prefill's
+                and decode step's last-position logits kept), then on
+                two processes on the one card at the mesh data=1,model=2
+                (gloo: NCCL refuses two ranks on one card), each drawing
+                the seed's weights and packing its blocks: each rank's
+                store bitwise its blocks of the one-process store
+                (fingerprints), its 63 nm_compact launches all vector,
+                its nm_spmm launches 7 x 9 x (prefills + decode steps),
+                both ranks' streams and logits equal, the teacher-forced
+                logits within TP_LOGIT_ATOL (0.2) of the one-process
+                logits, every stream equal to its one-process stream or
+                parting only where the one-process top-two gap is under
+                TP_LOGIT_ATOL (the step and the gap printed), and every
+                step's collectives exactly 2 x 9 all-reduces, one
+                embedding lookup and one logits gather (plus two KV
+                gathers a layer where M does not divide the KV heads);
+                per rank the weight bytes against the one-process
+                store's, peak, ms a step, tok/s and bytes a prefill and
+                a decode step, and the card line.
 
 It prints a JSON line with every kernel's numbers, the card line, and as
 its last line {"ok": true, "device": {...}}.  With no card, or outside a
@@ -5993,7 +6022,8 @@ def phase_train_granite_procs(dev, seed, one):
 # ---------------------------------------------------------------------------
 
 
-FSDP_LAYERS = 4                   # phase 51: qwen3-8b at TRAIN_SYNC's depth
+FSDP_LAYERS = 2                   # phase 51: qwen3-8b at 2 of 36 layers
+# (4, TRAIN_SYNC's depth, until the run passed 1000 s with phase 55)
 FSDP_ROWS = (4, 512)              # the global batch: 2 rows a rank
 FSDP_STEPS = 3
 FSDP_LOSS_ATOL = 2e-3             # tests/test_spmd.py's sharded-vs-single
@@ -6755,6 +6785,343 @@ def phase_fleet(dev, seed, cfg):
             "max_memory_allocated": peak, "card": card}
 
 
+TP_LENS = (9, 32, 17, 24)       # phase 55's prompts: the last two join
+TP_JOIN_AFTER = 3               # after this many engine steps
+TP_NEW = 16
+TP_RANKS = 2
+# TP vs one-process logits, teacher-forced (the same tokens in): set
+# from the CPU rehearsal of this phase (PERF.md, PR 30) before the first
+# run on the card; a stream may part from its one-process stream only
+# where the one-process top-two gap is under it
+TP_LOGIT_ATOL = 0.2             # 4.5 x the 0.0442 of tools/tp_serve_cpu.py
+TP_TIMEOUT = 600                # seconds for the ranks' run
+
+
+def tp_drive(engine, prompts):
+    """Submit the first two prompts, step the engine TP_JOIN_AFTER times,
+    submit the rest (they join mid-flight), drain; the streams in
+    request order."""
+    rids = [engine.submit(p, max_new_tokens=TP_NEW) for p in prompts[:2]]
+    for _ in range(TP_JOIN_AFTER):
+        engine.step()
+    rids += [engine.submit(p, max_new_tokens=TP_NEW) for p in prompts[2:]]
+    done = engine.run()
+    return [done[r] for r in rids]
+
+
+@contextlib.contextmanager
+def tp_step_log(engine, log):
+    """Append every serve step the engine runs to ``log``: its kind, the
+    slots it serves, its last-position logits (fp32, on the host) and
+    the collectives it took part in (``sharding.tp.stats`` deltas)."""
+    from repro_torch.sharding import tp
+    from repro_torch.train import step as ST
+
+    orig = ST.lm_prefill_step, ST.lm_decode_step
+
+    def wrap(kind, fn):
+        def run(*a, **kw):
+            rows = [0] if kind == "prefill" else sorted(engine._running)
+            before = dict(tp.stats)
+            logits, cache = fn(*a, **kw)
+            log.append({"kind": kind, "rows": rows,
+                        "logits": logits[:, -1].float().cpu(),
+                        "collectives": {k: v - before[k]
+                                        for k, v in tp.stats.items()}})
+            return logits, cache
+        return run
+
+    ST.lm_prefill_step = wrap("prefill", orig[0])
+    ST.lm_decode_step = wrap("decode", orig[1])
+    try:
+        yield log
+    finally:
+        ST.lm_prefill_step, ST.lm_decode_step = orig
+
+
+def packed_tensors(tree) -> list:
+    """Every tensor of a packed tree in order, a ``PackedOp``'s vals and
+    idx in turn (for ``train.checkpoint.state_fingerprint``)."""
+    from repro_torch.core.operand import PackedOp
+
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in packed_tensors(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in packed_tensors(v)]
+    if isinstance(tree, PackedOp):
+        return [tree.vals, tree.idx]
+    return [tree]
+
+
+def _tp_sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _tp_rank(rank, world, store, out, dev_name, seed, cfg, prompts):
+    """One rank of phase 55: the seed's weights drawn whole, the engine
+    over the mesh data=1,model=``world`` (its blocks packed on the
+    card), the phase's requests with every count from 0; its results to
+    ``out``/rank{rank}.pt."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.kernels import nm_compact as KC
+    from repro_torch.kernels import nm_spmm as K
+    from repro_torch.launch.mesh import mesh_over_group
+    from repro_torch.models import transformer_lm as T
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.sharding import tp
+    from repro_torch.train.checkpoint import state_fingerprint
+
+    dev = torch.device(dev_name)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if dev.type == "cpu":
+        torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=TP_TIMEOUT))
+    mesh = mesh_over_group({"data": 1, "model": world})
+    sp = SparsityConfig(n=2, m=8, method="bdwp")
+    gen = T.generator(seed, dev)
+    params = T.init_shell(cfg, gen, device=dev, dtype=torch.bfloat16)
+    params["blocks"] = list(T.iter_blocks(cfg, gen, device=dev,
+                                          dtype=torch.bfloat16))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    KC.launches = 0
+    KC.variant_launches.update(dict.fromkeys(KC.VARIANTS, 0))
+    engine = ServeEngine(params, cfg, sp, ServeConfig(
+        n_slots=4, prompt_bucket=32, packed=True, idx_bits=4), device=dev,
+        mesh=mesh)
+    _tp_sync(dev)
+    compact, variants = KC.launches, dict(KC.variant_launches)
+    del params
+    fingerprint = state_fingerprint(packed_tensors(engine.store.params))
+    engine.submit(prompts[0][:3], max_new_tokens=2)      # warm-up
+    engine.run()
+    engine.reset()
+    _tp_sync(dev)
+    K.launches = 0
+    tp.reset_stats()
+    log = []
+    with tp_step_log(engine, log):
+        t0 = time.perf_counter()
+        streams = tp_drive(engine, prompts)
+        _tp_sync(dev)
+        wall = time.perf_counter() - t0
+    torch.save({"streams": streams, "log": log, "launches": K.launches,
+                "compact": compact, "compact_variants": variants,
+                "fingerprint": fingerprint, "stats": engine.stats(),
+                "store_bytes": engine.store.total_bytes, "wall_s": wall,
+                "coords": mesh.coords,
+                "peak": (torch.cuda.max_memory_allocated()
+                         if dev.type == "cuda" else 0)},
+               os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def tp_block_proj(cfg, parts):
+    """The seven projection shapes (name, K, F) of one rank's blocks at
+    "model" = ``parts``: q/k/v and w_gate/w_up by columns, o_proj and
+    w_down by rows."""
+    rows = {"o_proj", "w_down"}
+    return [(name, k // parts if name in rows else k,
+             f if name in rows else f // parts)
+            for name, k, f in arch_proj(cfg)]
+
+
+def _tp_parting(solo_log, log, label):
+    """Walk the two runs' steps in order: the largest |TP - one-process|
+    logit over the served rows up to and with the first step where an
+    argmax differs, that step (None if none) and the one-process top-two
+    gap there."""
+    worst, part = 0.0, None
+    check(len(log) >= 1, f"{label}: no serve step")
+    for s, (a, b) in enumerate(zip(solo_log, log)):
+        check(a["kind"] == b["kind"] and a["rows"] == b["rows"],
+              f"{label}: step {s} is not the one-process step")
+        x, y = a["logits"][a["rows"]], b["logits"][b["rows"]]
+        worst = max(worst, float((x - y).abs().max()))
+        flips = (x.argmax(-1) != y.argmax(-1)).nonzero()
+        if len(flips):
+            i = int(flips[0, 0])
+            top2 = x[i].topk(2).values
+            part = {"step": s, "kind": a["kind"], "slot": a["rows"][i],
+                    "top2_gap": float(top2[0] - top2[1])}
+            return worst, part
+    check(len(log) == len(solo_log), f"{label}: step count differs")
+    return worst, part
+
+
+def phase_tp_serve(dev, seed, cfg):
+    """qwen3-8b at ``cfg``'s widths, 2:8 u4, served on one engine and
+    then over "model" = TP_RANKS ranks (processes on the one card,
+    gloo), the same requests; see the module docstring, phase 55."""
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.kernels import nm_spmm as K
+    from repro_torch.launch import spmd
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.sharding import tp
+    from repro_torch.train.checkpoint import state_fingerprint
+
+    sp = SparsityConfig(n=2, m=8, method="bdwp")
+    scfg = ServeConfig(n_slots=4, prompt_bucket=32, packed=True, idx_bits=4)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    block_proj = tp_block_proj(cfg, TP_RANKS)
+    spmm_rows, spmm_err = spmm_case_checks(
+        dev, gen, "tp rank block", [(n, 4, k, f, 4) for n, k, f in
+                                    block_proj])
+    pack_rows, pack_tot = pack_timing(dev, gen, [
+        (n, k, f, cfg.n_layers) for n, k, f in block_proj], "tp rank block")
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    store, compact, compact_variants, _ = pack_full(dev, seed, cfg, sp)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in TP_LENS]
+    engine = ServeEngine(store, cfg, sp, scfg, device=dev)
+    engine.submit(prompts[0][:3], max_new_tokens=2)      # warm-up
+    engine.run()
+    engine.reset()
+    torch.cuda.synchronize()
+    K.launches = 0
+    solo_log = []
+    with tp_step_log(engine, solo_log):
+        t0 = time.perf_counter()
+        solo = tp_drive(engine, prompts)
+        torch.cuda.synchronize()
+        solo_wall = time.perf_counter() - t0
+    st = engine.stats()
+    per_fwd = packed_per_forward(cfg)
+    check(K.launches == per_fwd * (st["prefill_steps"] + st["decode_steps"]),
+          "tp serve one process: nm_spmm launch count")
+    check([len(s) for s in solo] == [TP_NEW] * len(prompts),
+          "tp serve one process: lengths")
+    want_fp = {}
+    for r in range(TP_RANKS):
+        mesh = Mesh({"data": 1, "model": TP_RANKS}, r)
+        specs = spmd.serve_shardings(cfg, mesh, sp, n_slots=scfg.n_slots,
+                                     max_len=scfg.max_len, packed=True,
+                                     idx_bits=4)["params"]
+        want_fp[r] = state_fingerprint(packed_tensors(
+            tp.serve_blocks(store.params, specs, mesh)))
+    one = {"store_bytes": store.total_bytes, "wall_s": solo_wall,
+           "stats": st, "launches": K.launches,
+           "ms_per_step": 1e3 * solo_wall / st["steps"],
+           "tok_per_s": st["decoded_tokens"] / solo_wall}
+    print(f"  one process: {st['prefill_steps']} prefills, "
+          f"{st['decode_steps']} decode steps, {one['ms_per_step']:.2f} ms a "
+          f"step, {one['tok_per_s']:.1f} tok/s; store "
+          f"{store.total_bytes / 2**30:.3f} GiB")
+    del engine, store
+    torch.cuda.empty_cache()
+
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    out = tempfile.mkdtemp(prefix="tp_serve_")
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(
+        _tp_rank, args=(TP_RANKS, os.path.join(out, "store"), out, str(dev),
+                        seed, cfg, prompts),
+        nprocs=TP_RANKS, join=False, start_method="spawn")
+    deadline = time.monotonic() + TP_TIMEOUT
+    try:
+        while not ctx.join(timeout=5):
+            check(time.monotonic() < deadline,
+                  f"tp serve: the ranks did not end in {TP_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks_wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(TP_RANKS)]
+    shutil.rmtree(out, ignore_errors=True)
+
+    kv = 0 if cfg.n_kv % TP_RANKS == 0 else 2 * cfg.n_layers
+    want_coll = {"all_reduces": 2 * cfg.n_layers, "embed_lookups": 1,
+                 "gathers": 1 + kv}
+    report = {"one_process": one, "ranks": {}, "ranks_wall_s": ranks_wall,
+              "want_collectives": want_coll}
+    for r, res in enumerate(ranks):
+        label = f"tp serve rank {r}"
+        rst = res["stats"]
+        fwd = rst["prefill_steps"] + rst["decode_steps"]
+        check(res["compact"] == per_fwd, f"{label}: nm_compact launch count")
+        check(res["compact_variants"]["vector"] == res["compact"],
+              f"{label}: an element-pack launch missed the vector variant")
+        check(res["launches"] == per_fwd * fwd and res["launches"] > 0,
+              f"{label}: nm_spmm launch count")
+        check(res["fingerprint"] == want_fp[r],
+              f"{label}: its store is not its blocks of the one-process "
+              "store")
+        check(res["streams"] == ranks[0]["streams"],
+              f"{label}: streams differ from rank 0's")
+        check(all(torch.equal(a["logits"], b["logits"])
+                  for a, b in zip(res["log"], ranks[0]["log"])),
+              f"{label}: logits differ from rank 0's")
+        per_kind = {}
+        for e in res["log"]:
+            c = e["collectives"]
+            check(all(c[k] == v for k, v in want_coll.items()),
+                  f"{label}: collectives of a {e['kind']} step {c}, want "
+                  f"{want_coll}")
+            per_kind.setdefault(e["kind"], []).append(c)
+        coll = {kind: {k: sum(c[k] for c in cs) / len(cs) for k in cs[0]}
+                for kind, cs in per_kind.items()}
+        worst, part = _tp_parting(solo_log, res["log"], label)
+        check(worst <= TP_LOGIT_ATOL,
+              f"{label}: teacher-forced logits {worst:.3e} from the "
+              f"one-process logits, over {TP_LOGIT_ATOL}")
+        if part is None:
+            check(res["streams"] == solo, f"{label}: streams differ")
+        else:
+            print(f"  {label}: parts from the one-process streams at step "
+                  f"{part['step']} ({part['kind']}, slot {part['slot']}), "
+                  f"one-process top-two gap {part['top2_gap']:.3e}")
+            check(part["top2_gap"] < TP_LOGIT_ATOL,
+                  f"{label}: parted where the one-process top-two gap "
+                  f"{part['top2_gap']:.3e} is not under {TP_LOGIT_ATOL}")
+        row = {"coords": res["coords"], "launches": res["launches"],
+               "compact_launches": res["compact"],
+               "compact_variants": res["compact_variants"],
+               "weight_bytes": res["store_bytes"], "peak_bytes": res["peak"],
+               "ms_per_step": 1e3 * res["wall_s"] / rst["steps"],
+               "tok_per_s": rst["decoded_tokens"] / res["wall_s"],
+               "collectives_per_step": coll, "max_logit_gap": worst,
+               "parting": part, "stats": rst,
+               "streams_equal_one_process": res["streams"] == solo}
+        report["ranks"][r] = row
+        print(f"  {label} {res['coords']}: weights "
+              f"{res['store_bytes'] / 2**30:.3f} GiB (one process "
+              f"{one['store_bytes'] / 2**30:.3f} GiB), "
+              f"peak {res['peak'] / 2**30:.2f} GiB, {row['ms_per_step']:.2f} "
+              f"ms a step, {row['tok_per_s']:.1f} tok/s (smoke readings); "
+              f"nm_spmm launches {res['launches']} (want {per_fwd * fwd}), "
+              f"nm_compact {res['compact']} {res['compact_variants']}; "
+              f"teacher-forced logit gap {worst:.3e} (limit "
+              f"{TP_LOGIT_ATOL}); streams equal the one-process streams: "
+              f"{row['streams_equal_one_process']}")
+        for kind, c in coll.items():
+            print(f"  {label} per {kind} step: {c['all_reduces']:.0f} "
+                  f"all-reduces ({c['all_reduce_bytes']:.0f} B reduced), "
+                  f"{c['embed_lookups']:.0f} embedding lookup "
+                  f"({c['embed_bytes']:.0f} B), {c['gathers']:.0f} gathers "
+                  f"({c['gather_bytes']:.0f} B); want {want_coll}")
+    card = card_line()
+    print(f"  ranks' run {ranks_wall:.1f} s with start-up; {card}")
+    report.update(card=card, spmm_rows=spmm_rows, spmm_err=spmm_err,
+                  pack_rows=pack_rows, pack_total=pack_tot,
+                  compact_launches=compact, compact_variants=compact_variants)
+    return report
+
+
 def _leaf_at(tree, name):
     for key in name.split("/"):
         tree = tree[key]
@@ -7051,6 +7418,11 @@ def main(argv=None) -> int:
          "packed 2:8 u4, one store; 1 replica, 2 under three routers, "
          "disaggregated 1 + 2, AsyncFrontend")
     fleet = phase_fleet(dev, SEED, serve_cfg)
+    torch.cuda.empty_cache()
+    head(f"[55] tp serve: qwen3-8b FULL widths ({SERVE_LAYERS} of 36 layers),"
+         f" packed 2:8 u4, over model = {TP_RANKS} ranks (processes on the "
+         "one card, gloo) against one engine")
+    tp_serve = phase_tp_serve(dev, SEED, serve_cfg)
 
     def summed(rs, at, launches, by_path, err):
         return {"launches": launches, "launches_by_path": by_path,
@@ -7097,7 +7469,9 @@ def main(argv=None) -> int:
                      for k, v in fsdp["ranks"].items()},
                   **{f"train_pod_data/rank{k}": v["launches"]["nm_spmm"]
                      for k, v in pod_data["ranks"].items()},
-                  "fleet": fleet["launches"]}
+                  "fleet": fleet["launches"],
+                  **{f"tp_serve/rank{k}": v["launches"]
+                     for k, v in tp_serve["ranks"].items()}}
     upd_paths, upd_sites = ({
         "train": train["launches"][key],
         "train_sync": train_sync["launches"][key],
@@ -7125,7 +7499,9 @@ def main(argv=None) -> int:
                      **{f"serve_{a.split('-')[0]}": r["compact_launches"]
                         for a, r in ssm_serve.items()},
                      "serve_whisper": whisper_serve["compact_launches"],
-                     "fleet": fleet["compact_launches"]}
+                     "fleet": fleet["compact_launches"],
+                     **{f"tp_serve/rank{k}": v["compact_launches"]
+                        for k, v in tp_serve["ranks"].items()}}
     shared_decode = [r for r in shared_rows if r["B"] == 4]
     shared_prefill = [r for r in shared_rows if r["B"] != 4]
     sync_at = {(r["leaf"], r["dtype"]): r for r in sync_rows}
@@ -7196,6 +7572,14 @@ def main(argv=None) -> int:
             {k: spmm_paths[k] for k in ("train_whisper", "serve_whisper")},
             whisper_err["nm_spmm"])
             for b in sorted({r["B"] for r in whisper_rows["spmm"]})},
+        tp_rank_block_rows=summed(
+            tp_serve["spmm_rows"], "one decode layer of one rank's blocks "
+            "at model = 2: the 7 projections at B=4, 2:8 u4, summed (q, k, "
+            "v, w_gate, w_up F/2; o_proj, w_down K/2); library: "
+            "torch.matmul on the dense bf16 block", sum(
+                v["launches"] for v in tp_serve["ranks"].values()),
+            {f"tp_serve/rank{k}": v["launches"]
+             for k, v in tp_serve["ranks"].items()}, tp_serve["spmm_err"]),
         train_rows=summed(spmm_rows, "one training layer's forward: the 7 "
                           "projections at B=2048, 2:8 u8, summed",
                           spmm_paths["train"], {"train": spmm_paths["train"]},
@@ -7304,7 +7688,9 @@ def main(argv=None) -> int:
                  **{f"serve_{a.split('-')[0]}": r["compact_variants"]
                     for a, r in ssm_serve.items()},
                  "serve_whisper": whisper_serve["compact_variants"],
-                 "fleet": fleet["compact_variants"]},
+                 "fleet": fleet["compact_variants"],
+                 **{f"tp_serve/rank{k}": v["compact_variants"]
+                    for k, v in tp_serve["ranks"].items()}},
              **{key: sum(r[key] for r in compact_rows)
                 for key in ("scalar_ms", "u8_ms", "u8_bound_ms")},
              deepseek_pack=dict(
@@ -7320,6 +7706,15 @@ def main(argv=None) -> int:
                  bound_by="bytes", library_ms=None,
                  launches=ssm_serve[a]["compact_launches"],
                  cases=ssm_rows[a]["pack_rows"]) for a in SSM_ARCHS},
+             tp_rank_block_pack=dict(
+                 tp_serve["pack_total"], at="one rank's element pack of its "
+                 "blocks of qwen3-8b at model = 2, 9 layers: 63 bf16 (K, F) "
+                 "blocks read as (F, K) views, 2:8 u4, vector variant, "
+                 "summed from the seven shapes", bound_by="bytes",
+                 library_ms=None, launches=sum(
+                     v["compact_launches"]
+                     for v in tp_serve["ranks"].values()),
+                 cases=tp_serve["pack_rows"]),
              whisper_pack=dict(
                  whisper_rows["pack"], at="whisper-large-v3 FULL's element "
                  "pack, 512 weights, 2:8 u4, vector variant, summed from its "
@@ -7376,6 +7771,7 @@ def main(argv=None) -> int:
                        "fsdp_update": shard_upd, "fsdp": fsdp,
                        "pod_data_sync": pod_sync, "pod_data": pod_data,
                        "ckpt_reshard": reshard, "fleet": fleet,
+                       "tp_serve": tp_serve,
                        "phase_starts": starts,
                        "seconds": time.perf_counter() - t_start}, fh,
                       indent=1, default=str)

@@ -435,9 +435,27 @@ def pregen_conv(x: torch.Tensor, ff: torch.Tensor, bp: torch.Tensor,
 def _packed_serve(x: torch.Tensor, op: PackedOp) -> torch.Tensor:
     """Element-packed serving matmul through ``kernels.ops.nm_spmm``:
     fp32 out, cast back to the activation dtype."""
-    x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    y = ops.nm_spmm(x2, op.vals, op.idx, op.cfg.n, op.cfg.m, op.idx_bits)
-    return y.reshape(*x.shape[:-1], op.vals.shape[-1]).to(x.dtype)
+    return nm_apply_f32(op, x).to(x.dtype)
+
+
+def nm_apply_f32(op: SparseOperand, x: torch.Tensor) -> torch.Tensor:
+    """``nm_apply`` of a 2-D serving weight (plain, masked or a
+    ``PackedOp``) without its last step, the rounding of the fp32
+    product to x's dtype: the partial product that a row-parallel
+    projection sums over ranks first (``sharding.tp``).  No autograd."""
+    if isinstance(op, DenseOp):
+        op = MaskedOp(op.w, DENSE)
+    if isinstance(op, MaskedOp):
+        w = _ff_weights(op.w, op.cfg)
+        y = matmul_once(_rows(x, w), w.to(x.dtype), torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+    if isinstance(op, PackedOp):
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        y = ops.nm_spmm(x2, op.vals, op.idx, op.cfg.n, op.cfg.m,
+                        op.idx_bits)
+        return y.reshape(*x.shape[:-1], op.vals.shape[-1])
+    raise TypeError(f"nm_apply_f32: not a serving operand: "
+                    f"{type(op).__name__}")
 
 
 def _shared_serve(x: torch.Tensor, op: SharedOp) -> torch.Tensor:

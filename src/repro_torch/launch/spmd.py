@@ -9,15 +9,27 @@ grammar:
     pod=2,data=2,model=2      explicit sizes (their product must divide
                               the rank count; unsized axes take the rest)
 
+Serve-side resolution, as the reference's: ``_sanitize_pspec`` and
+``sanitize_pspecs`` (a spec entry whose mesh axes do not divide its dim
+is replicated; defined in ``sharding.rules``) and ``serve_shardings``
+(the SERVE_BATCH specs of a continuous-batching engine: the weights TP
+over "model" with N:M groups unsplit, the packed ``vals``/``idx`` on w's
+spec, the slot-paged cache, the per-slot tokens and positions), resolved
+over the port's meta trees (``transformer_lm.abstract_params`` and
+``init_specs``).
+
 What differs: the cells are the ranks of the process group
 (``launch.mesh.Mesh``), not devices, so there is no
 ``force_host_devices``: ranks come from ``torchrun`` or ``mp.spawn``.
-The serving fleet's ``replica_device_groups`` partitions a device list
-as the reference's does; ``fleet_meshes`` gives each replica its group
-as one torch device (``ServeFleet(devices=)``), and raises
-NotImplementedError for a group of more than one device, which needs
-sharded serving.  ``serve_shardings``/``sanitize_pspecs`` (sharded
-serving, ROADMAP item 7, part 3) are not here.
+``serve_shardings`` returns the reference's ``"pspecs"`` trees
+(``params``, ``cache``, ``token``, ``pos``) as the port's spec tuples:
+there is no ``NamedSharding``; ``sharding.tp`` executes them
+(``ServeEngine(mesh=)``).  The serving fleet's ``replica_device_groups``
+partitions a device list as the reference's does; ``fleet_meshes``
+gives each replica its group as one torch device
+(``ServeFleet(devices=)``), and raises NotImplementedError for a group
+of more than one device: a replica over a process group needs the
+fleet's router to run on every rank in lockstep (ROADMAP item 7).
 """
 
 from __future__ import annotations
@@ -25,6 +37,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.launch.mesh import Mesh, mesh_over_group
+from repro_torch.sharding import rules as R
+# the reference defines these here; the port keeps them beside the
+# rules, where ``sharding.tp`` reads them too
+from repro_torch.sharding.rules import (  # noqa: F401
+    _sanitize_pspec, sanitize_pspecs)
 
 
 def parse_mesh_spec(spec: str, n_devices: int) -> dict:
@@ -110,14 +127,56 @@ def replica_device_groups(n_replicas: int, *, devices=None) -> list:
 def fleet_meshes(n_replicas: int, *, devices=None) -> list:
     """Each fleet replica's device group as the one torch device it
     serves on, for ``ServeFleet(devices=)``.  A group of more than one
-    device would shard a replica's serving (``serve_shardings``), which
-    is not ported (ROADMAP item 7, part 3)."""
+    device would serve one replica over a process group, whose router
+    must then run on every rank in lockstep: not ported (ROADMAP item
+    7, a fleet replica over a device group)."""
     out = []
     for group in replica_device_groups(n_replicas, devices=devices):
         if len(group) > 1:
             raise NotImplementedError(
-                f"a replica group of {len(group)} devices needs sharded "
-                "serving (serve_shardings), which is not ported: ROADMAP "
-                "item 7, part 3")
+                f"a replica group of {len(group)} devices serves one "
+                "replica over a process group, whose fleet router must run "
+                "on every rank in lockstep; not ported: ROADMAP item 7, a "
+                "fleet replica over a device group")
         out.append(torch.device(group[0]))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Serve-side spec resolution (SERVE_BATCH rules, slot-paged cache)
+# ---------------------------------------------------------------------------
+
+
+def serve_shardings(cfg, mesh, sp_cfg, *, n_slots: int, max_len: int,
+                    packed: bool = False, idx_bits=None,
+                    cache_dtype=torch.bfloat16) -> dict:
+    """The SERVE_BATCH specs of a continuous-batching engine over
+    ``mesh``: ``{"params", "cache", "token", "pos"}``.  ``params`` is
+    the weights' spec tree (TP over "model", N:M groups unsplit; with
+    ``packed`` the element-packed tree's, ``vals`` and ``idx`` on w's
+    spec, ``idx_bits`` resolved as the engine's store resolves it),
+    asserted group-safe (``rules.assert_nm_unsplit``); ``cache`` the
+    slot-paged cache's (slots over the DP axes, KV heads over "model"
+    where they divide), ``token`` and ``pos`` the per-slot inputs'."""
+    from repro_torch.models import transformer_lm as T
+    from repro_torch.serve.packed_params import pack_tree_element
+
+    aparams = T.abstract_params(cfg)
+    p_pspecs = R.nm_params_pspecs(T.init_specs(cfg), R.SERVE_BATCH_RULES,
+                                  aparams, mesh, sp_cfg)
+    check_tree = aparams
+    if packed:
+        check_tree, _, p_pspecs = pack_tree_element(
+            aparams, sp_cfg, idx_bits, pspecs=p_pspecs, device="meta")
+    R.assert_nm_unsplit(p_pspecs, check_tree, mesh, sp_cfg)
+
+    cache = T.init_lm_cache(cfg, n_slots, max_len, device="meta",
+                            dtype=cache_dtype)
+    in_pspecs = R.serve_input_pspecs({"cache": cache, "token": None},
+                                     mesh, long_context=False)
+    # continuous batching: a per-slot position vector, not a cursor
+    pos = (R.batch_entry(mesh),)
+    return {"params": p_pspecs,
+            "cache": sanitize_pspecs(in_pspecs["cache"], cache, mesh),
+            "token": _sanitize_pspec(in_pspecs["token"], (n_slots, 1), mesh),
+            "pos": _sanitize_pspec(pos, (n_slots,), mesh)}

@@ -29,6 +29,11 @@ What differs:
   * the absorbed MLA decode's fp32 products run at full fp32 precision
     on the card (TF32 off for their span), as the reference's fp32
     einsums;
+  * inside ``sharding.tp.model_split`` ``attn_apply`` runs the rank's
+    heads (``_head_plan``): its query heads from o_proj's row block, its
+    KV heads from its cache block, q/k/v from its column blocks
+    (gathered where a block does not hold the heads it needs), o_proj
+    summed over "model";
 Layouts are the reference's: q/k/v (B, S, H, D), caches (B, S, Hkv, D),
 an MLA cache ``ckv`` (B, S, kv_lora) and ``kpe`` (B, S, qk_rope_dim).
 
@@ -48,6 +53,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.sharding import tp
 
 NEG_INF = -1e30
 
@@ -283,17 +289,21 @@ def attn_apply(p, x: torch.Tensor, cfg: AttnConfig, sp_cfg, *,
         return _mla_apply(p, x, cfg, sp_cfg, positions=positions,
                           cache=cache, decode=decode, per_slot=per_slot)
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
-    q = _split_heads(L.dense_apply(p["q_proj"], x, "attn/q_proj", sp_cfg),
-                     h, hd)
-    k = _split_heads(L.dense_apply(p["k_proj"], x, "attn/k_proj", sp_cfg),
-                     kv, hd)
-    v = _split_heads(L.dense_apply(p["v_proj"], x, "attn/v_proj", sp_cfg),
-                     kv, hd)
+    (q0, q1), (c0, c1), (a0, a1) = _head_plan(p, cfg, cache)
+    q = _split_heads(L.column_apply(p["q_proj"], x, "attn/q_proj", sp_cfg,
+                                    h * hd, (q0 * hd, q1 * hd)), q1 - q0, hd)
+    k = _split_heads(L.column_apply(p["k_proj"], x, "attn/k_proj", sp_cfg,
+                                    kv * hd, (c0 * hd, c1 * hd)), c1 - c0, hd)
+    v = _split_heads(L.column_apply(p["v_proj"], x, "attn/v_proj", sp_cfg,
+                                    kv * hd, (c0 * hd, c1 * hd)), c1 - c0, hd)
     if cfg.qk_norm:
         q = L.rmsnorm_apply(p["q_norm"], q)
         k = L.rmsnorm_apply(p["k_norm"], k)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
+
+    def heads(t):   # the KV heads the rank's query heads read
+        return t if (a0, a1) == (c0, c1) else t[:, :, a0 - c0:a1 - c0]
 
     if decode:
         if cache is None:
@@ -311,22 +321,54 @@ def attn_apply(p, x: torch.Tensor, cfg: AttnConfig, sp_cfg, *,
             cache["k"][:, wpos] = k[:, 0].to(cache["k"].dtype)
             cache["v"][:, wpos] = v[:, 0].to(cache["v"].dtype)
         cache["pos"] = cache["pos"] + 1
-        out = decode_attention(q, cache["k"], cache["v"], cur,
+        out = decode_attention(q, heads(cache["k"]), heads(cache["v"]), cur,
                                window=layer_window)
     else:
         if layer_window is not None:
-            out = banded_attention(q, k, v, window=layer_window,
-                                   chunk_q=cfg.chunk_q)
+            out = banded_attention(q, heads(k), heads(v),
+                                   window=layer_window, chunk_q=cfg.chunk_q)
         else:
-            out = chunked_attention(q, k, v, causal=True, q_offset=0,
-                                    chunk_kv=cfg.chunk_kv)
+            out = chunked_attention(q, heads(k), heads(v), causal=True,
+                                    q_offset=0, chunk_kv=cfg.chunk_kv)
         if cache is not None:
             s = k.shape[1]
             cache["k"][:, :s] = k.to(cache["k"].dtype)
             cache["v"][:, :s] = v.to(cache["v"].dtype)
             cache["pos"] = s
-    out = out.reshape(*x.shape[:-1], h * hd)
-    return L.dense_apply(p["o_proj"], out, "attn/o_proj", sp_cfg), cache
+    out = out.reshape(*x.shape[:-1], (q1 - q0) * hd)
+    return L.row_apply(p["o_proj"], out, "attn/o_proj", sp_cfg, h * hd,
+                       (q0 * hd, q1 * hd)), cache
+
+
+def _head_plan(p, cfg: AttnConfig, cache):
+    """The heads a rank computes, as ((q0, q1), (c0, c1), (a0, a1)): its
+    query heads [q0, q1), the KV heads it projects and caches [c0, c1),
+    and the KV heads its query heads read [a0, a1), inside [c0, c1).
+    Every head outside a ``sharding.tp.model_split``.  Inside one: the
+    query heads covering o_proj's row block, widened to whole GQA groups
+    where they hold parts of more than one (a head it computes and
+    o_proj does not read is dropped there); the KV heads of the rank's
+    cache block (every head where the cache is replicated over heads,
+    or with no cache, those it reads)."""
+    h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    split = tp.current()
+    if split is None:
+        return (0, h), (0, kv), (0, kv)
+    g = h // kv
+    r0, r1 = split.held(L.local_dims(p["o_proj"]["w"])[0], h * hd)
+    q0, q1 = r0 // hd, -(-r1 // hd)   # the query heads of those rows
+    a0, a1 = q0 // g, (q1 - 1) // g + 1
+    if a1 - a0 > 1 and (q0 % g or q1 % g):
+        q0, q1 = a0 * g, a1 * g       # partial GQA groups: whole ones
+    if cache is None:
+        c0, c1 = a0, a1
+    else:
+        c0, c1 = split.held(cache["k"].shape[2], kv)
+    if not c0 <= a0 <= a1 <= c1:
+        raise NotImplementedError(
+            f"query heads {q0}..{q1} read KV heads {a0}..{a1}, outside "
+            f"the rank's cache heads {c0}..{c1}")
+    return (q0, q1), (c0, c1), (a0, a1)
 
 
 @contextlib.contextmanager

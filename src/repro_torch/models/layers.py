@@ -16,7 +16,9 @@ The reference's logical-axis vocabulary ("embed", "mlp", "heads",
 reference's ``*_init`` returns beside the leaf (``sharding.rules`` maps
 the names onto mesh axes).  ``gathered`` is where a block's layers read
 its params: a block kept in shards (``sharding.fsdp``) gathers its full
-operands there.
+operands there.  ``column_apply`` / ``row_apply`` are ``dense_apply``
+of a column- or row-parallel projection, and ``embed_apply`` the
+vocab-parallel lookup, inside a ``sharding.tp.model_split``.
 
 What differs: the spec trees are not returned by each ``*_init`` but
 made from the leaf's path by ``leaf_spec`` (``transformer_lm.init_specs``,
@@ -33,8 +35,10 @@ import math
 
 import torch
 
+from repro_torch.core import bdwp
 from repro_torch.core import operand as O
 from repro_torch.core.sparsity import SparsityConfig
+from repro_torch.sharding import tp
 
 
 # the (K, F) weights of a dense layer, by (module, layer) name: the
@@ -179,6 +183,67 @@ def dense_apply(p, x: torch.Tensor, name: str, cfg: SparsityConfig,
     return y
 
 
+def local_dims(w) -> tuple:
+    """(K, F) of the rank's block of a weight: a tensor, a masked
+    operand's, or a ``PackedOp``'s (K from its Kc = K N/M packed rows)."""
+    if isinstance(w, O.PackedOp):
+        kc, f = w.vals.shape[-2:]
+        return kc // w.cfg.n * w.cfg.m, f
+    return tuple((w.w if isinstance(w, O.MaskedOp) else w).shape[-2:])
+
+
+def _block_operand(w, name: str, cfg: SparsityConfig, whole: tuple):
+    """The operand of a rank's block of a weight of shape ``whole``: a
+    plain block is masked as the whole weight is (``bdwp.pick_cfg`` of
+    the whole shape; a block may be too narrow to pass it alone)."""
+    if isinstance(w, torch.Tensor):
+        return O.MaskedOp(w, bdwp.pick_cfg(name, whole, cfg))
+    return O.as_operand(w, name, cfg)
+
+
+def column_apply(p, x: torch.Tensor, name: str, cfg: SparsityConfig,
+                 full: int, want: tuple) -> torch.Tensor:
+    """``dense_apply`` of a column-parallel projection whose whole output
+    has ``full`` columns; inside a ``sharding.tp.model_split`` the
+    columns ``want`` = (lo, hi) of the output, from the rank's block of
+    the weight (and of its bias), gathered whole first where that block
+    does not hold them (``tp.take``).  Outside it, ``dense_apply``."""
+    split = tp.current()
+    if split is None:
+        return dense_apply(p, x, name, cfg)
+    k, f = local_dims(p["w"])
+    have = split.held(f, full)
+    p = dict(p, w=_block_operand(p["w"], name, cfg, (k, full)))
+    if "b" in p:
+        p["b"] = tp.take(p["b"], split.held(p["b"].shape[-1], full), have,
+                         full, split)
+    return tp.take(dense_apply(p, x, name, cfg), have, want, full, split)
+
+
+def row_apply(p, x: torch.Tensor, name: str, cfg: SparsityConfig,
+              full: int, have: tuple) -> torch.Tensor:
+    """``dense_apply`` of a row-parallel projection whose weight has
+    ``full`` rows, on x holding the input columns ``have``; inside a
+    ``sharding.tp.model_split`` the rank's row block of the weight takes
+    its columns of x, and the fp32 partial products are summed over
+    "model" (``tp.model_sum``) before the rounding to bf16 and the bias,
+    which is whole.  Outside it, ``dense_apply``."""
+    split = tp.current()
+    if split is None:
+        return dense_apply(p, x, name, cfg)
+    k, f = local_dims(p["w"])
+    rows = split.held(k, full)
+    x = tp.take(x, have, rows, full, split)
+    y = O.nm_apply_f32(_block_operand(p["w"], name, cfg, (full, f)),
+                       x.to(torch.bfloat16))
+    if rows != (0, full):
+        y = tp.model_sum(y, split)
+    y = y.to(torch.bfloat16)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
 def rmsnorm_init(d: int, *, device, dtype=torch.float32):
     return {"norm_scale": torch.ones((d,), dtype=dtype, device=device)}
 
@@ -298,9 +363,16 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, *, device,
     return {"embed_table": t.to(dtype)}
 
 
-def embed_apply(p, tokens: torch.Tensor,
-                compute_dtype=torch.bfloat16) -> torch.Tensor:
-    return p["embed_table"][tokens].to(compute_dtype)
+def embed_apply(p, tokens: torch.Tensor, compute_dtype=torch.bfloat16,
+                rows=None) -> torch.Tensor:
+    """The table's rows of ``tokens``; inside a ``sharding.tp.
+    model_split``, where the rank may hold a row block of a table of
+    ``rows`` rows, the vocab-parallel lookup (``tp.embed_lookup``)."""
+    table = p["embed_table"]
+    split = tp.current()
+    if split is not None and split.held(table.shape[0], rows) != (0, rows):
+        return tp.embed_lookup(table, tokens, split).to(compute_dtype)
+    return table[tokens].to(compute_dtype)
 
 
 def rope_freqs(head_dim: int, theta: float = 10000.0, device=None):

@@ -44,7 +44,13 @@ What differs:
     meta device), where the reference's ``init(..., abstract=True)``
     returns both; ``forward`` reads each block through
     ``layers.gathered``, so a block kept in shards (``sharding.fsdp``)
-    gathers its operands inside its own recompute.
+    gathers its operands inside its own recompute;
+  * inside ``sharding.tp.model_split`` (the serve steps over a "model"
+    axis) the embedding, the attention, the FFN and the logits run on
+    the rank's blocks, with explicit collectives where the reference's
+    ``act()`` points let GSPMD insert them: a vocab-parallel lookup,
+    row-parallel sums after o_proj and w_down, the logits gathered
+    whole.
 """
 
 from __future__ import annotations
@@ -61,6 +67,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
+from repro_torch.sharding import tp
 
 KINDS = ("attn", "swa", "mamba", "hybrid")
 
@@ -186,10 +193,18 @@ def ffn_init(gen, d: int, d_ff: int, *, device, dtype=torch.float32):
             "w_down": L.dense_init(gen, d_ff, d, device=device, dtype=dtype)}
 
 
-def ffn_apply(p, x: torch.Tensor, sp_cfg) -> torch.Tensor:
-    h = L.swiglu(L.dense_apply(p["w_gate"], x, "mlp/w_gate", sp_cfg),
-                 L.dense_apply(p["w_up"], x, "mlp/w_up", sp_cfg))
-    return L.dense_apply(p["w_down"], h.to(x.dtype), "mlp/w_down", sp_cfg)
+def ffn_apply(p, x: torch.Tensor, sp_cfg, d_ff: int) -> torch.Tensor:
+    """SwiGLU FFN.  Inside a ``sharding.tp.model_split`` (``d_ff`` the
+    whole hidden width) w_gate and w_up run on the rank's columns of the
+    hidden, w_down on its rows, summed over "model"."""
+    split = tp.current()
+    cols = (0, d_ff) if split is None else split.held(
+        L.local_dims(p["w_down"]["w"])[0], d_ff)
+    h = L.swiglu(
+        L.column_apply(p["w_gate"], x, "mlp/w_gate", sp_cfg, d_ff, cols),
+        L.column_apply(p["w_up"], x, "mlp/w_up", sp_cfg, d_ff, cols))
+    return L.row_apply(p["w_down"], h.to(x.dtype), "mlp/w_down", sp_cfg,
+                       d_ff, cols)
 
 
 def _leaves(tree):
@@ -257,7 +272,7 @@ def block_apply(p, x: torch.Tensor, cfg: LMConfig, sp_cfg, *, positions,
     if "moe" in p:
         y, aux = M.moe_apply(p["moe"], h2, cfg.moe, sp_cfg)
     else:
-        y, aux = ffn_apply(p["ffn"], h2, sp_cfg), None
+        y, aux = ffn_apply(p["ffn"], h2, sp_cfg, cfg.d_ff), None
     return x + y, cache, aux
 
 
@@ -338,7 +353,7 @@ def forward(params, tokens: torch.Tensor, cfg: LMConfig,
     ``nothing_saveable`` does.  A prelude runs first, with its own cache
     (``cache["prelude"]``), and is never recomputed, as in the reference.
     """
-    x = L.embed_apply(params["embed"], tokens)
+    x = L.embed_apply(params["embed"], tokens, rows=cfg.padded_vocab)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     b, s = x.shape[0], x.shape[1]
@@ -384,11 +399,16 @@ def logits_from_hidden(params, hidden: torch.Tensor,
                        cfg: LMConfig) -> torch.Tensor:
     """hidden @ lm_head (tied: @ the embedding table's transpose) with
     fp32 accumulation; padded columns -1e30.  A tied table gets its
-    gradient from both uses."""
+    gradient from both uses.  Inside a ``sharding.tp.model_split`` the
+    rank's vocab block of the logits is gathered whole over "model"."""
     w = (params["embed"]["embed_table"].t() if cfg.tie_embed
          else params["lm_head"]["w"])
     logits = L.head_product(hidden.reshape(-1, hidden.shape[-1]), w)
     logits = logits.reshape(*hidden.shape[:-1], w.shape[-1])
+    split = tp.current()
+    if split is not None:
+        logits = tp.take(logits, split.held(w.shape[-1], cfg.padded_vocab),
+                           (0, cfg.padded_vocab), cfg.padded_vocab, split)
     if cfg.padded_vocab != cfg.vocab:
         valid = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab
         logits = torch.where(valid, logits, -1e30)

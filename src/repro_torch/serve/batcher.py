@@ -14,7 +14,13 @@ the cache is a list of per-layer ``{"k", "v", "pos"}`` dicts of
 SSM layer's fp32 ``{"state", "conv"}``, a hybrid layer's both),
 beside a prelude's cache where the model has one, and seating, decode
 writes and lane export work on it in place (the reference donates its
-cache to the jitted steps); no mesh or shardings.
+cache to the jitted steps).  With a ``mesh`` whose "model" axis has M >
+1 ranks (one process a rank), the params are the rank's blocks, the
+cache is allocated at the rank's block shapes (``sharding.tp.
+init_cache``) and the steps run with ``mesh=``; the tokens, positions
+and host bookkeeping are whole on every rank, where the reference
+commits them to its DP shardings (a mesh with "pod" or "data" > 1 is
+refused by the engine).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch
 from repro_torch.core.sparsity import DENSE, SparsityConfig
 from repro_torch.models import transformer_lm as T
 from repro_torch.serve.cache_store import Lane
+from repro_torch.sharding import tp
 from repro_torch.train import step as ST
 
 
@@ -80,12 +87,15 @@ class SlotKVCache:
     """Device cache with a host-side free-slot bitmap."""
 
     def __init__(self, cfg, n_slots: int, max_len: int, *, device,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, mesh=None):
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_len = max_len
-        self.cache = T.init_lm_cache(cfg, n_slots, max_len, device=device,
-                                     dtype=dtype)
+        self.cache = (T.init_lm_cache(cfg, n_slots, max_len, device=device,
+                                      dtype=dtype)
+                      if tp.split_of(mesh) is None else
+                      tp.init_cache(cfg, n_slots, max_len, mesh,
+                                    device=device, dtype=dtype))
         self._free = list(range(n_slots))
 
     @property
@@ -116,7 +126,7 @@ class ContinuousBatcher:
 
     def __init__(self, params, cfg, sp_cfg: SparsityConfig = DENSE, *,
                  n_slots: int, max_len: int, prompt_bucket: int, device,
-                 cache_dtype=torch.bfloat16):
+                 cache_dtype=torch.bfloat16, mesh=None):
         if prompt_bucket > max_len:
             raise ValueError("prompt_bucket must be <= max_len")
         self.params = params
@@ -125,8 +135,11 @@ class ContinuousBatcher:
         self.prompt_bucket = prompt_bucket
         self.device = device
         self.cache_dtype = cache_dtype
+        self.mesh = mesh
+        # checked once here; the steps run inside it and do not check
+        self.split = tp.serve_split(cfg, mesh)
         self.kv = SlotKVCache(cfg, n_slots, max_len, device=device,
-                              dtype=cache_dtype)
+                              dtype=cache_dtype, mesh=mesh)
         self.tokens = torch.zeros((n_slots, 1), dtype=torch.int64,
                                   device=device)
         self.positions = torch.zeros((n_slots,), dtype=torch.int64,
@@ -145,10 +158,12 @@ class ContinuousBatcher:
                 f"prompt length {plen} not in (0, {self.prompt_bucket}]")
         padded = np.zeros((1, self.prompt_bucket), np.int64)
         padded[0, :plen] = prompt
-        logits, pre_cache = ST.lm_prefill_step(
-            self.params, {"tokens": torch.from_numpy(padded).to(self.device)},
-            cfg=self.cfg, sp_cfg=self.sp_cfg, last_index=[plen - 1],
-            cache_dtype=self.cache_dtype)
+        with tp.model_split(self.split):
+            logits, pre_cache = ST.lm_prefill_step(
+                self.params,
+                {"tokens": torch.from_numpy(padded).to(self.device)},
+                cfg=self.cfg, sp_cfg=self.sp_cfg, last_index=[plen - 1],
+                cache_dtype=self.cache_dtype, mesh=self.mesh)
         first = torch.argmax(logits[:, -1, :self.cfg.vocab], dim=-1)
         self.prefill_calls += 1
         return Lane(key=tuple(key), cache=pre_cache,
@@ -181,9 +196,11 @@ class ContinuousBatcher:
     def step(self) -> np.ndarray:
         """One decode step for all n_slots lanes; returns (n_slots,)
         next-token ids (garbage on free lanes)."""
-        logits, _ = ST.lm_decode_step(self.params, self.kv.cache,
-                                      self.tokens, self.positions,
-                                      cfg=self.cfg, sp_cfg=self.sp_cfg)
+        with tp.model_split(self.split):
+            logits, _ = ST.lm_decode_step(self.params, self.kv.cache,
+                                          self.tokens, self.positions,
+                                          cfg=self.cfg, sp_cfg=self.sp_cfg,
+                                          mesh=self.mesh)
         nxt = torch.argmax(logits[:, -1, :self.cfg.vocab], dim=-1)
         self.tokens = nxt[:, None]
         self.positions = self.positions + 1

@@ -9,12 +9,25 @@ requests into free slots (a prefill each, or a prefix-pool hit), then
 runs one decode step for every lane; finished requests free their slot
 at once, so a queued request joins on the next step.
 
+``mesh=`` serves over a ``launch.mesh.Mesh`` whose "model" axis has M
+> 1 ranks, one process a rank, as the reference's ``ServeEngine(mesh=)``
+does over devices: the engine resolves ``launch.spmd.serve_shardings``,
+cuts the dense tree to the rank's blocks (``sharding.tp.serve_blocks``:
+the weights TP over "model", N:M groups whole) and packs those on its
+device; the cache holds the rank's block.  Every rank runs the same
+host bookkeeping (admission, prefix pool, lanes, stop conditions) on
+the same whole-vocab logits, so the ranks pick the same tokens and stay
+in lockstep without a broadcast.
+
 What differs: the engine runs on an explicit device — the card unless
 the caller passes ``device="cpu"`` — and raises when there is none; it
 takes either a dense param tree (packed here when ``serve_cfg.packed``)
-or a ready ``PackedParamStore``; any arch of ``repro_torch.configs``
-(sliding-window layers take their window in the per-slot decode's
-mask); no mesh.
+or a ready ``PackedParamStore`` (with ``mesh=``, the rank's own: its
+leaf shapes are checked against the rank's block shapes); any arch of
+``repro_torch.configs`` (sliding-window layers take their window in the
+per-slot decode's mask); a mesh executes "model" alone, for the dense
+attention LMs (``sharding.tp.check_serve`` refuses the rest, naming
+their ROADMAP item 7 line).
 """
 
 from __future__ import annotations
@@ -27,9 +40,13 @@ import torch
 
 from repro_torch.core.sparsity import DENSE, SparsityConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch import spmd
+from repro_torch.models import transformer_lm as T
 from repro_torch.serve.batcher import ContinuousBatcher
 from repro_torch.serve.cache_store import CacheStore, Lane, prefix_chain
-from repro_torch.serve.packed_params import PackedParamStore
+from repro_torch.serve.packed_params import (PackedParamStore,
+                                             pack_tree_element)
+from repro_torch.sharding import tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,22 +87,38 @@ class ServeEngine:
 
     def __init__(self, params, cfg, sp_cfg: SparsityConfig = DENSE,
                  serve_cfg: Optional[ServeConfig] = None, *, device=None,
-                 cache_dtype=torch.bfloat16):
+                 cache_dtype=torch.bfloat16, mesh=None):
         serve_cfg = serve_cfg if serve_cfg is not None else ServeConfig()
         self.device = resolve_device(device)
         self.cfg = cfg
         self.sp_cfg = sp_cfg
         self.serve_cfg = serve_cfg
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.store: Optional[PackedParamStore] = None
-        if isinstance(params, PackedParamStore):
-            if not serve_cfg.packed:
-                raise ValueError("a PackedParamStore needs ServeConfig("
-                                 "packed=True)")
+        ready = isinstance(params, PackedParamStore)
+        if ready and not serve_cfg.packed:
+            raise ValueError("a PackedParamStore needs ServeConfig("
+                             "packed=True)")
+        pspecs = like = None
+        if self.mesh is not None:
+            tp.check_serve(cfg, self.mesh)
+            tp.split_of(self.mesh)   # raises without a "model" group
+            pspecs = spmd.serve_shardings(
+                cfg, self.mesh, sp_cfg, n_slots=serve_cfg.n_slots,
+                max_len=serve_cfg.max_len, packed=serve_cfg.packed,
+                idx_bits=params.idx_bits if ready else serve_cfg.idx_bits,
+                cache_dtype=cache_dtype)["params"]
+            like = T.abstract_params(cfg)
+            if ready:
+                _check_rank_store(params, like, pspecs, self.mesh)
+            else:
+                params = tp.serve_blocks(params, pspecs, self.mesh)
+        if ready:
             self.store = params
         elif serve_cfg.packed:
             self.store = PackedParamStore.pack(params, sp_cfg,
                                                idx_bits=serve_cfg.idx_bits,
-                                               device=self.device)
+                                               device=self.device, like=like)
         if self.store is not None:
             params = self.store.params
         else:
@@ -94,7 +127,7 @@ class ServeEngine:
             params, cfg, sp_cfg,
             n_slots=serve_cfg.n_slots, max_len=serve_cfg.max_len,
             prompt_bucket=serve_cfg.prompt_bucket, device=self.device,
-            cache_dtype=cache_dtype)
+            cache_dtype=cache_dtype, mesh=self.mesh)
         self._queue: deque[Request] = deque()
         self._lane_queue: deque = deque()        # (Request, Lane) handoffs
         self._running: Dict[int, Request] = {}   # slot -> request
@@ -328,6 +361,23 @@ class ServeEngine:
         if self.prefix_pool is not None:
             out["prefix_pool"] = self.prefix_pool.stats()
         return out
+
+
+def _check_rank_store(store, like, pspecs, mesh) -> None:
+    """Raise unless ``store`` holds this rank's blocks: its leaf shapes
+    those of the rank's blocks of the whole packed tree."""
+    whole = pack_tree_element(like, store.sp_cfg, store.idx_bits,
+                              device="meta")[0]
+    want = tp.leaf_shapes(tp.serve_blocks(whole, pspecs, mesh))
+    got = tp.leaf_shapes(store.params)
+    if got != want:
+        k = next(k for k in sorted(set(got) | set(want), key=str)
+                 if got.get(k) != want.get(k))
+        raise ValueError(
+            f"the PackedParamStore is not this rank's ("
+            f"{dict(mesh.coords)} of {dict(mesh.shape)}): leaf "
+            f"{'/'.join(map(str, k))} is {got.get(k)}, its block is "
+            f"{want.get(k)}")
 
 
 def _to_device(node, device):

@@ -19,8 +19,9 @@ the caller says otherwise) and packs each weight with one
 (K, F) weight through its transposed view and writes vals and the index
 plane straight into their (Kc, F) layout; ``PackedParamStore.
 pack_layerwise`` packs blocks as an iterator yields them, so a
-full-width model never holds all of its dense layers at once; no
-sharding specs.
+full-width model never holds all of its dense layers at once; a tree of
+one rank's blocks (``sharding.tp``) packs by the whole weights'
+eligibility (``like=``).
 """
 
 from __future__ import annotations
@@ -50,20 +51,35 @@ def default_idx_bits(cfg: SparsityConfig) -> int:
 
 
 def pack_tree_element(params, cfg: SparsityConfig,
-                      idx_bits: Optional[int] = None, *, device=None):
+                      idx_bits: Optional[int] = None, *, pspecs=None,
+                      device=None, like=None):
     """Returns ``(packed_tree, stats)``: every eligible ``{"w": (K, F)}``
     leaf-dict becomes ``{"w": PackedOp(vals, idx, cfg, idx_bits)}``, every
     leaf lies on ``device``, and stats counts the actual bytes and, as
     the reference counts a layer-stacked leaf once, each packed or dense
-    weight name once however many layers hold it."""
-    packed, stats, _ = _pack(params, cfg, idx_bits, device)
+    weight name once however many layers hold it.
+
+    With ``pspecs`` (the params' resolved spec tree) it returns
+    ``(packed_tree, stats, packed_pspecs)``: ``vals`` and ``idx`` keep
+    w's spec, as the reference's.  A tree on the meta device packs to
+    meta shapes, with no kernel run (``launch.spmd.serve_shardings``).
+    ``like``, a tree of the same structure holding the whole weights'
+    shapes (``transformer_lm.abstract_params``), decides which weights
+    pack when ``params`` holds one rank's blocks of them
+    (``sharding.tp``): eligibility is the whole weight's."""
+    packed, stats, _, out_specs = _pack(params, cfg, idx_bits, device,
+                                        pspecs=pspecs, like=like)
+    if pspecs is not None:
+        return packed, stats, out_specs
     return packed, stats
 
 
-def _pack(params, cfg, idx_bits, device, names=None):
+def _pack(params, cfg, idx_bits, device, names=None, *, pspecs=None,
+          like=None):
     """``pack_tree_element`` that also returns the weight names counted
     in ``n_packed``/``n_dense`` (``names``: those counted already, by
-    earlier calls on other layers of the same model)."""
+    earlier calls on other layers of the same model) and the packed
+    spec tree (None without ``pspecs``)."""
     device = resolve_device(device)
     names = {"n_packed": set(), "n_dense": set()} if names is None else names
     if idx_bits is None:
@@ -87,40 +103,59 @@ def _pack(params, cfg, idx_bits, device, names=None):
                 and bdwp.should_prune(name, lshape, cfg)
                 and bdwp.serve_packable(name, lshape, cfg))
 
-    def walk(node, path):
+    def at(tree, k):
+        return None if tree is None else tree[k]
+
+    def walk(node, path, spec, whole):
+        """(the packed node, its spec): ``spec`` and ``whole`` are the
+        node's in ``pspecs`` and ``like`` (None without them)."""
         if isinstance(node, dict) and "w" in node:
             w = node["w"].to(device)
-            if not pack_ok("/".join(path), w):
+            if not pack_ok("/".join(path), w if whole is None
+                           else whole["w"]):
                 out = {k: v.to(device) for k, v in node.items()}
                 count("n_dense", "/".join(path))
                 stats["other_bytes"] += sum(map(_leaf_bytes, out.values()))
-                return out
+                return out, spec
             k, f = w.shape
             kc = k // cfg.m * cfg.n
             vals = torch.empty((kc, f), dtype=w.dtype, device=device)
             idx = torch.empty(((kc + 1) // 2 if idx_bits == 4 else kc, f),
                               dtype=torch.uint8, device=device)
-            ops.nm_compact(w.t(), cfg.n, cfg.m, idx_bits,
-                           out=(vals.t(), idx.t()))
+            if not w.is_meta:
+                ops.nm_compact(w.t(), cfg.n, cfg.m, idx_bits,
+                               out=(vals.t(), idx.t()))
             count("n_packed", "/".join(path))
             stats["dense_bytes"] += _leaf_bytes(w)
             stats["packed_bytes"] += _leaf_bytes(vals) + _leaf_bytes(idx)
             stats["packed_bytes_4bit"] += (
                 _leaf_bytes(vals) + vals.numel() * acct_bits // 8)
             out = {"w": O.PackedOp(vals, idx, cfg, idx_bits)}
+            out_spec = None if spec is None else {
+                "w": O.PackedOp(spec["w"], spec["w"], cfg, idx_bits)}
             if "b" in node:   # a bias is served dense beside the pair
                 out["b"] = node["b"].to(device)
                 stats["other_bytes"] += _leaf_bytes(out["b"])
-            return out
+                if spec is not None:
+                    out_spec["b"] = spec["b"]
+            return out, out_spec
         if isinstance(node, dict):
-            return {k: walk(v, path + (k,)) for k, v in node.items()}
+            pairs = {k: walk(v, path + (k,), at(spec, k), at(whole, k))
+                     for k, v in node.items()}
+            return ({k: p for k, (p, _) in pairs.items()},
+                    None if spec is None
+                    else {k: s for k, (_, s) in pairs.items()})
         if isinstance(node, list):
-            return [walk(v, path) for v in node]
+            pairs = [walk(v, path, at(spec, i), at(whole, i))
+                     for i, v in enumerate(node)]
+            return ([p for p, _ in pairs],
+                    None if spec is None else [s for _, s in pairs])
         node = node.to(device)
         stats["other_bytes"] += _leaf_bytes(node)
-        return node
+        return node, spec
 
-    return walk(params, ()), stats, names
+    packed, out_specs = walk(params, (), pspecs, like)
+    return packed, stats, names, out_specs
 
 
 @dataclasses.dataclass
@@ -144,10 +179,11 @@ class PackedParamStore:
 
     @classmethod
     def pack(cls, params, sp_cfg: SparsityConfig,
-             idx_bits: Optional[int] = None, *,
-             device=None) -> "PackedParamStore":
+             idx_bits: Optional[int] = None, *, device=None,
+             like=None) -> "PackedParamStore":
+        """The store of ``pack_tree_element(params, ..., like=like)``."""
         packed, st = pack_tree_element(params, sp_cfg, idx_bits,
-                                       device=device)
+                                       device=device, like=like)
         return cls._from_stats(packed, sp_cfg, st)
 
     @classmethod
@@ -160,11 +196,11 @@ class PackedParamStore:
         single ``"blocks"`` list; an encoder-decoder's tree (its
         ``enc_blocks`` and ``dec_blocks``, 3.2 GB of bf16 weights at
         whisper's FULL) goes through ``pack``."""
-        params, st, names = _pack(shell, sp_cfg, idx_bits, device)
+        params, st, names, _ = _pack(shell, sp_cfg, idx_bits, device)
         params["blocks"] = []
         for block in blocks:
-            packed, bst, names = _pack({"blocks": block}, sp_cfg, idx_bits,
-                                       device, names)
+            packed, bst, names, _ = _pack({"blocks": block}, sp_cfg,
+                                          idx_bits, device, names)
             params["blocks"].append(packed["blocks"])
             for k in _COUNTS:
                 st[k] += bst[k]

@@ -7,7 +7,10 @@ guards), ``params_pspecs``, ``nm_group_multiples``,
 ``nm_params_pspecs``, ``pregen_pspecs``, ``assert_nm_unsplit`` (the u4
 index plane's per-shard multiple included), ``grad_sync_pspecs``,
 ``batch_axes``, ``train_input_pspecs`` and ``serve_input_pspecs``, with
-the reference's results leaf for leaf.
+the reference's results leaf for leaf; beside them the reference's
+``launch.spmd._sanitize_pspec`` and ``sanitize_pspecs``, which the
+serve-side resolution and ``sharding.tp`` both use
+(``launch.spmd`` re-exports them).
 
 Workloads, as in the reference:
   TRAIN       — FSDP("data") x TP("model"); pure DP across "pod";
@@ -24,12 +27,14 @@ trees are per layer, so a per-layer leaf's spec has no leading entry
 for the reference's "layer" axis, which ``TRAIN_RULES`` never shards:
 drop the reference's first entry to compare.
 
-What differs: ``constrain``, ``activation_sharding`` and ``act`` are
-not here.  They pin activations onto "model" and onto one SPMD
-program's batch, and the port has no "model" axis yet (a mesh with
-"model" > 1 raises; ROADMAP item 7, part 3); ``sharding.fsdp`` executes
-the "data" and "pod" axes itself.  ``params_shardings`` has no
-counterpart: there is no ``NamedSharding``.
+What differs: ``constrain``, ``activation_sharding`` and ``act`` have
+no counterpart.  They pin activations onto "model" and onto one SPMD
+program's batch for GSPMD to insert collectives at; the port executes
+those points as explicit collectives itself: ``sharding.tp`` the
+"model" axis of serving (the heads, the KV cache, the FFN hidden, the
+vocab-sharded logits), ``sharding.fsdp`` the "data" and "pod" axes of
+training (whose "model" axis is ROADMAP item 7, the training side).
+``params_shardings`` has no counterpart: there is no ``NamedSharding``.
 """
 
 from __future__ import annotations
@@ -357,13 +362,18 @@ def batch_axes(mesh):
     return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
 
 
+def batch_entry(mesh):
+    """``batch_axes`` as one spec entry."""
+    return _entry(batch_axes(mesh))
+
+
 # ---------------------------------------------------------------------------
 # Input / cache specs per workload
 # ---------------------------------------------------------------------------
 
 
 def train_input_pspecs(input_specs: dict, mesh):
-    dp = _entry(batch_axes(mesh))
+    dp = batch_entry(mesh)
     out = {}
     for name in input_specs:
         if name in ("tokens", "labels"):
@@ -396,7 +406,7 @@ def _cache_spec(name: str, shape, bp, long_context: bool, tp: int):
 def serve_input_pspecs(input_specs: dict, mesh, *, long_context: bool):
     """Decode and prefill inputs; a cache (the port's ``{"layers":
     [...], "prelude": ...}``) leaf by leaf, by its name."""
-    dp = _entry(batch_axes(mesh))
+    dp = batch_entry(mesh)
     bp = None if long_context else dp
     tp = mesh.shape.get("model", 1)
 
@@ -419,3 +429,22 @@ def serve_input_pspecs(input_specs: dict, mesh, *, long_context: bool):
         else:
             out[name] = ()
     return out
+
+
+def _sanitize_pspec(ps: tuple, shape, mesh) -> tuple:
+    """Drop the spec entries whose mesh-axis product does not divide
+    their dim (odd slot counts, batch-1 prefill): replicate them."""
+    return tuple(None if entry is None or shape[i] % shard_count(
+        entry, mesh) else entry for i, entry in enumerate(ps))
+
+
+def sanitize_pspecs(pspecs, tree, mesh):
+    """``_sanitize_pspec`` over a spec tree and its tree of tensors
+    (meta ones too; a leaf without a shape, such as a cache's ``pos``
+    cursor, has the empty spec)."""
+    if isinstance(pspecs, dict):
+        return {k: sanitize_pspecs(v, tree[k], mesh)
+                for k, v in pspecs.items()}
+    if isinstance(pspecs, list):
+        return [sanitize_pspecs(v, t, mesh) for v, t in zip(pspecs, tree)]
+    return _sanitize_pspec(pspecs, tuple(getattr(tree, "shape", ())), mesh)

@@ -75,21 +75,25 @@ process, bitwise ``lm_train_step``'s P pods in one process.
 generations (no compute tree; MoE expert stacks still plain bf16
 copies) by regenerating the compute tree from the restored master.
 
-What differs: a mesh with "model" > 1 raises NotImplementedError
-(tensor and expert parallelism, and sequence parallelism there, are
-ROADMAP item 7, part 3; ``seq_parallel`` is accepted and changes
-nothing at "model" = 1, as in the reference); no activation sharding
-(``act``); the bundle's step is a Python function, not a compiled one,
-and ``donate`` has no counterpart (the update consumes the state
-anyway); with one rank the bundle's step is ``lm_train_step`` itself;
-``lm_decode_step`` defaults to per-slot decode (``pos`` a (B,) vector
-of per-request positions, the serve engine's mode), where the
-reference defaults to the shared cursor (``per_slot=False``, ``pos``
-one position for the batch).  Gradients are taken with
-``torch.autograd.grad`` on the float leaves the model reads, so nothing
-accumulates in ``.grad`` between steps.  The step's parts are profiler
-ranges ``train/forward``, ``train/backward`` (which includes the blocks'
-recompute), ``train/sync`` (compressed steps only) and
+What differs: a training mesh with "model" > 1 raises
+NotImplementedError (tensor and expert parallelism in training, and
+sequence parallelism there, are ROADMAP item 7, the training side;
+``seq_parallel`` is accepted and changes nothing at "model" = 1, as in
+the reference); the serve steps ``lm_prefill_step`` and
+``lm_decode_step`` take ``mesh=`` as the reference's do and execute a
+"model" axis of M > 1 ranks on the rank's blocks (``sharding.tp``,
+the dense attention LMs); no activation sharding (``act``: explicit
+collectives stand at its points); the bundle's step is a Python
+function, not a compiled one, and ``donate`` has no counterpart (the
+update consumes the state anyway); with one rank the bundle's step is
+``lm_train_step`` itself; ``lm_decode_step`` defaults to per-slot
+decode (``pos`` a (B,) vector of per-request positions, the serve
+engine's mode), where the reference defaults to the shared cursor
+(``per_slot=False``, ``pos`` one position for the batch). Gradients are
+taken with ``torch.autograd.grad`` on the float leaves the model reads,
+so nothing accumulates in ``.grad`` between steps. The step's parts are
+profiler ranges ``train/forward``, ``train/backward`` (which includes
+the blocks' recompute), ``train/sync`` (compressed steps only) and
 ``train/update``.
 """
 
@@ -111,6 +115,7 @@ from repro_torch.optim import compress as C
 from repro_torch.optim import sgd
 from repro_torch.sharding import fsdp as F
 from repro_torch.sharding import rules as R
+from repro_torch.sharding import tp
 
 AUX_COEF = 0.01     # weight of the MoE load-balance loss in the total
 
@@ -371,47 +376,63 @@ def _loss_and_grads(tree, loss_fn):
 
 
 def lm_prefill_step(params, batch, *, cfg, sp_cfg, last_index=None,
-                    cache_dtype=torch.bfloat16):
+                    cache_dtype=torch.bfloat16, mesh=None):
     """Prefill: build the KV cache and return next-token logits (B, 1, V).
 
     last_index: optional (B,) indices of each request's last real token;
     right-padded prompts read their logits there instead of at s-1.
     With ``batch["prefix_embeds"]`` (B, S_pre, d) the cache covers the
     S_pre + S positions of prefix and text, and ``last_index`` counts
-    from the prefix's first position.
+    from the prefix's first position.  With a ``mesh`` whose "model"
+    axis has M > 1 ranks, ``params`` are the rank's blocks
+    (``sharding.tp``): the step runs inside ``tp.model_split``, builds
+    the rank's block of the cache and returns whole-vocab logits.
     """
     tokens = batch["tokens"]
     prefix = batch.get("prefix_embeds")
     b, s = tokens.shape
     s_tot = s + (prefix.shape[1] if prefix is not None else 0)
-    cache = T.init_lm_cache(cfg, b, s_tot, device=tokens.device,
-                            dtype=cache_dtype)
-    hidden, cache, _ = T.forward(params, tokens, cfg, sp_cfg,
-                                 prefix_embeds=prefix, cache=cache)
-    if last_index is None:
-        h_last = hidden[:, -1:]
+    split = tp.serve_split(cfg, mesh)
+    if split is None:
+        cache = T.init_lm_cache(cfg, b, s_tot, device=tokens.device,
+                                dtype=cache_dtype)
     else:
-        idx = torch.as_tensor(last_index, device=tokens.device).reshape(b)
-        h_last = hidden[torch.arange(b, device=tokens.device), idx][:, None]
-    return T.logits_from_hidden(params, h_last, cfg), cache
+        cache = tp.init_cache(cfg, b, s_tot, mesh, device=tokens.device,
+                              dtype=cache_dtype)
+    with tp.model_split(split):
+        hidden, cache, _ = T.forward(params, tokens, cfg, sp_cfg,
+                                     prefix_embeds=prefix, cache=cache)
+        if last_index is None:
+            h_last = hidden[:, -1:]
+        else:
+            idx = torch.as_tensor(last_index,
+                                  device=tokens.device).reshape(b)
+            h_last = hidden[torch.arange(b, device=tokens.device),
+                            idx][:, None]
+        return T.logits_from_hidden(params, h_last, cfg), cache
 
 
 def lm_decode_step(params, cache, token, pos, *, cfg, sp_cfg,
-                   per_slot: bool = True):
+                   per_slot: bool = True, mesh=None):
     """One decode step on token (B, 1).  Per slot: pos (B,), row i writes
     its KV at pos[i] and attends to positions <= pos[i].  With
     ``per_slot=False`` (the synchronized batch): pos is one position,
     the rows' RoPE position, and every row writes at the cache's shared
     cursor ``pos`` entry and attends to the positions up to it.  The
-    cache is updated in place and returned."""
+    cache is updated in place and returned.  With a ``mesh`` whose
+    "model" axis has M > 1 ranks, ``params`` and ``cache`` are the
+    rank's blocks and the logits come back whole, as
+    ``lm_prefill_step``'s."""
     b = token.shape[0]
     pos = torch.as_tensor(pos, device=token.device)
     positions = (pos.reshape(b, 1) if per_slot
                  else pos.reshape(1, 1).expand(b, 1))
-    hidden, cache, _ = T.forward(params, token, cfg, sp_cfg, cache=cache,
-                                 decode=True, positions=positions,
-                                 per_slot=per_slot)
-    return T.logits_from_hidden(params, hidden, cfg), cache
+    split = tp.serve_split(cfg, mesh)
+    with tp.model_split(split):
+        hidden, cache, _ = T.forward(params, token, cfg, sp_cfg, cache=cache,
+                                     decode=True, positions=positions,
+                                     per_slot=per_slot)
+        return T.logits_from_hidden(params, hidden, cfg), cache
 
 
 def encdec_prefill_step(params, batch, *, cfg, sp_cfg,
@@ -488,8 +509,8 @@ def check_mesh(mesh):
         raise NotImplementedError(
             f"mesh {dict(mesh.shape)}: a 'model' axis of more than one rank "
             "(tensor and expert parallelism, and sequence parallelism over "
-            "'model') is ROADMAP item 7, part 3; this port runs 'data' "
-            "(FSDP) and 'pod' only")
+            "'model') in training is ROADMAP item 7, part 3, the training "
+            "side; training runs 'data' (FSDP) and 'pod' only")
 
 
 def abstract_compute_tree(aparams, sp_cfg, pack=False):

@@ -400,3 +400,36 @@ def test_fleet_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     assert {e.device.type for e in fleet.engines + fleet.prefill_engines} \
         == {"cpu"}
     assert E.main(["--device", "cpu", "--tokens", "4"]) == 0
+
+
+def test_scan_sees_the_tensor_parallel_module():
+    paths = {p.relative_to(ROOT).as_posix() for p in _sources()}
+    assert {"src/repro_torch/sharding/tp.py",
+            "src/repro_torch/launch/spmd.py"} <= paths
+
+
+def test_mesh_engine_refuses_to_fall_back_to_cpu(monkeypatch):
+    """The tensor-parallel engine and the rank's cache run on the card
+    unless ``device`` names another, and raise without one; the mesh
+    engine's refusals and the rank store check come after that, and a
+    "model" axis without a process group raises instead of serving the
+    whole model."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.sharding import tp
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = T.init(TC.SMOKE, seed=0, device="cpu", dtype=torch.bfloat16)
+    sp = SparsityConfig(n=2, m=8)
+    serve = ServeConfig(packed=True, n_slots=2, max_len=16, prompt_bucket=8)
+    mesh = Mesh({"data": 1, "model": 2})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(params, TC.SMOKE, sp, serve, mesh=mesh)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(params, TC.SMOKE, sp, serve,
+                    mesh=Mesh({"data": 2, "model": 1}))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tp.init_cache(TC.SMOKE, 2, 16, mesh)
+    cache = tp.init_cache(TC.SMOKE, 2, 16, mesh, device="cpu")
+    assert {t.device.type for t in _tensors(cache)} == {"cpu"}
+    with pytest.raises(RuntimeError, match="no process group"):
+        ServeEngine(params, TC.SMOKE, sp, serve, mesh=mesh, device="cpu")
