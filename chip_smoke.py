@@ -531,6 +531,45 @@ and the CUDA toolkit.  Phases, each of which fails the run on error:
                 per rank the weight bytes against the one-process
                 store's, peak, ms a step, tok/s and bytes a prefill and
                 a decode step, and the card line.
+ 56. dp serve   slot lanes over the DP axes and build_lm_serve:
+                nm_spmm_shared at both "model" ranks' blocks of one
+                qwen3-8b layer at (pod, data, model) = (1, 2, 2) (q, k,
+                v, w_gate, w_up by columns with the rows whole; o_proj
+                and w_down by rows, the rows rebased by r K / 2) at
+                build_lm_serve's rows a rank (B = 2 decode, 64 prefill)
+                and at B = 4 and 128, within the phase-3 tolerance of
+                the plain version, a column block's output bit for bit
+                the whole weight's columns, the two row blocks' outputs
+                summed within 2 x that tolerance of the whole weight's
+                plain product; rank 0's timed against the bound, the
+                plain version and torch.matmul on the dense block;
+                then 4 processes on
+                the one card (gloo), each drawing the seed's weights:
+                the engine (u4, phase 55's requests) at (1, 2, 2) and
+                at (2, 2, 1), against phase 55's one engine: each
+                rank's store bitwise its blocks (fingerprints), 63
+                vector nm_compact and 7 x 9 x (prefills + decode steps)
+                nm_spmm a rank, every rank's streams equal, the ranks
+                of one DP index' logits equal, teacher-forced logits
+                within TP_LOGIT_ATOL and every stream its one-process
+                stream or parting only under that top-two gap, every
+                step's collectives phase 55's "model" ones (at (1, 2,
+                2)) plus one token gather a decode step; then
+                build_lm_serve(packed=True) at (1, 2, 2): each rank
+                shared-packs the whole weights (63 scalar nm_compact)
+                and cuts its blocks (column blocks, and row blocks'
+                rows + r K / M, bitwise the whole pack's, against plain
+                slices of the one-process pack), prefills its 2 of
+                LM_SERVE_ROWS' 4 x 32-token rows and runs
+                LM_SERVE_STEPS shared-cursor decode steps fed the
+                one-process greedy tokens (phase 17's path at 9
+                layers): the gathered logits the same on every rank
+                and within TP_LOGIT_ATOL of the one process, tokens
+                equal where its top-two gap is over that, 7 x 9 x 17
+                nm_spmm_shared a rank, every forward's collectives 18
+                all-reduces, one lookup, one logits gather and one DP
+                logits gather; weight bytes, peak, ms and the card
+                line.
 
 It prints a JSON line with every kernel's numbers, the card line, and as
 its last line {"ok": true, "device": {...}}.  With no card, or outside a
@@ -6812,43 +6851,63 @@ def tp_drive(engine, prompts):
 @contextlib.contextmanager
 def tp_step_log(engine, log):
     """Append every serve step the engine runs to ``log``: its kind, the
-    slots it serves, its last-position logits (fp32, on the host) and
+    slots it serves (over DP ranks, the rank's own), its last-position
+    logits (fp32, on the host; a rank's rows at their slot numbers) and
     the collectives it took part in (``sharding.tp.stats`` deltas)."""
     from repro_torch.sharding import tp
     from repro_torch.train import step as ST
 
     orig = ST.lm_prefill_step, ST.lm_decode_step
+    batcher = engine.batcher
 
     def wrap(kind, fn):
         def run(*a, **kw):
-            rows = [0] if kind == "prefill" else sorted(engine._running)
+            rows = [0] if kind == "prefill" else [
+                s for s in sorted(engine._running) if batcher._holds(s)]
             before = dict(tp.stats)
             logits, cache = fn(*a, **kw)
-            log.append({"kind": kind, "rows": rows,
-                        "logits": logits[:, -1].float().cpu(),
+            got = logits[:, -1].float().cpu()
+            if kind == "decode" and got.shape[0] != batcher.kv.n_slots:
+                # the rank's slots over DP, at their slot numbers
+                full = torch.full((batcher.kv.n_slots, got.shape[1]),
+                                  float("nan"))
+                full[batcher.lo:batcher.lo + got.shape[0]] = got
+                got = full
+            log.append({"kind": kind, "rows": rows, "logits": got,
                         "collectives": {k: v - before[k]
                                         for k, v in tp.stats.items()}})
             return logits, cache
         return run
 
+    def step():   # a decode step's collectives: its token gather too
+        before = dict(tp.stats)
+        out = batch_step()
+        log[-1]["collectives"] = {k: v - before[k]
+                                  for k, v in tp.stats.items()}
+        return out
+
+    batch_step = batcher.step
     ST.lm_prefill_step = wrap("prefill", orig[0])
     ST.lm_decode_step = wrap("decode", orig[1])
+    batcher.step = step
     try:
         yield log
     finally:
         ST.lm_prefill_step, ST.lm_decode_step = orig
+        del batcher.step
 
 
 def packed_tensors(tree) -> list:
-    """Every tensor of a packed tree in order, a ``PackedOp``'s vals and
-    idx in turn (for ``train.checkpoint.state_fingerprint``)."""
-    from repro_torch.core.operand import PackedOp
+    """Every tensor of a packed tree in order, a ``PackedOp``'s or a
+    ``SharedOp``'s vals and idx in turn (for
+    ``train.checkpoint.state_fingerprint``)."""
+    from repro_torch.core.operand import PackedOp, SharedOp
 
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in packed_tensors(v)]
     if isinstance(tree, list):
         return [t for v in tree for t in packed_tensors(v)]
-    if isinstance(tree, PackedOp):
+    if isinstance(tree, (PackedOp, SharedOp)):
         return [tree.vals, tree.idx]
     return [tree]
 
@@ -6933,23 +6992,29 @@ def tp_block_proj(cfg, parts):
             for name, k, f in arch_proj(cfg)]
 
 
-def _tp_parting(solo_log, log, label):
-    """Walk the two runs' steps in order: the largest |TP - one-process|
-    logit over the served rows up to and with the first step where an
-    argmax differs, that step (None if none) and the one-process top-two
-    gap there."""
+def _tp_parting(solo_log, log, label, slots=None):
+    """Walk the two runs' steps in order: the largest |rank - one-process|
+    logit over the rank's served rows up to and with the first step
+    where an argmax differs, that step (None if none) and the
+    one-process top-two gap there.  A step must serve the one-process
+    step's rows, a decode step those of them in the rank's ``slots``
+    [lo, hi) where it holds a block of them (over DP ranks)."""
     worst, part = 0.0, None
     check(len(log) >= 1, f"{label}: no serve step")
     for s, (a, b) in enumerate(zip(solo_log, log)):
-        check(a["kind"] == b["kind"] and a["rows"] == b["rows"],
+        want = (a["rows"] if slots is None or a["kind"] == "prefill" else
+                [r for r in a["rows"] if slots[0] <= r < slots[1]])
+        check(a["kind"] == b["kind"] and b["rows"] == want,
               f"{label}: step {s} is not the one-process step")
-        x, y = a["logits"][a["rows"]], b["logits"][b["rows"]]
+        if not b["rows"]:
+            continue
+        x, y = a["logits"][b["rows"]], b["logits"][b["rows"]]
         worst = max(worst, float((x - y).abs().max()))
         flips = (x.argmax(-1) != y.argmax(-1)).nonzero()
         if len(flips):
             i = int(flips[0, 0])
             top2 = x[i].topk(2).values
-            part = {"step": s, "kind": a["kind"], "slot": a["rows"][i],
+            part = {"step": s, "kind": a["kind"], "slot": b["rows"][i],
                     "top2_gap": float(top2[0] - top2[1])}
             return worst, part
     check(len(log) == len(solo_log), f"{label}: step count differs")
@@ -7001,7 +7066,7 @@ def phase_tp_serve(dev, seed, cfg):
           "tp serve one process: nm_spmm launch count")
     check([len(s) for s in solo] == [TP_NEW] * len(prompts),
           "tp serve one process: lengths")
-    want_fp = {}
+    want_fp = {"whole": state_fingerprint(packed_tensors(store.params))}
     for r in range(TP_RANKS):
         mesh = Mesh({"data": 1, "model": TP_RANKS}, r)
         specs = spmd.serve_shardings(cfg, mesh, sp, n_slots=scfg.n_slots,
@@ -7118,7 +7183,568 @@ def phase_tp_serve(dev, seed, cfg):
     print(f"  ranks' run {ranks_wall:.1f} s with start-up; {card}")
     report.update(card=card, spmm_rows=spmm_rows, spmm_err=spmm_err,
                   pack_rows=pack_rows, pack_total=pack_tot,
-                  compact_launches=compact, compact_variants=compact_variants)
+                  compact_launches=compact, compact_variants=compact_variants,
+                  # phase 56's one engine: popped before --out is written
+                  handoff={"streams": solo, "log": solo_log,
+                           "prompts": prompts, "fingerprints": want_fp})
+    return report
+
+
+DP_MESHES = ((1, 2, 2), (2, 2, 1))  # phase 56's engines: (pod, data, model)
+DP_RANKS = 4
+LM_SERVE_ROWS = (4, 32)          # phase 56's build_lm_serve rows x prompt
+LM_SERVE_STEPS = 16              # its shared-cursor decode steps
+DP_AXES3 = ("pod", "data", "model")
+
+
+def seat_rows(cache, pre, s):
+    """A prefill cache of ``s`` positions into the first ``s`` of a
+    deeper cache (every row), its shared cursors at ``s``."""
+    for dst, src in zip(cache["layers"], pre["layers"]):
+        for key, t in src.items():
+            if isinstance(t, torch.Tensor):
+                dst[key][:, :t.shape[1]] = t
+            else:
+                dst[key] = s
+    return cache
+
+
+def shared_block_tensors(tree, specs, r):
+    """The ``SharedOp`` blocks of a rank's tree in order, each as [vals,
+    rows]: a row block's rows back on the whole K (+ r K / M)."""
+    from repro_torch.core.operand import SharedOp
+
+    if isinstance(tree, dict):
+        return [t for k in tree for t in shared_block_tensors(
+            tree[k], specs[k], r)]
+    if isinstance(tree, list):
+        return [t for v, sp in zip(tree, specs)
+                for t in shared_block_tensors(v, sp, r)]
+    if isinstance(tree, SharedOp):
+        row = bool(specs.idx) and specs.idx[0] is not None
+        return [tree.vals, tree.idx + r * tree.k if row else tree.idx]
+    return []
+
+
+def shared_block_slices(whole, specs, r, parts):
+    """``shared_block_tensors``' list from the whole pack itself: a
+    column site's columns of ``vals`` and its rows whole, a row site's
+    rows of both (plain slices, no ``sharding.tp``)."""
+    from repro_torch.core.operand import SharedOp
+
+    if isinstance(whole, dict):
+        return [t for k in whole for t in shared_block_slices(
+            whole[k], specs[k], r, parts)]
+    if isinstance(whole, list):
+        return [t for v, sp in zip(whole, specs)
+                for t in shared_block_slices(v, sp, r, parts)]
+    if isinstance(whole, SharedOp):
+        kc, f = whole.vals.shape
+        if bool(specs.idx) and specs.idx[0] is not None:
+            rows = slice(r * kc // parts, (r + 1) * kc // parts)
+            return [whole.vals[rows].contiguous(), whole.idx[rows]]
+        return [whole.vals[:, r * f // parts:(r + 1) * f // parts]
+                .contiguous(), whole.idx]
+    return []
+
+
+def _dp_lm_serve(dev, cfg, sp, params, mesh, rows, forced):
+    """Phase 56 part 2 on one rank: the whole weights shared-packed on
+    the card, cut to the rank's blocks, then build_lm_serve's prefill of
+    its rows and LM_SERVE_STEPS shared-cursor decode steps fed the
+    one-process tokens ``forced``; the whole batch's logits a forward."""
+    from repro_torch.core import bdwp
+    from repro_torch.kernels import nm_compact as KC
+    from repro_torch.kernels import nm_spmm_shared as KS
+    from repro_torch.models import transformer_lm as T
+    from repro_torch.sharding import tp
+    from repro_torch.train import step as ST
+    from repro_torch.train.checkpoint import state_fingerprint
+
+    b, s = rows.shape
+    KC.launches = 0
+    KC.variant_launches.update(dict.fromkeys(KC.VARIANTS, 0))
+    whole = bdwp.pack_tree_shared(params, sp, device=dev)
+    _tp_sync(dev)
+    compact, variants = KC.launches, dict(KC.variant_launches)
+    tokens = torch.empty((b, s), dtype=torch.int64, device="meta")
+    pre = ST.build_lm_serve(cfg, mesh, sp, {"tokens": tokens}, prefill=True,
+                            packed=True)
+    dec = ST.build_lm_serve(cfg, mesh, sp, {
+        "cache": T.init_lm_cache(cfg, b, s + LM_SERVE_STEPS, device="meta"),
+        "token": tokens[:, :1], "pos": torch.empty((), device="meta")},
+        packed=True)
+    blocks = tp.serve_blocks(whole, pre.state_shardings, mesh)
+    del whole
+    fingerprint = state_fingerprint(shared_block_tensors(
+        blocks, pre.state_shardings, mesh.coord("model")))
+    lo, hi = tp.slot_block(b, mesh)
+    rows = torch.as_tensor(rows, device=dev)
+    forced = torch.as_tensor(forced, device=dev)
+    _tp_sync(dev)
+    KS.launches = 0
+    tp.reset_stats()
+    logits, colls = [], []
+    t0 = time.perf_counter()
+    before = dict(tp.stats)
+    lg, cache1 = pre.step_fn(blocks, {"tokens": rows[lo:hi]})
+    colls.append({k: v - before[k] for k, v in tp.stats.items()})
+    logits.append(lg[:, -1].float().cpu())
+    cache = seat_rows(tp.init_cache(cfg, hi - lo, s + LM_SERVE_STEPS, mesh,
+                                    device=dev), cache1, s)
+    del cache1
+    for i in range(LM_SERVE_STEPS):
+        before = dict(tp.stats)
+        lg, cache = dec.step_fn(blocks, cache, forced[i, lo:hi, None], s + i)
+        colls.append({k: v - before[k] for k, v in tp.stats.items()})
+        logits.append(lg[:, -1].float().cpu())
+    _tp_sync(dev)
+    wall = time.perf_counter() - t0
+    return {"logits": torch.stack(logits), "collectives": colls,
+            "launches": KS.launches, "compact": compact,
+            "compact_variants": variants, "fingerprint": fingerprint,
+            "rows": (lo, hi), "wall_s": wall,
+            "weight_bytes": sum(t.numel() * t.element_size()
+                                for t in packed_tensors(blocks)
+                                if isinstance(t, torch.Tensor))}
+
+
+def _dp_rank(rank, world, store, out, dev_name, seed, cfg, prompts, rows,
+             forced):
+    """One rank of phase 56: the seed's weights drawn whole, the engine
+    over each of DP_MESHES (its blocks packed on the card) on phase 55's
+    requests with every count from 0, then ``_dp_lm_serve`` over (1, 2,
+    2); its results to ``out``/rank{rank}.pt."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.kernels import nm_compact as KC
+    from repro_torch.kernels import nm_spmm as K
+    from repro_torch.launch.mesh import mesh_over_group
+    from repro_torch.models import transformer_lm as T
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.sharding import tp
+    from repro_torch.train.checkpoint import state_fingerprint
+
+    dev = torch.device(dev_name)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if dev.type == "cpu":
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=TP_TIMEOUT))
+    sp = SparsityConfig(n=2, m=8, method="bdwp")
+    gen = T.generator(seed, dev)
+    params = T.init_shell(cfg, gen, device=dev, dtype=torch.bfloat16)
+    params["blocks"] = list(T.iter_blocks(cfg, gen, device=dev,
+                                          dtype=torch.bfloat16))
+    res, meshes = {"engines": {}}, {}
+    for shape in DP_MESHES:
+        mesh = meshes[shape] = mesh_over_group(dict(zip(DP_AXES3, shape)))
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        KC.launches = 0
+        KC.variant_launches.update(dict.fromkeys(KC.VARIANTS, 0))
+        engine = ServeEngine(params, cfg, sp, ServeConfig(
+            n_slots=4, prompt_bucket=32, packed=True, idx_bits=4),
+            device=dev, mesh=mesh)
+        _tp_sync(dev)
+        compact, variants = KC.launches, dict(KC.variant_launches)
+        fingerprint = state_fingerprint(packed_tensors(engine.store.params))
+        engine.submit(prompts[0][:3], max_new_tokens=2)      # warm-up
+        engine.run()
+        engine.reset()
+        _tp_sync(dev)
+        K.launches = 0
+        tp.reset_stats()
+        log = []
+        with tp_step_log(engine, log):
+            t0 = time.perf_counter()
+            streams = tp_drive(engine, prompts)
+            _tp_sync(dev)
+            wall = time.perf_counter() - t0
+        res["engines"][shape] = {
+            "streams": streams, "log": log, "launches": K.launches,
+            "compact": compact, "compact_variants": variants,
+            "fingerprint": fingerprint, "stats": engine.stats(),
+            "store_bytes": engine.store.total_bytes, "wall_s": wall,
+            "coords": mesh.coords, "dp_index": mesh.dp_index,
+            "slots": (engine.batcher.lo, engine.batcher.lo
+                      + engine.batcher.tokens.shape[0]),
+            "peak": (torch.cuda.max_memory_allocated()
+                     if dev.type == "cuda" else 0)}
+        del engine
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    res["lm_serve"] = _dp_lm_serve(dev, cfg, sp, params, meshes[1, 2, 2],
+                                   rows, forced)
+    res["lm_serve"]["peak"] = (torch.cuda.max_memory_allocated()
+                               if dev.type == "cuda" else 0)
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def dp_shared_kernels(dev, gen, cfg):
+    """nm_spmm_shared on the blocks of one layer over (1, 2, 2), rank r
+    at "model" coordinate r for r = 0, 1 (q/k/v, w_gate, w_up: the
+    columns F/2 with the rows whole; o_proj, w_down: the rows Kc/2,
+    rebased by r K / 2), at build_lm_serve's rows a rank (LM_SERVE_ROWS
+    over the 2 DP ranks: decode and prefill) and at B = 4 and
+    LM_SERVE_ROWS' 128: within the phase-3 tolerance of the plain
+    version; a column block's output bitwise the columns of the whole
+    weight's output; the row blocks' outputs on their K blocks of one
+    activation summed within 2 x that tolerance of the whole weight's
+    plain product.  Rank 0's blocks are timed (cold L2) against the
+    bound, the plain version and torch.matmul on the dense bf16 block.
+    Returns (rank 0's rows, max abs err over both ranks)."""
+    from repro_torch.core import bdwp
+    from repro_torch.core.operand import SharedOp
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.kernels import nm_spmm_shared as KS
+    from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.sharding import tp
+
+    sp = SparsityConfig(n=2, m=8, method="bdwp")
+    shape, dp = dict(zip(DP_AXES3, (1, 2, 2))), 2
+    rows_a_rank = LM_SERVE_ROWS[0] // dp
+    batches = sorted({rows_a_rank, rows_a_rank * LM_SERVE_ROWS[1], 4,
+                      LM_SERVE_ROWS[0] * LM_SERVE_ROWS[1]})
+    out_rows, worst = [], 0.0
+    for name, k, f in arch_proj(cfg):
+        row = name in ("o_proj", "w_down")
+        w = torch.randn((k, f), generator=gen, device=dev).to(torch.bfloat16)
+        vals, idx = bdwp.shared_ff_pack(w, sp)
+        spec = (SharedOp(("model", None), ("model",)) if row
+                else SharedOp((None, "model"), (None,)))
+        blks = [tp.serve_blocks({"w": SharedOp(vals, idx, k)}, {"w": spec},
+                                Mesh(shape, r))["w"] for r in range(2)]
+        for b in batches:
+            act_whole = torch.randn((b, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            whole_out = KS.nm_spmm_shared(act_whole, vals[None], idx[None])
+            row_sum = 0
+            for r, blk in enumerate(blks):
+                kc_l, f_l = blk.vals.shape
+                act = (act_whole[:, r * blk.k:(r + 1) * blk.k].contiguous()
+                       if row else act_whole)
+                got = KS.nm_spmm_shared(act, blk.vals[None], blk.idx[None])
+                plain = ref.ref_nm_spmm_shared(act, blk.vals[None],
+                                               blk.idx[None])
+                scale = ref.ref_nm_spmm_shared(
+                    act.abs(), blk.vals.abs()[None], blk.idx[None])
+                col_bitwise = (None if row else bits_equal(
+                    got, whole_out[:, r * f_l:(r + 1) * f_l].contiguous()))
+                if row:
+                    row_sum = row_sum + got
+                torch.cuda.synchronize()
+                err = (got - plain).abs()
+                worst = max(worst, float(err.max()))
+                label = (f"{name} rank {r} block ({blk.k}, {kc_l}, {f_l}) "
+                         f"B={b}")
+                check(float((err - TOL * scale).max()) <= 0,
+                      f"dp serve nm_spmm_shared {label}: error above "
+                      "tolerance")
+                check(col_bitwise in (None, True), f"dp serve nm_spmm_shared "
+                      f"{label}: not the whole weight's columns bit for bit")
+                if r:
+                    print(f"  {label:47s} max_abs_err={float(err.max()):.3e}"
+                          + ("" if row else f"; the whole weight's columns "
+                             f"bit for bit: {col_bitwise}"))
+                    continue
+                dense = (w[:blk.k] if row else
+                         w[:, :f_l].contiguous())
+                copies = max(2, -(-2 * L2_BYTES // (kc_l * f_l * 2)))
+                sets = [(blk.vals.clone()[None], blk.idx.clone()[None])
+                        for _ in range(copies)]
+                dens = [dense.clone() for _ in range(max(2, -(
+                    -2 * L2_BYTES // (dense.numel() * 2))))]
+                t_k = time_ms(lambda i: KS.nm_spmm_shared(act, *sets[i]),
+                              copies)
+                t_p = time_ms(lambda i: ref.ref_nm_spmm_shared(act, *sets[i]),
+                              copies, iters=10)
+                t_l = time_ms(lambda i: torch.matmul(act, dens[i]), len(dens))
+                t_b, by = shared_bound_ms(b, blk.k, kc_l, f_l)
+                out_rows.append({"proj": name, "B": b, "K": blk.k, "Kc": kc_l,
+                                 "F": f_l, "ms": t_k, "plain_ms": t_p,
+                                 "library_ms": t_l, "bound_ms": t_b,
+                                 "bound_by": by, "col_bitwise": col_bitwise,
+                                 "max_abs_err": float(err.max())})
+                print(f"  {label:47s} kernel={t_k:.4f} ms bound={t_b:.4f} ms "
+                      f"({by}) plain={t_p:.4f} ms torch.matmul(dense bf16 "
+                      f"block)={t_l:.4f} ms max_abs_err={float(err.max()):.3e}"
+                      + ("" if row else f"; the whole weight's columns bit "
+                         f"for bit: {col_bitwise}"))
+                del sets, dens
+            if row:
+                scale = ref.ref_nm_spmm_shared(act_whole.abs(),
+                                               vals.abs()[None], idx[None])
+                sum_err = (row_sum - ref.ref_nm_spmm_shared(
+                    act_whole, vals[None], idx[None])).abs()
+                check(float((sum_err - 2 * TOL * scale).max()) <= 0,
+                      f"dp serve nm_spmm_shared {name} B={b}: the row blocks' "
+                      "outputs summed are not the whole weight's product")
+                print(f"  {name} B={b}: the 2 row blocks' outputs summed, "
+                      f"{float(sum_err.max()):.3e} from the whole weight's "
+                      "plain product")
+    for b in batches:
+        rs = [r for r in out_rows if r["B"] == b]
+        t = {key: sum(r[key] for r in rs)
+             for key in ("ms", "library_ms", "bound_ms", "plain_ms")}
+        print(f"  B={b} one layer of rank 0's blocks (7 projections): "
+              f"{1e3 * t['ms']:.2f} us, bound {1e3 * t['bound_ms']:.2f} us, "
+              f"plain {1e3 * t['plain_ms']:.1f} us, torch.matmul on the "
+              f"dense blocks {1e3 * t['library_ms']:.2f} us")
+    return out_rows, worst
+
+
+def lm_serve_one_process(dev, seed, cfg, sp):
+    """Phase 56 part 2's reference: phase 17's path at ``cfg``'s depth,
+    the seed's weights ``pack_tree_shared`` layer by layer on the card,
+    LM_SERVE_ROWS prompt rows from the seed prefilled, then
+    LM_SERVE_STEPS greedy shared-cursor decode steps; the logits of each
+    forward (fp32, host), the greedy tokens, and each "model" rank's
+    shared blocks' fingerprint at (1, 2, 2) from plain slices."""
+    from repro_torch.core import bdwp
+    from repro_torch.kernels import nm_spmm_shared as KS
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer_lm as T
+    from repro_torch.train import step as ST
+    from repro_torch.train.checkpoint import state_fingerprint
+
+    gen = T.generator(seed, dev)
+    shell = T.init_shell(cfg, gen, device=dev, dtype=torch.bfloat16)
+    params = bdwp.pack_tree_shared(shell, sp, device=dev)
+    del shell
+    params["blocks"] = [bdwp.pack_tree_shared({"blocks": blk}, sp,
+                                              device=dev)["blocks"]
+                        for blk in T.iter_blocks(cfg, gen, device=dev,
+                                                 dtype=torch.bfloat16)]
+    specs = ST.build_lm_serve(cfg, Mesh(dict(zip(DP_AXES3, (1, 2, 2)))), sp,
+                              {}, packed=True).state_shardings
+    fps = {r: state_fingerprint(shared_block_slices(params, specs, r, 2))
+           for r in range(2)}
+    b, s = LM_SERVE_ROWS
+    rows = np.random.default_rng(seed + 56).integers(0, cfg.vocab, (b, s))
+    torch.cuda.synchronize()
+    KS.launches = 0
+    t0 = time.perf_counter()
+    lg, pre = ST.lm_prefill_step(params, {"tokens": torch.as_tensor(
+        rows, device=dev)}, cfg=cfg, sp_cfg=sp)
+    cache = seat_rows(T.init_lm_cache(cfg, b, s + LM_SERVE_STEPS,
+                                      device=dev), pre, s)
+    del pre
+    logits = [lg[:, -1].float()]
+    tokens = [torch.argmax(lg[:, -1, :cfg.vocab], -1)]
+    for i in range(LM_SERVE_STEPS):
+        lg, cache = ST.lm_decode_step(params, cache, tokens[-1][:, None],
+                                      s + i, cfg=cfg, sp_cfg=sp,
+                                      per_slot=False)
+        logits.append(lg[:, -1].float())
+        tokens.append(torch.argmax(lg[:, -1, :cfg.vocab], -1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = KS.launches
+    check(launches == 7 * cfg.n_layers * (1 + LM_SERVE_STEPS),
+          "dp serve one process: nm_spmm_shared launch count")
+    del params, cache
+    torch.cuda.empty_cache()
+    return {"logits": torch.stack(logits).cpu(),
+            "tokens": torch.stack(tokens).cpu(), "rows": rows,
+            "fingerprints": fps, "wall_s": wall, "launches": launches}
+
+
+def phase_dp_serve(dev, seed, cfg, handoff):
+    """qwen3-8b at ``cfg``'s widths, 2:8: nm_spmm_shared at a rank's
+    blocks; then on DP_RANKS processes on the one card (gloo) the
+    engine (u4) at each of DP_MESHES against phase 55's one engine
+    (``handoff``), and build_lm_serve(packed=True) at (1, 2, 2) against
+    ``lm_serve_one_process``; see the module docstring, phase 56."""
+    from repro_torch.core.sparsity import SparsityConfig
+
+    sp = SparsityConfig(n=2, m=8, method="bdwp")
+    gen = torch.Generator(device=dev).manual_seed(seed + 56)
+    kernel_rows, kernel_err = dp_shared_kernels(dev, gen, cfg)
+    torch.cuda.empty_cache()
+    one = lm_serve_one_process(dev, seed, cfg, sp)
+    forced = one["tokens"][:LM_SERVE_STEPS].numpy()
+
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    out = tempfile.mkdtemp(prefix="dp_serve_")
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(
+        _dp_rank, args=(DP_RANKS, os.path.join(out, "store"), out, str(dev),
+                        seed, cfg, handoff["prompts"], one["rows"], forced),
+        nprocs=DP_RANKS, join=False, start_method="spawn")
+    deadline = time.monotonic() + TP_TIMEOUT
+    try:
+        while not ctx.join(timeout=5):
+            check(time.monotonic() < deadline,
+                  f"dp serve: the ranks did not end in {TP_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks_wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(DP_RANKS)]
+    shutil.rmtree(out, ignore_errors=True)
+
+    per_fwd = packed_per_forward(cfg)
+    solo, solo_log = handoff["streams"], handoff["log"]
+    fps = handoff["fingerprints"]
+    report = {"engines": {}, "lm_serve": {}, "ranks_wall_s": ranks_wall,
+              "kernel_rows": kernel_rows, "kernel_err": kernel_err,
+              "lm_serve_one_process": {k: one[k] for k in (
+                  "wall_s", "launches", "fingerprints")}}
+    for shape in DP_MESHES:
+        model = shape[2]
+        kv = 0 if cfg.n_kv % model == 0 else 2 * cfg.n_layers
+        want_model = ({"all_reduces": 2 * cfg.n_layers, "embed_lookups": 1,
+                       "gathers": 1 + kv} if model > 1 else
+                      {"all_reduces": 0, "embed_lookups": 0, "gathers": 0})
+        rows_out = {}
+        for r, rk in enumerate(ranks):
+            res = rk["engines"][shape]
+            label = f"dp serve {shape} rank {r}"
+            rst = res["stats"]
+            fwd = rst["prefill_steps"] + rst["decode_steps"]
+            check(res["compact"] == per_fwd
+                  and res["compact_variants"]["vector"] == per_fwd,
+                  f"{label}: nm_compact launches {res['compact']} "
+                  f"{res['compact_variants']}")
+            check(res["launches"] == per_fwd * fwd and fwd > 0,
+                  f"{label}: nm_spmm launch count {res['launches']}")
+            want_fp = (fps[res["coords"]["model"]] if model > 1
+                       else fps["whole"])
+            check(res["fingerprint"] == want_fp, f"{label}: its store is "
+                  "not its blocks of the one-process store")
+            check(res["streams"] == ranks[0]["engines"][shape]["streams"],
+                  f"{label}: streams differ from rank 0's")
+            for other in ranks:
+                o = other["engines"][shape]
+                if o["dp_index"] == res["dp_index"]:
+                    check(all(bits_equal(a["logits"], b["logits"])
+                              for a, b in zip(res["log"], o["log"])),
+                          f"{label}: logits differ from its DP rank's")
+            per_kind = {}
+            for e in res["log"]:
+                c = e["collectives"]
+                want = dict(want_model, dp_gathers=int(
+                    e["kind"] == "decode"), lane_shares=0)
+                check(all(c[k] == v for k, v in want.items()),
+                      f"{label}: collectives of a {e['kind']} step {c}, "
+                      f"want {want}")
+                per_kind.setdefault(e["kind"], []).append(c)
+            coll = {kind: {k: sum(c[k] for c in cs) / len(cs)
+                           for k in cs[0]} for kind, cs in per_kind.items()}
+            worst, part = _tp_parting(solo_log, res["log"], label,
+                                      res["slots"])
+            check(worst <= TP_LOGIT_ATOL,
+                  f"{label}: teacher-forced logits {worst:.3e} from the "
+                  f"one-process logits, over {TP_LOGIT_ATOL}")
+            if part is None:
+                check(res["streams"] == solo, f"{label}: streams differ")
+            else:
+                print(f"  {label}: parts from the one-process streams at "
+                      f"step {part['step']} ({part['kind']}, slot "
+                      f"{part['slot']}), one-process top-two gap "
+                      f"{part['top2_gap']:.3e}")
+                check(part["top2_gap"] < TP_LOGIT_ATOL,
+                      f"{label}: parted where the one-process top-two gap "
+                      f"{part['top2_gap']:.3e} is not under {TP_LOGIT_ATOL}")
+            row = {"coords": res["coords"], "slots": res["slots"],
+                   "launches": res["launches"],
+                   "compact_launches": res["compact"],
+                   "compact_variants": res["compact_variants"],
+                   "weight_bytes": res["store_bytes"],
+                   "peak_bytes": res["peak"],
+                   "ms_per_step": 1e3 * res["wall_s"] / rst["steps"],
+                   "tok_per_s": rst["decoded_tokens"] / res["wall_s"],
+                   "collectives_per_step": coll, "max_logit_gap": worst,
+                   "parting": part, "stats": rst,
+                   "streams_equal_one_process": res["streams"] == solo}
+            rows_out[r] = row
+            print(f"  {label} {res['coords']} slots {res['slots']}: weights "
+                  f"{res['store_bytes'] / 2**30:.3f} GiB, peak "
+                  f"{res['peak'] / 2**30:.2f} GiB, {row['ms_per_step']:.2f} "
+                  f"ms a step, {row['tok_per_s']:.1f} tok/s (smoke "
+                  f"readings); nm_spmm {res['launches']} (want "
+                  f"{per_fwd * fwd}), nm_compact {res['compact']} "
+                  f"{res['compact_variants']}; logit gap {worst:.3e} (limit "
+                  f"{TP_LOGIT_ATOL}); streams equal the one-process streams: "
+                  f"{row['streams_equal_one_process']}")
+            for kind, c in coll.items():
+                print(f"  {label} per {kind} step: {c['all_reduces']:.0f} "
+                      f"all-reduces ({c['all_reduce_bytes']:.0f} B), "
+                      f"{c['embed_lookups']:.0f} lookups, {c['gathers']:.0f}"
+                      f" gathers ({c['gather_bytes']:.0f} B), "
+                      f"{c['dp_gathers']:.0f} token gathers "
+                      f"({c['dp_gather_bytes']:.0f} B)")
+        report["engines"]["x".join(map(str, shape))] = rows_out
+
+    want_launches = 7 * cfg.n_layers * (1 + LM_SERVE_STEPS)
+    top2 = one["logits"][..., :cfg.vocab].topk(2, -1).values
+    clear = (top2[..., 0] - top2[..., 1]) > TP_LOGIT_ATOL
+    for r, rk in enumerate(ranks):
+        res, label = rk["lm_serve"], f"lm_serve (1, 2, 2) rank {r}"
+        model = r % 2
+        check(res["launches"] == want_launches,
+              f"{label}: nm_spmm_shared launches {res['launches']}, want "
+              f"{want_launches}")
+        check(res["compact"] == per_fwd
+              and res["compact_variants"]["scalar"] == per_fwd,
+              f"{label}: nm_compact launches {res['compact']} "
+              f"{res['compact_variants']}")
+        check(res["fingerprint"] == one["fingerprints"][model],
+              f"{label}: its shared blocks (row blocks' rows + r K / M) are "
+              "not the whole pack's")
+        check(torch.equal(res["logits"], ranks[0]["lm_serve"]["logits"]),
+              f"{label}: logits differ from rank 0's")
+        gap = float((res["logits"] - one["logits"]).abs().max())
+        check(gap <= TP_LOGIT_ATOL, f"{label}: logits {gap:.3e} from the "
+              f"one-process shared serve, over {TP_LOGIT_ATOL}")
+        mine = res["logits"][..., :cfg.vocab].argmax(-1)
+        check(bool((mine == one["tokens"])[clear].all()),
+              f"{label}: a token differs where the top-two gap is over "
+              f"{TP_LOGIT_ATOL}")
+        for i, c in enumerate(res["collectives"]):
+            want = {"all_reduces": 2 * cfg.n_layers, "embed_lookups": 1,
+                    "gathers": 1, "dp_gathers": 1}
+            check(all(c[k] == v for k, v in want.items()),
+                  f"{label}: collectives of forward {i} {c}, want {want}")
+        fwd = len(res["collectives"])
+        row = {"launches": res["launches"],
+               "compact_launches": res["compact"],
+               "compact_variants": res["compact_variants"],
+               "max_logit_gap": gap, "rows": res["rows"],
+               "weight_bytes": res["weight_bytes"], "peak_bytes": res["peak"],
+               "ms_per_forward": 1e3 * res["wall_s"] / fwd,
+               "tokens_equal_one_process": bool((mine == one["tokens"]).all()),
+               "collectives_per_forward": {
+                   k: sum(c[k] for c in res["collectives"]) / fwd
+                   for k in res["collectives"][0]}}
+        report["lm_serve"][r] = row
+        print(f"  {label} rows {res['rows']}: shared blocks "
+              f"{res['weight_bytes'] / 2**30:.3f} GiB, peak "
+              f"{res['peak'] / 2**30:.2f} GiB; nm_spmm_shared "
+              f"{res['launches']} (want {want_launches}), nm_compact "
+              f"{res['compact']} {res['compact_variants']}; logits "
+              f"{gap:.3e} from one process (limit {TP_LOGIT_ATOL}), every "
+              f"token equal: {row['tokens_equal_one_process']}; "
+              f"{row['ms_per_forward']:.2f} ms a forward (one process "
+              f"{1e3 * one['wall_s'] / fwd:.2f}); per forward "
+              f"{row['collectives_per_forward']}")
+    card = card_line()
+    print(f"  ranks' run {ranks_wall:.1f} s with start-up; {card}")
+    report["card"] = card
     return report
 
 
@@ -7423,6 +8049,12 @@ def main(argv=None) -> int:
          f" packed 2:8 u4, over model = {TP_RANKS} ranks (processes on the "
          "one card, gloo) against one engine")
     tp_serve = phase_tp_serve(dev, SEED, serve_cfg)
+    torch.cuda.empty_cache()
+    head(f"[56] dp serve: qwen3-8b FULL widths ({SERVE_LAYERS} of 36 layers),"
+         f" 2:8, {DP_RANKS} processes on the one card (gloo): the engine (u4)"
+         " at (pod, data, model) = " + " and ".join(map(str, DP_MESHES))
+         + ", build_lm_serve (shared-packed) at (1, 2, 2)")
+    dp_serve = phase_dp_serve(dev, SEED, serve_cfg, tp_serve.pop("handoff"))
 
     def summed(rs, at, launches, by_path, err):
         return {"launches": launches, "launches_by_path": by_path,
@@ -7471,7 +8103,10 @@ def main(argv=None) -> int:
                      for k, v in pod_data["ranks"].items()},
                   "fleet": fleet["launches"],
                   **{f"tp_serve/rank{k}": v["launches"]
-                     for k, v in tp_serve["ranks"].items()}}
+                     for k, v in tp_serve["ranks"].items()},
+                  **{f"dp_serve/{m}/rank{k}": v["launches"]
+                     for m, rs in dp_serve["engines"].items()
+                     for k, v in rs.items()}}
     upd_paths, upd_sites = ({
         "train": train["launches"][key],
         "train_sync": train_sync["launches"][key],
@@ -7501,7 +8136,15 @@ def main(argv=None) -> int:
                      "serve_whisper": whisper_serve["compact_launches"],
                      "fleet": fleet["compact_launches"],
                      **{f"tp_serve/rank{k}": v["compact_launches"]
-                        for k, v in tp_serve["ranks"].items()}}
+                        for k, v in tp_serve["ranks"].items()},
+                     **{f"dp_serve/{m}/rank{k}": v["compact_launches"]
+                        for m, rs in dp_serve["engines"].items()
+                        for k, v in rs.items()},
+                     **{f"lm_serve/rank{k}": v["compact_launches"]
+                        for k, v in dp_serve["lm_serve"].items()}}
+    shared_paths = {"shared_serve": shared_serve["launches"],
+                    **{f"lm_serve/rank{k}": v["launches"]
+                       for k, v in dp_serve["lm_serve"].items()}}
     shared_decode = [r for r in shared_rows if r["B"] == 4]
     shared_prefill = [r for r in shared_rows if r["B"] != 4]
     sync_at = {(r["leaf"], r["dtype"]): r for r in sync_rows}
@@ -7690,7 +8333,12 @@ def main(argv=None) -> int:
                  "serve_whisper": whisper_serve["compact_variants"],
                  "fleet": fleet["compact_variants"],
                  **{f"tp_serve/rank{k}": v["compact_variants"]
-                    for k, v in tp_serve["ranks"].items()}},
+                    for k, v in tp_serve["ranks"].items()},
+                 **{f"dp_serve/{m}/rank{k}": v["compact_variants"]
+                    for m, rs in dp_serve["engines"].items()
+                    for k, v in rs.items()},
+                 **{f"lm_serve/rank{k}": v["compact_variants"]
+                    for k, v in dp_serve["lm_serve"].items()}},
              **{key: sum(r[key] for r in compact_rows)
                 for key in ("scalar_ms", "u8_ms", "u8_bound_ms")},
              deepseek_pack=dict(
@@ -7726,13 +8374,26 @@ def main(argv=None) -> int:
              replaces="src/repro/kernels/nm_spmm_shared.py:104",
              **summed(shared_decode, "one decode layer: the 7 projections at "
                       "B=4, 2:8 shared pattern, one tile (TF = F), summed",
-                      shared_serve["launches"],
-                      {"shared_serve": shared_serve["launches"]}, shared_err),
+                      sum(shared_paths.values()), shared_paths,
+                      max(shared_err, dp_serve["kernel_err"])),
              prefill_rows=summed(
                  shared_prefill, "one prefill layer: the 7 projections at "
                  f"B={PREFILL_ROWS[0] * PREFILL_ROWS[1]}, summed",
                  shared_serve["launches"],
-                 {"shared_serve": shared_serve["launches"]}, shared_err))]
+                 {"shared_serve": shared_serve["launches"]}, shared_err),
+             **{f"tp_rank_block_rows_b{b}": summed(
+                 [r for r in dp_serve["kernel_rows"] if r["B"] == b],
+                 f"one layer of rank 0's blocks at (1, 2, 2) at B={b} "
+                 f"({LM_SERVE_ROWS[0] // 2} and "
+                 f"{LM_SERVE_ROWS[0] // 2 * LM_SERVE_ROWS[1]}: "
+                 "build_lm_serve's decode and prefill rows a rank): q, k, "
+                 "v, w_gate, w_up (Kc, F/2) with the rows whole, o_proj and "
+                 "w_down (Kc/2, F) with the rows rebased, summed; library: "
+                 "torch.matmul on the dense bf16 block", sum(
+                     v["launches"] for v in dp_serve["lm_serve"].values()),
+                 {k: v for k, v in shared_paths.items()
+                  if k.startswith("lm_serve")}, dp_serve["kernel_err"])
+                for b in sorted({r["B"] for r in dp_serve["kernel_rows"]})})]
     if args.out:
         with open(args.out, "w") as fh:
             json.dump({"card": card, "kernels": kernels, "timing": rows,
@@ -7771,7 +8432,7 @@ def main(argv=None) -> int:
                        "fsdp_update": shard_upd, "fsdp": fsdp,
                        "pod_data_sync": pod_sync, "pod_data": pod_data,
                        "ckpt_reshard": reshard, "fleet": fleet,
-                       "tp_serve": tp_serve,
+                       "tp_serve": tp_serve, "dp_serve": dp_serve,
                        "phase_starts": starts,
                        "seconds": time.perf_counter() - t_start}, fh,
                       indent=1, default=str)

@@ -4,8 +4,8 @@ Counterpart of ``src/repro/core/bdwp.py``: the policy (``serve_packable``,
 ``ff_group_axis``, ``bp_group_axis``, ``should_prune``, ``pick_cfg``),
 the pre-generation sites (``bare_nm_leaf``, ``decays``, ``pregen_site``,
 ``is_pregen``) and shared-pattern serving packing (``shared_ff_pack``,
-``pack_tree_shared``), with the same rules.  Not ported: sharding specs,
-the deprecated ``nm_linear`` / ``packed_shared_apply`` shims, and
+``pack_tree_shared``, with its ``pspecs=``), with the same rules.  Not
+ported: the deprecated ``nm_linear`` / ``packed_shared_apply`` shims, and
 ``pregen_site``'s ``bare=False`` (the reference's recognition of
 checkpoints written before MoE pre-generation, which the port never
 wrote).  A bias (``.../b``, 1-D) is never pruned, packed or a site; a
@@ -50,32 +50,71 @@ def shared_ff_pack(w: torch.Tensor, cfg: SparsityConfig):
     return w.index_select(0, idx), idx
 
 
-def pack_tree_shared(params, cfg: SparsityConfig, *, device=None):
+def pack_tree_shared(params, cfg: SparsityConfig, *, device=None,
+                     pspecs=None):
     """Transform a param tree for shared-pattern serving: every
     ``{"w": (K, F)}`` leaf-dict that ``serve_packable`` admits becomes
-    ``{"w": operand.SharedOp(vals, idx)}`` (a bias is carried over),
+    ``{"w": operand.SharedOp(vals, idx, K)}`` (a bias is carried over),
     and every leaf lies on ``device`` (the card unless the caller names
-    another).  The port's blocks are per layer, so every weight is 2-D."""
+    another; a tree of meta tensors stays meta and gives the shapes
+    alone).  The port's blocks are per layer, so every weight is 2-D.
+
+    With ``pspecs`` (a matching tree of spec tuples), returns (packed
+    tree, packed specs) transformed alike: ``vals`` keep w's spec,
+    ``idx`` drops its feature entry, as the reference's."""
     from repro_torch.core.operand import SharedOp   # operand imports bdwp
 
-    device = resolve_device(device)
+    if not _is_meta(params):
+        device = resolve_device(device)
 
-    def walk(node, path):
+    def pack(w):
+        if w.is_meta:
+            kc = w.shape[0] // cfg.m * cfg.n
+            return SharedOp(torch.empty((kc, w.shape[1]), dtype=w.dtype,
+                                        device="meta"),
+                            torch.empty((kc,), dtype=torch.int32,
+                                        device="meta"), w.shape[0])
+        return SharedOp(*shared_ff_pack(w, cfg), w.shape[0])
+
+    def move(t):
+        return t if t.is_meta else t.to(device)
+
+    def walk(node, spec, path):
         if isinstance(node, dict) and "w" in node:
-            w = node["w"].to(device)
+            w = move(node["w"])
             if serve_packable("/".join(path), tuple(w.shape[-2:]), cfg):
-                new = {"w": SharedOp(*shared_ff_pack(w, cfg))}
+                new = {"w": pack(w)}
+                new_spec = None if spec is None else {
+                    "w": SharedOp(spec["w"], tuple(spec["w"][:-1]))}
                 if "b" in node:
-                    new["b"] = node["b"].to(device)
-                return new
-            return {k: v.to(device) for k, v in node.items()}
+                    new["b"] = move(node["b"])
+                    if spec is not None:
+                        new_spec["b"] = spec["b"]
+                return new, new_spec
+            return {k: move(v) for k, v in node.items()}, spec
         if isinstance(node, dict):
-            return {k: walk(v, path + (k,)) for k, v in node.items()}
+            out = {k: walk(v, None if spec is None else spec[k],
+                           path + (k,)) for k, v in node.items()}
+            return ({k: v[0] for k, v in out.items()},
+                    None if spec is None else
+                    {k: v[1] for k, v in out.items()})
         if isinstance(node, list):
-            return [walk(v, path) for v in node]
-        return node.to(device)
+            out = [walk(v, None if spec is None else spec[i], path)
+                   for i, v in enumerate(node)]
+            return ([v[0] for v in out],
+                    None if spec is None else [v[1] for v in out])
+        return move(node), spec
 
-    return walk(params, ())
+    packed, packed_specs = walk(params, pspecs, ())
+    return packed if pspecs is None else (packed, packed_specs)
+
+
+def _is_meta(tree) -> bool:
+    if isinstance(tree, dict):
+        return all(_is_meta(v) for v in tree.values())
+    if isinstance(tree, list):
+        return all(_is_meta(v) for v in tree)
+    return tree.is_meta
 
 
 def ff_group_axis(shape) -> int:

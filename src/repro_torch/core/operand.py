@@ -36,6 +36,8 @@ a conv is cuDNN's on the card and an fp32 conv rounded once on the CPU).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -129,11 +131,15 @@ class SharedOp(SparseOperand):
     """Shared-pattern reduced-K serving weight (``bdwp.pack_tree_shared``):
     vals (K·N/M, F) the pre-gathered surviving rows of w, idx (K·N/M,)
     int32 their absolute K rows; the forward gathers those activation
-    columns and contracts an M/N-times-shorter K."""
+    columns and contracts an M/N-times-shorter K.  ``k``: the K the rows
+    index (the weight's, or on a rank the K block a row-parallel block's
+    rebased rows index; ``sharding.tp``), None where unknown."""
 
-    def __init__(self, vals: torch.Tensor, idx: torch.Tensor):
+    def __init__(self, vals: torch.Tensor, idx: torch.Tensor,
+                 k: Optional[int] = None):
         self.vals = vals
         self.idx = idx
+        self.k = k
 
 
 def as_operand(leaf, name: str, cfg: SparsityConfig) -> SparseOperand:
@@ -439,10 +445,11 @@ def _packed_serve(x: torch.Tensor, op: PackedOp) -> torch.Tensor:
 
 
 def nm_apply_f32(op: SparseOperand, x: torch.Tensor) -> torch.Tensor:
-    """``nm_apply`` of a 2-D serving weight (plain, masked or a
-    ``PackedOp``) without its last step, the rounding of the fp32
-    product to x's dtype: the partial product that a row-parallel
-    projection sums over ranks first (``sharding.tp``).  No autograd."""
+    """``nm_apply`` of a 2-D serving weight (plain, masked, a
+    ``PackedOp`` or a ``SharedOp``) without its last step, the rounding
+    of the fp32 product to x's dtype: the partial product that a
+    row-parallel projection sums over ranks first (``sharding.tp``).
+    No autograd."""
     if isinstance(op, DenseOp):
         op = MaskedOp(op.w, DENSE)
     if isinstance(op, MaskedOp):
@@ -454,6 +461,10 @@ def nm_apply_f32(op: SparseOperand, x: torch.Tensor) -> torch.Tensor:
         y = ops.nm_spmm(x2, op.vals, op.idx, op.cfg.n, op.cfg.m,
                         op.idx_bits)
         return y.reshape(*x.shape[:-1], op.vals.shape[-1])
+    if isinstance(op, SharedOp):   # one output tile, TF = F
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        y = ops.nm_spmm_shared(x2, op.vals[None], op.idx[None])
+        return y.reshape(*x.shape[:-1], op.vals.shape[-1])
     raise TypeError(f"nm_apply_f32: not a serving operand: "
                     f"{type(op).__name__}")
 
@@ -462,9 +473,7 @@ def _shared_serve(x: torch.Tensor, op: SharedOp) -> torch.Tensor:
     """Shared-pattern serving matmul through ``kernels.ops.nm_spmm_shared``
     (one output tile, TF = F): fp32 out, rounded once to the activation
     dtype."""
-    x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    y = ops.nm_spmm_shared(x2, op.vals[None], op.idx[None])
-    return y.reshape(*x.shape[:-1], op.vals.shape[-1]).to(x.dtype)
+    return nm_apply_f32(op, x).to(x.dtype)
 
 
 def _pregen_ff_dense(op: PregenOp) -> torch.Tensor:

@@ -9,8 +9,13 @@ reference's devices out).  Each rank knows its coordinate and holds one
 ``torch.distributed`` group an axis: the ranks that share every other
 coordinate, in the order of their coordinate on that axis (the "pod"
 group of rank (p, d) is the P ranks (0..P-1, d)), built with
-``dist.new_group`` on every rank in one fixed order.  A mesh of one
-rank has no groups and needs no process group.
+``dist.new_group`` on every rank in one fixed order.  Where the
+data-parallel axes ("pod" and "data") have more than one rank between
+them, the mesh also holds their joint group under the key ``DP_AXES``:
+the ranks that share the rank's "model" coordinate, in the order of
+their DP index pod * D + data, the reference's row-major device order
+along ("pod", "data").  A mesh of one rank has no groups and needs no
+process group.
 
 ``torch.distributed.device_mesh`` is not used: its CUDA meshes ask for
 NCCL sub-groups, and NCCL refuses two ranks on one card, which is how
@@ -26,12 +31,17 @@ from __future__ import annotations
 import dataclasses
 import math
 
+# the data-parallel axes, outer first: a rank's DP index is row-major
+# over them, and the batch's rows (the serving slots) are cut over them
+DP_AXES = ("pod", "data")
+
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """``shape``: ordered {axis: size}; ``rank``: this process's rank,
     row-major over the axes; ``groups``: {axis: process group} for every
-    axis of size > 1 (empty for a mesh that only plans)."""
+    axis of size > 1, and {DP_AXES: group} where the DP axes have more
+    than one rank (empty for a mesh that only plans)."""
     shape: dict
     rank: int = 0
     groups: dict = dataclasses.field(default_factory=dict)
@@ -60,6 +70,22 @@ class Mesh:
         """The process group of ``axis`` (None when it has one rank)."""
         return self.groups.get(axis)
 
+    @property
+    def dp_size(self) -> int:
+        """D: the ranks over the DP axes."""
+        return math.prod(self.shape.get(a, 1) for a in DP_AXES)
+
+    @property
+    def dp_index(self) -> int:
+        """This rank's DP index, pod * D_data + data."""
+        return self.coord("pod") * self.shape.get("data", 1) + \
+            self.coord("data")
+
+    def dp_group(self):
+        """The process group over the DP axes; None when D = 1 or the
+        mesh only plans."""
+        return self.groups.get(DP_AXES)
+
 
 def rank_of(shape: dict, coords: dict) -> int:
     """The rank of the cell at ``coords`` of a mesh of ``shape``."""
@@ -69,25 +95,33 @@ def rank_of(shape: dict, coords: dict) -> int:
     return rank
 
 
-def axis_ranks(shape: dict, axis: str) -> list:
-    """Every group of ``axis``: the ranks that share every other
-    coordinate, each in the order of its ``axis`` coordinate; the
-    groups in row-major order of the other coordinates."""
-    others = [a for a in shape if a != axis]
-    out = []
-    for flat in range(math.prod(shape[a] for a in others)):
-        coords, rest = {}, flat
-        for a in reversed(others):
-            coords[a] = rest % shape[a]
-            rest //= shape[a]
-        out.append([rank_of(shape, dict(coords, **{axis: i}))
-                    for i in range(shape[axis])])
-    return out
+def _unflatten(shape: dict, axes: list, flat: int) -> dict:
+    coords = {}
+    for a in reversed(axes):
+        coords[a] = flat % shape[a]
+        flat //= shape[a]
+    return coords
+
+
+def axis_ranks(shape: dict, axis) -> list:
+    """Every group of ``axis`` (a name, or a tuple of names such as
+    ``DP_AXES``): the ranks that share every other coordinate, each in
+    row-major order of its coordinates on ``axis``; the groups in
+    row-major order of the other coordinates."""
+    axes = {axis} if isinstance(axis, str) else set(axis)
+    inner = [a for a in shape if a in axes]
+    others = [a for a in shape if a not in axes]
+    count = math.prod(shape[a] for a in inner)
+    return [[rank_of(shape, {**_unflatten(shape, others, flat),
+                             **_unflatten(shape, inner, i)})
+             for i in range(count)]
+            for flat in range(math.prod(shape[a] for a in others))]
 
 
 def build_groups(shape: dict, rank: int) -> dict:
     """{axis: this rank's group} over the default process group, for
-    every axis of size > 1; every rank makes every group, in one
+    every axis of size > 1, and {DP_AXES: its DP group} where the DP
+    axes have more than one rank; every rank makes every group, in one
     order, as ``dist.new_group`` wants."""
     import torch.distributed as dist
 
@@ -96,9 +130,10 @@ def build_groups(shape: dict, rank: int) -> dict:
                          f"{math.prod(shape.values())} ranks, the process "
                          f"group has {dist.get_world_size()}")
     groups = {}
-    for axis, size in shape.items():
-        if size == 1:
-            continue
+    axes = [a for a, size in shape.items() if size > 1]
+    if math.prod(shape.get(a, 1) for a in DP_AXES) > 1:
+        axes.append(DP_AXES)
+    for axis in axes:
         for ranks in axis_ranks(shape, axis):
             g = dist.new_group(ranks)
             if rank in ranks:

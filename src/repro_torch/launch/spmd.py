@@ -28,8 +28,9 @@ there is no ``NamedSharding``; ``sharding.tp`` executes them
 partitions a device list as the reference's does; ``fleet_meshes``
 gives each replica its group as one torch device
 (``ServeFleet(devices=)``), and raises NotImplementedError for a group
-of more than one device: a replica over a process group needs the
-fleet's router to run on every rank in lockstep (ROADMAP item 7).
+of more than one device: a fleet replica over a process group needs
+the fleet's router to run on every rank in lockstep (ROADMAP item 7.5;
+one engine over such a group is ``ServeEngine(mesh=)``).
 """
 
 from __future__ import annotations
@@ -126,18 +127,21 @@ def replica_device_groups(n_replicas: int, *, devices=None) -> list:
 
 def fleet_meshes(n_replicas: int, *, devices=None) -> list:
     """Each fleet replica's device group as the one torch device it
-    serves on, for ``ServeFleet(devices=)``.  A group of more than one
-    device would serve one replica over a process group, whose router
-    must then run on every rank in lockstep: not ported (ROADMAP item
-    7, a fleet replica over a device group)."""
+    serves on, for ``ServeFleet(devices=)``.  One engine serves over a
+    group of ranks (``ServeEngine(mesh=)``: its slots over the DP axes,
+    the dense attention LMs' heads over "model"); a fleet replica over
+    a device group needs the fleet's router to run on every rank of the
+    group in lockstep: not ported (ROADMAP item 7.5)."""
     out = []
     for group in replica_device_groups(n_replicas, devices=devices):
         if len(group) > 1:
             raise NotImplementedError(
-                f"a replica group of {len(group)} devices serves one "
-                "replica over a process group, whose fleet router must run "
-                "on every rank in lockstep; not ported: ROADMAP item 7, a "
-                "fleet replica over a device group")
+                f"a replica group of {len(group)} devices: one engine serves "
+                "over a group of ranks (ServeEngine(mesh=), slot lanes over "
+                "'pod'/'data', heads over 'model'), but a fleet replica over "
+                "a device group needs the fleet's router on every rank in "
+                "lockstep; not ported: ROADMAP item 7.5, a fleet replica "
+                "over a device group")
         out.append(torch.device(group[0]))
     return out
 

@@ -185,10 +185,16 @@ def dense_apply(p, x: torch.Tensor, name: str, cfg: SparsityConfig,
 
 def local_dims(w) -> tuple:
     """(K, F) of the rank's block of a weight: a tensor, a masked
-    operand's, or a ``PackedOp``'s (K from its Kc = K N/M packed rows)."""
+    operand's, a ``PackedOp``'s (K from its Kc = K N/M packed rows) or a
+    ``SharedOp``'s (the K its rows index)."""
     if isinstance(w, O.PackedOp):
         kc, f = w.vals.shape[-2:]
         return kc // w.cfg.n * w.cfg.m, f
+    if isinstance(w, O.SharedOp):
+        if w.k is None:
+            raise ValueError("a SharedOp without its K (pack it with "
+                             "core.bdwp.pack_tree_shared)")
+        return w.k, w.vals.shape[-1]
     return tuple((w.w if isinstance(w, O.MaskedOp) else w).shape[-2:])
 
 

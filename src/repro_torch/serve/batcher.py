@@ -14,13 +14,20 @@ the cache is a list of per-layer ``{"k", "v", "pos"}`` dicts of
 SSM layer's fp32 ``{"state", "conv"}``, a hybrid layer's both),
 beside a prelude's cache where the model has one, and seating, decode
 writes and lane export work on it in place (the reference donates its
-cache to the jitted steps).  With a ``mesh`` whose "model" axis has M >
-1 ranks (one process a rank), the params are the rank's blocks, the
-cache is allocated at the rank's block shapes (``sharding.tp.
-init_cache``) and the steps run with ``mesh=``; the tokens, positions
-and host bookkeeping are whole on every rank, where the reference
-commits them to its DP shardings (a mesh with "pod" or "data" > 1 is
-refused by the engine).
+cache to the jitted steps).  With a ``mesh`` of several ranks (one
+process a rank, ``ServeEngine(mesh=)``) the cache is allocated at the
+rank's block shapes (``sharding.tp.init_cache``) and the steps run with
+``mesh=``: over "model" the params are the rank's blocks and the
+logits come back whole; over the DP axes ("pod", "data") the rank holds
+its DP index' block of the slots, tokens and positions
+(``sharding.tp.SlotSplit``; every slot where D does not divide them, as
+the reference replicates them).  The host state (the free-slot bitmap,
+the queue, the requests) is the same on every rank, which runs the
+same loop on the same submissions: every rank prefills each admitted
+request (the reference's batch-1 prefill is replicated over DP), only
+the slot's owner seats it, a decode step runs the rank's rows and
+gathers the token ids whole over the DP group, and a lane's export
+comes from its owner to every rank.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.sparsity import DENSE, SparsityConfig
+from repro_torch.models import layers as L
 from repro_torch.models import transformer_lm as T
 from repro_torch.serve.cache_store import Lane
 from repro_torch.sharding import tp
@@ -91,11 +99,13 @@ class SlotKVCache:
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_len = max_len
-        self.cache = (T.init_lm_cache(cfg, n_slots, max_len, device=device,
-                                      dtype=dtype)
-                      if tp.split_of(mesh) is None else
-                      tp.init_cache(cfg, n_slots, max_len, mesh,
-                                    device=device, dtype=dtype))
+        if mesh is None:
+            self.cache = T.init_lm_cache(cfg, n_slots, max_len,
+                                         device=device, dtype=dtype)
+        else:   # the rank's slots
+            lo, hi = tp.slot_block(n_slots, mesh)
+            self.cache = tp.init_cache(cfg, hi - lo, max_len, mesh,
+                                       device=device, dtype=dtype)
         self._free = list(range(n_slots))
 
     @property
@@ -120,8 +130,9 @@ class SlotKVCache:
 class ContinuousBatcher:
     """Prefill/seat/decode over a SlotKVCache.
 
-    Host state: per-slot next input token (n_slots, 1) and per-slot
-    absolute write position (n_slots,), both on the device.
+    Device state: per-slot next input token (n, 1) and per-slot
+    absolute write position (n,) of the rank's n slots (all n_slots
+    without a DP split), from slot ``lo`` on.
     """
 
     def __init__(self, params, cfg, sp_cfg: SparsityConfig = DENSE, *,
@@ -138,11 +149,16 @@ class ContinuousBatcher:
         self.mesh = mesh
         # checked once here; the steps run inside it and do not check
         self.split = tp.serve_split(cfg, mesh)
+        self.slots = tp.slot_split(mesh, n_slots)
+        self.lo, hi = ((0, n_slots) if self.slots is None
+                       else (self.slots.lo, self.slots.hi))
+        # the MoE routing groups over every rank's rows
+        self.rows = None if mesh is None else tp.rows_split(mesh, n_slots)
         self.kv = SlotKVCache(cfg, n_slots, max_len, device=device,
                               dtype=cache_dtype, mesh=mesh)
-        self.tokens = torch.zeros((n_slots, 1), dtype=torch.int64,
+        self.tokens = torch.zeros((hi - self.lo, 1), dtype=torch.int64,
                                   device=device)
-        self.positions = torch.zeros((n_slots,), dtype=torch.int64,
+        self.positions = torch.zeros((hi - self.lo,), dtype=torch.int64,
                                      device=device)
         self.prefill_calls = 0   # prefill runs (a reuse hit skips one)
 
@@ -169,23 +185,37 @@ class ContinuousBatcher:
         return Lane(key=tuple(key), cache=pre_cache,
                     next_token=int(first[0]), pos=int(plen))
 
+    def _holds(self, slot: int) -> bool:
+        return self.slots is None or self.slots.holds(slot)
+
     def seat_lane(self, lane: Lane) -> int:
-        """Seat a batch-1 lane into a free slot; raises if none is free."""
+        """Seat a batch-1 lane into a free slot (written on the rank that
+        holds it); raises if none is free."""
         slot = self.kv.alloc()
         if slot is None:
             raise RuntimeError("no free slot")
-        seat_cache(self.kv.cache, lane.cache, slot)
-        self.tokens[slot, 0] = lane.next_token
-        self.positions[slot] = lane.pos
+        if self._holds(slot):
+            row = slot - self.lo
+            seat_cache(self.kv.cache, lane.cache, row)
+            self.tokens[row, 0] = lane.next_token
+            self.positions[row] = lane.pos
         return slot
 
     def export_lane(self, slot: int, key=()) -> Lane:
         """Copy the live state of lane ``slot`` (cache + next token +
-        position) into a batch-1 Lane another engine can seat."""
-        cache1 = extract_lane_cache(self.kv.cache, slot, self.kv.n_slots)
+        position) into a batch-1 Lane another engine can seat; over DP
+        ranks every rank returns the owner's (``tp.share``)."""
+        if not 0 <= slot < self.kv.n_slots:
+            raise ValueError(f"slot {slot} out of range")
+        row = slot - self.lo if self._holds(slot) else 0   # a buffer of the lane's shapes
+        cache1 = extract_lane_cache(self.kv.cache, row,
+                                    self.tokens.shape[0])
+        head = torch.stack([self.tokens[row, 0], self.positions[row]])
+        if not (self.slots is None or self.slots.replicated):
+            tp.share(_lane_tensors(cache1) + [head],
+                     self.slots.owner(slot), self.slots)
         return Lane(key=tuple(key), cache=cache1,
-                    next_token=int(self.tokens[slot, 0]),
-                    pos=int(self.positions[slot]))
+                    next_token=int(head[0]), pos=int(head[1]))
 
     def evict(self, slot: int) -> None:
         """Release a slot — host-side only."""
@@ -194,9 +224,10 @@ class ContinuousBatcher:
     # -- decode -------------------------------------------------------------
 
     def step(self) -> np.ndarray:
-        """One decode step for all n_slots lanes; returns (n_slots,)
+        """One decode step for all n_slots lanes (the rank's rows, their
+        ids then gathered over the DP group); returns (n_slots,)
         next-token ids (garbage on free lanes)."""
-        with tp.model_split(self.split):
+        with tp.model_split(self.split), L.token_split(self.rows):
             logits, _ = ST.lm_decode_step(self.params, self.kv.cache,
                                           self.tokens, self.positions,
                                           cfg=self.cfg, sp_cfg=self.sp_cfg,
@@ -204,4 +235,12 @@ class ContinuousBatcher:
         nxt = torch.argmax(logits[:, -1, :self.cfg.vocab], dim=-1)
         self.tokens = nxt[:, None]
         self.positions = self.positions + 1
-        return nxt.cpu().numpy()
+        return tp.gather_rows(nxt, self.slots).cpu().numpy()
+
+
+def _lane_tensors(cache1) -> list:
+    """The tensors of a batch-1 lane cache, in a fixed order."""
+    groups = cache1["layers"] + ([cache1["prelude"]] if "prelude" in cache1
+                                 else [])
+    return [t for lc in groups for t in lc.values()
+            if isinstance(t, torch.Tensor)]

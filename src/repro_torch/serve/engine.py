@@ -9,15 +9,17 @@ requests into free slots (a prefill each, or a prefix-pool hit), then
 runs one decode step for every lane; finished requests free their slot
 at once, so a queued request joins on the next step.
 
-``mesh=`` serves over a ``launch.mesh.Mesh`` whose "model" axis has M
-> 1 ranks, one process a rank, as the reference's ``ServeEngine(mesh=)``
-does over devices: the engine resolves ``launch.spmd.serve_shardings``,
-cuts the dense tree to the rank's blocks (``sharding.tp.serve_blocks``:
-the weights TP over "model", N:M groups whole) and packs those on its
-device; the cache holds the rank's block.  Every rank runs the same
+``mesh=`` serves over a ``launch.mesh.Mesh`` of several ranks, one
+process a rank, as the reference's ``ServeEngine(mesh=)`` does over
+devices: the engine resolves ``launch.spmd.serve_shardings``, cuts the
+dense tree to the rank's blocks (``sharding.tp.serve_blocks``: the
+weights TP over "model", N:M groups whole) and packs those on its
+device; the cache holds the rank's block (its KV heads over "model",
+its slots over the DP axes "pod" and "data").  Every rank runs the same
 host bookkeeping (admission, prefix pool, lanes, stop conditions) on
-the same whole-vocab logits, so the ranks pick the same tokens and stay
-in lockstep without a broadcast.
+the same token ids: over "model" every rank reads whole-vocab logits,
+over DP the decode step's ids are gathered whole (one gather a step,
+``serve.batcher``), so the ranks stay in lockstep.
 
 What differs: the engine runs on an explicit device — the card unless
 the caller passes ``device="cpu"`` — and raises when there is none; it
@@ -25,9 +27,9 @@ takes either a dense param tree (packed here when ``serve_cfg.packed``)
 or a ready ``PackedParamStore`` (with ``mesh=``, the rank's own: its
 leaf shapes are checked against the rank's block shapes); any arch of
 ``repro_torch.configs`` (sliding-window layers take their window in the
-per-slot decode's mask); a mesh executes "model" alone, for the dense
-attention LMs (``sharding.tp.check_serve`` refuses the rest, naming
-their ROADMAP item 7 line).
+per-slot decode's mask); every LM arch serves over the DP axes, and
+the dense attention LMs over "model" too (``sharding.tp.check_serve``
+refuses the rest at "model" > 1, naming their ROADMAP item 7 line).
 """
 
 from __future__ import annotations
@@ -103,6 +105,7 @@ class ServeEngine:
         if self.mesh is not None:
             tp.check_serve(cfg, self.mesh)
             tp.split_of(self.mesh)   # raises without a "model" group
+            tp.slot_split(self.mesh, serve_cfg.n_slots)   # or a DP one
             pspecs = spmd.serve_shardings(
                 cfg, self.mesh, sp_cfg, n_slots=serve_cfg.n_slots,
                 max_len=serve_cfg.max_len, packed=serve_cfg.packed,

@@ -48,6 +48,7 @@ import torch
 
 from repro_torch.core.operand import PregenOp
 from repro_torch.kernels.ref import inv_pods
+from repro_torch.launch.mesh import DP_AXES
 from repro_torch.optim import compress as C
 from repro_torch.optim import sgd
 from repro_torch.sharding import rules as R
@@ -346,22 +347,21 @@ class TokenSplit:
 
 def token_split(mesh, axes):
     """The ``TokenSplit`` of the batch over ``mesh``'s ``axes`` ("data",
-    or "pod" and "data" when one program spans the pods), None when it
-    has one rank."""
-    import torch.distributed as dist
-
-    axes = [a for a in axes if mesh.shape.get(a, 1) > 1]
-    if not axes:
+    or ``DP_AXES`` when one program spans the pods: the mesh's DP group,
+    the rank at its DP index), None when they have one rank."""
+    if tuple(axes) == DP_AXES:
+        size, group, index = mesh.dp_size, mesh.dp_group(), mesh.dp_index
+    else:
+        (axis,) = axes
+        size, group, index = (mesh.shape.get(axis, 1), mesh.group(axis),
+                              mesh.coord(axis))
+    if size == 1:
         return None
-    if len(axes) == 1:
-        return TokenSplit(mesh.group(axes[0]), mesh.shape[axes[0]],
-                          mesh.coord(axes[0]))
-    index = mesh.coord("pod") * mesh.shape["data"] + mesh.coord("data")
-    if mesh.size != mesh.shape["pod"] * mesh.shape["data"] or \
-            index != mesh.rank:
-        raise NotImplementedError(f"a batch split over 'pod' and 'data' of "
-                                  f"mesh {dict(mesh.shape)}")
-    return TokenSplit(dist.group.WORLD, mesh.size, index)
+    if group is None:
+        raise RuntimeError(f"mesh {dict(mesh.shape)} has no process group "
+                           f"over {tuple(axes)}: build it over the ranks "
+                           "with launch.mesh.mesh_over_group")
+    return TokenSplit(group, size, index)
 
 
 def gather_tree(local, spec_tree, mesh, to=None):

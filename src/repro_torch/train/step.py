@@ -71,6 +71,12 @@ load-balance loss over the whole batch of the program they stand for
 rank's), as the reference's one SPMD program does.  At "pod" = P and
 "data" = 1 this is the process form of the compressed sync, one pod a
 process, bitwise ``lm_train_step``'s P pods in one process.
+``build_lm_serve`` resolves the SERVE_BATCH rules the same way and
+returns the synchronized-batch prefill or decode over a mesh, masked
+or from shared-pattern packed weights (``bdwp.pack_tree_shared(
+pspecs=)``): the rank's rows over the DP axes, its weight blocks over
+"model" (a row-parallel ``SharedOp``'s rows rebased to its K block,
+``sharding.tp``), the whole batch's logits on every rank.
 ``restore_with_pregen`` upgrades checkpoints of the two older dataflow
 generations (no compute tree; MoE expert stacks still plain bf16
 copies) by regenerating the compute tree from the restored master.
@@ -82,7 +88,10 @@ sequence parallelism there, are ROADMAP item 7, the training side;
 the reference); the serve steps ``lm_prefill_step`` and
 ``lm_decode_step`` take ``mesh=`` as the reference's do and execute a
 "model" axis of M > 1 ranks on the rank's blocks (``sharding.tp``,
-the dense attention LMs); no activation sharding (``act``: explicit
+the dense attention LMs) and the rows they are given (the DP axes cut
+them outside: ``build_lm_serve``, the engine); ``build_lm_serve(
+long_context=True)`` raises NotImplementedError (ROADMAP item 7.2b:
+the cache's sequence over "data"); no activation sharding (``act``: explicit
 collectives stand at its points); the bundle's step is a Python
 function, not a compiled one, and ``donate`` has no counterpart (the
 update consumes the state anyway); with one rank the bundle's step is
@@ -107,6 +116,7 @@ from torch.profiler import record_function
 
 from repro_torch.core.operand import PregenOp
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import DP_AXES
 from repro_torch.models import convnets as CN
 from repro_torch.models import encdec as E
 from repro_torch.models import layers as L
@@ -386,7 +396,10 @@ def lm_prefill_step(params, batch, *, cfg, sp_cfg, last_index=None,
     from the prefix's first position.  With a ``mesh`` whose "model"
     axis has M > 1 ranks, ``params`` are the rank's blocks
     (``sharding.tp``): the step runs inside ``tp.model_split``, builds
-    the rank's block of the cache and returns whole-vocab logits.
+    the rank's block of the cache (its heads of the rows it is given)
+    and returns whole-vocab logits.  Over the DP axes the step runs
+    the rows it is given: the caller's (``build_lm_serve``, the engine)
+    cut them.
     """
     tokens = batch["tokens"]
     prefix = batch.get("prefix_embeds")
@@ -477,14 +490,16 @@ def encdec_decode_step(params, cache, enc_out, token, pos, *, cfg, sp_cfg):
 
 @dataclasses.dataclass
 class StepBundle:
-    """A built training step.  ``step_fn(state, batch)`` takes this
+    """A built step.  Training: ``step_fn(state, batch)`` takes this
     rank's blocks of the state and its rows of the global batch;
     ``state_shardings`` (a ``sharding.fsdp.StateSharding``) holds the
     state's resolved spec tree (``.specs``: "master", "momentum",
     "step", and "compute" / "err" where the state has them) and cuts or
     gathers a state by it; ``input_pspecs`` are the batch's specs,
     ``names`` the master's leaf names, ``specs`` its logical-axis tree
-    and ``lshapes`` its logical shapes."""
+    and ``lshapes`` its logical shapes.  Serving (``build_lm_serve``):
+    ``state_shardings`` is the params' spec tree and ``names`` empty, as
+    the reference's."""
     step_fn: callable
     state_shardings: object
     input_pspecs: dict
@@ -580,7 +595,7 @@ def sharded_train_step(state, batch, *, losses, mesh, shardings, sp_cfg,
     specs = shardings.specs
     compute = state["compute"] if pregen else _bf16_cast(state["master"])
     roots = sgd.diff_leaves(compute)
-    split = F.token_split(mesh, ("data",) if compress else ("pod", "data"))
+    split = F.token_split(mesh, ("data",) if compress else DP_AXES)
     for r in roots:
         r.requires_grad_(True)
     try:
@@ -712,6 +727,78 @@ def build_encdec_train(cfg, mesh, sp_cfg, opt_cfg, donate=True,
             shardings=sh, sp_cfg=sp_cfg, opt_cfg=opt_cfg, pregen=pregen,
             pregen_pack=pregen_pack)
     return StepBundle(fn, sh, in_pspecs, names, specs, mesh, sh.lshapes)
+
+
+# ---------------------------------------------------------------------------
+# build_lm_serve: the synchronized batch over a mesh
+# ---------------------------------------------------------------------------
+
+_LONG_CONTEXT = ("ROADMAP item 7.2b: long-context decode, the cache's "
+                 "sequence over 'data' (SERVE_LONG_RULES)")
+
+
+def build_lm_serve(cfg, mesh, sp_cfg, input_specs, *, long_context=False,
+                   prefill=False, packed=False) -> StepBundle:
+    """The LM's serve step on ``mesh`` under the SERVE_BATCH rules: the
+    synchronized batch (one shared cursor ``pos``), its rows over the DP
+    axes, the weights TP over "model" (the dense attention LMs;
+    ``sharding.tp.check_serve``).  ``state_shardings`` is the params'
+    spec tree: with ``packed`` the shared-pattern tree's
+    (``bdwp.pack_tree_shared(pspecs=)``), asserted group-safe; cut a
+    whole (packed) tree to the rank's blocks with ``tp.serve_blocks``.
+    ``input_pspecs`` are ``rules.serve_input_pspecs`` of
+    ``input_specs`` (meta tensors), whose batch (``tokens`` with
+    ``prefill``, else ``token``) D must divide, as the reference's
+    shardings demand (ValueError).  ``step_fn(params, batch)`` with
+    ``prefill``, else ``step_fn(params, cache, token, pos)``, takes the
+    rank's param blocks, its rows of the batch and its block of the
+    cache; it returns the whole batch's logits on every rank (gathered
+    over the DP group, the reference's ``out_shardings=(None, ...)``)
+    and the rank's block of the cache.  ``long_context`` raises
+    (ROADMAP item 7.2b)."""
+    if long_context:
+        raise NotImplementedError(f"build_lm_serve(long_context=True): "
+                                  f"{_LONG_CONTEXT}, is not ported")
+    tp.check_serve(cfg, mesh)
+    batch = input_specs.get("tokens" if prefill else "token")
+    n = None if batch is None else batch.shape[0]
+    if n is not None and n % mesh.dp_size:
+        raise ValueError(f"build_lm_serve: a batch of {n} rows does not "
+                         f"divide over the {mesh.dp_size} DP ranks of mesh "
+                         f"{dict(mesh.shape)}")
+    aparams, specs = T.abstract_params(cfg), T.init_specs(cfg)
+    p_pspecs = R.nm_params_pspecs(specs, R.SERVE_BATCH_RULES, aparams, mesh,
+                                  sp_cfg)
+    check_tree = aparams
+    if packed:
+        from repro_torch.core import bdwp
+
+        check_tree, p_pspecs = bdwp.pack_tree_shared(aparams, sp_cfg,
+                                                     pspecs=p_pspecs)
+    R.assert_nm_unsplit(p_pspecs, check_tree, mesh, sp_cfg)
+    in_pspecs = R.serve_input_pspecs(input_specs, mesh, long_context=False)
+    fn = functools.partial(_serve_step, cfg=cfg, sp_cfg=sp_cfg, mesh=mesh,
+                           prefill=prefill, n=n)
+    return StepBundle(fn, p_pspecs, in_pspecs, [], specs, mesh)
+
+
+def _serve_step(params, *args, cfg, sp_cfg, mesh, prefill, n):
+    """``build_lm_serve``'s step on the rank's block of the ``n`` rows
+    over the DP axes (its MoE routing groups over all of them)."""
+    rows = (args[0]["tokens"] if prefill else args[1]).shape[0]
+    if n is None or rows * mesh.dp_size != n:
+        raise ValueError(f"build_lm_serve's step takes a rank's block of "
+                         f"the batch its input specs give ({n} rows over "
+                         f"{mesh.dp_size} DP ranks), not {rows} rows")
+    with L.token_split(tp.rows_split(mesh, n)):
+        if prefill:
+            logits, cache = lm_prefill_step(params, args[0], cfg=cfg,
+                                            sp_cfg=sp_cfg, mesh=mesh)
+        else:
+            logits, cache = lm_decode_step(params, *args, cfg=cfg,
+                                           sp_cfg=sp_cfg, per_slot=False,
+                                           mesh=mesh)
+    return tp.gather_rows(logits, tp.slot_split(mesh, n)), cache
 
 
 def _meta(tree):

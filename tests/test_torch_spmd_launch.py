@@ -107,7 +107,8 @@ def _worker(rank, store, out_dir):
     p, d = mesh.coord("pod"), mesh.coord("data")
     host = make_host_mesh(pods=2)
     out = {"coords": (p, d), "host": (dict(host.shape), host.coords,
-                                      mesh_chips(host), sorted(host.groups))}
+                                      mesh_chips(host),
+                                      sorted(host.groups, key=str))}
     # the sync of this rank's blocks
     whole = ST.init_train_state(CFG, SP, device="cpu", compress=True,
                                 n_pods=PODS)
@@ -240,9 +241,10 @@ def test_moe_on_the_pod_data_mesh_routes_each_pods_batch(ranks):
 def test_mesh_coordinates_and_groups(ranks):
     """Rank r of pod=2, data=2 sits at (pod, data) = divmod(r, 2), as the
     reference's reshape of its devices; ``make_host_mesh(pods=2)`` over
-    the four ranks is (pod 2, data 2, model 1) with a "pod" and a "data"
-    group; one process without a group is a one-rank mesh."""
-    from repro_torch.launch.mesh import make_host_mesh, mesh_chips
+    the four ranks is (pod 2, data 2, model 1) with a "pod", a "data"
+    and a DP group (both axes); one process without a group is a
+    one-rank mesh."""
+    from repro_torch.launch.mesh import DP_AXES, make_host_mesh, mesh_chips
 
     _, _, got = ranks
     for r, out in enumerate(got):
@@ -250,7 +252,7 @@ def test_mesh_coordinates_and_groups(ranks):
         shape, coords, chips, groups = out["host"]
         assert shape == {"pod": 2, "data": 2, "model": 1} and chips == 4
         assert coords == {"pod": r // 2, "data": r % 2, "model": 0}
-        assert groups == ["data", "pod"]
+        assert groups == [DP_AXES, "data", "pod"]
     one = make_host_mesh()
     assert dict(one.shape) == {"data": 1, "model": 1} and not one.groups
     assert mesh_chips(one) == 1
